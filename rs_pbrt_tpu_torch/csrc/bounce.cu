@@ -37,49 +37,28 @@
 //   its result is used, and stops at the first occluder.
 // - The 7 rows of Sobol' direction numbers of this bounce sit in shared
 //   memory and go through K1's device function (sobol.cuh).
+// - The hit record is record.cuh's, shared with K5 (intersect.cu).
 // - Built with --fmad=false and without fast math, so the arithmetic is the
 //   plain PyTorch version's (ops/path_kernel.bounce_plain), term by term.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "record.cuh"
 #include "sobol.cuh"
 #include "watertight.cuh"
 
 namespace {
 
+using namespace rs;  // V3 and its helpers, the hit record, the table columns
+
 constexpr int kDims = 7;  // Sobol' dims per bounce
 // table widths and columns (scene/arrays.py)
-constexpr int kTriCols = 32, kMatCols = 37, kLightCols = 22;
-constexpr int kTaHasN = 24, kTaMat = 25, kTaLight = 26, kTaReverse = 27;
+constexpr int kMatCols = 37, kLightCols = 22;
 constexpr int kLpI = 3, kLpTwoSided = 12, kLpArea = 13, kLaTriStart = 19, kLaTriEnd = 20;
 constexpr int kMaKd = 1;  // MA_PARAMS + MP_KD
-constexpr float kBig = 3e38f;
 constexpr float kPi = 0x1.921fb6p+1f;
 constexpr float kInvPi = 0x1.45f306p-2f;
-constexpr float kGamma7 = 0x1.c0000cp-22f;
-
-struct V3 {
-  float x, y, z;
-};
-__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
-}
-__device__ __forceinline__ V3 scale(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
-__device__ __forceinline__ V3 sub(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
-__device__ __forceinline__ V3 normalize(V3 a, float eps) {
-  return scale(a, 1.0f / sqrtf(fmaxf(dot(a, a), eps)));
-}
-__device__ __forceinline__ V3 load3(const float* p) { return {__ldg(p), __ldg(p + 1), __ldg(p + 2)}; }
-
-// first axis of vecmath.coordinate_system (geometry.rs branch on |x| > |y|)
-__device__ __forceinline__ V3 coordinate_system(V3 v) {
-  const bool use_a = fabsf(v.x) > fabsf(v.y);
-  const float inv_a = 1.0f / sqrtf(fmaxf(v.x * v.x + v.z * v.z, 1e-20f));
-  const float inv_b = 1.0f / sqrtf(fmaxf(v.y * v.y + v.z * v.z, 1e-20f));
-  return use_a ? V3{-v.z * inv_a, 0.0f, v.x * inv_a} : V3{0.0f, v.z * inv_b, -v.y * inv_b};
-}
 
 __device__ __forceinline__ float next_float_up(float x) {
   if (isinf(x) && x > 0.0f) return x;
@@ -174,64 +153,17 @@ __global__ void __launch_bounds__(128) bounce_kernel(Args a) {
   while (alive) {  // runs once; `break` ends the lane's work
     // ---- closest hit ----
     const rs::RayConst rc = rs::ray_constants(o.x, o.y, o.z, d.x, d.y, d.z);
-    float bt = kBig, b0 = 0.0f, b1 = 0.0f;
-    int bi = -1;
-    for (int t = 0; t < a.n_tri; ++t) {
-      const float* tp = a.tris + static_cast<size_t>(t) * kTriCols;
-      float p[9];
-#pragma unroll
-      for (int k = 0; k < 9; ++k) p[k] = __ldg(tp + k);
-      float tt, tb0, tb1;
-      if (rs::watertight_tri(rc, p, kBig, tt, tb0, tb1) && tt < bt) {
-        bt = tt;
-        bi = t;
-        b0 = tb0;
-        b1 = tb1;
-      }
-    }
+    float bt, b0, b1;
+    const int bi = closest_hit(rc, a.tris, a.n_tri, kTriCols, kNoHit, bt, b0, b1);
     if (bi < 0) {  // miss: the path ends, nothing is added
       alive = false;
       break;
     }
 
     // ---- hit record: row bi (scene_intersect._tri_interaction) ----
-    const float* row = a.tris + static_cast<size_t>(bi) * kTriCols;
-    const V3 p0 = load3(row + 0), p1 = load3(row + 3), p2 = load3(row + 6);
-    const V3 n0 = load3(row + 9), n1 = load3(row + 12), n2 = load3(row + 15);
-    const float uv0x = __ldg(row + 18), uv0y = __ldg(row + 19);
-    const float uv1x = __ldg(row + 20), uv1y = __ldg(row + 21);
-    const float uv2x = __ldg(row + 22), uv2y = __ldg(row + 23);
-    const float has_n_f = __ldg(row + kTaHasN), mat_f = __ldg(row + kTaMat);
-    const float light_f = __ldg(row + kTaLight), rev_f = __ldg(row + kTaReverse);
-    const float b2 = 1.0f - b0 - b1;
-    const V3 p = {b0 * p0.x + b1 * p1.x + b2 * p2.x, b0 * p0.y + b1 * p1.y + b2 * p2.y,
-                  b0 * p0.z + b1 * p1.z + b2 * p2.z};
-    const V3 p_err = {
-        kGamma7 * (fabsf(b0 * p0.x) + fabsf(b1 * p1.x) + fabsf(b2 * p2.x)),
-        kGamma7 * (fabsf(b0 * p0.y) + fabsf(b1 * p1.y) + fabsf(b2 * p2.y)),
-        kGamma7 * (fabsf(b0 * p0.z) + fabsf(b1 * p1.z) + fabsf(b2 * p2.z))};
-    const V3 e02 = sub(p0, p2), e12 = sub(p1, p2);
-    V3 ng = normalize(cross(e02, e12), 1e-30f);
-    V3 ns = {b0 * n0.x + b1 * n1.x + b2 * n2.x, b0 * n0.y + b1 * n1.y + b2 * n2.y,
-             b0 * n0.z + b1 * n1.z + b2 * n2.z};
-    const float ns_len = sqrtf(dot(ns, ns));
-    const bool has_n = (has_n_f > 0.5f) && (ns_len > 1e-8f);
-    const float inv_nsl = 1.0f / fmaxf(ns_len, 1e-8f);
-    ns = has_n ? scale(ns, inv_nsl) : ng;
-    const bool rev = rev_f > 0.5f;
-    if (rev) ns = scale(ns, -1.0f);
-    if ((has_n && dot(ng, ns) < 0.0f) || (!has_n && rev)) ng = scale(ng, -1.0f);
-    const float duv02x = uv0x - uv2x, duv02y = uv0y - uv2y;
-    const float duv12x = uv1x - uv2x, duv12y = uv1y - uv2y;
-    const float det_uv = duv02x * duv12y - duv02y * duv12x;
-    const float inv_det_uv =
-        fabsf(det_uv) < 1e-12f ? 0.0f : 1.0f / (det_uv == 0.0f ? 1.0f : det_uv);
-    V3 dpdu = {(duv12y * e02.x - duv02y * e12.x) * inv_det_uv,
-               (duv12y * e02.y - duv02y * e12.y) * inv_det_uv,
-               (duv12y * e02.z - duv02y * e12.z) * inv_det_uv};
-    if (dot(dpdu, dpdu) < 1e-16f) dpdu = coordinate_system(ng);
-    const int mat = static_cast<int>(mat_f + 0.5f);
-    const int light = static_cast<int>(light_f + (light_f < 0.0f ? -0.5f : 0.5f));
+    const TriRecord rec = tri_record<false>(a.tris + static_cast<size_t>(bi) * kTriCols, b0, b1);
+    const V3 p = rec.p, p_err = rec.p_err, ng = rec.ng, ns = rec.ns, dpdu = rec.dpdu;
+    const int mat = rec.mat, light = rec.light;
     const V3 wo = scale(normalize(d, 1e-20f), -1.0f);
 
     // ---- emitted light at the hit, MIS against the previous bsdf pdf ----
@@ -355,14 +287,7 @@ __global__ void __launch_bounds__(128) bounce_kernel(Args a) {
       const V3 sh_d = scale(delta_sh, 1.0f / fmaxf(dist_sh, 1e-12f));
       const float t_lim = dist_sh * 0.999f;
       const rs::RayConst rs_ = rs::ray_constants(p_sh.x, p_sh.y, p_sh.z, sh_d.x, sh_d.y, sh_d.z);
-      bool occluded = false;
-      for (int t = 0; t < a.n_tri && !occluded; ++t) {
-        const float* tp = a.tris + static_cast<size_t>(t) * kTriCols;
-        float pt[9];
-#pragma unroll
-        for (int k = 0; k < 9; ++k) pt[k] = __ldg(tp + k);
-        occluded = rs::watertight_tri_any(rs_, pt, t_lim);
-      }
+      const bool occluded = any_hit(rs_, a.tris, a.n_tri, kTriCols, t_lim);
       if (!occluded) {
         const float w_light = power_heuristic(ls_pdf, scat_pdf);
         const float inv_pdf = w_light / fmaxf(ls_pdf * sel_pdf, 1e-12f);

@@ -2,9 +2,9 @@
 // triangle.rs:134-449, with conservative error bounds).
 //
 // The port of rs_pbrt_tpu/ops/pallas_intersect.py:_ray_constants,
-// _watertight_tri and _watertight_tri_any, written once for every kernel
-// that sweeps triangles: the bounce kernel (bounce.cu) now, the staged
-// sweep kernels later.  The arithmetic follows the JAX form term by term,
+// _watertight_tri and _watertight_tri_any, and of the sweeps over a
+// triangle table, written once for every kernel that sweeps triangles: the
+// bounce kernel (bounce.cu, K2) and the sweep kernels (intersect.cu, K3-K5).  The arithmetic follows the JAX form term by term,
 // including the one-hot permute/shear matrix, so that a build without FMA
 // contraction (--fmad=false) gives the plain PyTorch version's bits
 // (ops/watertight.py).
@@ -124,6 +124,49 @@ __device__ __forceinline__ bool watertight_tri_any(const RayConst& rc, const flo
   const EdgeTest e = edge_test(rc, p, t_lim);
   const float t_signed = e.det < 0.0f ? -e.t_scaled : e.t_scaled;
   return !(e.reject || (t_signed <= e.c_eps));
+}
+
+constexpr float kNoHit = 3e38f;  // "no hit yet" distance (ops/watertight.BIG)
+
+// Closest hit over rows 0..n_tri-1 of a table of `cols` floats a row whose
+// first 9 are the vertex coordinates: the row index, or -1 with bt =
+// kNoHit.  Every thread of a warp reads the same row at the same step, so
+// the reads through the read-only cache are broadcasts.
+__device__ __forceinline__ int closest_hit(const RayConst& rc, const float* tris, int n_tri,
+                                           int cols, float t_lim, float& bt, float& b0,
+                                           float& b1) {
+  bt = kNoHit;
+  b0 = 0.0f;
+  b1 = 0.0f;
+  int bi = -1;
+  for (int t = 0; t < n_tri; ++t) {
+    const float* tp = tris + static_cast<size_t>(t) * cols;
+    float p[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) p[k] = __ldg(tp + k);
+    float tt, tb0, tb1;
+    if (watertight_tri(rc, p, t_lim, tt, tb0, tb1) && tt < bt) {
+      bt = tt;
+      bi = t;
+      b0 = tb0;
+      b1 = tb1;
+    }
+  }
+  return bi;
+}
+
+// Any hit in (0, t_lim) over the same rows, stopping at the first.
+__device__ __forceinline__ bool any_hit(const RayConst& rc, const float* tris, int n_tri,
+                                        int cols, float t_lim) {
+  bool occluded = false;
+  for (int t = 0; t < n_tri && !occluded; ++t) {
+    const float* tp = tris + static_cast<size_t>(t) * cols;
+    float p[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) p[k] = __ldg(tp + k);
+    occluded = watertight_tri_any(rc, p, t_lim);
+  }
+  return occluded;
 }
 
 }  // namespace rs

@@ -4,8 +4,9 @@ The port of the JAX package's ``models/integrators/path.py`` (reference
 src/integrators/path.rs:59-281) for the scenes the bounce kernel renders:
 all-matte, triangles only, lit by triangle-range area lights, sampled with
 Sobol'.  Every bounce is one launch of K2 (``ops/path_kernel.py``).  The
-general wavefront bounce, which serves every other scene, is ROADMAP
-slice 2.
+general wavefront bounce, which serves every other scene, is not ported
+yet (ROADMAP queue A); the shading-frame helpers that the direct-lighting
+integrators share with it are.
 """
 
 from __future__ import annotations
@@ -15,13 +16,39 @@ from typing import NamedTuple, Optional
 import torch
 
 from ...ops import path_kernel as pk
+from ...ops import sampling as smp
 from ...scene import arrays as sa
+from ...utils import vecmath as vm
 from .. import samplers as smpl
 
 # per-bounce sampler dimensions after the camera's 0-4:
 #   +0 light select, +1,2 light u, +3,4 bsdf u, +5 bsdf lobe choice, +6 rr
 DIMS_PER_BOUNCE = pk.DIMS_PER_BOUNCE
 DIM_CAMERA = 5
+
+
+def _shading_frame_du(ns, dpdu):
+    """BSDF frame with its x axis along the surface u-tangent
+    (reflection.rs Bsdf::new: ss = normalize(dpdu)), orthogonalized against
+    ns; an arbitrary frame where dpdu is degenerate.  Returns (ss, ts)."""
+    ss = dpdu - ns * vm.dot(ns, dpdu)[..., None]
+    degen = (vm.length_squared(ss) < 1e-14)[..., None]
+    ss_fb, _ = vm.coordinate_system(ns)
+    ss = torch.where(degen, ss_fb, vm.normalize(torch.where(degen, ss_fb, ss)))
+    return ss, vm.cross(ns, ss)
+
+
+def _to_local(v, ss, ts, ns):
+    return torch.stack([vm.dot(v, ss), vm.dot(v, ts), vm.dot(v, ns)], -1)
+
+
+def _to_world(v, ss, ts, ns):
+    return v[..., 0:1] * ss + v[..., 1:2] * ts + v[..., 2:3] * ns
+
+
+def _light_select_dist(scene: sa.Scene) -> smp.Distribution1D:
+    """Light selection by power (integrator.rs:574)."""
+    return smp.make_distribution_1d(scene.light_power)
 
 
 class PathCfg(NamedTuple):

@@ -7,7 +7,7 @@ dims 0,1 film xy, dim 2 time, dims 3,4 lens uv, dims 5+ the integrator.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -47,6 +47,10 @@ class SampleCtx(NamedTuple):
     pixel: torch.Tensor  # (N, 2) int64
     sample_num: torch.Tensor  # (N,) int64
     global_index: torch.Tensor  # (N,) int64 Sobol' global index
+    # a block of dims drawn ahead in one K1 launch (with_dims): its first
+    # dim and its (N, n) samples
+    block0: int = 0
+    block: Optional[torch.Tensor] = None
 
 
 def make_ctx(cfg: SamplerCfg, pixel, sample_num, frame_lt_spp: bool = False) -> SampleCtx:
@@ -62,6 +66,33 @@ def make_ctx(cfg: SamplerCfg, pixel, sample_num, frame_lt_spp: bool = False) -> 
 def get_dims(cfg: SamplerCfg, ctx: SampleCtx, dim0: int, n_dims: int) -> torch.Tensor:
     """(N, n_dims) samples of dims dim0.. in one K1 launch (no film remap)."""
     return sk.sobol_dims(ctx.global_index, dim0, n_dims, index_bits(cfg))
+
+
+def with_dims(cfg: SamplerCfg, ctx: SampleCtx, dim0: int, n_dims: int) -> SampleCtx:
+    """ctx with the integrator dims dim0 .. dim0+n_dims-1 (all >= 2, so no
+    film remap) drawn in one K1 launch, for get_1d / get_2d to read."""
+    if dim0 < 2:
+        raise ValueError("with_dims holds integrator dims only (the film dims are remapped)")
+    return ctx._replace(block0=dim0, block=get_dims(cfg, ctx, dim0, n_dims))
+
+
+def get_1d(cfg: SamplerCfg, ctx: SampleCtx, dim: int) -> torch.Tensor:
+    """(N,) samples of dimension `dim` (samplers.py get_1d): read from the
+    block of with_dims when it holds dim, else one K1 launch; dims 0 and 1
+    are remapped into the pixel."""
+    if ctx.block is not None and ctx.block0 <= dim < ctx.block0 + ctx.block.shape[1]:
+        return ctx.block[:, dim - ctx.block0]
+    s = get_dims(cfg, ctx, dim, 1)[:, 0]
+    if dim < 2:
+        res = float(1 << cfg.log2_resolution)
+        s = torch.clamp(s * res - ctx.pixel[:, dim].to(torch.float32), 0.0,
+                        float(ONE_MINUS_EPSILON))
+    return s
+
+
+def get_2d(cfg: SamplerCfg, ctx: SampleCtx, dim: int) -> torch.Tensor:
+    """(N, 2) samples of dimensions dim and dim+1."""
+    return torch.stack([get_1d(cfg, ctx, dim), get_1d(cfg, ctx, dim + 1)], -1)
 
 
 def get_camera_dims(cfg: SamplerCfg, ctx: SampleCtx, pixel):

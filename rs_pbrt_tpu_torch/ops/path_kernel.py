@@ -32,6 +32,15 @@ from ..utils import vecmath as vm
 from . import _build
 from . import lowdiscrepancy as ld
 from . import sampling as smp
+from .record import coordinate_system as _coordinate_system
+from .record import cross as _cross
+from .record import dot as _dot
+from .record import normalize as _normalize
+from .record import scale as _scale
+from .record import sub as _sub
+from .record import take as _take
+from .record import tri_record
+from .record import where3 as _where3
 from .sobol_kernel import sobol_dims_plain
 from .watertight import BIG, any_sweep, any_sweep_tests, closest_sweep
 
@@ -45,8 +54,6 @@ LANE_ROWS = ("ox", "oy", "oz", "dx", "dy", "dz", "beta_r", "beta_g", "beta_b",
 N_LANE_ROWS = len(LANE_ROWS)
 
 INV_PI = float(np.float32(1.0 / np.pi))
-GAMMA7 = float(vm.gamma(7.0))
-_REC_COLS = 28  # tri_attr columns of the hit record (p, n, uv, has_n, mat, light, reverse)
 
 launches = 0  # kernel launches of `bounce`; the plain path does not count
 
@@ -119,42 +126,6 @@ def mega_tables(scene: sa.Scene) -> MegaTables:
 # plain version: 3-tuples of (N,) tensors
 # ---------------------------------------------------------------------------
 
-def _dot(a, b):
-    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
-
-
-def _cross(a, b):
-    return (a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2], a[0] * b[1] - a[1] * b[0])
-
-
-def _scale(a, s):
-    return (a[0] * s, a[1] * s, a[2] * s)
-
-
-def _sub(a, b):
-    return (a[0] - b[0], a[1] - b[1], a[2] - b[2])
-
-
-def _where3(m, a, b):
-    return tuple(torch.where(m, a[k], b[k]) for k in range(3))
-
-
-def _normalize(a, eps=1e-20):
-    return _scale(a, 1.0 / torch.sqrt(torch.clamp(_dot(a, a), min=eps)))
-
-
-def _coordinate_system(v):
-    """First axis of vecmath.coordinate_system (branch on |x| > |y|)."""
-    use_a = v[0].abs() > v[1].abs()
-    inv_a = 1.0 / torch.sqrt(torch.clamp(v[0] * v[0] + v[2] * v[2], min=1e-20))
-    inv_b = 1.0 / torch.sqrt(torch.clamp(v[1] * v[1] + v[2] * v[2], min=1e-20))
-    return (
-        torch.where(use_a, -v[2] * inv_a, 0.0),
-        torch.where(use_a, 0.0, v[2] * inv_b),
-        torch.where(use_a, v[0] * inv_a, -v[1] * inv_b),
-    )
-
-
 def _offset_ray_origin(p, p_err, n, w):
     d = n[0].abs() * p_err[0] + n[1].abs() * p_err[1] + n[2].abs() * p_err[2]
     flip = _dot(w, n) < 0.0
@@ -165,53 +136,6 @@ def _offset_ray_origin(p, p_err, n, w):
         out.append(torch.where(off > 0.0, vm.next_float_up(po),
                                torch.where(off < 0.0, vm.next_float_down(po), po)))
     return tuple(out)
-
-
-def _take(table, row, valid, col):
-    """table[row, col] where valid, else 0 (rows clamped for the gather)."""
-    r = torch.clamp(row, 0, table.shape[0] - 1).long()  # never read row -1
-    return torch.where(valid, table[r, col], 0.0)
-
-
-def _fetch_record(tris, bi, b0, b1):
-    """Hit record of row bi (scene_intersect._tri_interaction); bi < 0
-    gives the all-zero row, as the TPU's select-accumulate does."""
-    valid = bi >= 0
-    at = [_take(tris, bi, valid, c) for c in range(_REC_COLS)]
-    p0, p1, p2 = at[0:3], at[3:6], at[6:9]
-    n0, n1, n2 = at[9:12], at[12:15], at[15:18]
-    uv0, uv1, uv2 = at[18:20], at[20:22], at[22:24]
-    has_n_f, mat_f, light_f, rev_f = at[24], at[25], at[26], at[27]
-
-    b2 = 1.0 - b0 - b1
-    p = tuple(b0 * p0[k] + b1 * p1[k] + b2 * p2[k] for k in range(3))
-    p_err = tuple(
-        GAMMA7 * ((b0 * p0[k]).abs() + (b1 * p1[k]).abs() + (b2 * p2[k]).abs())
-        for k in range(3)
-    )
-    e02 = _sub(p0, p2)
-    e12 = _sub(p1, p2)
-    ng = _normalize(_cross(e02, e12), 1e-30)
-    ns = tuple(b0 * n0[k] + b1 * n1[k] + b2 * n2[k] for k in range(3))
-    ns_len = torch.sqrt(_dot(ns, ns))
-    has_n = (has_n_f > 0.5) & (ns_len > 1e-8)
-    inv_nsl = 1.0 / torch.clamp(ns_len, min=1e-8)
-    ns = _where3(has_n, _scale(ns, inv_nsl), ng)
-    rev = rev_f > 0.5
-    ns = _where3(rev, _scale(ns, -1.0), ns)
-    flip_ng = (has_n & (_dot(ng, ns) < 0.0)) | (~has_n & rev)
-    ng = _where3(flip_ng, _scale(ng, -1.0), ng)
-    duv02 = (uv0[0] - uv2[0], uv0[1] - uv2[1])
-    duv12 = (uv1[0] - uv2[0], uv1[1] - uv2[1])
-    det_uv = duv02[0] * duv12[1] - duv02[1] * duv12[0]
-    inv_det_uv = torch.where(
-        det_uv.abs() < 1e-12, 0.0, 1.0 / torch.where(det_uv == 0.0, 1.0, det_uv)
-    )
-    dpdu = tuple((duv12[1] * e02[k] - duv02[1] * e12[k]) * inv_det_uv for k in range(3))
-    dpdu = _where3(_dot(dpdu, dpdu) < 1e-16, _coordinate_system(ng), dpdu)
-    mat = (mat_f + 0.5).to(torch.int32)
-    light = (light_f + torch.where(light_f < 0.0, -0.5, 0.5)).to(torch.int32)
-    return p, p_err, ng, ns, dpdu, mat, light
 
 
 def bounce_plain(lanes, alive_i, index, tables: MegaTables, cfg: MegaCfg, *,
@@ -231,7 +155,9 @@ def bounce_plain(lanes, alive_i, index, tables: MegaTables, cfg: MegaCfg, *,
 
     # ---- closest hit + record ----
     bt, bi, b0, b1 = closest_sweep(tris, cfg.n_tri, o, d, BIG)
-    p, p_err, ng, ns, dpdu, mat, light = _fetch_record(tris, bi, b0, b1)
+    rec = tri_record(tris, bi, b0, b1)
+    p, p_err, ng, ns, dpdu, mat, light = (rec.p, rec.p_err, rec.ng, rec.ns, rec.dpdu, rec.mat,
+                                          rec.light)
     valid = bi >= 0
     wo = _scale(_normalize(d), -1.0)
 

@@ -1,10 +1,11 @@
 """Flat scene tables: the column layout and the Scene of torch tensors.
 
 The layout (column constants) is the JAX package's ``scene/arrays.py``,
-kept here as the port's own copy.  The Scene holds only what the slice's
-path reads: the packed triangle, material and light tables, the light-pick
-power and the per-light triangle-area CDF, plus the counts and feature
-flags that decide which route a scene may take (``ops/path_kernel.mega_cfg``).
+kept here as the port's own copy.  The Scene holds only what the ported
+paths read: the packed triangle, quadric, material and light tables, the
+light-pick power and the per-light triangle-area CDF, plus the counts and
+feature flags that decide which route a scene may take
+(``ops/path_kernel.mega_cfg``) and which parts the port refuses.
 """
 
 from __future__ import annotations
@@ -86,6 +87,24 @@ ALG_SPHERE = 2
 ALG_CYLINDER = 3
 ALG_DISK = 4
 
+# quadric (sph_*) kinds; params per kind: SPHERE and CYLINDER radius,
+# z_min, z_max, phi_max; DISK radius, inner_radius, height, phi_max
+QK_SPHERE = 0
+QK_CYLINDER = 1
+QK_DISK = 2
+
+# sph_attr columns
+SP_O2W = 0  # 16 (row-major 4x4)
+SP_W2O = 16
+SP_PARAMS = 32  # 4 params (per-kind layout above)
+SP_MAT = 36
+SP_LIGHT = 37
+SP_REVERSE = 38
+SP_MED_IN = 39
+SP_MED_OUT = 40
+SP_KIND = 41
+N_SPH_ATTR = 42
+
 # tri_attr columns
 TA_P0 = 0
 TA_P1 = 3
@@ -133,9 +152,16 @@ class Scene:
     world_radius: float
     n_tris: int
     n_lights: int
-    # features the slice does not render; mega_cfg refuses scenes with them
-    n_spheres: int = 0
+    sph_attr: torch.Tensor = None  # (max(S,1), N_SPH_ATTR) f32
+    n_spheres: int = 0  # quadrics of every kind (the JAX package's sph_* family)
+    quad_kind_mask: int = 0  # bit QK_* set when a quadric of that kind exists
+    light_type_mask: int = 0  # bit LIGHT_* set when such a light exists
+    has_sphere_lights: bool = False  # an area light on a sphere (ALG_SPHERE)
+    has_quadric_lights: bool = False  # an area light on a disk or cylinder
+    # features the port does not render yet; the routes that meet them raise
     n_curve_segs: int = 0
+    n_instances: int = 0
+    n_anim_tris: int = 0
     has_env: bool = False
     has_alpha: bool = False
     has_subsurface: bool = False
@@ -152,9 +178,18 @@ class Scene:
 # there are encoded in the leading dimension of their shape
 BRIDGE_FIELDS = (
     "tri_attr", "mat_attr", "light_attr", "light_power", "alight_tri_cdf", "world_center",
-    "world_radius", "tri_p0", "light_type", "sph_o2w", "crv_attr", "inf_radiance",
+    "world_radius", "tri_p0", "light_type", "sph_o2w", "sph_attr", "quad_kind_flag",
+    "sphlight_flag", "qdlight_flag", "crv_attr", "inst_o2w", "anim_p0", "inf_radiance",
     "alpha_flag", "bss_profile", "hair_flag", "tex_slot_flag", "mat_kind_flag",
 )
+
+
+def type_mask(tags) -> int:
+    """Bitmask with bit t set for every tag t in `tags`."""
+    mask = 0
+    for t in np.unique(np.asarray(tags, np.int64)):
+        mask |= 1 << int(t)
+    return mask
 
 
 def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> Scene:
@@ -180,8 +215,15 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> Scene:
         world_radius=float(arrays["world_radius"]),
         n_tris=n("tri_p0"),
         n_lights=n("light_type"),
+        sph_attr=f32("sph_attr"),
         n_spheres=n("sph_o2w"),
+        quad_kind_mask=n("quad_kind_flag"),
+        light_type_mask=type_mask(arrays["light_type"]),
+        has_sphere_lights=n("sphlight_flag") > 0,
+        has_quadric_lights=n("qdlight_flag") > 0,
         n_curve_segs=n("crv_attr"),
+        n_instances=n("inst_o2w"),
+        n_anim_tris=n("anim_p0"),
         has_env=n("inf_radiance") > 1,
         has_alpha=n("alpha_flag") > 0,
         has_subsurface=n("bss_profile") > 0,

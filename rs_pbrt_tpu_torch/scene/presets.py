@@ -1,9 +1,10 @@
 """Built-in scenes (host-side constructors).
 
-The port's copy of ``cornell_box`` from the JAX package's
-``scene/presets.py``: the classic Cornell data set in cm units (white
-floor, ceiling and back wall, red left wall, green right wall, two boxes,
-a ceiling area light), with identical geometry.
+The port's copies of two scenes of the JAX package's ``scene/presets.py``,
+with identical geometry: ``cornell_box``, the classic Cornell data set in
+cm units (white floor, ceiling and back wall, red left wall, green right
+wall, two boxes, a ceiling area light), and ``spheres_direct``, matte and
+mirror spheres on a floor under a quad light and a sphere light.
 """
 
 from __future__ import annotations
@@ -67,4 +68,27 @@ def cornell_box(resolution=(256, 256), light_scale=1.0, boxes=True, device="cuda
         tr.look_at([278, 273, -800], [278, 273, 0], [0, 1, 0]), resolution, fov=39.3077,
         device=device,
     )
+    return scene, camera
+
+
+def spheres_direct(resolution=(256, 256), device="cuda"):
+    """BASELINE config 2's scene: a matte and a mirror sphere on a floor,
+    lit by a quad area light overhead and a sphere area light to the side,
+    for the directlighting and whitted integrators.  Returns (scene,
+    camera) on `device`."""
+    b = SceneBuilder()
+    floor = b.add_matte(kd=(0.6, 0.6, 0.6))
+    matte = b.add_matte(kd=(0.5, 0.2, 0.2))
+    mirror = b.add_mirror(kr=(0.9, 0.9, 0.9))
+    dark = b.add_matte(kd=(0.0, 0.0, 0.0))
+    _quad(b, [-6, 0, -6], [6, 0, -6], [6, 0, 6], [-6, 0, 6], floor)
+    b.add_sphere(tr.translate([-1.1, 1.0, 0]), radius=1.0, material=matte)
+    b.add_sphere(tr.translate([1.1, 1.0, 0.4]), radius=1.0, material=mirror)
+    _quad(b, [-1.5, 4.0, -1.0], [-0.5, 4.0, -1.0], [-0.5, 4.0, 0.0], [-1.5, 4.0, 0.0], dark,
+          area_light=dict(L=(18.0, 18.0, 18.0), two_sided=False))
+    b.add_sphere(tr.translate([2.5, 2.5, -2.0]), radius=0.3, material=dark,
+                 area_light=dict(L=(40.0, 40.0, 40.0)))
+    scene = b.finalize(device)
+    camera = cam.make_perspective(tr.look_at([0, 2.2, 6.5], [0, 1.0, 0], [0, 1, 0]), resolution,
+                                  fov=45.0, device=device)
     return scene, camera

@@ -12,10 +12,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .vecmath import gamma
+
 
 class Transform(NamedTuple):
     m: np.ndarray  # (4,4) f32 forward
     m_inv: np.ndarray  # (4,4) f32 inverse
+
+
+def identity() -> Transform:
+    return Transform(np.eye(4, dtype=np.float32), np.eye(4, dtype=np.float32))
 
 
 def from_matrix(m) -> Transform:
@@ -81,18 +87,44 @@ def perspective(fov_deg, znear, zfar) -> Transform:
 
 
 def _rows(m: torch.Tensor, v: torch.Tensor, n_rows: int) -> list:
-    """m[i, :3] . v for rows i < n_rows, as elementwise sums (no BLAS, so
-    the card and the CPU add in the same order)."""
+    """m[..., i, :3] . v for rows i < n_rows, as elementwise sums (no BLAS,
+    so the card and the CPU add in the same order).  m: (..., 4, 4),
+    broadcast against v's leading dims."""
     x, y, z = v.unbind(-1)
-    return [m[i, 0] * x + m[i, 1] * y + m[i, 2] * z for i in range(n_rows)]
+    return [m[..., i, 0] * x + m[..., i, 1] * y + m[..., i, 2] * z for i in range(n_rows)]
 
 
 def xform_point(m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """Apply a (4,4) matrix to (..., 3) points, with the homogeneous divide."""
+    """Apply (..., 4, 4) matrices to (..., 3) points, with the homogeneous
+    divide."""
     r = _rows(m, p, 4)
-    w = r[3] + m[3, 3]
-    return torch.stack([(r[i] + m[i, 3]) / w for i in range(3)], -1)
+    w = r[3] + m[..., 3, 3]
+    return torch.stack([(r[i] + m[..., i, 3]) / w for i in range(3)], -1)
+
+
+def xform_point_with_error(m: torch.Tensor, p: torch.Tensor):
+    """Point transform and its absolute error bound (transform.rs:662-700)."""
+    am = m.abs()
+    rows = _rows(am, p.abs(), 3)
+    err = torch.stack([rows[i] + am[..., i, 3] for i in range(3)], -1)
+    return xform_point(m, p), float(gamma(3.0)) * err
 
 
 def xform_vector(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.stack(_rows(m, v, 3), -1)
+
+
+def xform_normal(m_inv: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Normals transform by the inverse transpose: m_inv[..., :3, :3]^T n."""
+    x, y, z = n.unbind(-1)
+    return torch.stack([m_inv[..., 0, i] * x + m_inv[..., 1, i] * y + m_inv[..., 2, i] * z
+                        for i in range(3)], -1)
+
+
+def swaps_handedness(m: torch.Tensor) -> torch.Tensor:
+    """det of the upper 3x3 < 0 (transform.rs), by cofactors."""
+    a = m[..., :3, :3]
+    det = (a[..., 0, 0] * (a[..., 1, 1] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 1])
+           - a[..., 0, 1] * (a[..., 1, 0] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 0])
+           + a[..., 0, 2] * (a[..., 1, 0] * a[..., 2, 1] - a[..., 1, 1] * a[..., 2, 0]))
+    return det < 0.0

@@ -11,6 +11,8 @@ import torch
 ONE_MINUS_EPSILON = np.float32(1.0 - np.finfo(np.float32).eps / 2)
 MACHINE_EPSILON = np.float32(np.finfo(np.float32).eps / 2)
 DENORM_MIN = np.float32(1e-45)  # smallest positive f32 (0x00000001)
+INFINITY = np.float32(np.finfo(np.float32).max)  # "no limit" ray length
+INV_PI = np.float32(1.0 / np.pi)
 
 
 def gamma(n):
@@ -22,8 +24,16 @@ def dot(a, b):
     return (a * b).sum(-1)
 
 
+def absdot(a, b):
+    return dot(a, b).abs()
+
+
 def cross(a, b):
     return torch.linalg.cross(a, b, dim=-1)
+
+
+def length_squared(v):
+    return dot(v, v)
 
 
 def length(v):
@@ -32,6 +42,24 @@ def length(v):
 
 def normalize(v):
     return v / torch.clamp(length(v), min=1e-20)[..., None]
+
+
+def face_forward(n, v):
+    """Flip n into the hemisphere of v (geometry.rs)."""
+    return torch.where((dot(n, v) < 0.0)[..., None], -n, n)
+
+
+def quadratic(a, b, c):
+    """Stable quadratic solve -> (has_solution, t0, t1), t0 <= t1.  f32
+    with the b/2 form, as the JAX package computes it (the reference's
+    discriminant is f64, pbrt.rs:250)."""
+    disc = b * b - 4.0 * a * c
+    has = disc >= 0.0
+    root = torch.sqrt(torch.clamp(disc, min=0.0))
+    q = torch.where(b < 0.0, -0.5 * (b - root), -0.5 * (b + root))
+    t0 = q / torch.where(a == 0.0, 1.0, a)
+    t1 = c / torch.where(q == 0.0, 1.0, q)
+    return has, torch.minimum(t0, t1), torch.maximum(t0, t1)
 
 
 def coordinate_system(v1):

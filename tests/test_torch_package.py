@@ -51,6 +51,7 @@ def test_import_loads_no_jax():
 
 ENTRY_POINTS = {
     "presets.cornell_box": lambda: presets.cornell_box((8, 8)),
+    "presets.spheres_direct": lambda: presets.spheres_direct((8, 8)),
     "SceneBuilder.finalize": lambda: SceneBuilder().finalize(),
     "scene_from_numpy": lambda: sa.scene_from_numpy({}),
     "make_perspective": lambda: cam.make_perspective(tr.look_at((0, 0, -1), (0, 0, 0), (0, 1, 0)),
@@ -66,8 +67,9 @@ def test_default_device_without_card_raises(name, monkeypatch):
         ENTRY_POINTS[name]()
 
 
-def test_cpu_on_request():
+@pytest.mark.parametrize("preset", ["cornell_box", "spheres_direct"])
+def test_cpu_on_request(preset):
     assert devmod.resolve("cpu") == torch.device("cpu")
-    scene, camera = presets.cornell_box((8, 8), device="cpu")
-    assert scene.device.type == camera.device.type == "cpu"
+    scene, camera = getattr(presets, preset)((8, 8), device="cpu")
+    assert scene.device.type == camera.device.type == scene.sph_attr.device.type == "cpu"
     assert np.isfinite(scene.tri_attr.numpy()).all()
