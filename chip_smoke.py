@@ -43,6 +43,28 @@ Run from the root of a checkout.  Phases, one line each (or more):
    renders), the device time by op and each kernel's time per launch
    beside its bound.
 
+8. The probe (rs_pbrt_tpu_torch/tools/probe.py) through its entry point,
+   the counters zeroed just before and read just after: P1 and P2 launch
+   in it, no other kernel.  Then P1 (take_rows) and P2 (take_loop, 1000
+   steps) against their plain versions at (16, 2048): bit-equal.  Their
+   device times a launch, from launches queued behind a sleeping kernel (P1
+   takes less time on the card than the host takes to make a call), beside
+   their bounds, P1 beside torch.gather on the same inputs, and P2's
+   row-fetches/s.
+9. The statue through the entry points: statue_scene(subdivisions=8),
+   1,310,724 triangles, and its BVH (build_accel), their host seconds;
+   then the path integrator at 256x256, 8 spp in one batch of 524,288
+   paths, depth 5.  The counters are zeroed just before the render and
+   read just after: B1 depth + 1, B2 depth, K1 2 (the camera dims and the
+   bounce dims of all bounces), no other kernel; the traversal stack
+   overflowed 0 times.  Every B1 and B2 launch of that run is held
+   against bvh12_intersect_plain on the same inputs (valid, tri, t, b0,
+   b1 equal), every K1 launch bit-equal; the image must be finite and
+   within rtol = atol = 2e-3 of the render with B1, B2 and K1 swapped for
+   their plain versions.  Then paths/s (best of 3 warm renders), the
+   device time by op, and each kernel's time per launch beside its bound
+   (counted from the rows each ray visits).
+
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
 """
@@ -65,6 +87,9 @@ RES, SPP, DEPTH = (256, 256), 64, 5
 K1_LANES = 1 << 22  # phase 3
 K2_SPP = 4  # phase 4
 SWEEP_RAYS, SWEEP_TRIS = 1 << 18, 2048  # phase 6's random input
+# phase 9: the statue at the size bench.py:228-249 renders it
+STATUE_SUBDIV, STATUE_RES, STATUE_SPP = 8, (256, 256), 8
+PROBE_SHAPE = (16, 2048)  # phase 8: P1 and P2 at the JAX probe's shape
 
 # published peaks of one H100 SXM (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -108,6 +133,14 @@ ISECT_FLOP = dict(
     record_normals=8,  # where the triangle has vertex normals: ns scaled, flip test
 )
 RAY_BYTES = 7 * 4  # o, d, t_max in, per ray
+# B1/B2's f32 arithmetic, counted as ISECT_FLOP is in csrc/bvh12.cu
+BVH_FLOP = dict(
+    ray=6,  # 1/d (3), 1/d[kz], sx, sy
+    slab=13,  # per child box: 6 subtractions, 6 multiplications, tf * eps
+    tri=65,  # per triangle: the SoA watertight test with its error bound
+)
+ROW_BYTES = 512  # one wide12 row
+SMEM_LOADS_PER_CLOCK = 32  # shared-memory loads per clock per SM
 VERT_BYTES = 9 * 4  # the vertex coordinates K3 and K4 read of a table row
 
 
@@ -127,6 +160,35 @@ def cuda_ms(fn, reps: int) -> float:
     for _ in range(reps):
         fn()
     end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device time of fn() per call: reps calls queued behind a sleeping
+    kernel, so that the card runs them back to back and CUDA events around
+    them time the card alone.  cuda_ms times calls as the host makes them,
+    so a kernel shorter than the host's cost of a call reads as that cost.
+    Fails if the sleep ended before the host had queued every call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    slept = torch.cuda.Event()
+    # cycles at 2 GHz, above the card's clock, so the sleep lasts at least this
+    torch.cuda._sleep(int(2e9 * (3 * reps * host_s + 5e-3)))
+    slept.record()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    if slept.query():
+        fail("queued_ms: the card woke before the calls were queued")
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
@@ -182,30 +244,41 @@ def k2_bound_ms(work, args, kw):
 
 
 def _kernel_modules():
+    from rs_pbrt_tpu_torch.ops import bvh
+    from rs_pbrt_tpu_torch.ops import gather_probe as gp
     from rs_pbrt_tpu_torch.ops import intersect_kernel as ik
     from rs_pbrt_tpu_torch.ops import path_kernel as pk
     from rs_pbrt_tpu_torch.ops import sobol_kernel as sk
 
-    return sk, pk, ik
+    return sk, pk, ik, bvh, gp
 
 
 def zero_counts():
     """Every kernel's launch count to 0."""
-    sk, pk, ik = _kernel_modules()
+    sk, pk, ik, bvh, gp = _kernel_modules()
     sk.launches = pk.launches = 0
-    ik.launches.update(dict.fromkeys(ik.launches, 0))
+    for d in (ik.launches, bvh.launches, gp.launches):
+        d.update(dict.fromkeys(d, 0))
 
 
 def read_counts() -> dict:
-    sk, pk, ik = _kernel_modules()
-    return dict(sobol=sk.launches, bounce=pk.launches, **ik.launches)
+    sk, pk, ik, bvh, gp = _kernel_modules()
+    return dict(sobol=sk.launches, bounce=pk.launches, **ik.launches,
+                **{f"bvh12_{k}": v for k, v in bvh.launches.items()}, **gp.launches)
+
+
+def expect_counts(**launched) -> dict:
+    """The counts of a run that launches only the kernels named."""
+    return {**dict.fromkeys(read_counts(), 0), **launched}
 
 
 def _owner(name: str):
     """The module of the kernel wrapper `name` (sobol_dims, bounce,
-    closest_sweep, any_sweep, full_sweep)."""
-    sk, pk, ik = _kernel_modules()
-    return dict(sobol_dims=sk, bounce=pk, closest_sweep=ik, any_sweep=ik, full_sweep=ik)[name]
+    closest_sweep, any_sweep, full_sweep, bvh12_intersect_tris, take_rows,
+    take_loop)."""
+    sk, pk, ik, bvh, gp = _kernel_modules()
+    return dict(sobol_dims=sk, bounce=pk, closest_sweep=ik, any_sweep=ik, full_sweep=ik,
+                bvh12_intersect_tris=bvh, take_rows=gp, take_loop=gp)[name]
 
 
 def wrapper(name: str):
@@ -432,7 +505,7 @@ def phase_render(card):
         img = go()
         torch.cuda.synchronize()
         counts = read_counts()
-    want = dict(sobol=1, bounce=depth + 1, closest_sweep=0, any_sweep=0, full_sweep=0)
+    want = expect_counts(sobol=1, bounce=depth + 1)
     if counts != want:
         fail(f"launch counts of the flagship render {counts}, expected {want}")
     if tuple(img.shape) != (res[1], res[0], 3) or not torch.isfinite(img).all():
@@ -615,8 +688,7 @@ def phase_slice_render(card, integrator: str):
         img = go()
         torch.cuda.synchronize()
         counts = read_counts()
-    want = dict(sobol=1 + depth, bounce=0, closest_sweep=0, any_sweep=depth * scene.n_lights,
-                full_sweep=depth)
+    want = expect_counts(sobol=1 + depth, any_sweep=depth * scene.n_lights, full_sweep=depth)
     if counts != want:
         fail(f"launch counts of the {integrator} render {counts}, expected {want}")
     if tuple(img.shape) != (res[1], res[0], 3) or not torch.isfinite(img).all():
@@ -685,7 +757,251 @@ def phase_slice_render(card, integrator: str):
     return dict(out, counts=counts)
 
 
-def kernel_entry(name, source, replaces, launches, parts, max_abs_err) -> dict:
+def smem_loads_per_s() -> tuple:
+    """(shared-memory loads/s of the whole card, its SM count), for P2's
+    bound: SMEM_LOADS_PER_CLOCK on each SM at the maximum SM clock
+    (nvidia-smi clocks.max.sm)."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi clocks.max.sm failed: {smi.stderr.strip()}")
+    return SMEM_LOADS_PER_CLOCK * sms * float(smi.stdout.strip().splitlines()[0]) * 1e6, sms
+
+
+def phase_probe(card):
+    """Phase 8: the probe tool, then P1 and P2 against their plain versions."""
+    import torch
+
+    from rs_pbrt_tpu_torch.ops import gather_probe as gp
+    from rs_pbrt_tpu_torch.tools import probe
+
+    zero_counts()
+    res = probe.main(DEVICE)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts["take_rows"] < 1 or counts["take_loop"] < 1 or \
+            counts != expect_counts(take_rows=counts["take_rows"], take_loop=counts["take_loop"]):
+        fail(f"launch counts of the probe {counts}: P1 and P2 only, each at least once")
+    if not res["p1_equal"]:
+        fail("the probe's P1 differs from its plain version")
+    tab, idx = gp.probe_inputs(*PROBE_SHAPE, seed=1, device=DEVICE)
+    out = {}
+    for key, fn, plain in (("take_rows", gp.take_rows, gp.take_rows_plain),
+                           ("take_loop", gp.take_loop, gp.take_loop_plain)):
+        got, want = fn(tab, idx), plain(tab, idx)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            fail(f"{key}: {int((got != want).sum())} values differ from the plain version")
+        reps = 200 if key == "take_rows" else 20
+        out[key] = dict(ms=[queued_ms(lambda: fn(tab, idx), reps)],
+                        plain_ms=[cuda_ms(lambda: plain(tab, idx), 2)], max_abs_err=err,
+                        call_ms=cuda_ms(lambda: fn(tab, idx), reps))
+    idx64 = idx.long()
+    gather_ms = queued_ms(lambda: torch.gather(tab, 1, idx64), 200)
+    gather_call_ms = cuda_ms(lambda: torch.gather(tab, 1, idx64), 200)
+    n = tab.numel()
+    # P1: the table, the indices and the output once each, over the memory rate
+    out["take_rows"]["bound"] = [(1e3 * 3 * 4 * n / HBM_BYTES_PER_S, 0.0)]
+    # P2: one shared-memory load per element and step, over every SM
+    loads = n * gp.STEPS
+    loads_per_s, sms = smem_loads_per_s()
+    out["take_loop"]["bound"] = [(0.0, 1e3 * loads / loads_per_s)]
+    fetches = gp.STEPS * PROBE_SHAPE[1] / (out["take_loop"]["ms"][0] / 1e3)
+    p1, p2 = out["take_rows"], out["take_loop"]
+    print(f"[8 probe] launches {counts}; P1 and P2 bit-equal to their plain versions at "
+          f"{PROBE_SHAPE}", flush=True)
+    print(f"[8 probe] as the host makes the calls: P1 {p1['call_ms']:.4f} ms, "
+          f"torch.gather {gather_call_ms:.4f} ms, P2 {p2['call_ms']:.4f} ms a call", flush=True)
+    print(f"[8 probe] queued on the card: P1 {p1['ms'][0]:.4f} ms (plain "
+          f"{p1['plain_ms'][0]:.4f} ms, torch.gather {gather_ms:.4f} ms, bound "
+          f"{p1['bound'][0][0]:.6f} ms by bytes); P2 "
+          f"{p2['ms'][0]:.4f} ms for {gp.STEPS} x {PROBE_SHAPE} = {fetches / 1e6:.0f}M "
+          f"row-fetches/s (plain {p2['plain_ms'][0]:.1f} ms, bound {p2['bound'][0][1]:.4f} ms "
+          f"by shared-memory loads at {SMEM_LOADS_PER_CLOCK}/clock on each of {sms} SMs) "
+          f"({card})",
+          flush=True)
+    return dict(out, counts=counts, gather_ms=gather_ms)
+
+
+def bvh_bound_ms(args, work, any_hit: bool) -> tuple:
+    """Least time of one B1 or B2 launch on these inputs, as (bytes_ms,
+    operations_ms), from the rows each ray visits (bvh12_intersect_plain's
+    work on the same inputs).  Bytes: each ray's o, d and t_max in and its
+    outputs out (B1 16, B2 1 bytes), and every distinct row visited once.
+    Operations: BVH_FLOP per live ray, per child box of each internal row
+    visited and per triangle of each leaf row visited."""
+    from rs_pbrt_tpu_torch.ops import bvh
+
+    o, _d, t_max = args[:3]
+    n = o.shape[0]
+    live = int((t_max >= 0).sum())
+    nbytes = n * (RAY_BYTES + (1 if any_hit else 16)) + work["rows"] * ROW_BYTES
+    flop = (live * BVH_FLOP["ray"] + int(work["internal"].sum()) * bvh.W12 * BVH_FLOP["slab"]
+            + int(work["leaf"].sum()) * bvh.W12 * BVH_FLOP["tri"])
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flop / FP32_FLOP_PER_S
+
+
+def check_bvh(what, any_hit, got, want) -> float:
+    """Fails unless a B1/B2 launch equals its plain version: B2's occlusion
+    bits; B1's valid and tri, and t, b0, b1 bit for bit.  Returns the
+    largest absolute difference (of t, b0, b1; of the bits for B2)."""
+    import torch
+
+    torch.cuda.synchronize()
+    if any_hit:
+        if not torch.equal(got, want.valid):
+            fail(f"{what}: {int((got != want.valid).sum())} occlusion bits differ from the plain "
+                 "version")
+        return float((got.float() - want.valid.float()).abs().max())
+    for k in ("valid", "tri", "t", "b0", "b1"):
+        if not torch.equal(getattr(got, k), getattr(want, k)):
+            bad = int((getattr(got, k) != getattr(want, k)).sum())
+            fail(f"{what}: {k} differs from the plain version on {bad} rays")
+    return max(float((getattr(got, k) - getattr(want, k)).abs().max()) for k in ("t", "b0", "b1"))
+
+
+def phase_statue(card):
+    """Phase 9: the statue through build_accel and render.render."""
+    import torch
+
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.ops import bvh
+    from rs_pbrt_tpu_torch.ops import scene_intersect as si
+    from rs_pbrt_tpu_torch.ops import sobol_kernel as sk
+    from rs_pbrt_tpu_torch.scene import bigscene
+
+    res, spp, depth = STATUE_RES, STATUE_SPP, DEPTH
+    t0 = time.perf_counter()
+    scene, camera = bigscene.statue_scene(res, STATUE_SUBDIV, device=DEVICE)
+    t1 = time.perf_counter()
+    accel = si.build_accel(scene, device=DEVICE)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"[9 statue] scene {scene.n_tris} triangles in {t1 - t0:.3f} s, BVH "
+          f"{accel.tri.shape[0]} wide12 rows, depth {accel.tri_depth}, in {t2 - t1:.3f} s "
+          "(host)", flush=True)
+    cfg = rdr.RenderCfg("path", spp=spp, max_depth=depth, rr_threshold=1.0)
+    scfg = smpl.make_sampler(smpl.SOBOL, spp, res)
+    lanes = res[0] * res[1] * spp
+
+    def go(stats=None):
+        return rdr.render(scene, camera, cfg, scfg, accel=accel, max_lanes=lanes, stats=stats)
+
+    # the main path's run, its wrapper calls recorded with their outputs
+    names = ("sobol_dims", "bvh12_intersect_tris")
+    rec = {k: LaunchTimer(wrapper(k), keep=True) for k in names}
+    overflow = bvh.overflow_counter(DEVICE)
+    with ExitStack() as es:
+        patched(es, **rec)
+        zero_counts()
+        overflow.zero_()
+        img = go()
+        torch.cuda.synchronize()
+        counts = read_counts()
+    want = expect_counts(sobol=2, bvh12_closest=depth + 1, bvh12_any=depth)
+    if counts != want:
+        fail(f"launch counts of the statue render {counts}, expected {want}")
+    n_overflow = int(overflow.item())
+    if n_overflow:
+        fail(f"the BVH traversal stack overflowed {n_overflow} times in the statue render")
+    if tuple(img.shape) != (res[1], res[0], 3) or not torch.isfinite(img).all():
+        fail(f"statue image: shape {tuple(img.shape)}, finite {bool(torch.isfinite(img).all())}")
+
+    # each launch of that run against its plain version on the same inputs;
+    # the plain traversal also counts the rows each ray visits, for the bound
+    k1_err, k1_bounds = 0.0, []
+    for b, (_, args, kw, out) in enumerate(rec["sobol_dims"].calls):
+        want_k1 = sk.sobol_dims_plain(*args, **kw)
+        torch.cuda.synchronize()
+        k1_err = max(k1_err, float((out - want_k1).abs().max()))
+        if not torch.equal(out, want_k1):
+            fail(f"statue K1 launch {b} differs from its plain version")
+        k1_bounds.append((k1_bound_ms(args[0].shape[0], args[2]), 0.0))
+    bounds = {"closest": [], "any": []}
+    errs = {"closest": 0.0, "any": 0.0}
+    work_sum = {"closest": [0, 0], "any": [0, 0]}
+    for b, (_, args, kw, out) in enumerate(rec["bvh12_intersect_tris"].calls):
+        any_hit = kw.get("any_hit", False)
+        key = "any" if any_hit else "closest"
+        work = {}
+        plain = bvh.bvh12_intersect_plain(*args, any_hit=any_hit, work=work)
+        errs[key] = max(errs[key], check_bvh(f"statue B{2 if any_hit else 1} launch {b}",
+                                             any_hit, out, plain))
+        bounds[key].append(bvh_bound_ms(args, work, any_hit))
+        work_sum[key][0] += int(work["internal"].sum())
+        work_sum[key][1] += int(work["leaf"].sum())
+    del rec, args, kw, out, plain
+    print(f"[9 statue] each launch matches its plain version: B1 valid, tri, t, b0, b1 and B2 "
+          f"equal, K1 bit-equal; stack overflows {n_overflow}; rows visited (internal, leaf) "
+          f"B1 {work_sum['closest']}, B2 {work_sum['any']}", flush=True)
+
+    best = None
+    for _ in range(3):
+        st = {}
+        go(st)
+        best = st if best is None or st["wall_s"] < best["wall_s"] else best
+    # each kernel's time per launch: events around every wrapper call, per
+    # launch the best of 3 renders
+    runs = []
+    for _ in range(3):
+        timers = {k: LaunchTimer(wrapper(k)) for k in names}
+        with ExitStack() as es:
+            patched(es, **timers)
+            go()
+        kinds = ["any" if kw.get("any_hit", False) else "closest"
+                 for _, _, kw, _ in timers["bvh12_intersect_tris"].calls]
+        runs.append({k: t.times_ms() for k, t in timers.items()})
+    ms = {k: [min(col) for col in zip(*(r[k] for r in runs))] for k in names}
+    profile_render(go, "9 profile")
+
+    # the same render with B1, B2 and K1 swapped for their plain versions
+    def plain_bvh(o, d, t_max, rows, depth_, any_hit=False):
+        hit = bvh.bvh12_intersect_plain(o, d, t_max, rows, depth_, any_hit)
+        return hit.valid if any_hit else hit
+
+    plain_t = dict(sobol_dims=LaunchTimer(sk.sobol_dims_plain),
+                   bvh12_intersect_tris=LaunchTimer(plain_bvh))
+    with ExitStack() as es:
+        patched(es, **plain_t)
+        img_plain = go()
+    torch.cuda.synchronize()
+    err = float((img - img_plain).abs().max())
+    if not torch.allclose(img, img_plain, rtol=TOL, atol=TOL):
+        fail(f"statue image differs from the plain render by up to {err}")
+    plain_ms = {k: t.times_ms() for k, t in plain_t.items()}
+
+    split = lambda xs: {kind: [x for x, k in zip(xs, kinds) if k == kind]
+                        for kind in ("closest", "any")}
+    b_ms, b_plain = split(ms["bvh12_intersect_tris"]), split(plain_ms["bvh12_intersect_tris"])
+    print(f"[9 statue] {scene.n_tris} triangles, {res[0]}x{res[1]}, {spp} spp, depth {depth}, "
+          f"one batch of {lanes} paths: finite, matches the plain render (max abs err "
+          f"{err:.3g}, mean {float(img.mean()):.5f}); launches {counts}", flush=True)
+    print(f"[9 statue] {best['paths_per_s']:.6g} camera paths/s (best of 3 warm renders, "
+          f"{1e3 * best['wall_s']:.3f} ms) on {card}", flush=True)
+    for kid, key in (("B1", "closest"), ("B2", "any")):
+        print(f"[9 statue] {kid} per launch {', '.join(f'{t:.3f}' for t in b_ms[key])} ms; "
+              f"bounds {', '.join(f'{max(b):.4f}' for b in bounds[key])} ms; plain "
+              f"{', '.join(f'{t:.1f}' for t in b_plain[key])} ms", flush=True)
+    print(f"[9 statue] K1 per launch {', '.join(f'{t:.4f}' for t in ms['sobol_dims'])} ms; "
+          f"traversal {sum(ms['bvh12_intersect_tris']):.3f} ms of the "
+          f"{1e3 * best['wall_s']:.3f} ms render", flush=True)
+    return dict(
+        counts=counts,
+        sobol_dims=dict(ms=ms["sobol_dims"], plain_ms=plain_ms["sobol_dims"], bound=k1_bounds,
+                        max_abs_err=k1_err),
+        closest=dict(ms=b_ms["closest"], plain_ms=b_plain["closest"], bound=bounds["closest"],
+                     max_abs_err=errs["closest"]),
+        any=dict(ms=b_ms["any"], plain_ms=b_plain["any"], bound=bounds["any"],
+                 max_abs_err=errs["any"]),
+    )
+
+
+def kernel_entry(name, source, replaces, launches, parts, max_abs_err, library_ms=None) -> dict:
     """One kernel's line of the `kernels` JSON: per-launch means over
     `parts`, dicts of per-launch lists ms, plain_ms and bound ((bytes_ms,
     operations_ms) pairs)."""
@@ -698,7 +1014,7 @@ def kernel_entry(name, source, replaces, launches, parts, max_abs_err) -> dict:
         max_abs_err=max_abs_err, ms=mean(ms), plain_ms=mean(plain_ms),
         bound_ms=mean([max(b) for b in bounds]),
         bound_by="operations" if sum(b[1] for b in bounds) >= sum(b[0] for b in bounds) else "bytes",
-        library_ms=None,
+        library_ms=library_ms,
     )
 
 
@@ -722,6 +1038,8 @@ def main():
     flag["k2"]["max_abs_err"] = max(k2_err, flag["k2"]["max_abs_err"])
     sweeps = phase_sweeps(card)
     slices = [phase_slice_render(card, integrator) for integrator in ("directlighting", "whitted")]
+    probe = phase_probe(card)
+    statue = phase_statue(card)
 
     k2 = flag["k2"]
     csrc, pallas = "rs_pbrt_tpu_torch/csrc/", "rs_pbrt_tpu/ops/pallas_intersect.py:"
@@ -729,9 +1047,10 @@ def main():
                                    + [r[key]["max_abs_err"] for r in slices])
     kernels = [
         kernel_entry("sobol_dims", csrc + "sobol.cu", "rs_pbrt_tpu/ops/pallas_sobol.py:35",
-                     flag["counts"]["sobol"] + sum(r["counts"]["sobol"] for r in slices),
-                     [flag["k1"]] + [r["sobol_dims"] for r in slices],
-                     worst("sobol_dims", flag["k1"])),
+                     flag["counts"]["sobol"] + sum(r["counts"]["sobol"] for r in slices)
+                     + statue["counts"]["sobol"],
+                     [flag["k1"]] + [r["sobol_dims"] for r in slices] + [statue["sobol_dims"]],
+                     worst("sobol_dims", flag["k1"], statue["sobol_dims"])),
         dict(name="bounce", route="cuda", source=csrc + "bounce.cu",
              replaces="rs_pbrt_tpu/ops/pallas_path.py:410", launches=flag["counts"]["bounce"],
              library_ms=None, **k2),
@@ -744,6 +1063,18 @@ def main():
         kernel_entry("full_sweep", csrc + "intersect.cu", pallas + "376",
                      sum(r["counts"]["full_sweep"] for r in slices),
                      [r["full_sweep"] for r in slices], worst("full_sweep", sweeps["full"])),
+        # B1 and B2 replace an XLA function, the JAX package's TPU traversal
+        kernel_entry("bvh12_closest", csrc + "bvh12.cu", "rs_pbrt_tpu/ops/bvh.py:994",
+                     statue["counts"]["bvh12_closest"], [statue["closest"]],
+                     statue["closest"]["max_abs_err"]),
+        kernel_entry("bvh12_any", csrc + "bvh12.cu", "rs_pbrt_tpu/ops/bvh.py:994",
+                     statue["counts"]["bvh12_any"], [statue["any"]], statue["any"]["max_abs_err"]),
+        kernel_entry("take_rows", csrc + "gather_probe.cu", "tools/tpu_probe.py:110",
+                     probe["counts"]["take_rows"], [probe["take_rows"]],
+                     probe["take_rows"]["max_abs_err"], library_ms=probe["gather_ms"]),
+        kernel_entry("take_loop", csrc + "gather_probe.cu", "tools/tpu_probe.py:132",
+                     probe["counts"]["take_loop"], [probe["take_loop"]],
+                     probe["take_loop"]["max_abs_err"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

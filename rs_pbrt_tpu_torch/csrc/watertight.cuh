@@ -7,7 +7,9 @@
 // bounce kernel (bounce.cu, K2) and the sweep kernels (intersect.cu, K3-K5).  The arithmetic follows the JAX form term by term,
 // including the one-hot permute/shear matrix, so that a build without FMA
 // contraction (--fmad=false) gives the plain PyTorch version's bits
-// (ops/watertight.py).
+// (ops/watertight.py).  Below them, the same test in the expression order of
+// the BVH leaf test, rs_pbrt_tpu/ops/bvh.py:_tri_test_soa, for the traversal
+// kernels (bvh12.cu, B1 and B2; its plain version is ops/bvh.py).
 #pragma once
 
 namespace rs {
@@ -167,6 +169,98 @@ __device__ __forceinline__ bool any_hit(const RayConst& rc, const float* tris, i
     occluded = watertight_tri_any(rc, p, t_lim);
   }
   return occluded;
+}
+
+// The BVH leaf test's form (_tri_test_soa): the vertex components are
+// picked by index (kx, ky, kz) where the sweeps multiply by the one-hot
+// matrix, so its expressions differ and it has its own set-up.
+struct ShearRay {
+  float o[3];
+  int kx, ky, kz;
+  float sx, sy, sz;
+};
+
+__device__ __forceinline__ float comp(const float* v, int k) {
+  return k == 0 ? v[0] : (k == 1 ? v[1] : v[2]);
+}
+
+__device__ __forceinline__ float max3(float a, float b, float c) { return fmaxf(fmaxf(a, b), c); }
+
+// o, d: the ray's 3 components each
+__device__ __forceinline__ ShearRay shear_ray(const float* o, const float* d) {
+  ShearRay r;
+  float dv[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    r.o[c] = o[c];
+    dv[c] = d[c];
+  }
+  // kz = argmax |d|, the first on ties (jnp.argmax)
+  int kz = 0;
+  if (fabsf(dv[1]) > fabsf(dv[kz])) kz = 1;
+  if (fabsf(dv[2]) > fabsf(dv[kz])) kz = 2;
+  r.kz = kz;
+  r.kx = kz + 1 == 3 ? 0 : kz + 1;
+  r.ky = r.kx + 1 == 3 ? 0 : r.kx + 1;
+  const float inv_dz = 1.0f / comp(dv, kz);
+  r.sx = -comp(dv, r.kx) * inv_dz;
+  r.sy = -comp(dv, r.ky) * inv_dz;
+  r.sz = inv_dz;
+  return r;
+}
+
+// _tri_test_soa for one triangle, p its 9 vertex coordinates (p0, p1, p2):
+// true on a hit in (0, t_max), with t and barycentrics.  jnp.maximum
+// propagates NaN where fmaxf does not, so a NaN in the bound's maxima is
+// handled as the JAX test handles it.
+__device__ __forceinline__ bool watertight_tri_soa(const ShearRay& r, float t_max, const float* p,
+                                                   float& t, float& b0, float& b1) {
+  float x[3], y[3], z[3];
+#pragma unroll
+  for (int v = 0; v < 3; ++v) {
+    const float pv[3] = {p[3 * v] - r.o[0], p[3 * v + 1] - r.o[1], p[3 * v + 2] - r.o[2]};
+    x[v] = comp(pv, r.kx);
+    y[v] = comp(pv, r.ky);
+    z[v] = comp(pv, r.kz);
+  }
+#pragma unroll
+  for (int v = 0; v < 3; ++v) {
+    x[v] = x[v] + r.sx * z[v];
+    y[v] = y[v] + r.sy * z[v];
+  }
+  const float e0 = x[1] * y[2] - y[1] * x[2];
+  const float e1 = x[2] * y[0] - y[2] * x[0];
+  const float e2 = x[0] * y[1] - y[0] * x[1];
+  const bool neg = (e0 < 0.0f) || (e1 < 0.0f) || (e2 < 0.0f);
+  const bool pos = (e0 > 0.0f) || (e1 > 0.0f) || (e2 > 0.0f);
+  const float det = e0 + e1 + e2;
+  const float z0s = r.sz * z[0];
+  const float z1s = r.sz * z[1];
+  const float z2s = r.sz * z[2];
+  const float t_scaled = e0 * z0s + e1 * z1s + e2 * z2s;
+  const bool miss_range = det < 0.0f ? ((t_scaled >= 0.0f) || (t_scaled < t_max * det))
+                                     : ((t_scaled <= 0.0f) || (t_scaled > t_max * det));
+  const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
+  b0 = e0 * inv_det;
+  b1 = e1 * inv_det;
+  t = t_scaled * inv_det;
+  const float max_zt = max3(fabsf(z0s), fabsf(z1s), fabsf(z2s));
+  const float delta_z = kGamma3 * max_zt;
+  const float max_xt = max3(fabsf(x[0]), fabsf(x[1]), fabsf(x[2]));
+  const float max_yt = max3(fabsf(y[0]), fabsf(y[1]), fabsf(y[2]));
+  const float delta_x = kGamma5 * (max_xt + max_zt);
+  const float delta_y = kGamma5 * (max_yt + max_zt);
+  const float delta_e = 2.0f * (kGamma2 * max_xt * max_yt + delta_y * max_xt + delta_x * max_yt);
+  const float max_e = max3(fabsf(e0), fabsf(e1), fabsf(e2));
+  const float delta_t =
+      3.0f * (kGamma3 * max_e * max_zt + delta_e * max_zt + delta_z * max_e) * fabsf(inv_det);
+  // a NaN in the bound's maxima makes jnp's delta_t NaN, and t <= NaN is
+  // false: the JAX test passes such a triangle; fmaxf would drop the NaN
+  const bool nan_bound = isnan(z0s) || isnan(z1s) || isnan(z2s) || isnan(x[0]) || isnan(x[1]) ||
+                         isnan(x[2]) || isnan(y[0]) || isnan(y[1]) || isnan(y[2]) ||
+                         isnan(e0) || isnan(e1) || isnan(e2);
+  const bool miss_eps = !nan_bound && (t <= delta_t);
+  return !((neg && pos) || (det == 0.0f) || miss_range || miss_eps);
 }
 
 }  // namespace rs

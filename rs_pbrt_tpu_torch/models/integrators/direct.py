@@ -8,7 +8,8 @@ shade and light: triangles and spheres, matte and mirror materials, diffuse
 area lights.  Each depth intersects through K5 (``scene_intersect``), casts
 one shadow ray per light sample through K4 (``scene_intersect_p``) and
 draws its integrator dims in one K1 launch (``samplers.with_dims``); the
-rest is plain PyTorch.  The ao integrator is not ported yet.
+rest is plain PyTorch.  Scenes with a BVH (``accel``) intersect through
+B1 and B2 instead of K5 and K4.  The ao integrator is not ported yet.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ def dims_per_depth(scene: sa.Scene) -> int:
     return 2 * max(scene.n_lights, 1) + 3
 
 
-def _direct_one_light(scene, light_idx, sel_pdf, it, b, ss, ts, u_light, mis=True):
+def _direct_one_light(scene, light_idx, sel_pdf, it, b, ss, ts, u_light, accel, mis=True):
     """estimate_direct's light-sampling half for a chosen light
     (integrator.rs:406): Li f |cos| / pdf, zero where the shadow ray is
     blocked; MIS against the bsdf pdf when mis."""
@@ -50,7 +51,7 @@ def _direct_one_light(scene, light_idx, sel_pdf, it, b, ss, ts, u_light, mis=Tru
     delta_sh = ls.p_target - p_shadow
     dist = vm.length(delta_sh)
     sh_d = delta_sh / torch.clamp(dist, min=1e-12)[:, None]
-    occluded = si.scene_intersect_p(scene, p_shadow, sh_d, dist * (1.0 - 1e-3))
+    occluded = si.scene_intersect_p(scene, p_shadow, sh_d, dist * (1.0 - 1e-3), accel)
     if mis:
         w = torch.where(ls.is_delta, 1.0, smp.power_heuristic(ls.pdf, scat_pdf))
     else:
@@ -59,7 +60,7 @@ def _direct_one_light(scene, light_idx, sel_pdf, it, b, ss, ts, u_light, mis=Tru
     return torch.where((ok & ~occluded)[:, None], ld, 0.0)
 
 
-def uniform_sample_all_lights(scene, cfg_s, ctx, it, b, ss, ts, dim0):
+def uniform_sample_all_lights(scene, cfg_s, ctx, it, b, ss, ts, dim0, accel=None):
     """One sample of every light, without MIS (integrator.rs:300)."""
     n = it.p.shape[0]
     L = torch.zeros((n, 3), device=it.p.device)
@@ -67,16 +68,16 @@ def uniform_sample_all_lights(scene, cfg_s, ctx, it, b, ss, ts, dim0):
     for li in range(scene.n_lights):
         u_light = smpl.get_2d(cfg_s, ctx, dim0 + 2 * li)
         idx = torch.full((n,), li, dtype=torch.int32, device=it.p.device)
-        L = L + _direct_one_light(scene, idx, one, it, b, ss, ts, u_light, mis=False)
+        L = L + _direct_one_light(scene, idx, one, it, b, ss, ts, u_light, accel, mis=False)
     return L
 
 
-def uniform_sample_one_light(scene, cfg_s, ctx, it, b, ss, ts, dim0, light_dist):
+def uniform_sample_one_light(scene, cfg_s, ctx, it, b, ss, ts, dim0, light_dist, accel=None):
     """One light picked by power, with MIS (integrator.rs:359)."""
     u_sel = smpl.get_1d(cfg_s, ctx, dim0)
     u_light = smpl.get_2d(cfg_s, ctx, dim0 + 1)
     li_idx, sel_pdf, _ = smp.sample_distribution_1d_discrete(light_dist, u_sel)
-    return _direct_one_light(scene, li_idx, sel_pdf, it, b, ss, ts, u_light, mis=True)
+    return _direct_one_light(scene, li_idx, sel_pdf, it, b, ss, ts, u_light, accel, mis=True)
 
 
 class WhittedCfg(NamedTuple):
@@ -88,21 +89,21 @@ class DirectLightingCfg(NamedTuple):
     sample_all: bool  # LightStrategy::UniformSampleAll, else one light by power
 
 
-def check_supported(scene: sa.Scene):
+def check_supported(scene: sa.Scene, accel=None):
     """Raises NotImplementedError for what these integrators cannot render
     yet: the intersection, material and light checks, and environment light."""
-    si.check_supported(scene)
+    si.check_supported(scene, accel)
     bx.check_supported(scene)
     lt.check_supported(scene)
     if scene.has_env:
         raise NotImplementedError("environment lights are not ported yet (ROADMAP queue A)")
 
 
-def _direct_radiance(scene, max_depth, sample_all, cfg_s, ctx, ray_o, ray_d):
+def _direct_radiance(scene, max_depth, sample_all, cfg_s, ctx, ray_o, ray_d, accel=None):
     """The loop whitted.rs and directlighting.rs share: at each depth the
     emission of a hit light, direct light at the hit (every light, or one
     by power), then the specular continuation only."""
-    check_supported(scene)
+    check_supported(scene, accel)
     n = ray_o.shape[0]
     dev = ray_o.device
     L = torch.zeros((n, 3), device=dev)
@@ -114,7 +115,7 @@ def _direct_radiance(scene, max_depth, sample_all, cfg_s, ctx, ray_o, ray_d):
     light_dist = _light_select_dist(scene) if n_l > 0 and not sample_all else None
     n_dims = dims_per_depth(scene)
     for depth in range(max_depth):
-        it = si.scene_intersect(scene, o, d, t_max)
+        it = si.scene_intersect(scene, o, d, t_max, accel)
         if n_l > 0:
             hl = torch.where(it.valid & alive, it.light, -1)
             le = lt.area_light_emitted(scene, torch.clamp(hl, min=0), it.ns, it.wo)
@@ -127,10 +128,10 @@ def _direct_radiance(scene, max_depth, sample_all, cfg_s, ctx, ray_o, ray_d):
         ctx_d = smpl.with_dims(cfg_s, ctx, dim0, n_dims)
         if n_l > 0:
             if sample_all:
-                ld = uniform_sample_all_lights(scene, cfg_s, ctx_d, it, b, ss, ts, dim0)
+                ld = uniform_sample_all_lights(scene, cfg_s, ctx_d, it, b, ss, ts, dim0, accel)
             else:
                 ld = uniform_sample_one_light(scene, cfg_s, ctx_d, it, b, ss, ts, dim0,
-                                              light_dist)
+                                              light_dist, accel)
             L = L + torch.where(alive[:, None], beta * ld, 0.0)
 
         # the specular continuation only
@@ -148,12 +149,14 @@ def _direct_radiance(scene, max_depth, sample_all, cfg_s, ctx, ray_o, ray_d):
     return L
 
 
-def whitted_radiance(scene, wcfg: WhittedCfg, cfg_s, ctx, ray_o, ray_d):
+def whitted_radiance(scene, wcfg: WhittedCfg, cfg_s, ctx, ray_o, ray_d, accel=None):
     """Whitted (whitted.rs): direct light from every light without MIS and
     the specular recursion (integrator.rs:259-294)."""
-    return _direct_radiance(scene, wcfg.max_depth, True, cfg_s, ctx, ray_o, ray_d)
+    return _direct_radiance(scene, wcfg.max_depth, True, cfg_s, ctx, ray_o, ray_d, accel)
 
 
-def directlighting_radiance(scene, dcfg: DirectLightingCfg, cfg_s, ctx, ray_o, ray_d):
+def directlighting_radiance(scene, dcfg: DirectLightingCfg, cfg_s, ctx, ray_o, ray_d,
+                            accel=None):
     """DirectLighting (directlighting.rs) with the "all" or "one" strategy."""
-    return _direct_radiance(scene, dcfg.max_depth, dcfg.sample_all, cfg_s, ctx, ray_o, ray_d)
+    return _direct_radiance(scene, dcfg.max_depth, dcfg.sample_all, cfg_s, ctx, ray_o, ray_d,
+                            accel)

@@ -1,12 +1,17 @@
 """Path integrator with NEE, MIS and Russian roulette.
 
 The port of the JAX package's ``models/integrators/path.py`` (reference
-src/integrators/path.rs:59-281) for the scenes the bounce kernel renders:
-all-matte, triangles only, lit by triangle-range area lights, sampled with
-Sobol'.  Every bounce is one launch of K2 (``ops/path_kernel.py``).  The
-general wavefront bounce, which serves every other scene, is not ported
-yet (ROADMAP queue A); the shading-frame helpers that the direct-lighting
-integrators share with it are.
+src/integrators/path.rs:59-281, integrator.rs:359-570) with its fixed-depth
+loop (the JAX ``radiance(..., regen=False)``).  Scenes the bounce kernel
+takes (all matte, triangles only, lit by triangle-range area lights, see
+``ops/path_kernel.mega_cfg``) run one K2 launch per bounce.  Every other
+ported scene takes the general wavefront bounce: each bounce intersects
+(K5, or B1 through the scene's BVH), adds emission with MIS, samples one
+light by power with a shadow ray (K4, or B2), samples the BSDF and plays
+Russian roulette, in plain PyTorch around the kernels; the bounce dims of
+all bounces are drawn in one K1 launch.  Path regeneration, subsurface
+scattering, environment lights, bump maps, ray differentials, spatial
+light selection and samplers other than Sobol' are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,10 +20,14 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ...ops import bsdf as bx
 from ...ops import path_kernel as pk
 from ...ops import sampling as smp
+from ...ops import scene_intersect as si
+from ...ops import sobol_kernel as sk
 from ...scene import arrays as sa
 from ...utils import vecmath as vm
+from .. import lights as lt
 from .. import samplers as smpl
 
 # per-bounce sampler dimensions after the camera's 0-4:
@@ -56,19 +65,138 @@ class PathCfg(NamedTuple):
     rr_threshold: float  # Russian roulette after bounce 3 (path.rs:254)
 
 
-def radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
-             ctx: smpl.SampleCtx, ray_o: torch.Tensor, ray_d: torch.Tensor,
-             mega: Optional[pk.MegaCfg] = None) -> torch.Tensor:
-    """(N, 3) radiance along N camera rays.  Light selection is by power.
-    mega: the scene's MegaCfg when the caller has it already."""
-    if mega is None:
-        mega = pk.mega_cfg(scene)
-    if mega is None:
-        raise NotImplementedError(
-            "this scene needs the general path bounce, which is not ported yet "
-            "(ROADMAP slice 2); the port renders all-matte triangle scenes lit by "
-            "triangle area lights")
+def check_supported(scene: sa.Scene, sampler_cfg: smpl.SamplerCfg, accel=None):
+    """Raises NotImplementedError for what the general bounce cannot render
+    yet.  Bump maps and ray differentials come with textures, which the
+    material check refuses."""
+    si.check_supported(scene, accel)
+    bx.check_supported(scene)
+    lt.check_supported(scene)
+    if scene.has_subsurface:
+        raise NotImplementedError("subsurface scattering is not ported yet (ROADMAP queue A)")
+    if scene.has_env:
+        raise NotImplementedError("environment lights are not ported yet (ROADMAP queue A)")
     if sampler_cfg.kind != smpl.SOBOL:
         raise NotImplementedError("the path integrator is ported for the Sobol' sampler only")
-    return pk.mega_radiance(scene, mega, cfg.max_depth, cfg.rr_threshold, ctx.global_index,
-                            smpl.index_bits(sampler_cfg), DIM_CAMERA, ray_o, ray_d)
+
+
+def _add_emitted(scene, light_dist, it, o, L, beta, alive, specular_bounce, prev_bsdf_pdf):
+    """Emitted radiance at a hit, MIS-weighted against light sampling
+    (path.rs:97-116)."""
+    if scene.n_lights == 0:
+        return L
+    hit_light = torch.where(it.valid & alive, it.light, -1)
+    light = torch.clamp(hit_light, min=0)
+    le = lt.area_light_emitted(scene, light, it.ns, it.wo)
+    le = torch.where((hit_light >= 0)[:, None], le, 0.0)
+    light_pdf = (smp.distribution_1d_discrete_pdf(light_dist, light)
+                 * lt.pdf_li_area(scene, light, o, it.p, it.ns))
+    w_bsdf = torch.where(specular_bounce, 1.0, smp.power_heuristic(prev_bsdf_pdf, light_pdf))
+    return L + beta * le * w_bsdf[:, None]
+
+
+def _shade_and_extend(scene, cfg: PathCfg, accel, light_dist, dims, bounce: int, it, state):
+    """One vertex's shading: the BSDF, NEE with MIS, the BSDF-sampled
+    extension and Russian roulette (path.rs:117-262).  dims: (N, 7) this
+    bounce's samples.  No ported lobe transmits, so the JAX package's
+    eta_scale stays 1 and is left out."""
+    o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf = state
+    b = bx.make_bsdf_at(scene, it)
+    ss, ts = _shading_frame_du(it.ns, it.dpdu)
+    wo_l = _to_local(it.wo, ss, ts, it.ns)
+
+    if scene.n_lights > 0:
+        li_idx, sel_pdf, _ = smp.sample_distribution_1d_discrete(light_dist, dims[:, 0])
+        ls = lt.sample_li(scene, li_idx, it.p, dims[:, 1:3])
+        wi_l = _to_local(ls.wi, ss, ts, it.ns)
+        reflect = vm.dot(ls.wi, it.ng) * vm.dot(it.wo, it.ng) > 0.0
+        f = bx.bsdf_f(b, wo_l, wi_l, reflect) * bx.abs_cos_theta(wi_l)[:, None]
+        scat_pdf = bx.bsdf_pdf(b, wo_l, wi_l)
+        contrib_ok = (alive & bx.has_nonspecular(b) & (ls.pdf > 0.0) & (ls.li > 0.0).any(-1)
+                      & (f > 0.0).any(-1))
+        p_shadow = vm.offset_ray_origin(it.p, it.p_error, it.ng, ls.wi)
+        delta_sh = ls.p_target - p_shadow
+        dist = vm.length(delta_sh)
+        sh_d = delta_sh / torch.clamp(dist, min=1e-12)[:, None]
+        # lanes without a contribution cast nothing: t_max = -1
+        sh_t = torch.where(contrib_ok, dist * (1.0 - 1e-3), -1.0)
+        occluded = si.scene_intersect_p(scene, p_shadow, sh_d, sh_t, accel)
+        w_light = torch.where(ls.is_delta, 1.0, smp.power_heuristic(ls.pdf, scat_pdf))
+        inv_pdf = (w_light / torch.clamp(sel_pdf, min=1e-12)) / torch.clamp(ls.pdf, min=1e-12)
+        ld = beta * f * ls.li * inv_pdf[:, None]
+        L = L + torch.where((contrib_ok & ~occluded)[:, None], ld, 0.0)
+
+    bs = bx.bsdf_sample(b, wo_l, dims[:, 3:5], dims[:, 5])
+    wi_w = _to_world(bs.wi, ss, ts, it.ns)
+    cos_wi = vm.absdot(wi_w, it.ns)
+    ok = (bs.pdf > 0.0) & (bs.f > 0.0).any(-1)
+    beta_next = beta * bs.f * (cos_wi / torch.clamp(bs.pdf, min=1e-12))[:, None]
+    beta = torch.where((alive & ok)[:, None], beta_next, beta)
+    alive = alive & ok
+    specular_bounce = torch.where(alive, bs.is_specular, specular_bounce)
+    prev_bsdf_pdf = torch.where(alive, torch.where(bs.is_specular, 1.0, bs.pdf), prev_bsdf_pdf)
+    o = torch.where(alive[:, None], vm.offset_ray_origin(it.p, it.p_error, it.ng, wi_w), o)
+    d = torch.where(alive[:, None], wi_w, d)
+
+    if bounce > 2:  # Russian roulette (path.rs:253-262)
+        rr_beta_max = beta.max(-1).values
+        q = torch.clamp(1.0 - rr_beta_max, min=0.05)
+        consider = (rr_beta_max < cfg.rr_threshold) & alive
+        kill = consider & (dims[:, 6] < q)
+        beta = torch.where((consider & ~kill)[:, None],
+                           beta / torch.clamp(1.0 - q, min=1e-6)[:, None], beta)
+        alive = alive & ~kill
+    return o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf
+
+
+def general_radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
+                     ctx: smpl.SampleCtx, ray_o: torch.Tensor, ray_d: torch.Tensor,
+                     accel=None) -> torch.Tensor:
+    """(N, 3) radiance along N camera rays through the general wavefront
+    bounce, max_depth bounces and then a pass that only collects emission
+    (path.py:474-592 with regen=False)."""
+    check_supported(scene, sampler_cfg, accel)
+    n, dev = ray_o.shape[0], ray_o.device
+    light_dist = _light_select_dist(scene) if scene.n_lights > 0 else None
+    # every bounce's dims in one K1 launch where K1 takes them all (JAX
+    # hoists up to 128 dims), else one launch a bounce
+    total_dims = DIMS_PER_BOUNCE * cfg.max_depth
+    all_dims = (smpl.get_dims(sampler_cfg, ctx, DIM_CAMERA, total_dims)
+                if 0 < total_dims <= sk.MAX_DIMS else None)
+    o, d = ray_o.contiguous(), ray_d.contiguous()
+    L = torch.zeros((n, 3), device=dev)
+    beta = torch.ones((n, 3), device=dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    specular_bounce = torch.ones(n, dtype=torch.bool, device=dev)
+    prev_bsdf_pdf = torch.ones(n, device=dev)
+    inf = float(vm.INFINITY)
+    for bounce in range(cfg.max_depth):
+        # dead lanes cast with t_max = -1, which the traversal ends at once
+        it = si.scene_intersect(scene, o, d, torch.where(alive, inf, -1.0), accel)
+        L = _add_emitted(scene, light_dist, it, o, L, beta, alive, specular_bounce,
+                         prev_bsdf_pdf)
+        alive = alive & it.valid
+        k0 = bounce * DIMS_PER_BOUNCE
+        dims = (all_dims[:, k0:k0 + DIMS_PER_BOUNCE] if all_dims is not None else
+                smpl.get_dims(sampler_cfg, ctx, DIM_CAMERA + k0, DIMS_PER_BOUNCE))
+        o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf = _shade_and_extend(
+            scene, cfg, accel, light_dist, dims, bounce, it,
+            (o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf))
+    # the last vertex only collects emission
+    it = si.scene_intersect(scene, o, d, torch.where(alive, inf, -1.0), accel)
+    return _add_emitted(scene, light_dist, it, o, L, beta, alive, specular_bounce, prev_bsdf_pdf)
+
+
+def radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
+             ctx: smpl.SampleCtx, ray_o: torch.Tensor, ray_d: torch.Tensor,
+             mega: Optional[pk.MegaCfg] = None, accel=None) -> torch.Tensor:
+    """(N, 3) radiance along N camera rays.  Light selection is by power.
+    mega: the scene's MegaCfg when the caller has it already; as in the JAX
+    package, a scene passed with an accel never takes the bounce kernel.
+    K2 where the scene qualifies, else the general bounce."""
+    if mega is None and accel is None:
+        mega = pk.mega_cfg(scene)
+    if mega is not None and cfg.max_depth > 0 and sampler_cfg.kind == smpl.SOBOL:
+        return pk.mega_radiance(scene, mega, cfg.max_depth, cfg.rr_threshold, ctx.global_index,
+                                smpl.index_bits(sampler_cfg), DIM_CAMERA, ray_o, ray_d)
+    return general_radiance(scene, cfg, sampler_cfg, ctx, ray_o, ray_d, accel)

@@ -150,6 +150,30 @@ def sample_li(scene: sa.Scene, light_idx, ref_p, u2) -> LiSample:
     return LiSample(wi, li, pdf, p_area, n_area, is_delta)
 
 
+def pdf_li_area(scene: sa.Scene, light_idx, ref_p, p_hit, n_hit):
+    """The solid-angle pdf with which sample_li on area light light_idx
+    would have picked the direction from ref_p toward p_hit (with normal
+    n_hit there), for BSDF-sampling MIS (shape.rs pdf_with_ref_point)."""
+    la = scene.light_attr[light_idx.long()]
+    d = p_hit - ref_p
+    d2 = torch.clamp(vm.length_squared(d), min=1e-12)
+    wi = d / torch.sqrt(d2)[:, None]
+    cos_l = vm.dot(n_hit, wi).abs()
+    area = torch.clamp(la[:, sa.LP_AREA], min=1e-12)
+    pdf = d2 / torch.clamp(cos_l * area, min=1e-12)
+    pdf = torch.where(cos_l < 1e-7, 0.0, pdf)
+    if scene.has_sphere_lights:
+        # sphere lights sample a uniform cone from outside (sphere.rs),
+        # as _area_sample_sphere does
+        center, radius, _ = _sphere_light_geom(scene, la)
+        dc2 = torch.clamp(vm.length_squared(center - ref_p), min=1e-20)
+        r2 = radius * radius
+        cos_t_max = torch.sqrt(torch.clamp(1.0 - torch.clamp(r2 / dc2, 0.0, 1.0), min=0.0))
+        is_sph = torch.round(la[:, sa.LA_GEOM]) == sa.ALG_SPHERE
+        pdf = torch.where(is_sph & (dc2 > r2), smp.uniform_cone_pdf(cos_t_max), pdf)
+    return pdf
+
+
 def area_light_emitted(scene: sa.Scene, light_idx, n_hit, wo):
     """L() of a hit area light (lights/diffuse.rs l()): its radiance where
     wo leaves the emitting side, for light_idx >= 0."""

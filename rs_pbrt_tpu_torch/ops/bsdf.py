@@ -140,6 +140,13 @@ def num_components(b: Bsdf):
     return (b.kind0 != LOBE_NONE).to(torch.int32) + (b.kind1 != LOBE_NONE).to(torch.int32)
 
 
+def has_nonspecular(b: Bsdf):
+    """Any non-specular lobe in either slot (Bsdf::num_components without
+    BSDF_SPECULAR)."""
+    non = lambda k: (k != LOBE_NONE) & (k != LOBE_SPEC_REFL)
+    return non(b.kind0) | non(b.kind1)
+
+
 def _lobe_f(kind, color, b: Bsdf, wo, wi, reflect):
     """One lobe slot's f for all lanes (specular lobes give 0)."""
     out = torch.where((kind == LOBE_LAMBERT)[:, None], color * INV_PI, 0.0)

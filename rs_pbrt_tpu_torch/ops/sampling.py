@@ -106,3 +106,9 @@ def sample_distribution_1d_discrete(dist: Distribution1D, u: torch.Tensor):
     pdf = torch.where(dist.func_int > 0.0, f / torch.clamp(dist.func_int * n, min=1e-30), 0.0)
     u_remapped = torch.where(c1 > c0, (u - c0) / torch.clamp(c1 - c0, min=1e-30), 0.0)
     return o, pdf, u_remapped
+
+
+def distribution_1d_discrete_pdf(dist: Distribution1D, index: torch.Tensor) -> torch.Tensor:
+    """The probability of picking entry `index` (sampling.rs:105 pdf)."""
+    n = dist.func.shape[-1]
+    return dist.func[index.long()] / torch.clamp(dist.func_int * n, min=1e-30)

@@ -2,30 +2,78 @@
 
 The port of the JAX package's ``ops/scene_intersect.py`` (reference
 src/core/scene.rs:55-106, interaction.rs) for scenes of triangles and
-analytic spheres.  Triangles go through the sweep kernels of
-``ops/intersect_kernel.py``, as they go through the Pallas kernels on the
-TPU: the closest hit with its record through K5 (``full_sweep``), shadow
-rays through K4 (``any_sweep``); K3 (``closest_sweep``) serves
-``dense_tri_hit``.  Spheres are tested in plain PyTorch, as the JAX
-package tests them in XLA.  Curves, instances, animated triangles, alpha
-masks, cylinders, disks and scenes past the brute-force limit raise.
+analytic spheres.  Up to ``BRUTE_FORCE_MAX_TRIS`` triangles go through the
+sweep kernels of ``ops/intersect_kernel.py``, as they go through the
+Pallas kernels on the TPU: the closest hit with its record through K5
+(``full_sweep``), shadow rays through K4 (``any_sweep``); K3
+(``closest_sweep``) serves ``dense_tri_hit``.  Larger triangle sets go
+through their 12-wide BVH (``build_accel``): the closest hit through B1
+and shadow rays through B2 (``ops/bvh.py``), the hit record from
+``ops/record.tri_record``.  Spheres are tested in plain PyTorch, as the
+JAX package tests them in XLA.  Curves, instances, animated triangles,
+alpha masks, cylinders and disks raise.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from ..device import resolve
 from ..scene import arrays as sa
 from ..utils import transform as tr
 from ..utils import vecmath as vm
+from . import bvh
+from . import bvh_native
 from . import intersect as isect
 from . import intersect_kernel as ik
+from .record import tri_record
 
-# below this triangle count the JAX package sweeps densely; above it, it
-# traverses a BVH (not ported yet)
+# up to this triangle count the triangles are swept densely; above it they
+# are traversed through their BVH
 BRUTE_FORCE_MAX_TRIS = 4096
+
+
+class Accel(NamedTuple):
+    """The triangle family's 12-wide BVH (scene_intersect.Accel of the JAX
+    package, with its wide12 rows); tri None: the triangles are swept."""
+
+    tri: Optional[torch.Tensor] = None  # (M, 128) f32 wide12 rows
+    tri_depth: int = 0  # the wide tree's depth (its traversal stack size)
+
+
+def build_accel(scene: sa.Scene, kind: str = "bvh", device="cuda") -> Accel:
+    """The scene's accelerator on `device`, built on the host: an SAH BVH
+    collapsed into 12-wide rows (ops/bvh_native.py) for more than
+    BRUTE_FORCE_MAX_TRIS triangles, else none.  kind: "bvh" (the
+    reference's default, api.rs:528); the kd-tree is not ported."""
+    if kind != "bvh":
+        raise NotImplementedError(f"accelerator {kind!r} is not ported yet (ROADMAP queue A); "
+                                  "the port builds 'bvh'")
+    dev = resolve(device)
+    if scene.n_tris <= BRUTE_FORCE_MAX_TRIS:
+        return Accel()
+    tris = scene.tri_attr[:scene.n_tris, sa.TA_P0:sa.TA_P0 + 9].cpu().numpy()
+    p0, p1, p2 = tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]
+    rows, depth = bvh_native.build_lbvh_native(np.minimum(np.minimum(p0, p1), p2),
+                                               np.maximum(np.maximum(p0, p1), p2), (p0, p1, p2))
+    return Accel(torch.as_tensor(rows, device=dev), depth)
+
+
+def accel_from_numpy(rows, depth: int, device="cuda") -> Accel:
+    """Accel from wide12 rows and depth built elsewhere, as the JAX package
+    holds them: ``rows = build_accel(...).tri.wide128`` and ``depth =
+    wide128_dflag.shape[0]`` (scene_from_numpy's counterpart for the tree)."""
+    rows = np.asarray(rows, np.float32)
+    if rows.ndim != 2 or rows.shape[1] != bvh.W12_COLS:
+        raise ValueError(f"wide12 rows must be (M, {bvh.W12_COLS}), not {rows.shape}")
+    return Accel(torch.tensor(rows, device=resolve(device)), int(depth))
+
+
+def _uses_bvh(scene: sa.Scene, accel: Optional[Accel]) -> bool:
+    return accel is not None and accel.tri is not None and scene.n_tris > BRUTE_FORCE_MAX_TRIS
 
 
 class Interaction(NamedTuple):
@@ -43,19 +91,22 @@ class Interaction(NamedTuple):
     dpdu: torch.Tensor  # (N,3) surface u-tangent (the BSDF frame's x axis)
 
 
-def check_supported(scene: sa.Scene):
+def check_supported(scene: sa.Scene, accel: Optional[Accel] = None):
     """Raises NotImplementedError for what the port cannot intersect yet."""
     missing = [name for name, present in (
         ("curves", scene.n_curve_segs), ("instances", scene.n_instances),
         ("animated triangles", scene.n_anim_tris), ("alpha masks", scene.has_alpha),
         ("cylinders", scene.quad_kind_mask & (1 << sa.QK_CYLINDER)),
         ("disks", scene.quad_kind_mask & (1 << sa.QK_DISK)),
-        (f"more than {BRUTE_FORCE_MAX_TRIS} triangles (the BVH)",
-         scene.n_tris > BRUTE_FORCE_MAX_TRIS),
     ) if present]
     if missing:
         raise NotImplementedError(f"scene intersection of {', '.join(missing)} is not ported "
                                   "yet (ROADMAP queue A)")
+    if scene.n_tris > BRUTE_FORCE_MAX_TRIS and not _uses_bvh(scene, accel):
+        raise NotImplementedError(f"more than {BRUTE_FORCE_MAX_TRIS} triangles need their BVH: "
+                                  "pass accel=build_accel(scene)")
+    if accel is not None and accel.tri is not None and accel.tri.device != scene.device:
+        raise ValueError(f"the accel lies on {accel.tri.device}, the scene on {scene.device}")
 
 
 def dense_tri_hit(scene: sa.Scene, o, d, t_max) -> isect.TriHit:
@@ -122,14 +173,22 @@ def sphere_interaction(scene: sa.Scene, sph_idx, p_obj, phi):
     return p, p_err, ng, ng, torch.stack([u, v], -1), mat, light, dpdu
 
 
-def scene_intersect(scene: sa.Scene, o, d, t_max) -> Interaction:
+def scene_intersect(scene: sa.Scene, o, d, t_max, accel: Optional[Accel] = None) -> Interaction:
     """Closest hit of rays o, d (N, 3) within t_max (N,): triangles through
-    K5, then spheres against the triangle hit's distance."""
-    check_supported(scene)
+    K5, or through B1 and the record where the scene has its BVH, then
+    spheres against the triangle hit's distance."""
+    check_supported(scene, accel)
     n = o.shape[0]
     dev = o.device
     zero3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    if scene.n_tris > 0:
+    if _uses_bvh(scene, accel):
+        th = bvh.bvh12_intersect_tris(o, d, t_max, accel.tri, accel.tri_depth)
+        rec = tri_record(scene.tri_attr, th.tri, th.b0, th.b1)
+        tv, tt, tprim = th.valid, th.t, th.tri
+        tp, tperr, tng, tns, tuv, tdpdu = (torch.stack(v, -1) for v in (
+            rec.p, rec.p_err, rec.ng, rec.ns, rec.uv, rec.dpdu))
+        tmat, tlight = torch.where(tv, rec.mat, 0), torch.where(tv, rec.light, -1)
+    elif scene.n_tris > 0:
         fh = ik.full_sweep(o, d, t_max, scene.tri_attr, scene.n_tris)
         tv, tt, tprim = fh.valid, fh.rows[ik.F_T], fh.ids[ik.I_PRIM]
         tp, tperr, tng, tns = (fh.vec(ik.F_P), fh.vec(ik.F_P_ERR), fh.vec(ik.F_NG),
@@ -166,12 +225,15 @@ def scene_intersect(scene: sa.Scene, o, d, t_max) -> Interaction:
     )
 
 
-def scene_intersect_p(scene: sa.Scene, o, d, t_max) -> torch.Tensor:
-    """Any hit (shadow ray) within t_max: triangles through K4, then the
-    spheres."""
-    check_supported(scene)
+def scene_intersect_p(scene: sa.Scene, o, d, t_max, accel: Optional[Accel] = None) -> torch.Tensor:
+    """Any hit (shadow ray) within t_max: triangles through K4, or B2 where
+    the scene has its BVH, then the spheres."""
+    check_supported(scene, accel)
     occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
-    if scene.n_tris > 0:
+    if _uses_bvh(scene, accel):
+        occ = occ | bvh.bvh12_intersect_tris(o, d, t_max, accel.tri, accel.tri_depth,
+                                             any_hit=True)
+    elif scene.n_tris > 0:
         occ = occ | dense_tri_hit_p(scene, o, d, t_max)
     if scene.n_spheres > 0:
         occ = occ | sphere_hits(scene, o, d, t_max)[0]

@@ -17,8 +17,12 @@ import torch
 
 from rs_pbrt_tpu_torch import device as devmod
 from rs_pbrt_tpu_torch.models import cameras as cam
+from rs_pbrt_tpu_torch.ops import bvh
 from rs_pbrt_tpu_torch.ops import film as filmmod
+from rs_pbrt_tpu_torch.ops import gather_probe as gp
+from rs_pbrt_tpu_torch.ops import scene_intersect as si
 from rs_pbrt_tpu_torch.scene import arrays as sa
+from rs_pbrt_tpu_torch.scene import bigscene
 from rs_pbrt_tpu_torch.scene import presets
 from rs_pbrt_tpu_torch.scene.builder import SceneBuilder
 from rs_pbrt_tpu_torch.utils import transform as tr
@@ -57,6 +61,13 @@ ENTRY_POINTS = {
     "make_perspective": lambda: cam.make_perspective(tr.look_at((0, 0, -1), (0, 0, 0), (0, 1, 0)),
                                                      (8, 8)),
     "make_film": lambda: filmmod.make_film((8, 8)),
+    "statue_scene": lambda: bigscene.statue_scene((8, 8), subdivisions=1),
+    "build_accel": lambda: si.build_accel(presets.cornell_box((8, 8), device="cpu")[0]),
+    # a user reaches the traversal and the probe with tensors made on the
+    # default device
+    "bvh12_intersect_tris": lambda: bvh.bvh12_intersect_tris(
+        *[torch.zeros(1, 3)] * 2, torch.ones(1), *si.accel_from_numpy(np.zeros((1, 128)), 0)),
+    "take_rows": lambda: gp.take_rows(*gp.probe_inputs()),
 }
 
 
