@@ -6,24 +6,35 @@
 Run from the root of a checkout.  Phases, one line each (or more):
 
 1. device: the card's name and power limit (nvidia-smi).
-2. build: every CUDA source of rs_pbrt_tpu_torch/csrc, compiled by nvcc.
+2. build: every CUDA source of rs_pbrt_tpu_torch/csrc, compiled by nvcc;
+   each kernel's registers, shared memory and stack frame (-Xptxas -v).
 3. K1 (Sobol' dims) against its plain PyTorch version on 2^22 lanes, for
    32- and 52-bit indices: the outputs must be bit-equal.
 4. K2 (one path-tracer bounce) against its plain version, one bounce and
    the emit-only launch, on the Cornell camera rays at 256x256x4 spp:
    all 13 lane rows (o, d, beta, L, prev_pdf) within rtol = atol = 2e-3,
-   no lane alive in one and dead in the other.
+   no lane alive in one and dead in the other; each with the sweeps'
+   shear picked by index (what a table of finite vertices gets) and in the
+   one-hot form.  K2 updates the lane state in place, so the kernel gets a
+   copy of the inputs the plain version gets.  Then every launch of a
+   256x256x4 spp render of tools/k2_replay.curtain_scene, 2,028 triangles
+   (near K2's largest table, which stays in device memory), held against
+   the plain version as above and timed on replays of its inputs.
 5. the flagship render through the entry points a user calls: the Cornell
    box at 256x256, 64 spp in one batch, path integrator, depth 5.  The
    launch counters are zeroed just before it and read just after: K1 once,
    K2 max_depth + 1 times.  Each of that run's launches is held against
-   its plain version on the same inputs (K1 bit-equal, K2 as in phase 4),
-   and the plain bounce counts the lanes of each step for K2's bound.  The
+   its plain version on the same inputs (K1 bit-equal, K2 as in phase 4;
+   K2's inputs and outputs are copied as the run makes them, since each
+   launch overwrites them), and the plain bounce counts the lanes of each
+   step for K2's bound.  The
    image must be finite and match the same render with every kernel
    wrapper swapped for its plain version, at rtol = atol = 2e-3.  Then
    camera paths/s (best of 3 warm renders), the device time by op over one
    render (torch.profiler) and each kernel's time per launch from CUDA
-   events.  K3-K5 must not launch in it.
+   events; per K2 launch its live lanes, its bound and its share of it,
+   beside the one-thread-per-lane kernel's times, recorded in an earlier run
+   and printed as such.  K3-K5 must not launch in it.
 6. K3, K4, K5 (the triangle sweeps) against their plain versions on two
    inputs: the spheres_direct camera rays at 256x256x64 spp (4,194,304
    rays, t_max = FLT_MAX) on its 4 triangles, and 262,144 random rays
@@ -61,9 +72,15 @@ Run from the root of a checkout.  Phases, one line each (or more):
    against bvh12_intersect_plain on the same inputs (valid, tri, t, b0,
    b1 equal), every K1 launch bit-equal; the image must be finite and
    within rtol = atol = 2e-3 of the render with B1, B2 and K1 swapped for
-   their plain versions.  Then paths/s (best of 3 warm renders), the
-   device time by op, and each kernel's time per launch beside its bound
-   (counted from the rows each ray visits).
+   their plain versions.  B1 and B2 also run on the hand-built tie and NaN
+   tree of rs_pbrt_tpu_torch/tools/bvh_ties.py, bit-equal to the plain
+   traversal.  Then paths/s (best of 3 warm renders), the device time by
+   op, and each kernel's time per launch beside its bound (counted from the
+   rows each ray visits), with B1's rays/s and row visits/s.  B1's and
+   B2's times are the events around each call, as for every kernel, and
+   beside them (device_ms in the JSON line) their device times, each
+   launch's recorded inputs replayed behind a sleeping kernel: in this
+   host-bound render the events also time the host's share of a call.
 
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
@@ -71,11 +88,13 @@ Then one JSON line with every kernel's numbers, and as the last line
 
 from __future__ import annotations
 
+import io
 import json
+import re
 import subprocess
 import sys
 import time
-from contextlib import ExitStack
+from contextlib import ExitStack, redirect_stdout
 from pathlib import Path
 from unittest import mock
 
@@ -121,7 +140,18 @@ K2_FLOP = dict(
     rr=1,  # Russian roulette's q, per continuing lane
     rr_keep=5,  # the surviving lanes' beta / (1 - q)
 )
-LANE_BYTES = 13 * 4 * 2 + 4 * 2  # the 13 f32 rows and alive, in and out
+ALIVE_BYTES = 4  # every lane's alive flag, read
+LIVE_LANE_BYTES = 13 * 4 * 2 + 4  # a live lane's 13 f32 rows in and out, its alive out
+# K2 and B1 as they were before their redesign (one thread a lane, one
+# thread a ray), from this script on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (PERF.md): K2's times per launch in the flagship render (CUDA events; the
+# card is busy there, so they are its device time); B1's per launch in the
+# statue render as the events around each call timed them (the render is
+# host-bound, so they hold the wrapper's host time too), and its device
+# time over those six launches from the profiler
+PREV_K2_MS = (1.536, 1.508, 1.514, 1.516, 0.994, 0.464)
+PREV_B1_MS = (0.841, 1.381, 0.984, 0.713, 0.363, 0.299)
+PREV_B1_DEVICE_MS = 3.552
 # K3-K5's f32 arithmetic, counted as K2_FLOP is in csrc/intersect.cu,
 # csrc/watertight.cuh and csrc/record.cuh
 ISECT_FLOP = dict(
@@ -196,19 +226,28 @@ def queued_ms(fn, reps: int) -> float:
 class LaunchTimer:
     """Wraps a kernel wrapper (or its plain version) to record CUDA events
     around every call, keeping the call's arguments (and with keep, its
-    outputs) for the checks and the bound."""
+    outputs) for the checks and the bound.  copy: keep copies of the tensor
+    arguments taken before the call and of the outputs taken after it, for a
+    wrapper that updates its arguments in place (K2)."""
 
-    def __init__(self, fn, keep: bool = False):
+    def __init__(self, fn, keep: bool = False, copy: bool = False):
         import torch
 
-        self.fn, self.torch, self.keep, self.calls = fn, torch, keep, []
+        self.fn, self.torch, self.keep, self.copy, self.calls = fn, torch, keep, copy, []
+
+    def _copied(self, xs):
+        return tuple(x.clone() if self.torch.is_tensor(x) else x for x in xs)
 
     def __call__(self, *args, **kw):
+        kept = self._copied(args) if self.copy else args
         ev = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
         out = self.fn(*args, **kw)
         ev[1].record()
-        self.calls.append((ev, args, kw, out if self.keep else None))
+        kept_out = None
+        if self.keep:
+            kept_out = self._copied(out) if self.copy else out
+        self.calls.append((ev, kept, kw, kept_out))
         return out
 
     def times_ms(self):
@@ -219,17 +258,19 @@ class LaunchTimer:
 def k2_bound_ms(work, args, kw):
     """Least time of one bounce launch on these inputs, as (bytes_ms,
     operations_ms); the bound is the larger.  work: the lane counts of each
-    step, from bounce_plain on the same inputs.  Bytes: every lane's rows in
-    and out, the index of the lanes that draw Sobol' samples, the tables the
-    launch reads.  Operations: K2_FLOP per step times its lanes."""
+    step, from bounce_plain on the same inputs.  Bytes, as the function
+    needs them whatever implements it: every lane's alive flag; each live
+    lane's 13 rows in and out and its alive out; the index of the lanes that
+    draw Sobol' samples; the tables the launch reads, once.  Operations:
+    K2_FLOP per step times its lanes."""
     lanes, _alive, _index, tables, cfg = args
     f, w = K2_FLOP, work
     flop = w["live"] * (f["ray"] + cfg.n_tri * f["tri_closest"])
     flop += w["hit"] * (f["hit"] + (f["emit_first"] if kw["first_bounce"] else f["emit_mis"]))
     flop += w["hit_normals"] * f["hit_normals"]
     row = tables.tris.shape[1] * 4
-    nbytes = (lanes.shape[1] * LANE_BYTES + cfg.n_tri * row + tables.lattr.numel() * 4
-              + tables.lsel.numel() * 4)
+    nbytes = (lanes.shape[1] * ALIVE_BYTES + w["live"] * LIVE_LANE_BYTES + cfg.n_tri * row
+              + tables.lattr.numel() * 4 + tables.lsel.numel() * 4)
     if not kw["emit_only"]:
         flop += w["hit"] * (f["shade_record"] + f["shade"] + f["sample"])
         flop += w["light_normals"] * f["light_normals"]
@@ -372,13 +413,43 @@ def phase_device():
     return card
 
 
+def ptxas_resources(log: str) -> list:
+    """(source, kernel, registers, shared-memory bytes, stack-frame bytes)
+    of each entry function in nvcc -Xptxas -v output."""
+    found, name, frame = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name, frame = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and name:
+            frame = int(m.group(1))
+            continue
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            # anonymous-namespace kernels: _ZN<n>_GLOBAL__N__<hash>_<n>_<file>_cu_<hash><n><kernel>E..
+            k = re.search(r"_GLOBAL__N__[0-9a-f]+_\d+_(\w+?)_cu_[0-9a-f]{8}(\d+)", name)
+            src, kernel = (k.group(1) + ".cu", name[k.end():k.end() + int(k.group(2))]) if k \
+                else ("?", name)
+            found.append((src, kernel, int(m.group(1)), int(m.group(2) or 0), frame))
+            name = None
+    return found
+
+
 def phase_build():
     from rs_pbrt_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    out = _build.build_all(verbose=True)
+    log = io.StringIO()
+    with redirect_stdout(log):
+        out = _build.build_all(verbose=True)
+    print(log.getvalue(), end="")
     print(f"[2 build] {sorted(p.name for p in out.glob('*.so'))} in "
           f"{time.perf_counter() - t0:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})", flush=True)
+    for src, kernel, regs, smem, frame in ptxas_resources(log.getvalue()):
+        print(f"[2 ptxas] {src} {kernel}: {regs} registers, {smem} bytes static shared memory, "
+              f"{frame} bytes stack frame", flush=True)
 
 
 def phase_k1(card):
@@ -407,13 +478,12 @@ def phase_k1(card):
     return worst
 
 
-def phase_k2(scene, camera):
-    import torch
-
+def phase_k2(card, scene, camera):
     from rs_pbrt_tpu_torch.models import samplers as smpl
     from rs_pbrt_tpu_torch.models.integrators import path as pathmod
     from rs_pbrt_tpu_torch.models.integrators import render as rdr
     from rs_pbrt_tpu_torch.ops import path_kernel as pk
+    from rs_pbrt_tpu_torch.tools import k2_replay
 
     cfg = pk.mega_cfg(scene)
     tables = pk.mega_tables(scene)
@@ -424,15 +494,35 @@ def phase_k2(scene, camera):
     kw = dict(dim_row=pathmod.DIM_CAMERA, n_bits=bits, first_bounce=True, rr_active=False,
               emit_only=False, rr_threshold=1.0)
     ekw = dict(kw, dim_row=0, first_bounce=False, emit_only=True)
+    if not tables.finite_verts:
+        fail("the Cornell box's triangle table holds a non-finite vertex")
     worst = 0.0
     for step, args in (("bounce", kw), ("emit-only", ekw)):
-        got = pk.bounce(lanes, alive, index, tables, cfg, **args)
         want = pk.bounce_plain(lanes, alive, index, tables, cfg, **args)
-        err = check_k2_launch(f"K2 {step}", got, want)
+        # both forms of the kernel's sweeps: the shear picked by index (a
+        # table of finite vertices, as here) and the one-hot form; the kernel
+        # updates its copy of the lane state in place
+        for form, tab in (("index", tables), ("one-hot", tables._replace(finite_verts=False))):
+            got = pk.bounce(lanes.clone(), alive.clone(), index, tab, cfg, **args)
+            err = check_k2_launch(f"K2 {step} ({form} form)", got, want)
+            worst = max(worst, err)
+            print(f"[4 K2] {step}, {lanes.shape[1]} lanes, {form} form: o, d, beta, L, prev_pdf "
+                  f"within {TOL} (max abs err {err:.3g}), alive equal", flush=True)
+        lanes, alive = want
+
+    # a table near K2's largest, which its sweeps read from device memory
+    calls = k2_replay.record_launches(*k2_replay.curtain_scene(RES, device=DEVICE), K2_SPP)
+    c_ms = []
+    for b, call in enumerate(calls):
+        err = check_k2_launch(f"K2 curtain launch {b}",
+                              pk.bounce(call[0].clone(), call[1].clone(), *call[2:5], **call[5]),
+                              pk.bounce_plain(*call[:5], **call[5]))
         worst = max(worst, err)
-        print(f"[4 K2] {step}, {lanes.shape[1]} lanes: o, d, beta, L, prev_pdf within {TOL} "
-              f"(max abs err {err:.3g}), alive equal", flush=True)
-        lanes, alive = got
+        c_ms.append(k2_replay.replay_ms(call))
+    print(f"[4 K2] curtain, {call[3].tris.shape[0]} triangles, {len(calls)} launches of "
+          f"{call[0].shape[1]} lanes: o, d, beta, L, prev_pdf within {TOL} (max abs err "
+          f"{worst:.3g}), alive equal; {', '.join(f'{t:.4f}' for t in c_ms)} ms, live lanes "
+          f"{[int(c[1].sum()) for c in calls]} ({card})", flush=True)
     return worst
 
 
@@ -475,6 +565,7 @@ def profile_render(go, tag: str, top: int = 12):
           f"({100 * busy / wall_ms:.1f}%); {len(rows)} device ops, the top {top}:", flush=True)
     for ms, count, key in sorted(rows, reverse=True)[:top]:
         print(f"[{tag}]   {ms:9.3f} ms {count:6d}x  {key[:90]}")
+    return rows
 
 
 def phase_render(card):
@@ -497,7 +588,8 @@ def phase_render(card):
 
     # the main path's run: the wrappers are recorded (arguments and outputs)
     # on their way to the kernels, which count their own launches
-    k1r, k2r = LaunchTimer(sk.sobol_dims, keep=True), LaunchTimer(pk.bounce, keep=True)
+    k1r = LaunchTimer(sk.sobol_dims, keep=True)
+    k2r = LaunchTimer(pk.bounce, keep=True, copy=True)
     with ExitStack() as es:
         es.enter_context(mock.patch.object(sk, "sobol_dims", k1r))
         es.enter_context(mock.patch.object(pk, "bounce", k2r))
@@ -527,6 +619,7 @@ def phase_render(card):
         k2_err = max(k2_err, check_k2_launch(f"flagship K2 launch {b}", out, want))
         k2_parts.append(k2_bound_ms(work, args, kw))
         k2_work.append(work)
+    k2_live = [w["live"] for w in k2_work]
     del k1r, k2r, k1_args, k1_out, k1_want, args, out, want
     print(f"[5 render] each flagship launch matches its plain version: K1 bit-equal, K2 "
           f"within {TOL} on all 13 lane rows (max abs err {k2_err:.3g}), alive equal", flush=True)
@@ -578,6 +671,13 @@ def phase_render(card):
           f"{', '.join(f'{t:.3f}' for t in k2_ms)} ms (bounds "
           f"{', '.join(f'{b:.4f}' for b in k2_bounds)} ms); plain render K1 "
           f"{p1t.times_ms()[0]:.3f} ms, K2 {', '.join(f'{t:.1f}' for t in p2_ms)} ms", flush=True)
+    for b, (t, bound, live) in enumerate(zip(k2_ms, k2_bounds, k2_live)):
+        old = PREV_K2_MS[b] if b < len(PREV_K2_MS) else float("nan")
+        print(f"[5 K2] launch {b}: {live} live lanes, {t:.4f} ms, bound {bound:.4f} ms, "
+              f"{100 * bound / t:.1f}% of it ({card}); recorded, not measured here: the "
+              f"one-thread-a-lane kernel {old:.3f} ms, {100 * bound / old:.1f}%", flush=True)
+    print(f"[5 K2] all launches {sum(k2_ms):.4f} ms, bounds {sum(k2_bounds):.4f} ms ({card}); "
+          f"recorded: the one-thread-a-lane kernel {sum(PREV_K2_MS):.3f} ms", flush=True)
     return dict(
         counts=counts, err=err,
         k1=dict(ms=[k1_ms], plain_ms=p1t.times_ms(), bound=[(k1_bound, 0.0)], max_abs_err=k1_err),
@@ -874,6 +974,7 @@ def phase_statue(card):
     from rs_pbrt_tpu_torch.ops import scene_intersect as si
     from rs_pbrt_tpu_torch.ops import sobol_kernel as sk
     from rs_pbrt_tpu_torch.scene import bigscene
+    from rs_pbrt_tpu_torch.tools import bvh_ties
 
     res, spp, depth = STATUE_RES, STATUE_SPP, DEPTH
     t0 = time.perf_counter()
@@ -925,6 +1026,7 @@ def phase_statue(card):
     bounds = {"closest": [], "any": []}
     errs = {"closest": 0.0, "any": 0.0}
     work_sum = {"closest": [0, 0], "any": [0, 0]}
+    b1_visits, b1_rays = [], []  # per B1 launch: rows visited, rays
     for b, (_, args, kw, out) in enumerate(rec["bvh12_intersect_tris"].calls):
         any_hit = kw.get("any_hit", False)
         key = "any" if any_hit else "closest"
@@ -935,10 +1037,26 @@ def phase_statue(card):
         bounds[key].append(bvh_bound_ms(args, work, any_hit))
         work_sum[key][0] += int(work["internal"].sum())
         work_sum[key][1] += int(work["leaf"].sum())
+        if not any_hit:
+            b1_visits.append(int(work["internal"].sum()) + int(work["leaf"].sum()))
+            b1_rays.append(args[0].shape[0])
+    # the inputs of each launch, replayed below for its device time
+    replays = [(args, kw) for _, args, kw, _ in rec["bvh12_intersect_tris"].calls]
     del rec, args, kw, out, plain
+    # the hand-built tree whose walks meet each tie and NaN rule
+    o_t, d_t, tm_t, rows_t, depth_t = bvh_ties.tie_case(DEVICE)
+    for any_hit in (False, True):
+        hit_t = bvh.bvh12_intersect_tris(o_t, d_t, tm_t, rows_t, depth_t, any_hit=any_hit)
+        key = "any" if any_hit else "closest"
+        errs[key] = max(errs[key], check_bvh(f"B{2 if any_hit else 1} on the tie case", any_hit,
+                                             hit_t, bvh.bvh12_intersect_plain(
+                                                 o_t, d_t, tm_t, rows_t, depth_t, any_hit)))
+    if int(overflow.item()):
+        fail("the BVH traversal stack overflowed on the tie case")
     print(f"[9 statue] each launch matches its plain version: B1 valid, tri, t, b0, b1 and B2 "
           f"equal, K1 bit-equal; stack overflows {n_overflow}; rows visited (internal, leaf) "
-          f"B1 {work_sum['closest']}, B2 {work_sum['any']}", flush=True)
+          f"B1 {work_sum['closest']}, B2 {work_sum['any']}; B1 and B2 equal to the plain "
+          f"traversal on the tie case ({o_t.shape[0]} rays)", flush=True)
 
     best = None
     for _ in range(3):
@@ -957,7 +1075,14 @@ def phase_statue(card):
                  for _, _, kw, _ in timers["bvh12_intersect_tris"].calls]
         runs.append({k: t.times_ms() for k, t in timers.items()})
     ms = {k: [min(col) for col in zip(*(r[k] for r in runs))] for k in names}
-    profile_render(go, "9 profile")
+    prof = {key: ms_ for ms_, _, key in profile_render(go, "9 profile")}
+    # each B1/B2 launch's device time: its recorded inputs replayed, queued
+    # behind a sleeping kernel (the events above also time the host's share
+    # of a call in this host-bound render)
+    dev_ms = [queued_ms(lambda a=a, k=k: bvh.bvh12_intersect_tris(*a, **k), 10)
+              for a, k in replays]
+    prof_ms = {kind: sum(v for key, v in prof.items() if f"::{kind}_kernel(" in key)
+               for kind in ("closest", "any")}
 
     # the same render with B1, B2 and K1 swapped for their plain versions
     def plain_bvh(o, d, t_max, rows, depth_, any_hit=False):
@@ -978,15 +1103,28 @@ def phase_statue(card):
     split = lambda xs: {kind: [x for x, k in zip(xs, kinds) if k == kind]
                         for kind in ("closest", "any")}
     b_ms, b_plain = split(ms["bvh12_intersect_tris"]), split(plain_ms["bvh12_intersect_tris"])
+    b_dev = split(dev_ms)
     print(f"[9 statue] {scene.n_tris} triangles, {res[0]}x{res[1]}, {spp} spp, depth {depth}, "
           f"one batch of {lanes} paths: finite, matches the plain render (max abs err "
           f"{err:.3g}, mean {float(img.mean()):.5f}); launches {counts}", flush=True)
     print(f"[9 statue] {best['paths_per_s']:.6g} camera paths/s (best of 3 warm renders, "
           f"{1e3 * best['wall_s']:.3f} ms) on {card}", flush=True)
     for kid, key in (("B1", "closest"), ("B2", "any")):
-        print(f"[9 statue] {kid} per launch {', '.join(f'{t:.3f}' for t in b_ms[key])} ms; "
+        print(f"[9 statue] {kid} per launch on the card {', '.join(f'{t:.4f}' for t in b_dev[key])} "
+              f"ms, as the render's events timed it {', '.join(f'{t:.4f}' for t in b_ms[key])} ms; "
               f"bounds {', '.join(f'{max(b):.4f}' for b in bounds[key])} ms; plain "
-              f"{', '.join(f'{t:.1f}' for t in b_plain[key])} ms", flush=True)
+              f"{', '.join(f'{t:.1f}' for t in b_plain[key])} ms; profiler, one render "
+              f"{prof_ms[key]:.3f} ms", flush=True)
+    for b, (t, t_ev, bound, visits, rays) in enumerate(zip(
+            b_dev["closest"], b_ms["closest"], bounds["closest"], b1_visits, b1_rays)):
+        print(f"[9 B1] launch {b}: {t:.4f} ms on the card, bound {max(bound):.4f} ms; "
+              f"{rays / t * 1e3:.6g} rays/s, {visits / t * 1e3:.6g} row visits/s ({visits} rows); "
+              f"events {t_ev:.4f} ms ({card}); recorded, not measured here: the "
+              f"one-thread-a-ray walk's events {PREV_B1_MS[b]:.3f} ms", flush=True)
+    print(f"[9 B1] all launches on the card {sum(b_dev['closest']):.4f} ms, profiler "
+          f"{prof_ms['closest']:.4f} ms, events {sum(b_ms['closest']):.4f} ms ({card}); recorded, "
+          f"not measured here: the one-thread-a-ray walk's profiler {PREV_B1_DEVICE_MS:.3f} ms, "
+          f"events {sum(PREV_B1_MS):.3f} ms", flush=True)
     print(f"[9 statue] K1 per launch {', '.join(f'{t:.4f}' for t in ms['sobol_dims'])} ms; "
           f"traversal {sum(ms['bvh12_intersect_tris']):.3f} ms of the "
           f"{1e3 * best['wall_s']:.3f} ms render", flush=True)
@@ -994,28 +1132,32 @@ def phase_statue(card):
         counts=counts,
         sobol_dims=dict(ms=ms["sobol_dims"], plain_ms=plain_ms["sobol_dims"], bound=k1_bounds,
                         max_abs_err=k1_err),
-        closest=dict(ms=b_ms["closest"], plain_ms=b_plain["closest"], bound=bounds["closest"],
-                     max_abs_err=errs["closest"]),
-        any=dict(ms=b_ms["any"], plain_ms=b_plain["any"], bound=bounds["any"],
-                 max_abs_err=errs["any"]),
+        closest=dict(ms=b_ms["closest"], device_ms=b_dev["closest"], plain_ms=b_plain["closest"],
+                     bound=bounds["closest"], max_abs_err=errs["closest"]),
+        any=dict(ms=b_ms["any"], device_ms=b_dev["any"], plain_ms=b_plain["any"],
+                 bound=bounds["any"], max_abs_err=errs["any"]),
     )
 
 
 def kernel_entry(name, source, replaces, launches, parts, max_abs_err, library_ms=None) -> dict:
     """One kernel's line of the `kernels` JSON: per-launch means over
     `parts`, dicts of per-launch lists ms, plain_ms and bound ((bytes_ms,
-    operations_ms) pairs)."""
+    operations_ms) pairs), and where the parts have it device_ms (the
+    launches replayed back to back, without the host's share of a call)."""
     mean = lambda xs: sum(xs) / len(xs)
     ms = [t for p in parts for t in p["ms"]]
     plain_ms = [t for p in parts for t in p["plain_ms"]]
     bounds = [b for p in parts for b in p["bound"]]
-    return dict(
+    entry = dict(
         name=name, route="cuda", source=source, replaces=replaces, launches=launches,
         max_abs_err=max_abs_err, ms=mean(ms), plain_ms=mean(plain_ms),
         bound_ms=mean([max(b) for b in bounds]),
         bound_by="operations" if sum(b[1] for b in bounds) >= sum(b[0] for b in bounds) else "bytes",
         library_ms=library_ms,
     )
+    if all("device_ms" in p for p in parts):
+        entry["device_ms"] = mean([t for p in parts for t in p["device_ms"]])
+    return entry
 
 
 def main():
@@ -1032,7 +1174,7 @@ def main():
     from rs_pbrt_tpu_torch.scene import presets
 
     scene, camera = presets.cornell_box(RES, device=DEVICE)
-    k2_err = phase_k2(scene, camera)
+    k2_err = phase_k2(card, scene, camera)
     flag = phase_render(card)
     flag["k1"]["max_abs_err"] = max(k1_err, flag["k1"]["max_abs_err"])
     flag["k2"]["max_abs_err"] = max(k2_err, flag["k2"]["max_abs_err"])
@@ -1053,7 +1195,7 @@ def main():
                      worst("sobol_dims", flag["k1"], statue["sobol_dims"])),
         dict(name="bounce", route="cuda", source=csrc + "bounce.cu",
              replaces="rs_pbrt_tpu/ops/pallas_path.py:410", launches=flag["counts"]["bounce"],
-             library_ms=None, **k2),
+             library_ms=None, **k2, redesigned=True),
         # K3 is on no render path: its numbers are phase 6's at the camera rays
         kernel_entry("closest_sweep", csrc + "intersect.cu", pallas + "133", 0,
                      [sweeps["closest"]], sweeps["closest"]["max_abs_err"]),
@@ -1064,9 +1206,10 @@ def main():
                      sum(r["counts"]["full_sweep"] for r in slices),
                      [r["full_sweep"] for r in slices], worst("full_sweep", sweeps["full"])),
         # B1 and B2 replace an XLA function, the JAX package's TPU traversal
-        kernel_entry("bvh12_closest", csrc + "bvh12.cu", "rs_pbrt_tpu/ops/bvh.py:994",
-                     statue["counts"]["bvh12_closest"], [statue["closest"]],
-                     statue["closest"]["max_abs_err"]),
+        dict(kernel_entry("bvh12_closest", csrc + "bvh12.cu", "rs_pbrt_tpu/ops/bvh.py:994",
+                          statue["counts"]["bvh12_closest"], [statue["closest"]],
+                          statue["closest"]["max_abs_err"]),
+             redesigned=True),
         kernel_entry("bvh12_any", csrc + "bvh12.cu", "rs_pbrt_tpu/ops/bvh.py:994",
                      statue["counts"]["bvh12_any"], [statue["any"]], statue["any"]["max_abs_err"]),
         kernel_entry("take_rows", csrc + "gather_probe.cu", "tools/tpu_probe.py:110",

@@ -1,4 +1,4 @@
-// K2: one whole path-tracer bounce per launch, one thread per lane.
+// K2: one whole path-tracer bounce per launch, over the live lanes only.
 //
 // Replaces rs_pbrt_tpu/ops/pallas_path.py:_bounce_kernel (launched by
 // _bounce_call, driven by mega_radiance).  For an all-matte, triangle-only
@@ -10,36 +10,52 @@
 // launch of a path only adds emission (emit_only).
 //
 // Lane state is structure-of-arrays: 13 f32 rows of N (o, d, beta, L,
-// prev_pdf; ops/path_kernel.LANE_ROWS) and an int32 alive row; each row is
-// read and written once per launch, coalesced.
+// prev_pdf; ops/path_kernel.LANE_ROWS) and an int32 alive row, updated in
+// place.  A dead lane costs its 4-byte alive read; each live lane's rows are
+// read once and written once.
 //
-// What bounds it on the card: arithmetic.  Per live lane a bounce runs a
-// closest-hit sweep over every triangle (~65 f32 operations per
-// ray-triangle test), a shadow sweep up to the first occluder (~60 per
-// test) where the light sample can contribute, and ~400 operations of
-// shading, against 56 bytes of lane state in and out, so on the first
-// bounces the f32 issue rate, not memory, is the limit (chip_smoke.py
-// counts both per launch); divergence between lanes that miss, die or
-// skip the shadow ray costs issue slots too.
+// What bounds it on the card: arithmetic, where most lanes are live.  Per
+// live lane a bounce runs a closest-hit sweep over every triangle (~65 f32
+// operations per ray-triangle test), a shadow sweep up to the first
+// occluder (~60 per test) where the light sample can contribute, and ~400
+// operations of shading, against 108 bytes of lane state in and out
+// (chip_smoke.py counts both per launch).  Once most lanes are dead, the
+// alive row of every lane is the least it must read.
 //
-// What the design does about it, for now a simple kernel that is right:
-// - The triangle table (tri_attr, 32 f32 a row) stays in device memory and
-//   is read through the read-only cache.  Every thread of a warp reads the
-//   same row at the same step of a sweep, so each read is a broadcast.
-//   Shared memory could not hold the largest eligible scene (2048 rows x
-//   128 B = 262 KB > 227 KB a block may use); the Cornell box's 32 rows
-//   (4 KB) stay in L1.
-// - The TPU's select-accumulate loops become direct reads: the hit record
-//   is row bi of the table, the light and material rows are indexed by id,
-//   the light's triangle is row start+off.  The CDF searches stay as
-//   comparison counts (the same index as the TPU's).
-// - Dead and missing lanes skip the work; the shadow sweep runs only where
-//   its result is used, and stops at the first occluder.
+// What the design does about it:
+// - Each block takes a tile of lanes, reads their alive flags and
+//   packs the live lane ids into shared memory (ballot and popcount prefix
+//   sums).  Its warps then take the packed ids 32 at a time from a shared
+//   counter, so they run full of live lanes and none waits for another.  A
+//   dead lane idled inside its warp in the one-thread-per-lane kernel,
+//   while the warp's live lanes ran the whole sweep.  The tile is 1,024
+//   lanes, or fewer where a launch has too few lanes to fill the card's
+//   block slots twice.
+// - The lanes whose NEE sample can contribute put their shadow ray in
+//   their warp's queue in shared memory; whenever it holds 32, the warp
+//   runs their any-hit sweeps, one a lane, and adds the NEE term of each
+//   unoccluded ray (the rest at the end).  The NEE term is computed before
+//   the queue from values the sweep does not change, and L gets it in the
+//   same single addition, so the bits are those of the one-pass bounce.
+// - The vertices of each triangle row sit in shared memory, 48 bytes a
+//   triangle (the TPU kernel's VMEM-resident table), for a table small
+//   enough (path_kernel.SHARED_TABLE_MAX_TRIS) that the copy leaves the SM
+//   its 6 blocks; a larger table is read from device memory through L1.
+//   Where all vertices are finite the sweeps pick the sheared components by
+//   index (see SweepRay).  The hit record reads row bi of the full table
+//   from device memory.
+// - 128-thread blocks at most 85 registers a thread, so an SM holds 24
+//   warps.
+// - The light and material rows are indexed by id where the TPU needed
+//   select-accumulate loops; the CDF searches stay comparison counts.
 // - The 7 rows of Sobol' direction numbers of this bounce sit in shared
-//   memory and go through K1's device function (sobol.cuh).
-// - The hit record is record.cuh's, shared with K5 (intersect.cu).
-// - Built with --fmad=false and without fast math, so the arithmetic is the
-//   plain PyTorch version's (ops/path_kernel.bounce_plain), term by term.
+//   memory and go through K1's device function (sobol.cuh); the hit record
+//   is record.cuh's, shared with K5 (intersect.cu).
+// - Each lane's result depends on its own inputs only, not on which thread
+//   computes it: built with --fmad=false and without fast math, the
+//   arithmetic is the plain PyTorch version's (ops/path_kernel.bounce_plain)
+//   term by term, but for the index-picked shear, which differs from it at
+//   most in the sign of a zero.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -52,6 +68,14 @@ namespace {
 
 using namespace rs;  // V3 and its helpers, the hit record, the table columns
 
+constexpr int kThreads = 128;  // 4 warps a block
+constexpr int kWarps = kThreads / 32;
+constexpr int kMinBlocks = 6;  // blocks an SM holds: 24 warps, at most 85 registers a thread
+constexpr int kTile = 1024;  // the most lanes a block takes
+constexpr int kWaves = 2;  // a launch's blocks fill the card's block slots at least this often
+constexpr int kPerThread = kTile / kThreads;
+static_assert(kPerThread * kWarps == 32, "one warp scans the tile's warp counts");
+constexpr int kQueueCap = 64;  // a warp's shadow rays: it sweeps 32 whenever it holds 32
 constexpr int kDims = 7;  // Sobol' dims per bounce
 // table widths and columns (scene/arrays.py)
 constexpr int kMatCols = 37, kLightCols = 22;
@@ -59,6 +83,12 @@ constexpr int kLpI = 3, kLpTwoSided = 12, kLpArea = 13, kLaTriStart = 19, kLaTri
 constexpr int kMaKd = 1;  // MA_PARAMS + MP_KD
 constexpr float kPi = 0x1.921fb6p+1f;
 constexpr float kInvPi = 0x1.45f306p-2f;
+// a shadow-ray queue entry: these f32 fields, then its lane id
+enum { kQOx, kQOy, kQOz, kQDx, kQDy, kQDz, kQTlim, kQL, kQC = kQL + 3, kQFields = kQC + 3 };
+struct WarpQueue {
+  float f[kQFields][kQueueCap];
+  int lane[kQueueCap];
+};
 
 __device__ __forceinline__ float next_float_up(float x) {
   if (isinf(x) && x > 0.0f) return x;
@@ -110,12 +140,141 @@ __device__ __forceinline__ void concentric_disk(float u0, float u1, float& dx, f
   dy = r * sinf(theta);
 }
 
+// The shared-memory triangle table: 12 floats a triangle, the 9 vertex
+// coordinates (p0, p1, p2) then 3 of padding, so a triangle is 3 float4.
+constexpr int kVertStride = 12;
+
+// The sweeps' triangle tests over that table, in two forms that give the
+// same values for finite vertices.  kIdx = false: watertight.cuh's one-hot
+// form, as the plain version computes it.  kIdx = true: the permuted and
+// sheared components picked by index, x = (p[kx] + sx p[kz]) - cx,
+// y = (p[ky] + sy p[kz]) - cy, z = p[kz] - cz: the one-hot sums' other
+// terms are products with a 0 entry, so the two differ at most in the sign
+// of a zero, which every comparison and output treats alike.  It saves 33
+// of the 54 operations of the shear.  With an infinite or NaN vertex,
+// 0 * inf is NaN in the one-hot form, so such a table keeps that form.
+struct SweepRay {
+  RayConst rc;
+  int kx, ky, kz;
+  float sx, sy;
+};
+
+__device__ __forceinline__ SweepRay sweep_ray(V3 o, V3 d) {
+  SweepRay r;
+  r.rc = ray_constants(o.x, o.y, o.z, d.x, d.y, d.z);
+  r.kz = r.rc.sz0 != 0.0f ? 0 : (r.rc.sz1 != 0.0f ? 1 : 2);
+  r.kx = r.kz == 2 ? 0 : r.kz + 1;
+  r.ky = r.kx == 2 ? 0 : r.kx + 1;
+  // the S_x and S_y entries in the kz column: 0 + sx * 1
+  r.sx = r.kz == 0 ? r.rc.sx0 : (r.kz == 1 ? r.rc.sx1 : r.rc.sx2);
+  r.sy = r.kz == 0 ? r.rc.sy0 : (r.kz == 1 ? r.rc.sy1 : r.rc.sy2);
+  return r;
+}
+
+// watertight.cuh's edge_test in two parts, the same expressions in the same
+// order: the transformed vertices, edge functions, det, scaled t and the
+// reject test, which every triangle needs; then the error bound on t, only
+// for a triangle that passes (most do not, often for a whole warp).
+struct Edges {
+  float x[3], y[3], zs[3];  // zs: z scaled by 1/dz
+  float e0, e1, e2, det, t_scaled;
+};
+
+template <bool kIdx>
+__device__ __forceinline__ bool edges_reject(const SweepRay& r, const float* tri, float t_lim,
+                                             Edges& g) {
+  float z[3];
+  if (kIdx) {
+#pragma unroll
+    for (int v = 0; v < 3; ++v) {
+      const float pz = tri[3 * v + r.kz];
+      g.x[v] = (tri[3 * v + r.kx] + r.sx * pz) - r.rc.cx;
+      g.y[v] = (tri[3 * v + r.ky] + r.sy * pz) - r.rc.cy;
+      z[v] = pz - r.rc.cz;
+    }
+  } else {
+    const RayConst& rc = r.rc;
+#pragma unroll
+    for (int v = 0; v < 3; ++v) {
+      const float* p = tri + 3 * v;
+      g.x[v] = rc.sx0 * p[0] + rc.sx1 * p[1] + rc.sx2 * p[2] - rc.cx;
+      g.y[v] = rc.sy0 * p[0] + rc.sy1 * p[1] + rc.sy2 * p[2] - rc.cy;
+      z[v] = rc.sz0 * p[0] + rc.sz1 * p[1] + rc.sz2 * p[2] - rc.cz;
+    }
+  }
+  g.e0 = g.x[1] * g.y[2] - g.y[1] * g.x[2];
+  g.e1 = g.x[2] * g.y[0] - g.y[2] * g.x[0];
+  g.e2 = g.x[0] * g.y[1] - g.y[0] * g.x[1];
+  const bool neg = (g.e0 < 0.0f) || (g.e1 < 0.0f) || (g.e2 < 0.0f);
+  const bool pos = (g.e0 > 0.0f) || (g.e1 > 0.0f) || (g.e2 > 0.0f);
+  g.det = g.e0 + g.e1 + g.e2;
+#pragma unroll
+  for (int v = 0; v < 3; ++v) g.zs[v] = r.rc.inv_dz * z[v];
+  g.t_scaled = g.e0 * g.zs[0] + g.e1 * g.zs[1] + g.e2 * g.zs[2];
+  const bool neg_det = g.det < 0.0f;
+  const bool miss_range =
+      (neg_det && ((g.t_scaled >= 0.0f) || (g.t_scaled < t_lim * g.det))) ||
+      (!neg_det && ((g.t_scaled <= 0.0f) || (g.t_scaled > t_lim * g.det)));
+  return (neg && pos) || (g.det == 0.0f) || miss_range;
+}
+
+// The error bound on t scaled by |det| (EdgeTest::c_eps).
+__device__ __forceinline__ float edges_c_eps(const Edges& g) {
+  const float max_zt = fmaxf(fmaxf(fabsf(g.zs[0]), fabsf(g.zs[1])), fabsf(g.zs[2]));
+  const float delta_z = kGamma3 * max_zt;
+  const float max_xt = fmaxf(fmaxf(fabsf(g.x[0]), fabsf(g.x[1])), fabsf(g.x[2]));
+  const float max_yt = fmaxf(fmaxf(fabsf(g.y[0]), fabsf(g.y[1])), fabsf(g.y[2]));
+  const float delta_x = kGamma5 * (max_xt + max_zt);
+  const float delta_y = kGamma5 * (max_yt + max_zt);
+  const float delta_e =
+      2.0f * (kGamma2 * max_xt * max_yt + delta_y * max_xt + delta_x * max_yt);
+  const float max_e = fmaxf(fmaxf(fabsf(g.e0), fabsf(g.e1)), fabsf(g.e2));
+  return 3.0f * (kGamma3 * max_e * max_zt + delta_e * max_zt + delta_z * max_e);
+}
+
+// watertight.cuh's closest_hit and any_hit over the shared-memory table:
+// the tests of watertight_tri and watertight_tri_any in the same triangle
+// order.
+template <bool kIdx, int kStride>
+__device__ __forceinline__ int closest_hit_tab(const SweepRay& r, const float* st, int n_tri,
+                                               float& bt, float& b0, float& b1) {
+  bt = kNoHit;
+  b0 = 0.0f;
+  b1 = 0.0f;
+  int bi = -1;
+  for (int t = 0; t < n_tri; ++t) {
+    Edges g;
+    if (edges_reject<kIdx>(r, st + kStride * t, kNoHit, g)) continue;
+    const float inv_det = 1.0f / (g.det == 0.0f ? 1.0f : g.det);
+    const float tt = g.t_scaled * inv_det;
+    const float delta_t = edges_c_eps(g) * fabsf(inv_det);
+    if (!(tt <= delta_t) && tt < bt) {
+      bt = tt;
+      bi = t;
+      b0 = g.e0 * inv_det;
+      b1 = g.e1 * inv_det;
+    }
+  }
+  return bi;
+}
+
+template <bool kIdx, int kStride>
+__device__ __forceinline__ bool any_hit_tab(const SweepRay& r, const float* st, int n_tri,
+                                            float t_lim) {
+  bool occluded = false;
+  for (int t = 0; t < n_tri && !occluded; ++t) {
+    Edges g;
+    if (edges_reject<kIdx>(r, st + kStride * t, t_lim, g)) continue;
+    const float t_signed = g.det < 0.0f ? -g.t_scaled : g.t_scaled;
+    occluded = !(t_signed <= edges_c_eps(g));
+  }
+  return occluded;
+}
+
 struct Args {
-  const float* lanes_in;
-  const int* alive_in;
+  float* lanes;  // (13, n), in place
+  int* alive;    // (n,), in place
   const int64_t* index;
-  float* lanes_out;
-  int* alive_out;
   int n;
   const float* tris;
   int n_tri;
@@ -130,36 +289,41 @@ struct Args {
   int dim_row;
   int n_bits;
   int first_bounce, rr_active, emit_only;
+  int tile;  // lanes a block takes: a multiple of kThreads, at most kTile
   float rr_threshold;
 };
 
-__global__ void __launch_bounds__(128) bounce_kernel(Args a) {
-  __shared__ uint32_t smats[kDims * RS_SOBOL_MATRIX_SIZE];
-  if (!a.emit_only)
-    for (int j = threadIdx.x; j < kDims * RS_SOBOL_MATRIX_SIZE; j += blockDim.x)
-      smats[j] = a.mats[a.dim_row * RS_SOBOL_MATRIX_SIZE + j];
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  const size_t N = a.n;
-  const float* in = a.lanes_in;
-  V3 o = {in[0 * N + i], in[1 * N + i], in[2 * N + i]};
-  V3 d = {in[3 * N + i], in[4 * N + i], in[5 * N + i]};
-  float beta[3] = {in[6 * N + i], in[7 * N + i], in[8 * N + i]};
-  float L[3] = {in[9 * N + i], in[10 * N + i], in[11 * N + i]};
-  float prev_pdf = in[12 * N + i];
-  bool alive = a.alive_in[i] != 0;
+// A queued shadow ray: origin, direction and length, with the lane's L
+// after emission and the NEE term L gets where the ray is unoccluded.
+struct Shadow {
+  V3 o, d;
+  float t_lim;
+  float L[3], c[3];
+};
 
-  while (alive) {  // runs once; `break` ends the lane's work
+// The bounce of live lane i up to its shadow ray.  Writes the lane's rows
+// and alive, except L where it returns true: then the shadow ray in `sh`
+// carries L for the sweep's pass.
+template <bool kIdx, int kStride>
+__device__ __forceinline__ bool shade_lane(const Args& a, const float* st,
+                                           const uint32_t* smats, int i, Shadow& sh) {
+  const size_t N = a.n;
+  float* lanes = a.lanes;
+  V3 o = {lanes[0 * N + i], lanes[1 * N + i], lanes[2 * N + i]};
+  V3 d = {lanes[3 * N + i], lanes[4 * N + i], lanes[5 * N + i]};
+  float beta[3] = {lanes[6 * N + i], lanes[7 * N + i], lanes[8 * N + i]};
+  float L[3] = {lanes[9 * N + i], lanes[10 * N + i], lanes[11 * N + i]};
+  float prev_pdf = lanes[12 * N + i];
+  bool alive = true, queued = false;
+
+  while (true) {  // runs once; `break` ends the lane's work
     // ---- closest hit ----
-    const rs::RayConst rc = rs::ray_constants(o.x, o.y, o.z, d.x, d.y, d.z);
     float bt, b0, b1;
-    const int bi = closest_hit(rc, a.tris, a.n_tri, kTriCols, kNoHit, bt, b0, b1);
+    const int bi = closest_hit_tab<kIdx, kStride>(sweep_ray(o, d), st, a.n_tri, bt, b0, b1);
     if (bi < 0) {  // miss: the path ends, nothing is added
       alive = false;
       break;
     }
-
     // ---- hit record: row bi (scene_intersect._tri_interaction) ----
     const TriRecord rec = tri_record<false>(a.tris + static_cast<size_t>(bi) * kTriCols, b0, b1);
     const V3 p = rec.p, p_err = rec.p_err, ng = rec.ng, ns = rec.ns, dpdu = rec.dpdu;
@@ -280,21 +444,24 @@ __global__ void __launch_bounds__(128) bounce_kernel(Args a) {
                             (li_rgb[0] > 0.0f || li_rgb[1] > 0.0f || li_rgb[2] > 0.0f) &&
                             (f_w > 0.0f);
     if (contrib_ok) {
-      // shadow ray, any hit up to just short of the light point
+      // queue the shadow ray (any hit up to just short of the light point)
+      // with L and the NEE term L gets where the ray is unoccluded
       const V3 p_sh = offset_ray_origin(p, p_err, ng, wi_l3);
       const V3 delta_sh = sub(p_l, p_sh);
       const float dist_sh = sqrtf(dot(delta_sh, delta_sh));
       const V3 sh_d = scale(delta_sh, 1.0f / fmaxf(dist_sh, 1e-12f));
-      const float t_lim = dist_sh * 0.999f;
-      const rs::RayConst rs_ = rs::ray_constants(p_sh.x, p_sh.y, p_sh.z, sh_d.x, sh_d.y, sh_d.z);
-      const bool occluded = any_hit(rs_, a.tris, a.n_tri, kTriCols, t_lim);
-      if (!occluded) {
-        const float w_light = power_heuristic(ls_pdf, scat_pdf);
-        const float inv_pdf = w_light / fmaxf(ls_pdf * sel_pdf, 1e-12f);
-        const float nee_gain = f_w * inv_pdf;
+      const float w_light = power_heuristic(ls_pdf, scat_pdf);
+      const float inv_pdf = w_light / fmaxf(ls_pdf * sel_pdf, 1e-12f);
+      const float nee_gain = f_w * inv_pdf;
+      sh.o = p_sh;
+      sh.d = sh_d;
+      sh.t_lim = dist_sh * 0.999f;
 #pragma unroll
-        for (int k = 0; k < 3; ++k) L[k] = L[k] + beta[k] * kd[k] * li_rgb[k] * nee_gain;
+      for (int k = 0; k < 3; ++k) {
+        sh.L[k] = L[k];
+        sh.c[k] = beta[k] * kd[k] * li_rgb[k] * nee_gain;
       }
+      queued = true;
     }
 
     // ---- BSDF sample: cosine hemisphere ----
@@ -337,38 +504,159 @@ __global__ void __launch_bounds__(128) bounce_kernel(Args a) {
     break;
   }
 
-  float* out = a.lanes_out;
-  out[0 * N + i] = o.x;
-  out[1 * N + i] = o.y;
-  out[2 * N + i] = o.z;
-  out[3 * N + i] = d.x;
-  out[4 * N + i] = d.y;
-  out[5 * N + i] = d.z;
-  out[6 * N + i] = beta[0];
-  out[7 * N + i] = beta[1];
-  out[8 * N + i] = beta[2];
-  out[9 * N + i] = L[0];
-  out[10 * N + i] = L[1];
-  out[11 * N + i] = L[2];
-  out[12 * N + i] = prev_pdf;
-  a.alive_out[i] = alive ? 1 : 0;
+  lanes[0 * N + i] = o.x;
+  lanes[1 * N + i] = o.y;
+  lanes[2 * N + i] = o.z;
+  lanes[3 * N + i] = d.x;
+  lanes[4 * N + i] = d.y;
+  lanes[5 * N + i] = d.z;
+  lanes[6 * N + i] = beta[0];
+  lanes[7 * N + i] = beta[1];
+  lanes[8 * N + i] = beta[2];
+  if (!queued) {
+    lanes[9 * N + i] = L[0];
+    lanes[10 * N + i] = L[1];
+    lanes[11 * N + i] = L[2];
+  }
+  lanes[12 * N + i] = prev_pdf;
+  a.alive[i] = alive ? 1 : 0;
+  return queued;
+}
+
+// The sweeps of a warp's last `count` queued shadow rays, one a lane; the L
+// rows of the unoccluded get the NEE term.
+template <bool kIdx, int kStride>
+__device__ __forceinline__ void sweep_shadows(const Args& a, const float* st, const WarpQueue& q,
+                                              int first, int count, int lane) {
+  if (lane >= count) return;
+  const int k = first + lane;
+  const SweepRay r = sweep_ray(V3{q.f[kQOx][k], q.f[kQOy][k], q.f[kQOz][k]},
+                               V3{q.f[kQDx][k], q.f[kQDy][k], q.f[kQDz][k]});
+  const bool occluded = any_hit_tab<kIdx, kStride>(r, st, a.n_tri, q.f[kQTlim][k]);
+  const size_t N = a.n;
+  const int i = q.lane[k];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float l = q.f[kQL + c][k];
+    a.lanes[(9 + c) * N + i] = occluded ? l : l + q.f[kQC + c][k];
+  }
+}
+
+// kShared: the sweeps read the triangles' vertices from the block's copy in
+// shared memory; else from the table in device memory (a row of kTriCols
+// floats, cached in L1), where that copy would cost the SM its occupancy.
+template <bool kIdx, bool kShared>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) bounce_kernel(Args a) {
+  constexpr int kStride = kShared ? kVertStride : kTriCols;
+  // dynamic: with kShared the triangles' vertices (kVertStride floats
+  // each), then one shadow queue a warp
+  extern __shared__ float4 dyn[];
+  __shared__ uint32_t smats[kDims * RS_SOBOL_MATRIX_SIZE];
+  __shared__ int ids[kTile];  // the tile's live lane ids, ascending
+  __shared__ int offs[32];  // live lanes before each (round, warp) of the tile
+  __shared__ int n_live, next;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int base = blockIdx.x * a.tile;
+  const int staged = kShared ? (kVertStride / 4) * a.n_tri : 0;  // float4s of vertices
+  const float* st = kShared ? reinterpret_cast<const float*>(dyn) : a.tris;
+  WarpQueue& q = reinterpret_cast<WarpQueue*>(dyn + staged)[warp];
+
+  // ---- pack the tile's live lanes; stage the tables ----
+  bool live[kPerThread];
+  int rank[kPerThread];
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const int i = base + j * kThreads + tid;
+    live[j] = j * kThreads < a.tile && i < a.n && a.alive[i] != 0;
+    const unsigned m = __ballot_sync(0xffffffffu, live[j]);
+    rank[j] = __popc(m & ((1u << lane) - 1u));
+    if (lane == 0) offs[j * kWarps + warp] = __popc(m);
+  }
+  if (!a.emit_only)
+    for (int j = tid; j < kDims * RS_SOBOL_MATRIX_SIZE; j += kThreads)
+      smats[j] = a.mats[a.dim_row * RS_SOBOL_MATRIX_SIZE + j];
+  for (int j = tid; j < staged; j += kThreads) {
+    const float* row = a.tris + static_cast<size_t>(j / 3) * kTriCols + 4 * (j % 3);
+    dyn[j] = make_float4(__ldg(row), j % 3 == 2 ? 0.0f : __ldg(row + 1),
+                         j % 3 == 2 ? 0.0f : __ldg(row + 2), j % 3 == 2 ? 0.0f : __ldg(row + 3));
+  }
+  if (tid == 0) next = 0;
+  __syncthreads();
+  if (warp == 0) {  // exclusive scan of the 32 (round, warp) counts
+    const int c = offs[lane];
+    int s = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, s, o);
+      if (lane >= o) s += t;
+    }
+    offs[lane] = s - c;
+    if (lane == 31) n_live = s;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j)
+    if (live[j]) ids[offs[j * kWarps + warp] + rank[j]] = base + j * kThreads + tid;
+  __syncthreads();
+
+  // ---- each warp takes 32 packed lanes at a time, then sweeps its queued
+  // shadow rays 32 at a time; no barrier, so no warp waits for another ----
+  int queued = 0;  // the warp's queue length, the same in every lane
+  while (true) {
+    int first = 0;
+    if (lane == 0) first = atomicAdd(&next, 32);
+    first = __shfl_sync(0xffffffffu, first, 0);
+    if (first >= n_live) break;
+    Shadow sh;
+    const bool mine = first + lane < n_live &&
+                      shade_lane<kIdx, kStride>(a, st, smats, ids[first + lane], sh);
+    const unsigned m = __ballot_sync(0xffffffffu, mine);
+    if (mine) {
+      const int k = queued + __popc(m & ((1u << lane) - 1u));
+      q.f[kQOx][k] = sh.o.x;
+      q.f[kQOy][k] = sh.o.y;
+      q.f[kQOz][k] = sh.o.z;
+      q.f[kQDx][k] = sh.d.x;
+      q.f[kQDy][k] = sh.d.y;
+      q.f[kQDz][k] = sh.d.z;
+      q.f[kQTlim][k] = sh.t_lim;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        q.f[kQL + c][k] = sh.L[c];
+        q.f[kQC + c][k] = sh.c[c];
+      }
+      q.lane[k] = ids[first + lane];
+    }
+    queued += __popc(m);
+    __syncwarp();
+    if (queued >= 32) {
+      queued -= 32;
+      sweep_shadows<kIdx, kStride>(a, st, q, queued, 32, lane);
+      __syncwarp();  // the entries are read before the next appends reuse them
+    }
+  }
+  sweep_shadows<kIdx, kStride>(a, st, q, 0, queued, lane);
 }
 
 }  // namespace
 
-extern "C" int rs_bounce(const void* lanes_in, const void* alive_in, const void* index,
-                         void* lanes_out, void* alive_out, int n, const void* tris, int n_tri,
-                         const void* lattr, int n_lights, const void* lsel, const void* ltricdf,
-                         int a_cols, const void* mattr, int n_mats, const void* mats, int dim_row,
-                         int n_bits, int first_bounce, int rr_active, int emit_only,
-                         float rr_threshold, void* stream) {
+// Shared memory the kernel asks for at launch, beyond its static arrays.
+extern "C" size_t rs_bounce_dynamic_smem(int n_tri, int shared_table) {
+  return (shared_table ? static_cast<size_t>(n_tri) * kVertStride * sizeof(float) : 0) +
+         kWarps * sizeof(WarpQueue);
+}
+
+extern "C" int rs_bounce(void* lanes, void* alive, const void* index, int n, const void* tris,
+                         int n_tri, const void* lattr, int n_lights, const void* lsel,
+                         const void* ltricdf, int a_cols, const void* mattr, int n_mats,
+                         const void* mats, int dim_row, int n_bits, int first_bounce,
+                         int rr_active, int emit_only, float rr_threshold, int finite_verts,
+                         int shared_table, void* stream) {
   if (n == 0) return 0;
   Args a;
-  a.lanes_in = static_cast<const float*>(lanes_in);
-  a.alive_in = static_cast<const int*>(alive_in);
+  a.lanes = static_cast<float*>(lanes);
+  a.alive = static_cast<int*>(alive);
   a.index = static_cast<const int64_t*>(index);
-  a.lanes_out = static_cast<float*>(lanes_out);
-  a.alive_out = static_cast<int*>(alive_out);
   a.n = n;
   a.tris = static_cast<const float*>(tris);
   a.n_tri = n_tri;
@@ -386,8 +674,31 @@ extern "C" int rs_bounce(const void* lanes_in, const void* alive_in, const void*
   a.rr_active = rr_active;
   a.emit_only = emit_only;
   a.rr_threshold = rr_threshold;
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  bounce_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  // the index form of the sweeps where every vertex is finite; the vertices
+  // in shared memory where the caller asks for it
+  void (*kernel)(Args) =
+      finite_verts ? (shared_table ? bounce_kernel<true, true> : bounce_kernel<true, false>)
+                   : (shared_table ? bounce_kernel<false, true> : bounce_kernel<false, false>);
+  const size_t smem = rs_bounce_dynamic_smem(n_tri, shared_table);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // the largest tile whose blocks still fill every block slot of the card
+  // kWaves times: a launch of few lanes (or a large table's long sweeps)
+  // would otherwise leave SMs with fewer warps than they can hold
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  a.tile = kTile;
+  while (a.tile > kThreads &&
+         (static_cast<long long>(n) + a.tile - 1) / a.tile < static_cast<long long>(kWaves) * sms * max(per_sm, 1))
+    a.tile /= 2;
+  const int blocks = static_cast<int>((static_cast<long long>(n) + a.tile - 1) / a.tile);
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,8 +5,9 @@ The port of the JAX package's wide12 traversal, ``ops/bvh.py``
 (reference bvh.rs:401-514 stack machine, triangle.rs:154-449 watertight
 test), over the rows of ``csrc/lbvh.cpp``'s ``rs_wide12_build``
 (``ops/bvh_native.py``).  ``bvh12_intersect_tris`` launches the CUDA kernel
-(``csrc/bvh12.cu``: B1 closest hit, B2 any hit) for CUDA tensors and runs
-``bvh12_intersect_plain`` for CPU tensors.
+(``csrc/bvh12.cu``: B1 closest hit, a group of 16 lanes a ray; B2 any hit,
+a thread a ray) for CUDA tensors and runs ``bvh12_intersect_plain`` for CPU
+tensors.
 
 The walk, the same in the kernels and the plain version, step by step as
 the JAX loop: each step visits one row.  When the current group has no
@@ -50,7 +51,7 @@ GAMMA2 = float(vm.gamma(2.0))
 GAMMA3 = float(vm.gamma(3.0))
 GAMMA5 = float(vm.gamma(5.0))
 SLAB_EPS = float(np.float32(1.0 + 2.0 * vm.gamma(3.0)))
-MAX_STACK = 64  # the kernels' stack array; K = max(2 depth + 4, 8) must fit
+MAX_STACK = 64  # B2's stack array (B1's is K entries in shared memory); K must fit
 
 # kernel launches of each wrapper; the plain versions do not count
 launches = {"closest": 0, "any": 0}
@@ -300,8 +301,8 @@ def bvh12_intersect_plain(o, d, t_max, rows, depth: int, any_hit: bool = False,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    # o, d, tmax, n, rows, n_rows, stack, [t, tri, b0, b1 | occ], overflow, stream
-    "rs_bvh12_closest": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    # o, d, tmax, n, rows, n_rows, stack, [t, tri, b0, b1, | occ,] overflow, [next_ray,] stream
+    "rs_bvh12_closest": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "rs_bvh12_any": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P],
 }
 
@@ -364,10 +365,12 @@ def bvh12_intersect_tris(o, d, t_max, rows, depth: int, any_hit: bool = False):
         tri = torch.empty(n, dtype=torch.int32, device=o.device)
         b0 = torch.empty_like(t_max)
         b1 = torch.empty_like(t_max)
+        # the persistent groups' ray counter, this launch's own on its stream
+        next_ray = torch.zeros(1, dtype=torch.int32, device=o.device)
         err = _kernel("rs_bvh12_closest")(o.data_ptr(), d.data_ptr(), t_max.data_ptr(), n,
                                           rows.data_ptr(), rows.shape[0], K, t.data_ptr(),
                                           tri.data_ptr(), b0.data_ptr(), b1.data_ptr(),
-                                          ovf.data_ptr(), stream)
+                                          ovf.data_ptr(), next_ray.data_ptr(), stream)
     _build.check(err, "bvh12 closest-hit kernel launch")
     launches["closest"] += 1
     return TriHit(tri >= 0, t, tri, b0, b1)

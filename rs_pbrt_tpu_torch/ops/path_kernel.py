@@ -14,9 +14,12 @@ tensor (``LANE_ROWS``) and an (N,) int32 ``alive``.
 
 ``bounce`` launches the CUDA kernel (``csrc/bounce.cu``) for CUDA tensors
 and runs ``bounce_plain``, the same bounce in plain PyTorch, for CPU
-tensors.  ``bounce_plain`` follows the JAX kernel step by step, with the
-same guards and epsilons; the tables are read by direct indexing where the
-TPU needed select-accumulate loops.
+tensors.  It updates the lane state in place: it writes the new rows and
+alive flags into the tensors it is given and returns them, on the card
+(where a dead lane is not written at all) and on the CPU alike.
+``bounce_plain`` returns new tensors and leaves its inputs alone; it follows
+the JAX kernel step by step, with the same guards and epsilons; the tables
+are read by direct indexing where the TPU needed select-accumulate loops.
 """
 
 from __future__ import annotations
@@ -45,6 +48,10 @@ from .sobol_kernel import sobol_dims_plain
 from .watertight import BIG, any_sweep, any_sweep_tests, closest_sweep
 
 MEGA_MAX_TRIS = 2048
+# K2's blocks copy the triangles' vertices into shared memory (48 bytes a
+# triangle) up to this many triangles; a larger table would cost the SM its
+# occupancy, so the sweeps read it from device memory
+SHARED_TABLE_MAX_TRIS = 384
 MEGA_MAX_LIGHTS = 8
 MEGA_MAX_LIGHT_TRIS = 16
 DIMS_PER_BOUNCE = 7  # light select, light u (2), bsdf u (2), lobe, rr
@@ -106,11 +113,14 @@ class MegaTables(NamedTuple):
     lsel: torch.Tensor  # (2, L+1) f32: light-pick CDF, then per-light pick pdf
     ltricdf: torch.Tensor  # (L, A+1) f32 per-light triangle-area CDF
     mattr: torch.Tensor  # (M, 37) f32 mat_attr
+    # every vertex coordinate finite: the kernel may pick the sheared
+    # components by index (csrc/bounce.cu SweepRay)
+    finite_verts: bool
 
 
 def mega_tables(scene: sa.Scene) -> MegaTables:
     """The kernel's tables; lsel is the power distribution over lights
-    (path._light_select_dist)."""
+    (path._light_select_dist); finite_verts checked once here."""
     dist = smp.make_distribution_1d(scene.light_power)
     n_l = scene.n_lights
     lsel = torch.zeros((2, n_l + 1), dtype=torch.float32, device=scene.device)
@@ -119,6 +129,7 @@ def mega_tables(scene: sa.Scene) -> MegaTables:
     return MegaTables(
         scene.tri_attr.contiguous(), scene.light_attr.contiguous(), lsel,
         scene.alight_tri_cdf.contiguous(), scene.mat_attr.contiguous(),
+        bool(torch.isfinite(scene.tri_attr[:, sa.TA_P0:sa.TA_P0 + 9]).all()),
     )
 
 
@@ -144,7 +155,7 @@ def bounce_plain(lanes, alive_i, index, tables: MegaTables, cfg: MegaCfg, *,
     """One bounce in plain PyTorch (pallas_path.py:_bounce_kernel).
     Returns the new (lanes, alive).  work: a dict that, if given, gets the
     number of lanes that run each step of the kernel (for its bound)."""
-    tris, lattr, lsel, ltricdf, mattr = tables
+    tris, lattr, lsel, ltricdf, mattr, _ = tables
     n_l = len(cfg.lights)
     o = (lanes[0], lanes[1], lanes[2])
     d = (lanes[3], lanes[4], lanes[5])
@@ -198,7 +209,7 @@ def bounce_plain(lanes, alive_i, index, tables: MegaTables, cfg: MegaCfg, *,
 def _shade(tables, cfg, index, dim_row, n_bits, rr_active, rr_threshold,
            o, d, beta, Lrad, alive, prev_pdf, p, p_err, ng, ns, dpdu, mat, wo, work):
     """NEE, bsdf sampling and Russian roulette of bounce_plain."""
-    tris, lattr, lsel, ltricdf, mattr = tables
+    tris, lattr, lsel, ltricdf, mattr, _ = tables
     n_l = len(cfg.lights)
 
     # ---- BSDF frame: ss along dpdu (path._shading_frame_du) ----
@@ -335,10 +346,11 @@ def _shade(tables, cfg, index, dim_row, n_bits, rr_active, rr_threshold,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _P, _I,  # lanes_in, alive_in, index, lanes_out, alive_out, n
+_ARGTYPES = [_P, _P, _P, _I,  # lanes, alive (both updated in place), index, n
              _P, _I, _P, _I, _P, _P, _I, _P, _I,  # tris, n_tri, lattr, n_l, lsel, ltricdf, a_cols, mattr, n_mats
              _P, _I, _I,  # mats, dim_row, n_bits
-             _I, _I, _I, ctypes.c_float, _P]  # first, rr_active, emit_only, rr_threshold, stream
+             _I, _I, _I, ctypes.c_float,  # first, rr_active, emit_only, rr_threshold
+             _I, _I, _P]  # finite_verts, shared_table, stream
 
 
 def _kernel():
@@ -363,13 +375,17 @@ def _check(name, t, dtype, shape):
 def bounce(lanes, alive, index, tables: MegaTables, cfg: MegaCfg, *, dim_row: int,
            n_bits: int, first_bounce: bool, rr_active: bool, emit_only: bool,
            rr_threshold: float):
-    """One bounce: the CUDA kernel for CUDA tensors, bounce_plain for CPU
-    tensors.  lanes (13, N) f32, alive (N,) int32, index (N,) int64 Sobol'
-    global index; dim_row: the first of this bounce's 7 Sobol' dims."""
+    """One bounce, in place: the CUDA kernel for CUDA tensors, bounce_plain
+    for CPU tensors.  lanes (13, N) f32 and alive (N,) int32 get the
+    bounce's result and are returned; index (N,) int64 Sobol' global index;
+    dim_row: the first of this bounce's 7 Sobol' dims."""
     kw = dict(dim_row=dim_row, n_bits=n_bits, first_bounce=first_bounce,
               rr_active=rr_active, emit_only=emit_only, rr_threshold=rr_threshold)
     if lanes.device.type == "cpu":
-        return bounce_plain(lanes, alive, index, tables, cfg, **kw)
+        new_lanes, new_alive = bounce_plain(lanes, alive, index, tables, cfg, **kw)
+        lanes.copy_(new_lanes)
+        alive.copy_(new_alive)
+        return lanes, alive
     global launches
     n = lanes.shape[1]
     n_l = len(cfg.lights)
@@ -390,22 +406,20 @@ def bounce(lanes, alive, index, tables: MegaTables, cfg: MegaCfg, *, dim_row: in
     if not (emit_only or 0 <= dim_row <= ld.NUM_SOBOL_DIMENSIONS - DIMS_PER_BOUNCE):
         raise ValueError(f"bounce: Sobol' dims {dim_row}..{dim_row + 6} out of range")
     mats = ld.sobol_matrices(lanes.device, torch.int32)
-    lanes_out = torch.empty_like(lanes)
-    alive_out = torch.empty_like(alive)
     with torch.cuda.device(lanes.device):
         err = _kernel()(
-            lanes.data_ptr(), alive.data_ptr(), index.data_ptr(),
-            lanes_out.data_ptr(), alive_out.data_ptr(), n,
+            lanes.data_ptr(), alive.data_ptr(), index.data_ptr(), n,
             tables.tris.data_ptr(), cfg.n_tri, tables.lattr.data_ptr(), n_l,
             tables.lsel.data_ptr(), tables.ltricdf.data_ptr(), cfg.a_cols,
             tables.mattr.data_ptr(), cfg.n_mats,
             mats.data_ptr(), dim_row if not emit_only else 0, n_bits,
             int(first_bounce), int(rr_active), int(emit_only), float(rr_threshold),
+            int(tables.finite_verts), int(cfg.n_tri <= SHARED_TABLE_MAX_TRIS),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "bounce kernel launch")
     launches += 1
-    return lanes_out, alive_out
+    return lanes, alive
 
 
 def init_lanes(ray_o: torch.Tensor, ray_d: torch.Tensor):

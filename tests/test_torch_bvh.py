@@ -37,6 +37,7 @@ from rs_pbrt_tpu_torch.ops import intersect_kernel as ik
 from rs_pbrt_tpu_torch.ops import scene_intersect as si
 from rs_pbrt_tpu_torch.scene import arrays as sa
 from rs_pbrt_tpu_torch.scene import bigscene
+from rs_pbrt_tpu_torch.tools import bvh_ties
 
 torch.set_num_threads(2)
 
@@ -139,18 +140,74 @@ np.savez(sys.argv[2], **out)
 def test_plain_bit_equal_to_jax_without_fma(statue, tmp_path):
     """(a) The same comparison against the JAX traversal compiled without
     FMA contraction: every output bit-equal, closest and any hit."""
-    o, d, t_max = statue["rays"]
-    np.savez(tmp_path / "in.npz", o=o, d=d, t=t_max, rows=statue["rows"], depth=statue["depth"])
-    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=SSE4_2",
-               PYTHONPATH=str(ROOT))
-    subprocess.run([sys.executable, "-c", _JAX_NO_FMA, str(tmp_path / "in.npz"),
-                    str(tmp_path / "out.npz")], env=env, check=True, timeout=300, cwd=ROOT)
-    want = np.load(tmp_path / "out.npz")
+    want = run_jax_without_fma(tmp_path, *statue["rays"], statue["rows"], statue["depth"])
     for any_hit in (False, True):
         got = port_hit(statue["rows"], statue["depth"], statue["rays"], any_hit)
         for k in ("valid", "tri", "t", "b0", "b1"):
             np.testing.assert_array_equal(getattr(got, k).numpy(), want[f"{int(any_hit)}_{k}"],
                                           err_msg=f"any_hit={any_hit} {k}")
+
+
+def run_jax_without_fma(tmp_path, o, d, t_max, rows, depth):
+    """The JAX traversal, closest and any hit, compiled without FMA
+    contraction (a subprocess): {"<any_hit>_<field>": array}."""
+    np.savez(tmp_path / "in.npz", o=o, d=d, t=t_max, rows=rows, depth=depth)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=SSE4_2",
+               PYTHONPATH=str(ROOT))
+    subprocess.run([sys.executable, "-c", _JAX_NO_FMA, str(tmp_path / "in.npz"),
+                    str(tmp_path / "out.npz")], env=env, check=True, timeout=300, cwd=ROOT)
+    return np.load(tmp_path / "out.npz")
+
+
+def test_plain_tie_case_bit_equal_to_jax_without_fma(tmp_path):
+    """(a) The hand-built tie and NaN tree of tools/bvh_ties: every output of
+    the plain traversal bit-equal to the JAX traversal without FMA
+    contraction, closest and any hit."""
+    o, d, t_max, rows, depth = bvh_ties.tie_case()
+    want = run_jax_without_fma(tmp_path, o.numpy(), d.numpy(), t_max.numpy(), rows.numpy(), depth)
+    for any_hit in (False, True):
+        got = bvh.bvh12_intersect_plain(o, d, t_max, rows, depth, any_hit)
+        for k in ("valid", "tri", "t", "b0", "b1"):
+            np.testing.assert_array_equal(getattr(got, k).numpy(), want[f"{int(any_hit)}_{k}"],
+                                          err_msg=f"any_hit={any_hit} {k}")
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_plain_keeps_tie_rules(any_hit):
+    """The rules a traversal must keep, pinned on the tie and NaN tree of
+    tools/bvh_ties against the JAX traversal in this process (valid and tri
+    equal; t, b0, b1 within 1 ulp-scale tolerance, as XLA contracts FMAs
+    here): the lowest of two child slots at equal entry distance is
+    entered first, the lowest of two leaf slots at equal t wins, a later
+    leaf at equal t does not replace the hit, a NaN t blocks its leaf's
+    update, and a ray with t_max < 0 misses with t = t_max."""
+    o, d, t_max, rows, depth = bvh_ties.tie_case()
+    want = jbvh.bvh12_intersect_tris(jnp.asarray(o.numpy()), jnp.asarray(d.numpy()),
+                                     jnp.asarray(t_max.numpy()), jnp.asarray(rows.numpy()),
+                                     depth, any_hit=any_hit)
+    work = {}
+    got = bvh.bvh12_intersect_plain(o, d, t_max, rows, depth, any_hit, work)
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    np.testing.assert_array_equal(got.tri.numpy(), np.asarray(want.tri))
+    for k in ("t", "b0", "b1"):
+        np.testing.assert_allclose(getattr(got, k).numpy(), np.asarray(getattr(want, k)),
+                                   rtol=1e-6, atol=1e-6, err_msg=k)
+    assert work["overflow"] == 0
+    tri, t = got.tri.numpy(), got.t.numpy()
+    x, tm = o[:, 0].numpy(), t_max.numpy()
+    axis = np.arange(len(tri)) < 32  # the rays along +z
+    dead = tm < 0
+    assert dead.sum() == 8 and (tri[dead] == -1).all() and (t[dead] == tm[dead]).all()
+    short = axis & (tm > 0) & (tm < 1.0)
+    assert short.sum() == 8 and (tri[short] == -1).all() and (t[short] == tm[short]).all()
+    region_a, region_b = axis & (x < 1.0) & (tm > 1.0), axis & (x > 2.0) & (tm > 1.0)
+    assert region_a.sum() >= 4 and region_b.sum() >= 4
+    # B1 finds slot 3's triangle (53); B2 stops at its first hit, which the
+    # same walk order makes the same triangle
+    assert (tri[region_a] == 53).all() and (t[region_a] == 1.0).all()
+    far = region_b & (tm > 3.5)
+    assert far.sum() >= 2 and (tri[far] == 70).all()  # the NaN leaf's triangle 31 is blocked
+    assert (tri[region_b & (tm < 3.0)] == -1).all()
 
 
 def ties(hit_a, hit_b):

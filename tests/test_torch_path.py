@@ -9,6 +9,8 @@ path (tests/test_pallas.py:157-161): the same estimator and samples, with
 float association as the only difference.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -121,27 +123,93 @@ def test_launch_flags_match_jax(max_depth, monkeypatch):
     assert len(seen) == max_depth + 1
 
 
-def test_bounce_wrapper_takes_plain_on_cpu():
-    """On CPU tensors the wrapper is the plain version, and counts nothing."""
-    scene, camera = presets.cornell_box((8, 8), device="cpu")
-    cfg, tables = pk.mega_cfg(scene), pk.mega_tables(scene)
-    rng = np.random.default_rng(4)
-    n = 256
+def random_lanes(seed, n, dead=0.0):
+    """Lane state in the Cornell box: origins inside it, random unit
+    directions, beta in [0.05, 1), L in [0, 0.5), prev_pdf 1; a `dead`
+    share of the lanes dead.  (lanes, alive, index)."""
+    rng = np.random.default_rng(seed)
     lanes = torch.zeros(pk.N_LANE_ROWS, n)
     lanes[0:3] = torch.as_tensor(rng.uniform(50, 500, (3, n)), dtype=torch.float32)
     lanes[3:6] = torch.nn.functional.normalize(torch.as_tensor(rng.normal(size=(3, n)),
                                                                dtype=torch.float32), dim=0)
-    lanes[6:9] = 1.0
+    lanes[6:9] = torch.as_tensor(rng.uniform(0.05, 1.0, (3, n)), dtype=torch.float32)
+    lanes[9:12] = torch.as_tensor(rng.uniform(0.0, 0.5, (3, n)), dtype=torch.float32)
     lanes[12] = 1.0
-    alive = torch.ones(n, dtype=torch.int32)
-    index = torch.as_tensor(rng.integers(0, 1 << 20, n))
+    alive = torch.as_tensor(rng.uniform(size=n) >= dead, dtype=torch.int32)
+    return lanes, alive, torch.as_tensor(rng.integers(0, 1 << 20, n))
+
+
+def test_bounce_wrapper_takes_plain_on_cpu():
+    """On CPU tensors the wrapper is the plain version, and counts nothing."""
+    scene, camera = presets.cornell_box((8, 8), device="cpu")
+    cfg, tables = pk.mega_cfg(scene), pk.mega_tables(scene)
+    lanes, alive, index = random_lanes(4, 256)
     kw = dict(dim_row=5, n_bits=32, first_bounce=True, rr_active=False, emit_only=False,
               rr_threshold=1.0)
     before = pk.launches
-    got = pk.bounce(lanes, alive, index, tables, cfg, **kw)
     want = pk.bounce_plain(lanes, alive, index, tables, cfg, **kw)
+    got = pk.bounce(lanes, alive, index, tables, cfg, **kw)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert pk.launches == before
+
+
+def test_mega_tables_flag_non_finite_vertices():
+    """mega_tables marks a table whose vertices are all finite (the
+    kernel's sweeps may then pick the sheared components by index) and
+    clears the mark for an infinite or NaN vertex coordinate."""
+    scene, _ = presets.cornell_box((8, 8), device="cpu")
+    assert pk.mega_tables(scene).finite_verts
+    for bad in (float("inf"), float("nan")):
+        tri_attr = scene.tri_attr.clone()
+        tri_attr[3, 7] = bad
+        assert not pk.mega_tables(dataclasses.replace(scene, tri_attr=tri_attr)).finite_verts
+    tri_attr = scene.tri_attr.clone()
+    tri_attr[3, 20] = float("inf")  # not a vertex coordinate
+    assert pk.mega_tables(dataclasses.replace(scene, tri_attr=tri_attr)).finite_verts
+
+
+@pytest.mark.parametrize("emit_only", [False, True], ids=["bounce", "emit-only"])
+def test_bounce_updates_in_place(emit_only):
+    """The wrapper writes bounce_plain's result into the tensors it is
+    given and returns them; bounce_plain leaves its inputs alone; the rows
+    of the lanes that enter dead come out unchanged bit for bit."""
+    scene, _ = presets.cornell_box((8, 8), device="cpu")
+    cfg, tables = pk.mega_cfg(scene), pk.mega_tables(scene)
+    lanes, alive, index = random_lanes(6, 512, dead=0.3)
+    kw = dict(dim_row=26, n_bits=32, first_bounce=False, rr_active=True, emit_only=emit_only,
+              rr_threshold=1.0)
+    lanes0, alive0 = lanes.clone(), alive.clone()
+    want = pk.bounce_plain(lanes, alive, index, tables, cfg, **kw)
+    assert torch.equal(lanes, lanes0) and torch.equal(alive, alive0)
+    got = pk.bounce(lanes, alive, index, tables, cfg, **kw)
+    assert got[0] is lanes and got[1] is alive
+    assert torch.equal(lanes, want[0]) and torch.equal(alive, want[1])
+    dead = alive0 == 0
+    assert 100 < int(dead.sum()) < 200
+    assert torch.equal(lanes[:, dead].view(torch.int32), lanes0[:, dead].view(torch.int32))
+    assert not alive[dead].any()
+    live = ~dead
+    assert not torch.equal(lanes[:, live], lanes0[:, live])  # the live lanes moved on
+
+
+def test_curtain_scene_is_a_large_bounce_table():
+    """tools/k2_replay's curtain scene is taken by the bounce kernel with a
+    table above SHARED_TABLE_MAX_TRIS (its sweeps read it from device
+    memory), all vertices finite; its recorded launches are one per bounce
+    and the emit-only one, and a replayed launch through the wrapper equals
+    bounce_plain on the same inputs."""
+    from rs_pbrt_tpu_torch.tools import k2_replay
+
+    scene, camera = k2_replay.curtain_scene((4, 4), device="cpu")
+    cfg = pk.mega_cfg(scene)
+    assert cfg is not None and cfg.n_tri == 2028
+    assert pk.SHARED_TABLE_MAX_TRIS < cfg.n_tri <= pk.MEGA_MAX_TRIS
+    assert pk.mega_tables(scene).finite_verts
+    calls = k2_replay.record_launches(scene, camera, spp=1, depth=1)
+    assert [c[5]["emit_only"] for c in calls] == [False, True]
+    assert all(c[0].shape == (pk.N_LANE_ROWS, 16) for c in calls)
+    assert int(calls[0][1].sum()) == 16  # every camera ray starts alive
+    assert k2_replay.check_launch(calls[1]) == 0.0
 
 
 def test_bounce_work_counts():
