@@ -8,8 +8,11 @@ Run from the root of a checkout.  Phases, one line each (or more):
 1. device: the card's name and power limit (nvidia-smi).
 2. build: every CUDA source of rs_pbrt_tpu_torch/csrc, compiled by nvcc;
    each kernel's registers, shared memory and stack frame (-Xptxas -v).
-3. K1 (Sobol' dims) against its plain PyTorch version on 2^22 lanes, for
-   32- and 52-bit indices: the outputs must be bit-equal.
+3. K1 (Sobol' dims) against its plain PyTorch version on random indices:
+   32- and 52-bit and the render paths' exact widths (22 and 19 bits), 1,
+   5, 35 and 128 dims, and the table's last 128 dims; the outputs and their
+   strides must be equal.  Its device time (queued behind a sleeping
+   kernel) beside the bound.
 4. K2 (one path-tracer bounce) against its plain version, one bounce and
    the emit-only launch, on the Cornell camera rays at 256x256x4 spp:
    all 13 lane rows (o, d, beta, L, prev_pdf) within rtol = atol = 2e-3,
@@ -24,7 +27,8 @@ Run from the root of a checkout.  Phases, one line each (or more):
    box at 256x256, 64 spp in one batch, path integrator, depth 5.  The
    launch counters are zeroed just before it and read just after: K1 once,
    K2 max_depth + 1 times.  Each of that run's launches is held against
-   its plain version on the same inputs (K1 bit-equal, K2 as in phase 4;
+   its plain version on the same inputs (K1 bit-equal and its device time
+   from the launch replayed queued, K2 as in phase 4;
    K2's inputs and outputs are copied as the run makes them, since each
    launch overwrites them), and the plain bounce counts the lanes of each
    step for K2's bound.  The
@@ -48,7 +52,8 @@ Run from the root of a checkout.  Phases, one line each (or more):
    read just after: K1 1 + depth (camera dims, then each depth's block),
    K5 depth, K4 depth x n_lights, K2 and K3 none.  Every K1, K4 and K5
    launch of that run is held against its plain version on the same
-   inputs (K1 bit-equal, K4 equal, K5 as in phase 6); the image must be
+   inputs (K1 bit-equal, K4 equal, K5 as in phase 6), and each K1 launch
+   replayed queued for its device time; the image must be
    finite and within rtol = atol = 2e-3 of the same render with every
    wrapper swapped for its plain version.  Then paths/s (best of 3 warm
    renders), the device time by op and each kernel's time per launch
@@ -74,13 +79,18 @@ Run from the root of a checkout.  Phases, one line each (or more):
    within rtol = atol = 2e-3 of the render with B1, B2 and K1 swapped for
    their plain versions.  B1 and B2 also run on the hand-built tie and NaN
    tree of rs_pbrt_tpu_torch/tools/bvh_ties.py, bit-equal to the plain
-   traversal.  Then paths/s (best of 3 warm renders), the device time by
-   op, and each kernel's time per launch beside its bound (counted from the
-   rows each ray visits), with B1's rays/s and row visits/s.  B1's and
+   traversal, and B2 on the first shadow launch cut to 16,389 rays (the
+   last group fetch holds 5 rays).  Then paths/s (best of 3 warm renders),
+   the device time by op, and each kernel's time per launch beside its
+   bound (counted from the rows each ray visits), with B1's rays/s and row
+   visits/s.  B1's and
    B2's times are the events around each call, as for every kernel, and
    beside them (device_ms in the JSON line) their device times, each
    launch's recorded inputs replayed behind a sleeping kernel: in this
    host-bound render the events also time the host's share of a call.
+   K1's device_ms is the same replay of its launches in phases 5, 7 and 9.
+   The one-thread-a-lane K1 and one-thread-a-ray B2's device times on the
+   same launches are printed beside them as recorded constants.
 
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
@@ -103,16 +113,21 @@ TOL = 2e-3  # K2-K5 and the renders against their plain versions (rtol = atol)
 DEVICE = "cuda"
 # the main paths' size: 256x256 at 64 spp in one batch, depth 5
 RES, SPP, DEPTH = (256, 256), 64, 5
-K1_LANES = 1 << 22  # phase 3
+# phase 3: (index bits, lanes, dim0, n_dims); 22 and 19 bits are the
+# render paths' exact widths (256x256 at 64 and 8 spp)
+K1_CASES = ((32, 1 << 22, 0, 5), (52, 1 << 22, 0, 5), (22, 1 << 22, 0, 5), (22, 1 << 22, 7, 1),
+            (19, 1 << 19, 5, 35), (22, 1 << 18, 5, 128), (52, 1 << 18, 1024 - 128, 128))
 K2_SPP = 4  # phase 4
 SWEEP_RAYS, SWEEP_TRIS = 1 << 18, 2048  # phase 6's random input
 # phase 9: the statue at the size bench.py:228-249 renders it
 STATUE_SUBDIV, STATUE_RES, STATUE_SPP = 8, (256, 256), 8
+B2_TAIL_RAYS = (1 << 14) + 5  # phase 9: B2 on a launch cut to this many rays
 PROBE_SHAPE = (16, 2048)  # phase 8: P1 and P2 at the JAX probe's shape
 
 # published peaks of one H100 SXM (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+K1_OPS_PER_STEP = 2  # K1: an AND and an XOR per (index bit, dim)
 # K2's f32 arithmetic by step, counted in csrc/bounce.cu and
 # csrc/watertight.cuh: add, sub, mul, div, sqrt, sin and cos one each;
 # compares, min/max, abs, negation and selects are not counted.  The
@@ -152,6 +167,16 @@ LIVE_LANE_BYTES = 13 * 4 * 2 + 4  # a live lane's 13 f32 rows in and out, its al
 PREV_K2_MS = (1.536, 1.508, 1.514, 1.516, 0.994, 0.464)
 PREV_B1_MS = (0.841, 1.381, 0.984, 0.713, 0.363, 0.299)
 PREV_B1_DEVICE_MS = 3.552
+# K1 (one thread a lane, row-major stores, 32-bit index, at most 64 dims a
+# launch) and B2 (one thread a ray) as they were before their redesign:
+# each launch of these renders on the card alone, queued
+# (rs_pbrt_tpu_torch/tools/k1_b2_replay.py --root on the earlier checkout,
+# NVIDIA H100 80GB HBM3 at 700.00 W, PERF.md)
+PREV_K1_DEVICE_MS = dict(flagship=(0.1520,),
+                         directlighting=(0.1489, 0.1540, 0.1539, 0.1541, 0.1539, 0.1541),
+                         whitted=(0.1490, 0.1538, 0.1540, 0.1538, 0.1540, 0.1540),
+                         statue=(0.0214, 0.3564))
+PREV_B2_DEVICE_MS = (0.6459, 0.3370, 0.2343, 0.1268, 0.0572)
 # K3-K5's f32 arithmetic, counted as K2_FLOP is in csrc/intersect.cu,
 # csrc/watertight.cuh and csrc/record.cuh
 ISECT_FLOP = dict(
@@ -195,32 +220,17 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def queued_ms(fn, reps: int) -> float:
-    """Device time of fn() per call: reps calls queued behind a sleeping
-    kernel, so that the card runs them back to back and CUDA events around
-    them time the card alone.  cuda_ms times calls as the host makes them,
-    so a kernel shorter than the host's cost of a call reads as that cost.
-    Fails if the sleep ended before the host had queued every call."""
-    import torch
+    """Device time of fn() per call, reps calls queued behind a sleeping
+    kernel (rs_pbrt_tpu_torch/tools/k1_b2_replay.queued_ms); cuda_ms times
+    calls as the host makes them, so a kernel shorter than the host's cost
+    of a call reads as that cost.  Fails if the sleep ended before the host
+    had queued every call."""
+    from rs_pbrt_tpu_torch.tools import k1_b2_replay
 
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    slept = torch.cuda.Event()
-    # cycles at 2 GHz, above the card's clock, so the sleep lasts at least this
-    torch.cuda._sleep(int(2e9 * (3 * reps * host_s + 5e-3)))
-    slept.record()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    if slept.query():
-        fail("queued_ms: the card woke before the calls were queued")
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    try:
+        return k1_b2_replay.queued_ms(fn, reps)
+    except RuntimeError as e:
+        fail(str(e))
 
 
 class LaunchTimer:
@@ -390,9 +400,13 @@ def check_isect(what: str, kind: str, got, want) -> float:
     return err
 
 
-def k1_bound_ms(n: int, n_dims: int) -> float:
-    """8 bytes of index in and 4 per dim out per lane, over the memory rate."""
-    return 1e3 * n * (8 + 4 * n_dims) / HBM_BYTES_PER_S
+def k1_bound_ms(n: int, n_dims: int, n_bits: int) -> tuple:
+    """Least time of one K1 launch, as (bytes_ms, operations_ms): 8 bytes
+    of index in and 4 per dim out per lane, over the memory rate; one AND
+    and one XOR per index bit below the index's width and per dim, over the
+    32-bit rate."""
+    return (1e3 * n * (8 + 4 * n_dims) / HBM_BYTES_PER_S,
+            1e3 * n * n_bits * n_dims * K1_OPS_PER_STEP / FP32_FLOP_PER_S)
 
 
 def phase_device():
@@ -432,6 +446,11 @@ def ptxas_resources(log: str) -> list:
             k = re.search(r"_GLOBAL__N__[0-9a-f]+_\d+_(\w+?)_cu_[0-9a-f]{8}(\d+)", name)
             src, kernel = (k.group(1) + ".cu", name[k.end():k.end() + int(k.group(2))]) if k \
                 else ("?", name)
+            # a template's bool arguments: I Lb0E Lb1E .. E
+            targs = re.match(r"I((?:Lb[01]E)+)E", name[k.end() + int(k.group(2)):]) if k else None
+            if targs:
+                kernel += "<" + ", ".join("true" if b == "1" else "false"
+                                          for b in re.findall(r"Lb([01])E", targs.group(1))) + ">"
             found.append((src, kernel, int(m.group(1)), int(m.group(2) or 0), frame))
             name = None
     return found
@@ -453,28 +472,32 @@ def phase_build():
 
 
 def phase_k1(card):
+    """Phase 3: K1 bit-equal to its plain version, with the same strides, on
+    random indices below 2^bits at the K1_CASES; its time on the card
+    (queued) beside the bound.  Returns the largest difference."""
     import numpy as np
     import torch
 
     from rs_pbrt_tpu_torch.ops import sobol_kernel as sk
 
-    n = K1_LANES
     rng = np.random.default_rng(1)
     worst = 0.0
-    for bits in (32, 52):
+    for bits, n, dim0, n_dims in K1_CASES:
         index = torch.as_tensor(rng.integers(0, 1 << bits, n, dtype=np.int64), device=DEVICE)
-        got = sk.sobol_dims(index, 0, 5, bits)
-        want = sk.sobol_dims_plain(index, 0, 5, bits)
+        want = sk.sobol_dims_plain(index, dim0, n_dims, bits)
+        got = sk.sobol_dims(index, dim0, n_dims, bits)
         torch.cuda.synchronize()
         worst = max(worst, float((got - want).abs().max()))
-        if not torch.equal(got, want):
-            fail(f"K1 {bits}-bit: {int((got != want).sum())} of {got.numel()} values differ "
-                 "from the plain version")
-        ms = cuda_ms(lambda: sk.sobol_dims(index, 0, 5, bits), 20)
-        plain_ms = cuda_ms(lambda: sk.sobol_dims_plain(index, 0, 5, bits), 3)
-        print(f"[3 K1] {bits}-bit index, {n} lanes x 5 dims: bit-equal to the plain version; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {k1_bound_ms(n, 5):.4f} ms "
-              f"({card})", flush=True)
+        if not torch.equal(got, want) or got.stride() != want.stride():
+            fail(f"K1 {bits}-bit, dims {dim0}..{dim0 + n_dims - 1}: {int((got != want).sum())} "
+                 f"of {got.numel()} values differ from the plain version (strides "
+                 f"{got.stride()}, plain {want.stride()})")
+        ms = queued_ms(lambda: sk.sobol_dims(index, dim0, n_dims, bits), 20)
+        bms, fms = k1_bound_ms(n, n_dims, bits)
+        print(f"[3 K1] {bits}-bit index, {n} lanes x dims {dim0}..{dim0 + n_dims - 1}: bit-equal "
+              f"to the plain version; {ms:.4f} ms on the card, bound {max(bms, fms):.4f} ms "
+              f"(bytes {bms:.4f}, operations {fms:.4f}) ({card})", flush=True)
+        del index, want, got
     return worst
 
 
@@ -611,7 +634,9 @@ def phase_render(card):
     k1_err = float((k1_out - k1_want).abs().max())
     if not torch.equal(k1_out, k1_want):
         fail(f"flagship K1 launch differs from its plain version by up to {k1_err}")
-    k1_bound = k1_bound_ms(k1_args[0].shape[0], k1_args[2])
+    k1_bound = k1_bound_ms(k1_args[0].shape[0], *k1_args[2:4])
+    # K1's device time: the launch's recorded inputs replayed, queued
+    k1_dev = queued_ms(lambda: sk.sobol_dims(*k1_args, **k1_kw), 20)
     k2_err, k2_parts, k2_work = 0.0, [], []
     for b, (_, args, kw, out) in enumerate(k2r.calls):
         work = {}
@@ -667,7 +692,9 @@ def phase_render(card):
           f"{float(img.mean()):.5f}); launches {counts}", flush=True)
     print(f"[5 render] {best['paths_per_s']:.6g} camera paths/s (best of 3 warm renders, "
           f"{1e3 * best['wall_s']:.3f} ms) on {card}", flush=True)
-    print(f"[5 render] K1 per launch {k1_ms:.4f} ms; K2 per launch "
+    print(f"[5 render] K1 per launch {k1_ms:.4f} ms (on the card {k1_dev:.4f} ms, bound "
+          f"{max(k1_bound):.4f} ms; recorded, not measured here: the one-thread-a-lane kernel "
+          f"{PREV_K1_DEVICE_MS['flagship'][0]:.4f} ms on the card); K2 per launch "
           f"{', '.join(f'{t:.3f}' for t in k2_ms)} ms (bounds "
           f"{', '.join(f'{b:.4f}' for b in k2_bounds)} ms); plain render K1 "
           f"{p1t.times_ms()[0]:.3f} ms, K2 {', '.join(f'{t:.1f}' for t in p2_ms)} ms", flush=True)
@@ -680,7 +707,8 @@ def phase_render(card):
           f"recorded: the one-thread-a-lane kernel {sum(PREV_K2_MS):.3f} ms", flush=True)
     return dict(
         counts=counts, err=err,
-        k1=dict(ms=[k1_ms], plain_ms=p1t.times_ms(), bound=[(k1_bound, 0.0)], max_abs_err=k1_err),
+        k1=dict(ms=[k1_ms], device_ms=[k1_dev], plain_ms=p1t.times_ms(), bound=[k1_bound],
+                max_abs_err=k1_err),
         k2=dict(ms=sum(k2_ms) / len(k2_ms), plain_ms=sum(p2_ms) / len(p2_ms),
                 bound_ms=sum(k2_bounds) / len(k2_bounds), bound_by=k2_by, max_abs_err=k2_err),
     )
@@ -797,13 +825,15 @@ def phase_slice_render(card, integrator: str):
     # each launch of that run against its plain version on the same inputs
     errs = dict(sobol_dims=0.0, any_sweep=0.0, full_sweep=0.0)
     bounds = {k: [] for k in names}
+    k1_dev = []  # each K1 launch's device time: its inputs replayed, queued
     for b, (_, args, kw, out) in enumerate(rec["sobol_dims"].calls):
         want_k1 = sk.sobol_dims_plain(*args, **kw)
         torch.cuda.synchronize()
         errs["sobol_dims"] = max(errs["sobol_dims"], float((out - want_k1).abs().max()))
         if not torch.equal(out, want_k1):
             fail(f"{integrator} K1 launch {b} differs from its plain version")
-        bounds["sobol_dims"].append((k1_bound_ms(args[0].shape[0], args[2]), 0.0))
+        bounds["sobol_dims"].append(k1_bound_ms(args[0].shape[0], *args[2:4]))
+        k1_dev.append(queued_ms(lambda a=args, k=kw: sk.sobol_dims(*a, **k), 20))
     for key, kind, kid, plain in (("any_sweep", "any", "K4", ik.any_sweep_plain),
                                   ("full_sweep", "full", "K5", ik.full_sweep_plain)):
         for b, (_, args, kw, out) in enumerate(rec[key].calls):
@@ -852,8 +882,14 @@ def phase_slice_render(card, integrator: str):
         print(f"[{tag}] {kid} per launch {', '.join(f'{t:.4f}' for t in ms[k])} ms; bounds "
               f"{', '.join(f'{max(b):.4f}' for b in bounds[k])} ms; plain "
               f"{', '.join(f'{t:.3f}' for t in plain_ms[k])} ms", flush=True)
+    prev = PREV_K1_DEVICE_MS[integrator]
+    print(f"[{tag}] K1 per launch on the card {', '.join(f'{t:.4f}' for t in k1_dev)} ms "
+          f"= {sum(k1_dev):.4f} ms ({card}); recorded, not measured here: the "
+          f"one-thread-a-lane kernel {', '.join(f'{t:.4f}' for t in prev)} = {sum(prev):.4f} ms",
+          flush=True)
     out = {k: dict(ms=ms[k], plain_ms=plain_ms[k], bound=bounds[k], max_abs_err=errs[k])
            for k in names}
+    out["sobol_dims"]["device_ms"] = k1_dev
     return dict(out, counts=counts)
 
 
@@ -1015,14 +1051,15 @@ def phase_statue(card):
 
     # each launch of that run against its plain version on the same inputs;
     # the plain traversal also counts the rows each ray visits, for the bound
-    k1_err, k1_bounds = 0.0, []
+    k1_err, k1_bounds, k1_dev = 0.0, [], []
     for b, (_, args, kw, out) in enumerate(rec["sobol_dims"].calls):
         want_k1 = sk.sobol_dims_plain(*args, **kw)
         torch.cuda.synchronize()
         k1_err = max(k1_err, float((out - want_k1).abs().max()))
         if not torch.equal(out, want_k1):
             fail(f"statue K1 launch {b} differs from its plain version")
-        k1_bounds.append((k1_bound_ms(args[0].shape[0], args[2]), 0.0))
+        k1_bounds.append(k1_bound_ms(args[0].shape[0], *args[2:4]))
+        k1_dev.append(queued_ms(lambda a=args, k=kw: sk.sobol_dims(*a, **k), 20))
     bounds = {"closest": [], "any": []}
     errs = {"closest": 0.0, "any": 0.0}
     work_sum = {"closest": [0, 0], "any": [0, 0]}
@@ -1043,6 +1080,14 @@ def phase_statue(card):
     # the inputs of each launch, replayed below for its device time
     replays = [(args, kw) for _, args, kw, _ in rec["bvh12_intersect_tris"].calls]
     del rec, args, kw, out, plain
+    # B2 on the first shadow launch cut to B2_TAIL_RAYS rays: the last group
+    # fetch holds 5 rays of 16
+    shadow = next(a for a, k in replays if k.get("any_hit"))
+    cut = tuple(x[:B2_TAIL_RAYS] for x in shadow[:3]) + tuple(shadow[3:])
+    errs["any"] = max(errs["any"], check_bvh(
+        f"B2 on {B2_TAIL_RAYS} rays", True, bvh.bvh12_intersect_tris(*cut, any_hit=True),
+        bvh.bvh12_intersect_plain(*cut, any_hit=True)))
+    del shadow, cut
     # the hand-built tree whose walks meet each tie and NaN rule
     o_t, d_t, tm_t, rows_t, depth_t = bvh_ties.tie_case(DEVICE)
     for any_hit in (False, True):
@@ -1056,7 +1101,8 @@ def phase_statue(card):
     print(f"[9 statue] each launch matches its plain version: B1 valid, tri, t, b0, b1 and B2 "
           f"equal, K1 bit-equal; stack overflows {n_overflow}; rows visited (internal, leaf) "
           f"B1 {work_sum['closest']}, B2 {work_sum['any']}; B1 and B2 equal to the plain "
-          f"traversal on the tie case ({o_t.shape[0]} rays)", flush=True)
+          f"traversal on the tie case ({o_t.shape[0]} rays), B2 on a shadow launch's first "
+          f"{B2_TAIL_RAYS} rays", flush=True)
 
     best = None
     for _ in range(3):
@@ -1081,8 +1127,8 @@ def phase_statue(card):
     # of a call in this host-bound render)
     dev_ms = [queued_ms(lambda a=a, k=k: bvh.bvh12_intersect_tris(*a, **k), 10)
               for a, k in replays]
-    prof_ms = {kind: sum(v for key, v in prof.items() if f"::{kind}_kernel(" in key)
-               for kind in ("closest", "any")}
+    prof_ms = {kind: sum(v for key, v in prof.items() if f"::walk_kernel<{flag}>(" in key)
+               for kind, flag in (("closest", "false"), ("any", "true"))}
 
     # the same render with B1, B2 and K1 swapped for their plain versions
     def plain_bvh(o, d, t_max, rows, depth_, any_hit=False):
@@ -1125,13 +1171,22 @@ def phase_statue(card):
           f"{prof_ms['closest']:.4f} ms, events {sum(b_ms['closest']):.4f} ms ({card}); recorded, "
           f"not measured here: the one-thread-a-ray walk's profiler {PREV_B1_DEVICE_MS:.3f} ms, "
           f"events {sum(PREV_B1_MS):.3f} ms", flush=True)
+    print(f"[9 B2] all launches on the card {sum(b_dev['any']):.4f} ms "
+          f"({', '.join(f'{t:.4f}' for t in b_dev['any'])}), profiler {prof_ms['any']:.4f} ms, "
+          f"events {sum(b_ms['any']):.4f} ms ({card}); recorded, not measured here: the "
+          f"one-thread-a-ray walk on the card {sum(PREV_B2_DEVICE_MS):.4f} ms "
+          f"({', '.join(f'{t:.4f}' for t in PREV_B2_DEVICE_MS)})", flush=True)
+    print(f"[9 K1] per launch on the card {', '.join(f'{t:.4f}' for t in k1_dev)} ms, bounds "
+          f"{', '.join(f'{max(b):.4f}' for b in k1_bounds)} ms ({card}); recorded, not measured "
+          f"here: the one-thread-a-lane kernel "
+          f"{', '.join(f'{t:.4f}' for t in PREV_K1_DEVICE_MS['statue'])} ms", flush=True)
     print(f"[9 statue] K1 per launch {', '.join(f'{t:.4f}' for t in ms['sobol_dims'])} ms; "
           f"traversal {sum(ms['bvh12_intersect_tris']):.3f} ms of the "
           f"{1e3 * best['wall_s']:.3f} ms render", flush=True)
     return dict(
         counts=counts,
-        sobol_dims=dict(ms=ms["sobol_dims"], plain_ms=plain_ms["sobol_dims"], bound=k1_bounds,
-                        max_abs_err=k1_err),
+        sobol_dims=dict(ms=ms["sobol_dims"], device_ms=k1_dev, plain_ms=plain_ms["sobol_dims"],
+                        bound=k1_bounds, max_abs_err=k1_err),
         closest=dict(ms=b_ms["closest"], device_ms=b_dev["closest"], plain_ms=b_plain["closest"],
                      bound=bounds["closest"], max_abs_err=errs["closest"]),
         any=dict(ms=b_ms["any"], device_ms=b_dev["any"], plain_ms=b_plain["any"],
@@ -1188,11 +1243,12 @@ def main():
     worst = lambda key, *more: max([p["max_abs_err"] for p in more]
                                    + [r[key]["max_abs_err"] for r in slices])
     kernels = [
-        kernel_entry("sobol_dims", csrc + "sobol.cu", "rs_pbrt_tpu/ops/pallas_sobol.py:35",
-                     flag["counts"]["sobol"] + sum(r["counts"]["sobol"] for r in slices)
-                     + statue["counts"]["sobol"],
-                     [flag["k1"]] + [r["sobol_dims"] for r in slices] + [statue["sobol_dims"]],
-                     worst("sobol_dims", flag["k1"], statue["sobol_dims"])),
+        dict(kernel_entry("sobol_dims", csrc + "sobol.cu", "rs_pbrt_tpu/ops/pallas_sobol.py:35",
+                          flag["counts"]["sobol"] + sum(r["counts"]["sobol"] for r in slices)
+                          + statue["counts"]["sobol"],
+                          [flag["k1"]] + [r["sobol_dims"] for r in slices] + [statue["sobol_dims"]],
+                          worst("sobol_dims", flag["k1"], statue["sobol_dims"])),
+             redesigned=True),
         dict(name="bounce", route="cuda", source=csrc + "bounce.cu",
              replaces="rs_pbrt_tpu/ops/pallas_path.py:410", launches=flag["counts"]["bounce"],
              library_ms=None, **k2, redesigned=True),
@@ -1210,8 +1266,10 @@ def main():
                           statue["counts"]["bvh12_closest"], [statue["closest"]],
                           statue["closest"]["max_abs_err"]),
              redesigned=True),
-        kernel_entry("bvh12_any", csrc + "bvh12.cu", "rs_pbrt_tpu/ops/bvh.py:994",
-                     statue["counts"]["bvh12_any"], [statue["any"]], statue["any"]["max_abs_err"]),
+        dict(kernel_entry("bvh12_any", csrc + "bvh12.cu", "rs_pbrt_tpu/ops/bvh.py:994",
+                          statue["counts"]["bvh12_any"], [statue["any"]],
+                          statue["any"]["max_abs_err"]),
+             redesigned=True),
         kernel_entry("take_rows", csrc + "gather_probe.cu", "tools/tpu_probe.py:110",
                      probe["counts"]["take_rows"], [probe["take_rows"]],
                      probe["take_rows"]["max_abs_err"], library_ms=probe["gather_ms"]),

@@ -158,8 +158,8 @@ def general_radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg
     check_supported(scene, sampler_cfg, accel)
     n, dev = ray_o.shape[0], ray_o.device
     light_dist = _light_select_dist(scene) if scene.n_lights > 0 else None
-    # every bounce's dims in one K1 launch where K1 takes them all (JAX
-    # hoists up to 128 dims), else one launch a bounce
+    # every bounce's dims in one K1 launch where K1 takes them all (up to
+    # 128 dims, as the JAX package hoists them: depth 18), else one a bounce
     total_dims = DIMS_PER_BOUNCE * cfg.max_depth
     all_dims = (smpl.get_dims(sampler_cfg, ctx, DIM_CAMERA, total_dims)
                 if 0 < total_dims <= sk.MAX_DIMS else None)

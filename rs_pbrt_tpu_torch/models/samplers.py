@@ -39,8 +39,18 @@ def make_sampler(kind: int, spp: int, resolution=(1, 1), seed: int = 0) -> Sampl
 
 def index_bits(cfg: SamplerCfg) -> int:
     """Width of the global index: it is below spp << 2*log2res
-    (lowdiscrepancy.rs:1014), so 32 bits when that fits, else 52."""
+    (lowdiscrepancy.rs:1014), so 32 bits when that fits, else 52.  K2
+    (path_kernel.bounce) takes this width."""
     return 32 if cfg.spp * (4 ** cfg.log2_resolution) <= (1 << 32) else 52
+
+
+def exact_index_bits(cfg: SamplerCfg) -> int:
+    """The global index's exact width when every sample number is below
+    spp: sample << 2*log2res XOR bits below 2*log2res (lowdiscrepancy.rs:
+    1014), so ceil(log2 spp) + 2*log2res bits, at least 1, at most the 52
+    the direction numbers cover."""
+    return min(ld.SOBOL_MATRIX_SIZE,
+               max(1, (cfg.spp - 1).bit_length() + 2 * cfg.log2_resolution))
 
 
 class SampleCtx(NamedTuple):
@@ -51,21 +61,30 @@ class SampleCtx(NamedTuple):
     # dim and its (N, n) samples
     block0: int = 0
     block: Optional[torch.Tensor] = None
+    # the caller's promise that sample_num < spp on every lane (make_ctx)
+    frame_lt_spp: bool = False
 
 
 def make_ctx(cfg: SamplerCfg, pixel, sample_num, frame_lt_spp: bool = False) -> SampleCtx:
     """frame_lt_spp: the caller promises sample_num < cfg.spp on every lane,
-    which bounds the frame bits read to ceil(log2 spp)."""
+    which bounds the frame bits read to ceil(log2 spp) and the index to
+    exact_index_bits; the context records it for get_dims."""
     pixel = pixel.to(torch.int64)
     sample_num = sample_num.to(torch.int64)
     fbits = max(1, int(np.ceil(np.log2(max(cfg.spp, 2))))) if frame_lt_spp else 32
     idx = ld.sobol_interval_to_index(cfg.log2_resolution, sample_num, pixel, max_frame_bits=fbits)
-    return SampleCtx(pixel, sample_num, idx)
+    return SampleCtx(pixel, sample_num, idx, frame_lt_spp=frame_lt_spp)
+
+
+def dims_bits(cfg: SamplerCfg, ctx: SampleCtx) -> int:
+    """The index bits K1 reads for ctx: the exact width where the context
+    was made with the frame_lt_spp promise, else index_bits."""
+    return exact_index_bits(cfg) if ctx.frame_lt_spp else index_bits(cfg)
 
 
 def get_dims(cfg: SamplerCfg, ctx: SampleCtx, dim0: int, n_dims: int) -> torch.Tensor:
     """(N, n_dims) samples of dims dim0.. in one K1 launch (no film remap)."""
-    return sk.sobol_dims(ctx.global_index, dim0, n_dims, index_bits(cfg))
+    return sk.sobol_dims(ctx.global_index, dim0, n_dims, dims_bits(cfg, ctx))
 
 
 def with_dims(cfg: SamplerCfg, ctx: SampleCtx, dim0: int, n_dims: int) -> SampleCtx:

@@ -5,9 +5,9 @@ The port of the JAX package's wide12 traversal, ``ops/bvh.py``
 (reference bvh.rs:401-514 stack machine, triangle.rs:154-449 watertight
 test), over the rows of ``csrc/lbvh.cpp``'s ``rs_wide12_build``
 (``ops/bvh_native.py``).  ``bvh12_intersect_tris`` launches the CUDA kernel
-(``csrc/bvh12.cu``: B1 closest hit, a group of 16 lanes a ray; B2 any hit,
-a thread a ray) for CUDA tensors and runs ``bvh12_intersect_plain`` for CPU
-tensors.
+(``csrc/bvh12.cu``: B1 closest hit and B2 any hit, each ray walked by a
+group of 16 lanes) for CUDA tensors and runs ``bvh12_intersect_plain`` for
+CPU tensors.
 
 The walk, the same in the kernels and the plain version, step by step as
 the JAX loop: each step visits one row.  When the current group has no
@@ -27,6 +27,7 @@ is counted (``overflows``), so a run can show that none was lost.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 from typing import Optional
 
 import numpy as np
@@ -51,7 +52,10 @@ GAMMA2 = float(vm.gamma(2.0))
 GAMMA3 = float(vm.gamma(3.0))
 GAMMA5 = float(vm.gamma(5.0))
 SLAB_EPS = float(np.float32(1.0 + 2.0 * vm.gamma(3.0)))
-MAX_STACK = 64  # B2's stack array (B1's is K entries in shared memory); K must fit
+# the stack entries K a ray may have: the kernels' block of 8 groups keeps
+# 8 K-entry stacks of 8-byte entries in the 48 KB of shared memory a kernel
+# has without opting in
+MAX_STACK = 48 * 1024 // (8 * 8)
 
 # kernel launches of each wrapper; the plain versions do not count
 launches = {"closest": 0, "any": 0}
@@ -301,12 +305,13 @@ def bvh12_intersect_plain(o, d, t_max, rows, depth: int, any_hit: bool = False,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    # o, d, tmax, n, rows, n_rows, stack, [t, tri, b0, b1, | occ,] overflow, [next_ray,] stream
+    # o, d, tmax, n, rows, n_rows, stack, [t, tri, b0, b1, | occ,] overflow, next_ray, stream
     "rs_bvh12_closest": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
-    "rs_bvh12_any": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P],
+    "rs_bvh12_any": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P],
 }
 
 
+@lru_cache(maxsize=None)
 def _kernel(name: str):
     fn = getattr(_build.load("bvh12"), name)
     fn.argtypes = _ARGTYPES[name]
@@ -345,7 +350,7 @@ def bvh12_intersect_tris(o, d, t_max, rows, depth: int, any_hit: bool = False):
     K = stack_size(depth)
     if K > MAX_STACK:
         raise ValueError(f"bvh12_intersect_tris: a tree of depth {depth} needs a stack of {K} "
-                         f"entries, the kernels hold {MAX_STACK}")
+                         f"entries, the kernels' shared memory holds {MAX_STACK}")
     if not 0 < rows.shape[0] < (1 << 24):
         raise ValueError(f"bvh12_intersect_tris: {rows.shape[0]} rows (1 .. 2^24 - 1 allowed)")
     if n >= 1 << 31:
@@ -353,11 +358,13 @@ def bvh12_intersect_tris(o, d, t_max, rows, depth: int, any_hit: bool = False):
     ovf = overflow_counter(o.device)
     stream = torch.cuda.current_stream(o.device).cuda_stream
     with torch.cuda.device(o.device):
+        # the persistent groups' ray counter, this launch's own on its stream
+        next_ray = torch.zeros(1, dtype=torch.int32, device=o.device)
         if any_hit:
             occ = torch.empty(n, dtype=torch.bool, device=o.device)  # one byte, 0 or 1
             err = _kernel("rs_bvh12_any")(o.data_ptr(), d.data_ptr(), t_max.data_ptr(), n,
                                           rows.data_ptr(), rows.shape[0], K, occ.data_ptr(),
-                                          ovf.data_ptr(), stream)
+                                          ovf.data_ptr(), next_ray.data_ptr(), stream)
             _build.check(err, "bvh12 any-hit kernel launch")
             launches["any"] += 1
             return occ
@@ -365,8 +372,6 @@ def bvh12_intersect_tris(o, d, t_max, rows, depth: int, any_hit: bool = False):
         tri = torch.empty(n, dtype=torch.int32, device=o.device)
         b0 = torch.empty_like(t_max)
         b1 = torch.empty_like(t_max)
-        # the persistent groups' ray counter, this launch's own on its stream
-        next_ray = torch.zeros(1, dtype=torch.int32, device=o.device)
         err = _kernel("rs_bvh12_closest")(o.data_ptr(), d.data_ptr(), t_max.data_ptr(), n,
                                           rows.data_ptr(), rows.shape[0], K, t.data_ptr(),
                                           tri.data_ptr(), b0.data_ptr(), b1.data_ptr(),

@@ -23,6 +23,7 @@ SOBOL_MATRICES_32 = _DATA["sobol_matrices_32"]  # (1024, 52) u32
 VDC = (_DATA["vdc_hi"].astype(np.int64) << 32) | _DATA["vdc_lo"].astype(np.int64)  # (25, 50)
 VDC_INV = (_DATA["vdc_inv_hi"].astype(np.int64) << 32) | _DATA["vdc_inv_lo"].astype(np.int64)
 NUM_SOBOL_DIMENSIONS = 1024
+SOBOL_MATRIX_SIZE = 52  # direction numbers a dimension: index bits the table covers
 INV_2_32 = np.float32(2.3283064365386963e-10)  # 0x1p-32
 
 
@@ -43,13 +44,15 @@ def u32_to_unit_float(v: torch.Tensor) -> torch.Tensor:
 def sobol_samples(index: torch.Tensor, dim0: int, n_dims: int, n_bits: int = 52) -> torch.Tensor:
     """(N,) int64 global index -> (N, n_dims) f32 samples of dimensions
     dim0 .. dim0+n_dims-1, from the low n_bits bits of the index: the XOR of
-    the direction numbers the set bits select (lowdiscrepancy.rs:1046)."""
+    the direction numbers the set bits select (lowdiscrepancy.rs:1046).
+    The result is the transposed view of a dims-major (n_dims, N) tensor,
+    the layout K1 writes."""
     mats = sobol_matrices(index.device)[dim0:dim0 + n_dims]  # (n_dims, 52)
-    v = torch.zeros((index.shape[0], n_dims), dtype=torch.int64, device=index.device)
+    v = torch.zeros((n_dims, index.shape[0]), dtype=torch.int64, device=index.device)
     for i in range(n_bits):
-        bit = (((index >> i) & 1) > 0)[:, None]
-        v = v ^ torch.where(bit, mats[None, :, i], 0)
-    return u32_to_unit_float(v)
+        bit = (((index >> i) & 1) > 0)[None, :]
+        v = v ^ torch.where(bit, mats[:, i:i + 1], 0)
+    return u32_to_unit_float(v).t()
 
 
 def sobol_sample(index: torch.Tensor, dimension: int) -> torch.Tensor:

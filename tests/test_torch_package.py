@@ -84,3 +84,29 @@ def test_cpu_on_request(preset):
     scene, camera = getattr(presets, preset)((8, 8), device="cpu")
     assert scene.device.type == camera.device.type == scene.sph_attr.device.type == "cpu"
     assert np.isfinite(scene.tri_attr.numpy()).all()
+
+
+def test_chip_smoke_names_template_kernels():
+    """chip_smoke.py's phase 2 reads each kernel's resources from nvcc's
+    -Xptxas -v log; a template kernel is named with its bool arguments, so
+    the forms of K1, K2 and B1/B2 keep their own lines."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    log = "\n".join([
+        "ptxas info    : Function properties for _ZN37_INTERNAL_0a_GLOBAL__N__0f3a2b1c_8_bvh12"
+        "_cu_1a2b3c4d11walk_kernelILb1EEEvPKfS2_",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 56 registers, 12 bytes smem, 400 bytes cmem[0]",
+        "ptxas info    : Function properties for _ZN_GLOBAL__N__0f3a2b1c_8_bounce_cu_1a2b3c4d13"
+        "bounce_kernelILb0ELb1EEEvv",
+        "    136 bytes stack frame",
+        "ptxas info    : Used 80 registers, 5696 bytes smem",
+        "ptxas info    : Function properties for _ZN_GLOBAL__N__0f3a2b1c_8_gather_probe_cu_"
+        "1a2b3c4d9take_rowsEPKf",
+        "ptxas info    : Used 16 registers",
+    ])
+    assert chip_smoke.ptxas_resources(log) == [
+        ("bvh12.cu", "walk_kernel<true>", 56, 12, 0),
+        ("bounce.cu", "bounce_kernel<false, true>", 80, 5696, 136),
+        ("gather_probe.cu", "take_rows", 16, 0, 0)]

@@ -91,7 +91,8 @@ def test_launch_sequence_matches_jax(name, monkeypatch):
     """The port's general loop intersects where the JAX loop on the TPU does
     (closest hit, then the shadow rays, each bounce, then the emit-only
     pass: B1/B2 through the BVH, K5/K4 on the dense scene) and draws the
-    same bounce dims, all of them in one launch before the first bounce.
+    same bounce dims, all of them in one launch before the first bounce,
+    from the index's exact width (the render's promise sample < spp).
     The JAX bounce body is a fori_loop's, traced once, so its record holds
     one bounce.
     The intersections are replaced by recorders that report misses, so
@@ -146,12 +147,12 @@ def test_launch_sequence_matches_jax(name, monkeypatch):
         seen.append("any")
         return torch.zeros(n, dtype=torch.bool)
 
-    sobol_dims = sk.sobol_dims
+    sobol_dims, bits_seen = sk.sobol_dims, []
     monkeypatch.setattr(bvh, "bvh12_intersect_tris", bvh12)
     monkeypatch.setattr(ik, "full_sweep", full)
     monkeypatch.setattr(ik, "any_sweep", any_)
     monkeypatch.setattr(sk, "sobol_dims", lambda idx, dim0, k, bits: seen.append(("dims", dim0, k))
-                        or sobol_dims(idx, dim0, k, bits))
+                        or bits_seen.append(bits) or sobol_dims(idx, dim0, k, bits))
 
     jpath.radiance(jscene, jpath.PathCfg(DEPTH, 1.0), jcfg, jctx, jnp.asarray(o), jnp.asarray(d),
                    jaccel, regen=False)
@@ -162,6 +163,8 @@ def test_launch_sequence_matches_jax(name, monkeypatch):
     assert seen == [dims_j] + body_j * DEPTH + [last_j]
     assert seen == [("dims", pathmod.DIM_CAMERA, pathmod.DIMS_PER_BOUNCE * DEPTH)] + \
         ["closest", "any"] * DEPTH + ["closest"]
+    # 16x16 at 1 spp: an index of 2 log2(16) = 8 bits
+    assert bits_seen == [smpl.exact_index_bits(cfg)] == [8]
 
 
 def test_deep_paths_draw_dims_within_k1_limit(monkeypatch):
@@ -184,6 +187,26 @@ def test_deep_paths_draw_dims_within_k1_limit(monkeypatch):
                            torch.as_tensor(d), accel=accel).numpy()
     assert seen == [(pathmod.DIM_CAMERA + b * pathmod.DIMS_PER_BOUNCE, pathmod.DIMS_PER_BOUNCE)
                     for b in range(depth)]
+    want = np.asarray(jpath.radiance(jscene, jpath.PathCfg(depth, 1.0), jcfg, jctx,
+                                     jnp.asarray(o), jnp.asarray(d), jaccel, regen=False))
+    assert np.isfinite(got).all() and want.mean() > 0.02
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
+
+
+def test_depth_10_draws_bounce_dims_in_one_launch(monkeypatch):
+    """At depth 10 the 70 bounce dims are one K1 launch (K1 draws up to
+    128, as the JAX package hoists them), and the radiance is the JAX
+    loop's."""
+    depth = 10
+    scene, _, accel, jscene, jcamera, jaccel = scenes("spheres_direct")
+    (jcfg, jctx), (cfg, ctx), o, d = sample_ctx(jcamera, spp=1)
+    sobol_dims, seen = sk.sobol_dims, []
+    monkeypatch.setattr(sk, "sobol_dims", lambda idx, dim0, k, bits: seen.append((dim0, k))
+                        or sobol_dims(idx, dim0, k, bits))
+    got = pathmod.radiance(scene, pathmod.PathCfg(depth, 1.0), cfg, ctx, torch.as_tensor(o),
+                           torch.as_tensor(d), accel=accel).numpy()
+    assert seen == [(pathmod.DIM_CAMERA, pathmod.DIMS_PER_BOUNCE * depth)]
+    assert pathmod.DIMS_PER_BOUNCE * depth <= sk.MAX_DIMS == 128
     want = np.asarray(jpath.radiance(jscene, jpath.PathCfg(depth, 1.0), jcfg, jctx,
                                      jnp.asarray(o), jnp.asarray(d), jaccel, regen=False))
     assert np.isfinite(got).all() and want.mean() > 0.02

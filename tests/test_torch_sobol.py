@@ -119,3 +119,73 @@ def test_sobol_dims_wrapper_checks():
         smpl.make_sampler(jsmpl.HALTON, 4, (8, 8))
     assert smpl.index_bits(smpl.make_sampler(smpl.SOBOL, 64, (256, 256))) == 32
     assert smpl.index_bits(smpl.make_sampler(smpl.SOBOL, 1 << 17, (256, 256))) == 52
+
+
+@pytest.mark.parametrize("spp,res", [(1, (1, 1)), (2, (1, 1)), (3, (20, 12)), (16, (16, 16)),
+                                     (64, (64, 64)), (8, (256, 256))])
+def test_exact_width_bounds_every_index(spp, res):
+    """Every global index of the whole pixel grid x spp, as the JAX
+    package's make_ctx makes it with the batched-render promise, lies below
+    2^exact_index_bits, and the width is tight (the largest index needs its
+    top bit)."""
+    cfg = smpl.make_sampler(smpl.SOBOL, spp, res)
+    jcfg = jsmpl.make_sampler(jsmpl.SOBOL, spp, res)
+    w, h = res
+    xs, ys = np.meshgrid(np.arange(w), np.arange(h))
+    pix = np.tile(np.stack([xs.ravel(), ys.ravel()], -1), (cfg.spp, 1))
+    snum = np.repeat(np.arange(cfg.spp), w * h)
+    jctx = jsmpl.make_ctx(jcfg, jnp.asarray(pix, jnp.int32), jnp.asarray(snum, jnp.uint32),
+                          frame_lt_spp=True)
+    top = int(joined(jctx.global_index).max())
+    bits = smpl.exact_index_bits(cfg)
+    assert top < 1 << bits and (bits == 1 or top >= 1 << (bits - 1))
+    ctx = smpl.make_ctx(cfg, torch.as_tensor(pix), torch.as_tensor(snum), frame_lt_spp=True)
+    assert ctx.frame_lt_spp and smpl.dims_bits(cfg, ctx) == bits
+    # without the promise a context keeps the 32/52-bit width
+    assert smpl.dims_bits(cfg, ctx._replace(frame_lt_spp=False)) == smpl.index_bits(cfg)
+
+
+def test_exact_widths_of_the_render_paths():
+    """22 bits at 256x256, 64 spp (the flagship, slice 2); 19 at 8 spp (the
+    statue); spp rounds up to a power of two first."""
+    width = lambda spp, res: smpl.exact_index_bits(smpl.make_sampler(smpl.SOBOL, spp, res))
+    assert width(64, (256, 256)) == 22 and width(8, (256, 256)) == 19
+    assert width(3, (20, 12)) == width(4, (32, 32)) == 12
+    assert width(1 << 30, (1 << 15, 1 << 15)) == ld.SOBOL_MATRIX_SIZE
+
+
+@pytest.mark.parametrize("dim0,bits", [(2, 19), (2, 22), (ld.NUM_SOBOL_DIMENSIONS - 128, 22),
+                                       (ld.NUM_SOBOL_DIMENSIONS - 128, 52)])
+def test_sobol_dims_plain_128_dims_bit_equal(dim0, bits):
+    """128 dims (one K1 launch's most), among them the table's last, from
+    the low `bits` bits of indices below 2^bits: bit-equal to the JAX
+    package's sobol_sample."""
+    index, jindex = indices(bits, n=200, seed=bits)
+    got = sk.sobol_dims(index, dim0, sk.MAX_DIMS, bits)  # a CPU tensor: the plain version
+    wide = u64.U64(jindex.hi[:, None], jindex.lo[:, None])
+    want = np.asarray(jld.sobol_sample(wide, jnp.arange(dim0, dim0 + sk.MAX_DIMS)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_sobol_dims_are_dims_major():
+    """The plain version returns the kernel's layout: the transposed view of
+    a (n_dims, N) tensor, so one dimension of every lane is contiguous."""
+    index, _ = indices(22, n=50)
+    got = sk.sobol_dims(index, 3, 7, 22)
+    assert got.shape == (50, 7) and got.stride() == (1, 50)
+    assert got[:, 4].is_contiguous() and got.t().is_contiguous()
+
+
+@pytest.mark.parametrize("index_of,args,match", [
+    (None, (0, 0, 22), "n_dims"), (None, (0, 129, 22), "n_dims"),
+    (None, (-1, 5, 22), "out of range"), (None, (1000, 25, 22), "out of range"),
+    (None, (0, 5, 0), "n_bits"), (None, (0, 5, 53), "n_bits"),
+    (lambda i: i.to(torch.int32), (0, 5, 22), "int64"), (lambda i: i[::2], (0, 5, 22), "int64"),
+])
+def test_sobol_dims_wrapper_checks_run_on_cpu(index_of, args, match):
+    """The wrapper's argument checks run before it picks the plain version
+    for a CPU index, so they hold on the CPU as on the card."""
+    index, _ = indices(22, n=10)
+    with pytest.raises(ValueError, match=match):
+        sk.sobol_dims(index_of(index) if index_of else index, *args)
+    assert sk.sobol_dims(index, 1024 - 128, 128, 52).shape == (10, 128)
