@@ -39,21 +39,30 @@ Run from the root of a checkout.  Phases, one line each (or more):
    events; per K2 launch its live lanes, its bound and its share of it,
    beside the one-thread-per-lane kernel's times, recorded in an earlier run
    and printed as such.  K3-K5 must not launch in it.
-6. K3, K4, K5 (the triangle sweeps) against their plain versions on two
-   inputs: the spheres_direct camera rays at 256x256x64 spp (4,194,304
-   rays, t_max = FLT_MAX) on its 4 triangles, and 262,144 random rays
-   (finite and infinite t_max, a few of zero direction) against 2048
-   random triangles.  K4 exactly equal; K3 tri ids equal, t, b0, b1 within
-   rtol = atol = 2e-3; K5 all 18 rows within 2e-3, prim, mat and light
-   equal.  Kernel and plain times and bounds at both inputs.
+6. K3, K4, K5 (the triangle sweeps) against their plain versions on the
+   inputs of rs_pbrt_tpu_torch/tools/sweep_replay.sweep_inputs: the
+   spheres_direct camera rays at 256x256x64 spp (4,194,304 rays, t_max =
+   FLT_MAX) on its 4 triangles; 262,144 random rays (finite and infinite
+   t_max, a few of zero direction) against 2048 random triangles; the same
+   rays against a 300-row table (a 256-row chunk of K3 and K4 and a tail of
+   44) with three rows that hold an infinite vertex and, last, one a NaN
+   vertex, swept whole and without the NaN row (which occludes every
+   ray); the same rays against 40 rows (one chunk, the render paths'
+   kernels) with three rows that hold an infinite vertex.  K4 exactly
+   equal; K3 tri ids equal, t, b0, b1 within rtol = atol = 2e-3; K5 all
+   18 rows within 2e-3, prim, mat and light equal.  Kernel times on the
+   card alone (device_ms: queued behind a sleeping kernel)
+   and by events, plain times and bounds at each input, beside the
+   one-thread-a-ray K3's and K4's device times, recorded constants.
 7. The slice's renders through the entry points: spheres_direct at
    256x256, 64 spp in one batch, depth 5, with directlighting (strategy
    "all") and then whitted.  The counters are zeroed just before each and
    read just after: K1 1 + depth (camera dims, then each depth's block),
    K5 depth, K4 depth x n_lights, K2 and K3 none.  Every K1, K4 and K5
    launch of that run is held against its plain version on the same
-   inputs (K1 bit-equal, K4 equal, K5 as in phase 6), and each K1 launch
-   replayed queued for its device time; the image must be
+   inputs (K1 bit-equal, K4 equal, K5 as in phase 6), and each K1, K4
+   and K5 launch replayed queued for its device time (the one-thread-a-ray
+   K4's, recorded, beside it); the image must be
    finite and within rtol = atol = 2e-3 of the same render with every
    wrapper swapped for its plain version.  Then paths/s (best of 3 warm
    renders), the device time by op and each kernel's time per launch
@@ -88,7 +97,8 @@ Run from the root of a checkout.  Phases, one line each (or more):
    beside them (device_ms in the JSON line) their device times, each
    launch's recorded inputs replayed behind a sleeping kernel: in this
    host-bound render the events also time the host's share of a call.
-   K1's device_ms is the same replay of its launches in phases 5, 7 and 9.
+   K1's device_ms is the same replay of its launches in phases 5, 7 and 9,
+   K4's and K5's of theirs in phase 7, K3's of phase 6's camera rays.
    The one-thread-a-lane K1 and one-thread-a-ray B2's device times on the
    same launches are printed beside them as recorded constants.
 
@@ -118,7 +128,6 @@ RES, SPP, DEPTH = (256, 256), 64, 5
 K1_CASES = ((32, 1 << 22, 0, 5), (52, 1 << 22, 0, 5), (22, 1 << 22, 0, 5), (22, 1 << 22, 7, 1),
             (19, 1 << 19, 5, 35), (22, 1 << 18, 5, 128), (52, 1 << 18, 1024 - 128, 128))
 K2_SPP = 4  # phase 4
-SWEEP_RAYS, SWEEP_TRIS = 1 << 18, 2048  # phase 6's random input
 # phase 9: the statue at the size bench.py:228-249 renders it
 STATUE_SUBDIV, STATUE_RES, STATUE_SPP = 8, (256, 256), 8
 B2_TAIL_RAYS = (1 << 14) + 5  # phase 9: B2 on a launch cut to this many rays
@@ -177,6 +186,19 @@ PREV_K1_DEVICE_MS = dict(flagship=(0.1520,),
                          whitted=(0.1490, 0.1538, 0.1540, 0.1538, 0.1540, 0.1540),
                          statue=(0.0214, 0.3564))
 PREV_B2_DEVICE_MS = (0.6459, 0.3370, 0.2343, 0.1268, 0.0572)
+# K3 and K4 as they were before their redesign (one thread a ray, the table
+# read through the read-only cache, the one-hot form): each launch of the
+# slice 2 renders and phase 6's inputs on the card alone, queued
+# (rs_pbrt_tpu_torch/tools/sweep_replay.py --root on the earlier checkout,
+# NVIDIA H100 80GB HBM3 at 700.00 W, PERF.md)
+PREV_K3_DEVICE_MS = {"camera": 0.1169, "random": 2.7449, "mixed": 0.4075,
+                     "mixed without NaN": 0.4053}
+PREV_K4_DEVICE_MS = {
+    "directlighting": (0.0932, 0.0928, 0.0927, 0.0927, 0.0923, 0.0926, 0.0924, 0.0927, 0.0924,
+                       0.0925),
+    "whitted": (0.0928, 0.0930, 0.0928, 0.0925, 0.0925, 0.0926, 0.0925, 0.0923, 0.0925, 0.0924),
+    "camera": 0.0740, "random": 2.4800, "mixed": 0.3535, "mixed without NaN": 0.3524,
+}
 # K3-K5's f32 arithmetic, counted as K2_FLOP is in csrc/intersect.cu,
 # csrc/watertight.cuh and csrc/record.cuh
 ISECT_FLOP = dict(
@@ -377,26 +399,15 @@ def isect_bound_ms(kind: str, args, out) -> tuple:
 
 
 def check_isect(what: str, kind: str, got, want) -> float:
-    """Fails unless a sweep launch matches its plain version: K4 equal; K3
-    tri ids equal, t, b0, b1 within TOL; K5 prim, mat, light equal, its 18
-    rows within TOL.  Returns the largest absolute difference."""
-    import torch
+    """Fails unless a sweep launch matches its plain version
+    (tools/sweep_replay.compare: K4 equal; K3 tri ids equal, t, b0, b1
+    within TOL; K5 prim, mat, light equal, its 18 rows within TOL).  Returns
+    the largest absolute difference."""
+    from rs_pbrt_tpu_torch.tools import sweep_replay
 
-    torch.cuda.synchronize()
-    if kind == "any":
-        if not torch.equal(got, want):
-            fail(f"{what}: {int((got != want).sum())} occlusion bits differ from the plain version")
-        return 0.0
-    if kind == "closest":
-        ids_g, ids_w = got.tri, want.tri
-        rows_g, rows_w = torch.stack([got.t, got.b0, got.b1]), torch.stack([want.t, want.b0, want.b1])
-    else:
-        ids_g, ids_w, rows_g, rows_w = got.ids, want.ids, got.rows, want.rows
-    if not torch.equal(ids_g, ids_w):
-        fail(f"{what}: {int((ids_g != ids_w).sum())} ids differ from the plain version")
-    err = float((rows_g - rows_w).abs().max()) if rows_g.numel() else 0.0
-    if not torch.isfinite(rows_g).all() or not torch.allclose(rows_g, rows_w, rtol=TOL, atol=TOL):
-        fail(f"{what}: rows differ from the plain version by up to {err}")
+    why, err = sweep_replay.compare(kind, got, want)
+    if why:
+        fail(f"{what}: {why} from the plain version")
     return err
 
 
@@ -714,75 +725,41 @@ def phase_render(card):
     )
 
 
-def random_sweep_inputs(n_rays: int, n_tri: int, seed: int):
-    """(o, d, t_max, table, n_tri) on the card: rays from the box
-    [-2.5, 2.5]^3 in random directions, a fifth ending at t = 2.5 and the
-    rest at FLT_MAX, the first 16 of zero direction; a tri_attr table of
-    random triangles in [-2, 2]^3, a third with vertex normals, random uv,
-    materials and lights, a fifth reversed (tests/test_pallas.py:28-37)."""
-    import numpy as np
-    import torch
-
-    from rs_pbrt_tpu_torch.scene import arrays as sa
-
-    rng = np.random.default_rng(seed)
-    o = rng.uniform(-2.5, 2.5, (n_rays, 3))
-    d = rng.normal(size=(n_rays, 3))
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    d[:16] = 0.0
-    t_max = np.where(rng.uniform(size=n_rays) < 0.2, 2.5, np.finfo(np.float32).max)
-    tab = np.zeros((n_tri, sa.N_TRI_ATTR))
-    tab[:, sa.TA_P0:sa.TA_P0 + 9] = rng.uniform(-2.0, 2.0, (n_tri, 9))
-    has_n = rng.uniform(size=n_tri) < 1 / 3
-    tab[:, sa.TA_N0:sa.TA_N0 + 9] = np.where(has_n[:, None], rng.normal(size=(n_tri, 9)), 0.0)
-    tab[:, sa.TA_UV0:sa.TA_UV0 + 6] = rng.uniform(size=(n_tri, 6))
-    tab[:, sa.TA_HAS_N] = has_n
-    tab[:, sa.TA_MAT] = rng.integers(0, 4, n_tri)
-    tab[:, sa.TA_LIGHT] = np.where(rng.uniform(size=n_tri) < 0.1, rng.integers(0, 3, n_tri), -1)
-    tab[:, sa.TA_REVERSE] = rng.uniform(size=n_tri) < 0.2
-    tab[:, sa.TA_MED_IN:] = -1.0
-    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=DEVICE)
-    return f32(o), f32(d), f32(t_max), f32(tab), n_tri
-
-
 def phase_sweeps(card):
-    """Phase 6: K3, K4, K5 against their plain versions, timed, with their
-    bounds, on the slice's camera rays and on a large random table.
+    """Phase 6: K3, K4, K5 against their plain versions, timed (events
+    around calls as the host makes them, and on the card alone: device_ms,
+    queued), with their bounds, on tools/sweep_replay.sweep_inputs.
     Returns, per kind, the camera rays' numbers and the worst error."""
     import torch
 
-    from rs_pbrt_tpu_torch.models import samplers as smpl
-    from rs_pbrt_tpu_torch.models.integrators import render as rdr
-    from rs_pbrt_tpu_torch.ops import intersect_kernel as ik
-    from rs_pbrt_tpu_torch.scene import presets
+    from rs_pbrt_tpu_torch.tools import sweep_replay
 
-    res, spp = RES, SPP
-    scene, camera = presets.spheres_direct(res, device=DEVICE)
-    _, rays = rdr.camera_rays(camera, smpl.make_sampler(smpl.SOBOL, spp, res), 0, spp)
-    n = rays.o.shape[0]
-    t_max = torch.full((n,), torch.finfo(torch.float32).max, device=DEVICE)
-    inputs = {
-        "camera": (rays.o.contiguous(), rays.d.contiguous(), t_max, scene.tri_attr, scene.n_tris),
-        "random": random_sweep_inputs(SWEEP_RAYS, SWEEP_TRIS, 6),
-    }
     out = {}
-    for name, args in inputs.items():
-        for kind, kid, fn, plain in (("closest", "K3", ik.closest_sweep, ik.closest_sweep_plain),
-                                     ("any", "K4", ik.any_sweep, ik.any_sweep_plain),
-                                     ("full", "K5", ik.full_sweep, ik.full_sweep_plain)):
+    for name, args in sweep_replay.sweep_inputs(DEVICE).items():
+        for kind, kid, fn, plain in sweep_replay.sweep_kernels():
             got = fn(*args)
             err = check_isect(f"{kid} {name}", kind, got, plain(*args))
             ms = cuda_ms(lambda: fn(*args), 20)
+            dev_ms = queued_ms(lambda: fn(*args), 20)
             plain_ms = cuda_ms(lambda: plain(*args), 2)
             bms, fms = isect_bound_ms(kind, args, got)
             hits = float((got if kind == "any" else got.valid).float().mean())
+            prev = dict(K3=PREV_K3_DEVICE_MS, K4=PREV_K4_DEVICE_MS).get(kid, {}).get(name)
+            was = (f"; recorded, not measured here: the one-thread-a-ray kernel {prev:.4f} ms on "
+                   "the card" if prev is not None else "")
             print(f"[6 {kid}] {name}: {args[0].shape[0]} rays x {args[4]} triangles, "
                   f"{100 * hits:.1f}% hit; matches the plain version (max abs err {err:.3g}); "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {max(bms, fms):.4f} ms "
-                  f"(bytes {bms:.4f}, operations {fms:.4f}) ({card})", flush=True)
+                  f"kernel {dev_ms:.4f} ms on the card, {ms:.4f} ms by events, plain "
+                  f"{plain_ms:.3f} ms, bound {max(bms, fms):.4f} ms (bytes {bms:.4f}, operations "
+                  f"{fms:.4f}), {100 * max(bms, fms) / dev_ms:.1f}% of it ({card}){was}",
+                  flush=True)
             if name == "camera":  # the main paths' shape
-                out[kind] = dict(ms=[ms], plain_ms=[plain_ms], bound=[(bms, fms)], max_abs_err=err)
+                out[kind] = dict(ms=[ms], device_ms=[dev_ms], plain_ms=[plain_ms],
+                                 bound=[(bms, fms)], max_abs_err=err)
             out[kind]["max_abs_err"] = max(out[kind]["max_abs_err"], err)
+            del got
+        del args
+    torch.cuda.synchronize()
     return out
 
 
@@ -834,12 +811,14 @@ def phase_slice_render(card, integrator: str):
             fail(f"{integrator} K1 launch {b} differs from its plain version")
         bounds["sobol_dims"].append(k1_bound_ms(args[0].shape[0], *args[2:4]))
         k1_dev.append(queued_ms(lambda a=args, k=kw: sk.sobol_dims(*a, **k), 20))
+    dev = {"any_sweep": [], "full_sweep": []}  # each K4, K5 launch replayed, queued
     for key, kind, kid, plain in (("any_sweep", "any", "K4", ik.any_sweep_plain),
                                   ("full_sweep", "full", "K5", ik.full_sweep_plain)):
         for b, (_, args, kw, out) in enumerate(rec[key].calls):
             errs[key] = max(errs[key], check_isect(f"{integrator} {kid} launch {b}", kind, out,
                                                    plain(*args, **kw)))
             bounds[key].append(isect_bound_ms(kind, args, out))
+            dev[key].append(queued_ms(lambda a=args, k=kw, f=wrapper(key): f(*a, **k), 20))
     del rec, args, kw, out
     print(f"[{tag}] each launch matches its plain version: K1 bit-equal, K4 equal, K5 within "
           f"{TOL} (max abs err {errs['full_sweep']:.3g}), ids equal", flush=True)
@@ -887,9 +866,18 @@ def phase_slice_render(card, integrator: str):
           f"= {sum(k1_dev):.4f} ms ({card}); recorded, not measured here: the "
           f"one-thread-a-lane kernel {', '.join(f'{t:.4f}' for t in prev)} = {sum(prev):.4f} ms",
           flush=True)
+    prev = PREV_K4_DEVICE_MS.get(integrator, ())
+    for k, kid, was in (("any_sweep", "K4", f"; recorded, not measured here: the "
+                         f"one-thread-a-ray kernel {', '.join(f'{t:.4f}' for t in prev)} = "
+                         f"{sum(prev):.4f} ms" if prev else ""), ("full_sweep", "K5", "")):
+        print(f"[{tag}] {kid} per launch on the card {', '.join(f'{t:.4f}' for t in dev[k])} "
+              f"ms = {sum(dev[k]):.4f} ms, {100 * sum(max(b) for b in bounds[k]) / sum(dev[k]):.1f}"
+              f"% of the bounds ({card}){was}", flush=True)
     out = {k: dict(ms=ms[k], plain_ms=plain_ms[k], bound=bounds[k], max_abs_err=errs[k])
            for k in names}
     out["sobol_dims"]["device_ms"] = k1_dev
+    out["any_sweep"]["device_ms"] = dev["any_sweep"]
+    out["full_sweep"]["device_ms"] = dev["full_sweep"]
     return dict(out, counts=counts)
 
 
@@ -1253,11 +1241,13 @@ def main():
              replaces="rs_pbrt_tpu/ops/pallas_path.py:410", launches=flag["counts"]["bounce"],
              library_ms=None, **k2, redesigned=True),
         # K3 is on no render path: its numbers are phase 6's at the camera rays
-        kernel_entry("closest_sweep", csrc + "intersect.cu", pallas + "133", 0,
-                     [sweeps["closest"]], sweeps["closest"]["max_abs_err"]),
-        kernel_entry("any_sweep", csrc + "intersect.cu", pallas + "285",
-                     sum(r["counts"]["any_sweep"] for r in slices),
-                     [r["any_sweep"] for r in slices], worst("any_sweep", sweeps["any"])),
+        dict(kernel_entry("closest_sweep", csrc + "intersect.cu", pallas + "133", 0,
+                          [sweeps["closest"]], sweeps["closest"]["max_abs_err"]),
+             redesigned=True),
+        dict(kernel_entry("any_sweep", csrc + "intersect.cu", pallas + "285",
+                          sum(r["counts"]["any_sweep"] for r in slices),
+                          [r["any_sweep"] for r in slices], worst("any_sweep", sweeps["any"])),
+             redesigned=True),
         kernel_entry("full_sweep", csrc + "intersect.cu", pallas + "376",
                      sum(r["counts"]["full_sweep"] for r in slices),
                      [r["full_sweep"] for r in slices], worst("full_sweep", sweeps["full"])),

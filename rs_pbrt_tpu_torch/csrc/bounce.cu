@@ -42,7 +42,7 @@
 //   enough (path_kernel.SHARED_TABLE_MAX_TRIS) that the copy leaves the SM
 //   its 6 blocks; a larger table is read from device memory through L1.
 //   Where all vertices are finite the sweeps pick the sheared components by
-//   index (see SweepRay).  The hit record reads row bi of the full table
+//   index (watertight.cuh's SweepRay).  The hit record reads row bi of the full table
 //   from device memory.
 // - 128-thread blocks at most 85 registers a thread, so an SM holds 24
 //   warps.
@@ -140,101 +140,8 @@ __device__ __forceinline__ void concentric_disk(float u0, float u1, float& dx, f
   dy = r * sinf(theta);
 }
 
-// The shared-memory triangle table: 12 floats a triangle, the 9 vertex
-// coordinates (p0, p1, p2) then 3 of padding, so a triangle is 3 float4.
-constexpr int kVertStride = 12;
-
-// The sweeps' triangle tests over that table, in two forms that give the
-// same values for finite vertices.  kIdx = false: watertight.cuh's one-hot
-// form, as the plain version computes it.  kIdx = true: the permuted and
-// sheared components picked by index, x = (p[kx] + sx p[kz]) - cx,
-// y = (p[ky] + sy p[kz]) - cy, z = p[kz] - cz: the one-hot sums' other
-// terms are products with a 0 entry, so the two differ at most in the sign
-// of a zero, which every comparison and output treats alike.  It saves 33
-// of the 54 operations of the shear.  With an infinite or NaN vertex,
-// 0 * inf is NaN in the one-hot form, so such a table keeps that form.
-struct SweepRay {
-  RayConst rc;
-  int kx, ky, kz;
-  float sx, sy;
-};
-
-__device__ __forceinline__ SweepRay sweep_ray(V3 o, V3 d) {
-  SweepRay r;
-  r.rc = ray_constants(o.x, o.y, o.z, d.x, d.y, d.z);
-  r.kz = r.rc.sz0 != 0.0f ? 0 : (r.rc.sz1 != 0.0f ? 1 : 2);
-  r.kx = r.kz == 2 ? 0 : r.kz + 1;
-  r.ky = r.kx == 2 ? 0 : r.kx + 1;
-  // the S_x and S_y entries in the kz column: 0 + sx * 1
-  r.sx = r.kz == 0 ? r.rc.sx0 : (r.kz == 1 ? r.rc.sx1 : r.rc.sx2);
-  r.sy = r.kz == 0 ? r.rc.sy0 : (r.kz == 1 ? r.rc.sy1 : r.rc.sy2);
-  return r;
-}
-
-// watertight.cuh's edge_test in two parts, the same expressions in the same
-// order: the transformed vertices, edge functions, det, scaled t and the
-// reject test, which every triangle needs; then the error bound on t, only
-// for a triangle that passes (most do not, often for a whole warp).
-struct Edges {
-  float x[3], y[3], zs[3];  // zs: z scaled by 1/dz
-  float e0, e1, e2, det, t_scaled;
-};
-
-template <bool kIdx>
-__device__ __forceinline__ bool edges_reject(const SweepRay& r, const float* tri, float t_lim,
-                                             Edges& g) {
-  float z[3];
-  if (kIdx) {
-#pragma unroll
-    for (int v = 0; v < 3; ++v) {
-      const float pz = tri[3 * v + r.kz];
-      g.x[v] = (tri[3 * v + r.kx] + r.sx * pz) - r.rc.cx;
-      g.y[v] = (tri[3 * v + r.ky] + r.sy * pz) - r.rc.cy;
-      z[v] = pz - r.rc.cz;
-    }
-  } else {
-    const RayConst& rc = r.rc;
-#pragma unroll
-    for (int v = 0; v < 3; ++v) {
-      const float* p = tri + 3 * v;
-      g.x[v] = rc.sx0 * p[0] + rc.sx1 * p[1] + rc.sx2 * p[2] - rc.cx;
-      g.y[v] = rc.sy0 * p[0] + rc.sy1 * p[1] + rc.sy2 * p[2] - rc.cy;
-      z[v] = rc.sz0 * p[0] + rc.sz1 * p[1] + rc.sz2 * p[2] - rc.cz;
-    }
-  }
-  g.e0 = g.x[1] * g.y[2] - g.y[1] * g.x[2];
-  g.e1 = g.x[2] * g.y[0] - g.y[2] * g.x[0];
-  g.e2 = g.x[0] * g.y[1] - g.y[0] * g.x[1];
-  const bool neg = (g.e0 < 0.0f) || (g.e1 < 0.0f) || (g.e2 < 0.0f);
-  const bool pos = (g.e0 > 0.0f) || (g.e1 > 0.0f) || (g.e2 > 0.0f);
-  g.det = g.e0 + g.e1 + g.e2;
-#pragma unroll
-  for (int v = 0; v < 3; ++v) g.zs[v] = r.rc.inv_dz * z[v];
-  g.t_scaled = g.e0 * g.zs[0] + g.e1 * g.zs[1] + g.e2 * g.zs[2];
-  const bool neg_det = g.det < 0.0f;
-  const bool miss_range =
-      (neg_det && ((g.t_scaled >= 0.0f) || (g.t_scaled < t_lim * g.det))) ||
-      (!neg_det && ((g.t_scaled <= 0.0f) || (g.t_scaled > t_lim * g.det)));
-  return (neg && pos) || (g.det == 0.0f) || miss_range;
-}
-
-// The error bound on t scaled by |det| (EdgeTest::c_eps).
-__device__ __forceinline__ float edges_c_eps(const Edges& g) {
-  const float max_zt = fmaxf(fmaxf(fabsf(g.zs[0]), fabsf(g.zs[1])), fabsf(g.zs[2]));
-  const float delta_z = kGamma3 * max_zt;
-  const float max_xt = fmaxf(fmaxf(fabsf(g.x[0]), fabsf(g.x[1])), fabsf(g.x[2]));
-  const float max_yt = fmaxf(fmaxf(fabsf(g.y[0]), fabsf(g.y[1])), fabsf(g.y[2]));
-  const float delta_x = kGamma5 * (max_xt + max_zt);
-  const float delta_y = kGamma5 * (max_yt + max_zt);
-  const float delta_e =
-      2.0f * (kGamma2 * max_xt * max_yt + delta_y * max_xt + delta_x * max_yt);
-  const float max_e = fmaxf(fmaxf(fabsf(g.e0), fabsf(g.e1)), fabsf(g.e2));
-  return 3.0f * (kGamma3 * max_e * max_zt + delta_e * max_zt + delta_z * max_e);
-}
-
-// watertight.cuh's closest_hit and any_hit over the shared-memory table:
-// the tests of watertight_tri and watertight_tri_any in the same triangle
-// order.
+// The closest and any hit over the table (watertight.cuh's tests), in the
+// triangle order of the plain sweeps (ops/watertight.py).
 template <bool kIdx, int kStride>
 __device__ __forceinline__ int closest_hit_tab(const SweepRay& r, const float* st, int n_tri,
                                                float& bt, float& b0, float& b1) {
@@ -319,7 +226,8 @@ __device__ __forceinline__ bool shade_lane(const Args& a, const float* st,
   while (true) {  // runs once; `break` ends the lane's work
     // ---- closest hit ----
     float bt, b0, b1;
-    const int bi = closest_hit_tab<kIdx, kStride>(sweep_ray(o, d), st, a.n_tri, bt, b0, b1);
+    const int bi = closest_hit_tab<kIdx, kStride>(sweep_ray(o.x, o.y, o.z, d.x, d.y, d.z), st,
+                                                  a.n_tri, bt, b0, b1);
     if (bi < 0) {  // miss: the path ends, nothing is added
       alive = false;
       break;
@@ -530,8 +438,8 @@ __device__ __forceinline__ void sweep_shadows(const Args& a, const float* st, co
                                               int first, int count, int lane) {
   if (lane >= count) return;
   const int k = first + lane;
-  const SweepRay r = sweep_ray(V3{q.f[kQOx][k], q.f[kQOy][k], q.f[kQOz][k]},
-                               V3{q.f[kQDx][k], q.f[kQDy][k], q.f[kQDz][k]});
+  const SweepRay r = sweep_ray(q.f[kQOx][k], q.f[kQOy][k], q.f[kQOz][k], q.f[kQDx][k],
+                               q.f[kQDy][k], q.f[kQDz][k]);
   const bool occluded = any_hit_tab<kIdx, kStride>(r, st, a.n_tri, q.f[kQTlim][k]);
   const size_t N = a.n;
   const int i = q.lane[k];

@@ -2,14 +2,16 @@
 // triangle.rs:134-449, with conservative error bounds).
 //
 // The port of rs_pbrt_tpu/ops/pallas_intersect.py:_ray_constants,
-// _watertight_tri and _watertight_tri_any, and of the sweeps over a
-// triangle table, written once for every kernel that sweeps triangles: the
-// bounce kernel (bounce.cu, K2) and the sweep kernels (intersect.cu, K3-K5).  The arithmetic follows the JAX form term by term,
-// including the one-hot permute/shear matrix, so that a build without FMA
-// contraction (--fmad=false) gives the plain PyTorch version's bits
-// (ops/watertight.py).  Below them, the same test in the expression order of
-// the BVH leaf test, rs_pbrt_tpu/ops/bvh.py:_tri_test_soa, for the traversal
-// kernels (bvh12.cu, B1 and B2; its plain version is ops/bvh.py).
+// _watertight_tri and _watertight_tri_any, written once for every kernel
+// that sweeps triangles: the bounce kernel (bounce.cu, K2) and the sweep
+// kernels (intersect.cu, K3-K5).  The arithmetic follows the JAX form term
+// by term, including the one-hot permute/shear matrix, so that a build
+// without FMA contraction (--fmad=false) gives the plain PyTorch version's
+// bits (ops/watertight.py); the sweeps over a shared-memory table also have
+// the index-picked form of the same test (SweepRay), for rows whose
+// vertices are finite.  Below them, the same test in the expression order
+// of the BVH leaf test, rs_pbrt_tpu/ops/bvh.py:_tri_test_soa, for the
+// traversal kernels (bvh12.cu, B1 and B2; its plain version is ops/bvh.py).
 #pragma once
 
 namespace rs {
@@ -119,15 +121,6 @@ __device__ __forceinline__ bool watertight_tri(const RayConst& rc, const float* 
   return !(e.reject || (t <= delta_t));
 }
 
-// Occlusion-only test: division free; the t <= delta_t bound is rescaled
-// by |det| (t_scaled * sign(det) <= c_eps).
-__device__ __forceinline__ bool watertight_tri_any(const RayConst& rc, const float* p,
-                                                   float t_lim) {
-  const EdgeTest e = edge_test(rc, p, t_lim);
-  const float t_signed = e.det < 0.0f ? -e.t_scaled : e.t_scaled;
-  return !(e.reject || (t_signed <= e.c_eps));
-}
-
 constexpr float kNoHit = 3e38f;  // "no hit yet" distance (ops/watertight.BIG)
 
 // Closest hit over rows 0..n_tri-1 of a table of `cols` floats a row whose
@@ -157,18 +150,100 @@ __device__ __forceinline__ int closest_hit(const RayConst& rc, const float* tris
   return bi;
 }
 
-// Any hit in (0, t_lim) over the same rows, stopping at the first.
-__device__ __forceinline__ bool any_hit(const RayConst& rc, const float* tris, int n_tri,
-                                        int cols, float t_lim) {
-  bool occluded = false;
-  for (int t = 0; t < n_tri && !occluded; ++t) {
-    const float* tp = tris + static_cast<size_t>(t) * cols;
-    float p[9];
+// The sweeps over a table staged in shared memory (K2, K3, K4): 12
+// floats a triangle, the 9 vertex coordinates (p0, p1, p2) then 3 more
+// (zeros, or K3/K4's finite flag), so a triangle is 3 float4.
+constexpr int kVertStride = 12;
+
+// Their triangle tests, in two forms that give the same values for finite
+// vertices.  kIdx = false: the one-hot form above, as the plain version
+// computes it.  kIdx = true: the permuted and sheared components picked by
+// index, x = (p[kx] + sx p[kz]) - cx, y = (p[ky] + sy p[kz]) - cy,
+// z = p[kz] - cz: the one-hot sums' other terms are products with a 0
+// entry, so the two differ at most in the sign of a zero, which every
+// comparison and output treats alike.  It saves 33 of the 54 operations of
+// the shear.  With an infinite or NaN vertex, 0 * inf is NaN in the one-hot
+// form, so such a row keeps that form.
+struct SweepRay {
+  RayConst rc;
+  int kx, ky, kz;
+  float sx, sy;
+};
+
+__device__ __forceinline__ SweepRay sweep_ray(float ox, float oy, float oz, float dx, float dy,
+                                              float dz) {
+  SweepRay r;
+  r.rc = ray_constants(ox, oy, oz, dx, dy, dz);
+  r.kz = r.rc.sz0 != 0.0f ? 0 : (r.rc.sz1 != 0.0f ? 1 : 2);
+  r.kx = r.kz == 2 ? 0 : r.kz + 1;
+  r.ky = r.kx == 2 ? 0 : r.kx + 1;
+  // the S_x and S_y entries in the kz column: 0 + sx * 1
+  r.sx = r.kz == 0 ? r.rc.sx0 : (r.kz == 1 ? r.rc.sx1 : r.rc.sx2);
+  r.sy = r.kz == 0 ? r.rc.sy0 : (r.kz == 1 ? r.rc.sy1 : r.rc.sy2);
+  return r;
+}
+
+// edge_test in two parts, the same expressions in the same order: the
+// transformed vertices, edge functions, det, scaled t and the reject test,
+// which every triangle needs; then the error bound on t, only for a
+// triangle that passes (most do not, often for a whole warp).
+struct Edges {
+  float x[3], y[3], zs[3];  // zs: z scaled by 1/dz
+  float e0, e1, e2, det, t_scaled;
+};
+
+template <bool kIdx>
+__device__ __forceinline__ bool edges_reject(const SweepRay& r, const float* tri, float t_lim,
+                                             Edges& g) {
+  float z[3];
+  if (kIdx) {
 #pragma unroll
-    for (int k = 0; k < 9; ++k) p[k] = __ldg(tp + k);
-    occluded = watertight_tri_any(rc, p, t_lim);
+    for (int v = 0; v < 3; ++v) {
+      const float pz = tri[3 * v + r.kz];
+      g.x[v] = (tri[3 * v + r.kx] + r.sx * pz) - r.rc.cx;
+      g.y[v] = (tri[3 * v + r.ky] + r.sy * pz) - r.rc.cy;
+      z[v] = pz - r.rc.cz;
+    }
+  } else {
+    const RayConst& rc = r.rc;
+#pragma unroll
+    for (int v = 0; v < 3; ++v) {
+      const float* p = tri + 3 * v;
+      g.x[v] = rc.sx0 * p[0] + rc.sx1 * p[1] + rc.sx2 * p[2] - rc.cx;
+      g.y[v] = rc.sy0 * p[0] + rc.sy1 * p[1] + rc.sy2 * p[2] - rc.cy;
+      z[v] = rc.sz0 * p[0] + rc.sz1 * p[1] + rc.sz2 * p[2] - rc.cz;
+    }
   }
-  return occluded;
+  g.e0 = g.x[1] * g.y[2] - g.y[1] * g.x[2];
+  g.e1 = g.x[2] * g.y[0] - g.y[2] * g.x[0];
+  g.e2 = g.x[0] * g.y[1] - g.y[0] * g.x[1];
+  const bool neg = (g.e0 < 0.0f) || (g.e1 < 0.0f) || (g.e2 < 0.0f);
+  const bool pos = (g.e0 > 0.0f) || (g.e1 > 0.0f) || (g.e2 > 0.0f);
+  g.det = g.e0 + g.e1 + g.e2;
+#pragma unroll
+  for (int v = 0; v < 3; ++v) g.zs[v] = r.rc.inv_dz * z[v];
+  g.t_scaled = g.e0 * g.zs[0] + g.e1 * g.zs[1] + g.e2 * g.zs[2];
+  const bool neg_det = g.det < 0.0f;
+  const bool miss_range =
+      (neg_det && ((g.t_scaled >= 0.0f) || (g.t_scaled < t_lim * g.det))) ||
+      (!neg_det && ((g.t_scaled <= 0.0f) || (g.t_scaled > t_lim * g.det)));
+  return (neg && pos) || (g.det == 0.0f) || miss_range;
+}
+
+// The error bound on t scaled by |det| (EdgeTest::c_eps).  fmaxf drops a
+// NaN that jnp.maximum keeps, but a NaN among x, y, zs or e makes t NaN as
+// well, and then no test reads the bound: t <= bound is false either way.
+__device__ __forceinline__ float edges_c_eps(const Edges& g) {
+  const float max_zt = fmaxf(fmaxf(fabsf(g.zs[0]), fabsf(g.zs[1])), fabsf(g.zs[2]));
+  const float delta_z = kGamma3 * max_zt;
+  const float max_xt = fmaxf(fmaxf(fabsf(g.x[0]), fabsf(g.x[1])), fabsf(g.x[2]));
+  const float max_yt = fmaxf(fmaxf(fabsf(g.y[0]), fabsf(g.y[1])), fabsf(g.y[2]));
+  const float delta_x = kGamma5 * (max_xt + max_zt);
+  const float delta_y = kGamma5 * (max_yt + max_zt);
+  const float delta_e =
+      2.0f * (kGamma2 * max_xt * max_yt + delta_y * max_xt + delta_x * max_yt);
+  const float max_e = fmaxf(fmaxf(fabsf(g.e0), fabsf(g.e1)), fabsf(g.e2));
+  return 3.0f * (kGamma3 * max_e * max_zt + delta_e * max_zt + delta_z * max_e);
 }
 
 // The BVH leaf test's form (_tri_test_soa): the vertex components are
