@@ -70,12 +70,18 @@ Run from the root of a checkout.  Phases, one line each (or more):
 
 8. The probe (rs_pbrt_tpu_torch/tools/probe.py) through its entry point,
    the counters zeroed just before and read just after: P1 and P2 launch
-   in it, no other kernel.  Then P1 (take_rows) and P2 (take_loop, 1000
-   steps) against their plain versions at (16, 2048): bit-equal.  Their
-   device times a launch, from launches queued behind a sleeping kernel (P1
-   takes less time on the card than the host takes to make a call), beside
-   their bounds, P1 beside torch.gather on the same inputs, and P2's
-   row-fetches/s.
+   in it, no other kernel.  Then P1 (take_rows) and P2 (take_loop) against
+   their plain versions, each launched once and bit-equal, on the inputs
+   of rs_pbrt_tpu_torch/tools/probe_replay.probe_cases: (16, 2048) at 1000
+   steps, the probe's shape; (16, 2000), P2's remainder path; (3, 16), a
+   power of two below 32 in less than one block; (5, 2047), P1's scalar
+   tail; 0, 1 and 7 steps at (16, 2048), the jump-ahead's tail; (528,
+   2048), 4 rows an SM.  Their device times a launch at (16, 2048), from
+   launches queued behind a sleeping kernel (P1 takes less time on the
+   card than the host takes to make a call), beside their bounds, P1
+   beside torch.gather on the same inputs and the card's floor for one
+   launch (launch_floor_ms: torch.cuda._sleep(0) queued the same way), P2's
+   row-fetches/s, and P2's time at (528, 2048) beside its bound.
 9. The statue through the entry points: statue_scene(subdivisions=8),
    1,310,724 triangles, and its BVH (build_accel), their host seconds;
    then the path integrator at 256x256, 8 spp in one batch of 524,288
@@ -193,6 +199,11 @@ PREV_B2_DEVICE_MS = (0.6459, 0.3370, 0.2343, 0.1268, 0.0572)
 # NVIDIA H100 80GB HBM3 at 700.00 W, PERF.md)
 PREV_K3_DEVICE_MS = {"camera": 0.1169, "random": 2.7449, "mixed": 0.4075,
                      "mixed without NaN": 0.4053}
+# P1 and P2 as they were before their redesign (each block staged its row,
+# the generic remainder, random banks): at (16, 2048) on the card alone
+# (rs_pbrt_tpu_torch/tools/probe_replay.py --root on the earlier checkout,
+# NVIDIA H100 80GB HBM3 at 700.00 W, PERF.md)
+PREV_PROBE_MS = {"take_rows": 0.0050, "take_loop": 0.0584}
 PREV_K4_DEVICE_MS = {
     "directlighting": (0.0932, 0.0928, 0.0927, 0.0927, 0.0923, 0.0926, 0.0924, 0.0927, 0.0924,
                        0.0925),
@@ -896,11 +907,12 @@ def smem_loads_per_s() -> tuple:
 
 
 def phase_probe(card):
-    """Phase 8: the probe tool, then P1 and P2 against their plain versions."""
+    """Phase 8: the probe tool, then P1 and P2 against their plain versions
+    on tools/probe_replay.probe_cases, and their times."""
     import torch
 
     from rs_pbrt_tpu_torch.ops import gather_probe as gp
-    from rs_pbrt_tpu_torch.tools import probe
+    from rs_pbrt_tpu_torch.tools import probe, probe_replay
 
     zero_counts()
     res = probe.main(DEVICE)
@@ -911,44 +923,62 @@ def phase_probe(card):
         fail(f"launch counts of the probe {counts}: P1 and P2 only, each at least once")
     if not res["p1_equal"]:
         fail("the probe's P1 differs from its plain version")
-    tab, idx = gp.probe_inputs(*PROBE_SHAPE, seed=1, device=DEVICE)
-    out = {}
-    for key, fn, plain in (("take_rows", gp.take_rows, gp.take_rows_plain),
-                           ("take_loop", gp.take_loop, gp.take_loop_plain)):
-        got, want = fn(tab, idx), plain(tab, idx)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if not torch.equal(got, want):
-            fail(f"{key}: {int((got != want).sum())} values differ from the plain version")
-        reps = 200 if key == "take_rows" else 20
-        out[key] = dict(ms=[queued_ms(lambda: fn(tab, idx), reps)],
-                        plain_ms=[cuda_ms(lambda: plain(tab, idx), 2)], max_abs_err=err,
-                        call_ms=cuda_ms(lambda: fn(tab, idx), reps))
-    idx64 = idx.long()
-    gather_ms = queued_ms(lambda: torch.gather(tab, 1, idx64), 200)
-    gather_call_ms = cuda_ms(lambda: torch.gather(tab, 1, idx64), 200)
-    n = tab.numel()
-    # P1: the table, the indices and the output once each, over the memory rate
-    out["take_rows"]["bound"] = [(1e3 * 3 * 4 * n / HBM_BYTES_PER_S, 0.0)]
-    # P2: one shared-memory load per element and step, over every SM
-    loads = n * gp.STEPS
+    out = {key: dict(max_abs_err=0.0) for key in ("take_rows", "take_loop")}
     loads_per_s, sms = smem_loads_per_s()
-    out["take_loop"]["bound"] = [(0.0, 1e3 * loads / loads_per_s)]
-    fetches = gp.STEPS * PROBE_SHAPE[1] / (out["take_loop"]["ms"][0] / 1e3)
+    paths = []
+    for name, rows, cols, steps in probe_replay.probe_cases():
+        tab, idx = gp.probe_inputs(rows, cols, seed=probe_replay.SEED, device=DEVICE)
+        pairs = (("take_rows", lambda t=tab, i=idx: gp.take_rows(t, i),
+                  lambda t=tab, i=idx: gp.take_rows_plain(t, i)),
+                 ("take_loop", lambda t=tab, i=idx, s=steps: gp.take_loop(t, i, s),
+                  lambda t=tab, i=idx, s=steps: gp.take_loop_plain(t, i, s)))
+        for key, fn, plain in pairs:
+            before = gp.launches[key]
+            got, want = fn(), plain()
+            torch.cuda.synchronize()
+            if gp.launches[key] != before + 1:
+                fail(f"{name}: {key} did not launch its kernel once")
+            if not torch.equal(got, want):
+                fail(f"{name} ({rows}, {cols}), {steps} steps: {key} differs from its plain "
+                     f"version on {int((got != want).sum())} of {got.numel()} values")
+            out[key]["max_abs_err"] = max(out[key]["max_abs_err"],
+                                          float((got - want).abs().max()))
+        paths.append(f"{name} ({rows}, {cols}) x {steps}: "
+                     f"{'power of two' if cols & (cols - 1) == 0 else 'remainder'}")
+        n = tab.numel()
+        if (rows, cols) == PROBE_SHAPE and steps == gp.STEPS:
+            for key, fn, plain in pairs:
+                reps = 200 if key == "take_rows" else 20
+                out[key].update(ms=[queued_ms(fn, reps)], plain_ms=[cuda_ms(plain, 2)],
+                                call_ms=cuda_ms(fn, reps))
+            idx64 = idx.long()
+            gather_ms = queued_ms(lambda: torch.gather(tab, 1, idx64), 200)
+            gather_call_ms = cuda_ms(lambda: torch.gather(tab, 1, idx64), 200)
+            floor_ms = probe_replay.launch_floor_ms(queued_ms)
+            # P1: the table, the indices and the output once each, over the memory rate
+            out["take_rows"]["bound"] = [(1e3 * 3 * 4 * n / HBM_BYTES_PER_S, 0.0)]
+            # P2: one shared-memory load per element and step, over every SM
+            out["take_loop"]["bound"] = [(0.0, 1e3 * n * steps / loads_per_s)]
+        if name == "wide":
+            wide = (rows, cols, steps, queued_ms(pairs[1][1], 10), 1e3 * n * steps / loads_per_s)
     p1, p2 = out["take_rows"], out["take_loop"]
-    print(f"[8 probe] launches {counts}; P1 and P2 bit-equal to their plain versions at "
-          f"{PROBE_SHAPE}", flush=True)
+    fetches = gp.STEPS * PROBE_SHAPE[1] / (p2["ms"][0] / 1e3)
+    print(f"[8 probe] launches {counts}; P1 and P2 bit-equal to their plain versions, each "
+          f"launched once, on {'; '.join(paths)}", flush=True)
     print(f"[8 probe] as the host makes the calls: P1 {p1['call_ms']:.4f} ms, "
           f"torch.gather {gather_call_ms:.4f} ms, P2 {p2['call_ms']:.4f} ms a call", flush=True)
     print(f"[8 probe] queued on the card: P1 {p1['ms'][0]:.4f} ms (plain "
           f"{p1['plain_ms'][0]:.4f} ms, torch.gather {gather_ms:.4f} ms, bound "
-          f"{p1['bound'][0][0]:.6f} ms by bytes); P2 "
+          f"{p1['bound'][0][0]:.6f} ms by bytes, launch_floor_ms {floor_ms:.4f}); P2 "
           f"{p2['ms'][0]:.4f} ms for {gp.STEPS} x {PROBE_SHAPE} = {fetches / 1e6:.0f}M "
           f"row-fetches/s (plain {p2['plain_ms'][0]:.1f} ms, bound {p2['bound'][0][1]:.4f} ms "
           f"by shared-memory loads at {SMEM_LOADS_PER_CLOCK}/clock on each of {sms} SMs) "
-          f"({card})",
-          flush=True)
-    return dict(out, counts=counts, gather_ms=gather_ms)
+          f"({card})", flush=True)
+    print(f"[8 probe] P2 at ({wide[0]}, {wide[1]}) x {wide[2]}: {wide[3]:.4f} ms on the card, bound "
+          f"{wide[4]:.4f} ms by shared-memory loads ({card}); recorded, not measured here: "
+          f"the row-staging P1 {PREV_PROBE_MS['take_rows']:.4f} ms and generic-remainder P2 "
+          f"{PREV_PROBE_MS['take_loop']:.4f} ms at {PROBE_SHAPE}", flush=True)
+    return dict(out, counts=counts, gather_ms=gather_ms, launch_floor_ms=floor_ms)
 
 
 def bvh_bound_ms(args, work, any_hit: bool) -> tuple:
@@ -1260,12 +1290,14 @@ def main():
                           statue["counts"]["bvh12_any"], [statue["any"]],
                           statue["any"]["max_abs_err"]),
              redesigned=True),
-        kernel_entry("take_rows", csrc + "gather_probe.cu", "tools/tpu_probe.py:110",
-                     probe["counts"]["take_rows"], [probe["take_rows"]],
-                     probe["take_rows"]["max_abs_err"], library_ms=probe["gather_ms"]),
-        kernel_entry("take_loop", csrc + "gather_probe.cu", "tools/tpu_probe.py:132",
-                     probe["counts"]["take_loop"], [probe["take_loop"]],
-                     probe["take_loop"]["max_abs_err"]),
+        dict(kernel_entry("take_rows", csrc + "gather_probe.cu", "tools/tpu_probe.py:110",
+                          probe["counts"]["take_rows"], [probe["take_rows"]],
+                          probe["take_rows"]["max_abs_err"], library_ms=probe["gather_ms"]),
+             redesigned=True, launch_floor_ms=probe["launch_floor_ms"]),
+        dict(kernel_entry("take_loop", csrc + "gather_probe.cu", "tools/tpu_probe.py:132",
+                          probe["counts"]["take_loop"], [probe["take_loop"]],
+                          probe["take_loop"]["max_abs_err"]),
+             redesigned=True),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

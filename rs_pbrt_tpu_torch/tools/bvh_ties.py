@@ -23,6 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve
+
 W, COLS = 12, 128
 BASE, COUNT, PRIM, LEAF_COUNT, FLAG = 72, 73, 108, 120, 127
 DEPTH = 3
@@ -63,7 +65,7 @@ def _tri(prim, x0, y0, z, nan=False):
     return prim, p0, (x0 + 1.9, y0 - 0.1, z), (x0 - 0.1, y0 + 1.9, z)
 
 
-def tie_case(device="cpu"):
+def tie_case(device="cuda"):
     """(o, d, t_max, rows, depth) as f32 tensors on `device` (depth an int):
     the tree of the module docstring and 64 rays.  Region A is x in [0, 1],
     region B x in [2, 3], both y in [0, 1]."""
@@ -110,5 +112,6 @@ def tie_case(device="cpu"):
     d[n_axis:] = rng.normal(0.0, 0.3, (64 - n_axis, 3)) + np.array([0.0, 0.0, 1.0])
     d[n_axis:] /= np.linalg.norm(d[n_axis:], axis=1, keepdims=True)
     t_max[n_axis:n_axis + 4] = -1.0
-    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    dev = resolve(device)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
     return f32(o), f32(d), f32(t_max), f32(rows), DEPTH

@@ -163,7 +163,7 @@ def test_plain_tie_case_bit_equal_to_jax_without_fma(tmp_path):
     """(a) The hand-built tie and NaN tree of tools/bvh_ties: every output of
     the plain traversal bit-equal to the JAX traversal without FMA
     contraction, closest and any hit."""
-    o, d, t_max, rows, depth = bvh_ties.tie_case()
+    o, d, t_max, rows, depth = bvh_ties.tie_case(device="cpu")
     want = run_jax_without_fma(tmp_path, o.numpy(), d.numpy(), t_max.numpy(), rows.numpy(), depth)
     for any_hit in (False, True):
         got = bvh.bvh12_intersect_plain(o, d, t_max, rows, depth, any_hit)
@@ -181,7 +181,7 @@ def test_plain_keeps_tie_rules(any_hit):
     entered first, the lowest of two leaf slots at equal t wins, a later
     leaf at equal t does not replace the hit, a NaN t blocks its leaf's
     update, and a ray with t_max < 0 misses with t = t_max."""
-    o, d, t_max, rows, depth = bvh_ties.tie_case()
+    o, d, t_max, rows, depth = bvh_ties.tie_case(device="cpu")
     want = jbvh.bvh12_intersect_tris(jnp.asarray(o.numpy()), jnp.asarray(d.numpy()),
                                      jnp.asarray(t_max.numpy()), jnp.asarray(rows.numpy()),
                                      depth, any_hit=any_hit)

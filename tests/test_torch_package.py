@@ -25,6 +25,7 @@ from rs_pbrt_tpu_torch.scene import arrays as sa
 from rs_pbrt_tpu_torch.scene import bigscene
 from rs_pbrt_tpu_torch.scene import presets
 from rs_pbrt_tpu_torch.scene.builder import SceneBuilder
+from rs_pbrt_tpu_torch.tools import bvh_ties
 from rs_pbrt_tpu_torch.utils import transform as tr
 
 torch.set_num_threads(2)
@@ -39,7 +40,8 @@ def test_no_jax_imports():
     files.append(ROOT / "chip_smoke.py")  # _build/ holds what the build writes, not sources
     assert len(files) > 15
     # the chip tools, which import the package of another checkout with --root
-    assert {"k1_b2_replay.py", "k2_replay.py", "sweep_replay.py"} <= {f.name for f in files}
+    assert {"k1_b2_replay.py", "k2_replay.py", "sweep_replay.py", "probe_replay.py"} <= \
+        {f.name for f in files}
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
     assert not bad, bad
@@ -50,7 +52,8 @@ def test_no_jax_imports():
 def test_import_loads_no_jax():
     code = ("import sys; import rs_pbrt_tpu_torch.models.integrators.render, "
             "rs_pbrt_tpu_torch.scene.presets, rs_pbrt_tpu_torch.io.image, "
-            "rs_pbrt_tpu_torch.tools.sweep_replay, rs_pbrt_tpu_torch.tools.k1_b2_replay; "
+            "rs_pbrt_tpu_torch.tools.sweep_replay, rs_pbrt_tpu_torch.tools.k1_b2_replay, "
+            "rs_pbrt_tpu_torch.tools.probe_replay; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'rs_pbrt_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
@@ -71,6 +74,7 @@ ENTRY_POINTS = {
     "bvh12_intersect_tris": lambda: bvh.bvh12_intersect_tris(
         *[torch.zeros(1, 3)] * 2, torch.ones(1), *si.accel_from_numpy(np.zeros((1, 128)), 0)),
     "take_rows": lambda: gp.take_rows(*gp.probe_inputs()),
+    "bvh_ties.tie_case": lambda: bvh_ties.tie_case(),
 }
 
 
@@ -108,8 +112,13 @@ def test_chip_smoke_names_template_kernels():
         "ptxas info    : Function properties for _ZN_GLOBAL__N__0f3a2b1c_8_gather_probe_cu_"
         "1a2b3c4d9take_rowsEPKf",
         "ptxas info    : Used 16 registers",
+        "ptxas info    : Function properties for _ZN37_INTERNAL_0a_GLOBAL__N__0f3a2b1c_15_gather"
+        "_probe_cu_1a2b3c4d16take_loop_kernelILb1EEEvPKfPKiiiNS_4JumpENS_5MagicEPf",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 38 registers, 4096 bytes smem, 456 bytes cmem[0]",
     ])
     assert chip_smoke.ptxas_resources(log) == [
         ("bvh12.cu", "walk_kernel<true>", 56, 12, 0),
         ("bounce.cu", "bounce_kernel<false, true>", 80, 5696, 136),
-        ("gather_probe.cu", "take_rows", 16, 0, 0)]
+        ("gather_probe.cu", "take_rows", 16, 0, 0),
+        ("gather_probe.cu", "take_loop_kernel<true>", 38, 4096, 0)]
