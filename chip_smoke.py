@@ -106,7 +106,37 @@ Run from the root of a checkout.  Phases, one line each (or more):
    K1's device_ms is the same replay of its launches in phases 5, 7 and 9,
    K4's and K5's of theirs in phase 7, K3's of phase 6's camera rays.
    The one-thread-a-lane K1 and one-thread-a-ray B2's device times on the
-   same launches are printed beside them as recorded constants.
+   same launches are printed beside them as recorded constants.  This
+   phase renders with regen=False: the fixed-depth loop whose launch counts
+   it checks.
+10. Path regeneration at a narrow lane width, which forces many refills:
+   regen.radiance_regen on the statue's 524,288 camera paths of phase 9
+   through a pool of REGEN_CHECK_WIDTH lanes.  The counters are zeroed
+   just before it and read just after: K1 once (the hoisted table), B1
+   and B2 once each an iteration, no other kernel; no stack overflow.  B1
+   and B2 of the first iteration, of the middle one and of the last that
+   casts a ray are held to bvh12_intersect_plain bit for bit; the
+   per-path radiance to general_radiance's on the same rays at rtol 1e-5,
+   atol 1e-6 (the JAX package's bound, tests/test_regen.py:57).
+11. Spatial light selection and a crop window through render.render:
+   spheres_direct (two lights, below the BVH threshold) with the path
+   integrator and light_strategy "spatial" (the general bounce: K1 2, K5
+   depth + 1, K4 depth launches), and the Cornell box with a crop window
+   (K1 1, K2 depth + 1), each at 256x256, 64 spp, depth 5, each image held
+   to the render with every wrapper swapped for its plain version at
+   rtol = atol = 2e-3, the crop's pixels outside its window black.
+12. The slice at full width through render's defaults: the 5,242,880-
+   triangle statue (statue_scene(subdivisions=9)) and its BVH, their host
+   seconds; a warm render of 1 spp, then one timed render of 1024x1024, 64
+   spp, depth 5 with regeneration (bench.py:252-277).  The counters are
+   zeroed just before that render and read just after: K1 2 a batch, B1
+   and B2 once each a regeneration iteration; no stack overflow.  Its
+   batches, lane width, iterations, paths/s and peak device memory; the
+   image finite and within rtol 1e-5, atol 1e-6 of the same render with
+   regen=False in the same batches (each path takes the same samples and
+   arithmetic in both); the fixed-depth render's paths/s and peak device
+   memory; the device time by op over one batch.  Phase 11 also times the spatial
+   distribution's build.
 
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
@@ -138,6 +168,10 @@ K2_SPP = 4  # phase 4
 STATUE_SUBDIV, STATUE_RES, STATUE_SPP = 8, (256, 256), 8
 B2_TAIL_RAYS = (1 << 14) + 5  # phase 9: B2 on a launch cut to this many rays
 PROBE_SHAPE = (16, 2048)  # phase 8: P1 and P2 at the JAX probe's shape
+REGEN_CHECK_WIDTH = 1 << 14  # phase 10: the lane pool of the refill check
+CROP = (0.25, 0.75, 0.1, 0.6)  # phase 11: the crop window (x0, x1, y0, y1)
+# phase 12: the statue at the size bench.py:252-277 renders it
+FULL_SUBDIV, FULL_RES, FULL_SPP = 9, (1024, 1024), 64
 
 # published peaks of one H100 SXM (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -1045,7 +1079,8 @@ def phase_statue(card):
     lanes = res[0] * res[1] * spp
 
     def go(stats=None):
-        return rdr.render(scene, camera, cfg, scfg, accel=accel, max_lanes=lanes, stats=stats)
+        return rdr.render(scene, camera, cfg, scfg, accel=accel, max_lanes=lanes, stats=stats,
+                          regen=False)
 
     # the main path's run, its wrapper calls recorded with their outputs
     names = ("sobol_dims", "bvh12_intersect_tris")
@@ -1202,7 +1237,7 @@ def phase_statue(card):
           f"traversal {sum(ms['bvh12_intersect_tris']):.3f} ms of the "
           f"{1e3 * best['wall_s']:.3f} ms render", flush=True)
     return dict(
-        counts=counts,
+        counts=counts, scene=scene, camera=camera, accel=accel,
         sobol_dims=dict(ms=ms["sobol_dims"], device_ms=k1_dev, plain_ms=plain_ms["sobol_dims"],
                         bound=k1_bounds, max_abs_err=k1_err),
         closest=dict(ms=b_ms["closest"], device_ms=b_dev["closest"], plain_ms=b_plain["closest"],
@@ -1210,6 +1245,227 @@ def phase_statue(card):
         any=dict(ms=b_ms["any"], device_ms=b_dev["any"], plain_ms=b_plain["any"],
                  bound=bounds["any"], max_abs_err=errs["any"]),
     )
+
+
+def phase_regen_check(card, statue):
+    """Phase 10: regen.radiance_regen at REGEN_CHECK_WIDTH lanes on phase
+    9's statue and camera paths, against general_radiance."""
+    import torch
+
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import path as pathmod
+    from rs_pbrt_tpu_torch.models.integrators import regen
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.ops import bvh
+
+    scene, camera, accel = statue["scene"], statue["camera"], statue["accel"]
+    scfg = smpl.make_sampler(smpl.SOBOL, STATUE_SPP, STATUE_RES)
+    ctx, rays = rdr.camera_rays(camera, scfg, 0, STATUE_SPP)
+    pcfg = pathmod.PathCfg(DEPTH, 1.0)
+    n = rays.o.shape[0]
+    rec = LaunchTimer(bvh.bvh12_intersect_tris, keep=True)
+    overflow = bvh.overflow_counter(DEVICE)
+    st = {}
+    torch.cuda.synchronize()
+    with ExitStack() as es:
+        patched(es, bvh12_intersect_tris=rec)
+        zero_counts()
+        overflow.zero_()
+        t0 = time.perf_counter()
+        L = regen.radiance_regen(scene, pcfg, scfg, ctx, rays.o, rays.d, accel,
+                                 lane_width=REGEN_CHECK_WIDTH, stats=st)
+        torch.cuda.synchronize()
+        regen_s = time.perf_counter() - t0
+        counts = read_counts()
+    n_it = st["iterations"]
+    want = expect_counts(sobol=1, bvh12_closest=n_it, bvh12_any=n_it)
+    if counts != want:
+        fail(f"launch counts of the regeneration check {counts}, expected {want}")
+    if int(overflow.item()):
+        fail(f"the BVH traversal stack overflowed {int(overflow.item())} times in the "
+             "regeneration check")
+    closest = [c for c in rec.calls if not c[2].get("any_hit", False)]
+    shadow = [c for c in rec.calls if c[2].get("any_hit", False)]
+    live = [int((args[2] >= 0).sum()) for _, args, _, _ in closest]
+    last = max(i for i, v in enumerate(live) if v > 0)
+    picks = sorted({0, n_it // 2, last})
+    err = 0.0
+    for i in picks:
+        for any_hit, (_, args, kw, out) in ((False, closest[i]), (True, shadow[i])):
+            err = max(err, check_bvh(f"regeneration iteration {i} B{2 if any_hit else 1}",
+                                     any_hit, out, bvh.bvh12_intersect_plain(*args, **kw)))
+    del rec, closest, shadow, args, kw, out
+    t0 = time.perf_counter()
+    L_fixed = pathmod.general_radiance(scene, pcfg, scfg, ctx, rays.o, rays.d, accel)
+    torch.cuda.synchronize()
+    fixed_s = time.perf_counter() - t0
+    if not torch.isfinite(L).all():
+        fail("the regeneration check's radiance is not finite")
+    path_err = float((L - L_fixed).abs().max())
+    if not torch.allclose(L, L_fixed, rtol=1e-5, atol=1e-6):
+        fail(f"the regeneration loop's radiance differs from general_radiance by up to {path_err}")
+    print(f"[10 regen] {n} paths through {REGEN_CHECK_WIDTH} lanes: {n_it} iterations, "
+          f"{sum(live)} live lanes of {n_it * REGEN_CHECK_WIDTH} "
+          f"({100 * sum(live) / (n_it * REGEN_CHECK_WIDTH):.1f}%); launches {counts}; stack "
+          f"overflows 0; B1 and B2 of iterations {picks} (live rays "
+          f"{[live[i] for i in picks]}) equal to the plain traversal (max abs err {err:.3g}); "
+          f"radiance matches general_radiance at rtol 1e-5, atol 1e-6 (max abs err "
+          f"{path_err:.3g}, {int(torch.equal(L, L_fixed))} bit-equal)", flush=True)
+    print(f"[10 regen] host clock: the loop {regen_s:.3f} s ({n / regen_s:.6g} paths/s, "
+          f"{1e3 * regen_s / n_it:.3f} ms an iteration), the fixed-depth loop {fixed_s:.3f} s "
+          f"({n / fixed_s:.6g} paths/s) ({card})", flush=True)
+    return dict(counts=counts, max_abs_err=err)
+
+
+def phase_spatial_crop(card):
+    """Phase 11: a spatial-selection render and a crop-window render, each
+    against the render with every wrapper swapped for its plain version."""
+    import torch
+
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.ops import intersect_kernel as ik
+    from rs_pbrt_tpu_torch.ops import path_kernel as pk
+    from rs_pbrt_tpu_torch.ops import sobol_kernel as sk
+    from rs_pbrt_tpu_torch.scene import presets
+
+    scfg = smpl.make_sampler(smpl.SOBOL, SPP, RES)
+    lanes = RES[0] * RES[1] * SPP
+    out = {}
+    for name, (scene, camera), cfg, launched in (
+            ("spatial", presets.spheres_direct(RES, device=DEVICE),
+             dict(light_strategy="spatial"),
+             dict(sobol=2, full_sweep=DEPTH + 1, any_sweep=DEPTH)),
+            ("crop", presets.cornell_box(RES, device=DEVICE), dict(crop=CROP),
+             dict(sobol=1, bounce=DEPTH + 1))):
+        cfg = rdr.RenderCfg("path", SPP, DEPTH, 1.0, **cfg)
+
+        def go(stats=None):
+            return rdr.render(scene, camera, cfg, scfg, max_lanes=lanes, stats=stats)
+
+        if name == "spatial":
+            from rs_pbrt_tpu_torch.models import lightdistrib as ldist
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sd = ldist.build_spatial(scene)
+            torch.cuda.synchronize()
+            print(f"[11 spatial] the spatial light distribution: {sd.n_voxels} voxels x "
+                  f"{scene.n_lights} lights x {ldist.N_SAMPLES} samples, built in "
+                  f"{1e3 * (time.perf_counter() - t0):.3f} ms (host clock) on {card}", flush=True)
+            del sd
+        go()  # warm
+        st = {}
+        torch.cuda.synchronize()
+        zero_counts()
+        img = go(st)
+        counts = read_counts()
+        if counts != expect_counts(**launched):
+            fail(f"launch counts of the {name} render {counts}, expected {launched}")
+        if tuple(img.shape) != (RES[1], RES[0], 3) or not torch.isfinite(img).all():
+            fail(f"{name} image: shape {tuple(img.shape)}, finite "
+                 f"{bool(torch.isfinite(img).all())}")
+        with ExitStack() as es:
+            patched(es, sobol_dims=sk.sobol_dims_plain, bounce=pk.bounce_plain,
+                    closest_sweep=ik.closest_sweep_plain, any_sweep=ik.any_sweep_plain,
+                    full_sweep=ik.full_sweep_plain)
+            img_plain = go()
+        torch.cuda.synchronize()
+        err = float((img - img_plain).abs().max())
+        if not torch.allclose(img, img_plain, rtol=TOL, atol=TOL):
+            fail(f"{name} image differs from the plain render by up to {err}")
+        note = ""
+        if name == "crop":
+            px0, px1, py0, py1 = rdr.crop_pixel_rect(RES, CROP)
+            inside = torch.zeros(img.shape[:2], dtype=torch.bool, device=img.device)
+            inside[py0:py1, px0:px1] = True
+            if bool((img[~inside] != 0).any()) or not bool((img[inside] > 0).any()):
+                fail("the crop render lights pixels outside its window, or none inside")
+            note = f", pixels x {px0}..{px1 - 1}, y {py0}..{py1 - 1}, black outside"
+        print(f"[11 {name}] {RES[0]}x{RES[1]}, {SPP} spp, depth {DEPTH}{note}: finite, matches "
+              f"the plain render (max abs err {err:.3g}, mean {float(img.mean()):.5f}); launches "
+              f"{counts}; {st['paths_per_s']:.6g} camera paths/s (one warm render, "
+              f"{1e3 * st['wall_s']:.3f} ms) on {card}", flush=True)
+        out[name] = dict(counts=counts)
+    return out
+
+
+def phase_full_statue(card):
+    """Phase 12: the 5.24M-triangle statue at 1024x1024, 64 spp, through
+    render's defaults (regeneration)."""
+    import torch
+
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.ops import bvh
+    from rs_pbrt_tpu_torch.ops import scene_intersect as si
+    from rs_pbrt_tpu_torch.scene import bigscene
+
+    t0 = time.perf_counter()
+    scene, camera = bigscene.statue_scene(FULL_RES, FULL_SUBDIV, device=DEVICE)
+    t1 = time.perf_counter()
+    accel = si.build_accel(scene, device=DEVICE)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"[12 statue] scene {scene.n_tris} triangles in {t1 - t0:.3f} s, BVH "
+          f"{accel.tri.shape[0]} wide12 rows, depth {accel.tri_depth}, in {t2 - t1:.3f} s "
+          "(host)", flush=True)
+    cfg = rdr.RenderCfg("path", spp=FULL_SPP, max_depth=DEPTH, rr_threshold=1.0)
+    scfg = smpl.make_sampler(smpl.SOBOL, FULL_SPP, FULL_RES)
+    paths = FULL_RES[0] * FULL_RES[1] * FULL_SPP
+    warm = {}
+    rdr.render(scene, camera, cfg._replace(spp=1), scfg, accel=accel, stats=warm)
+    overflow = bvh.overflow_counter(DEVICE)
+    overflow.zero_()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the scene, its tree and the caches
+    st = {}
+    zero_counts()
+    img = rdr.render(scene, camera, cfg, scfg, accel=accel, stats=st)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not st["lane_width"]:
+        fail("the full-width statue render did not take the regeneration loop")
+    want = expect_counts(sobol=2 * st["batches"], bvh12_closest=st["iterations"],
+                         bvh12_any=st["iterations"])
+    if counts != want:
+        fail(f"launch counts of the full-width statue render {counts}, expected {want}")
+    n_overflow = int(overflow.item())
+    if n_overflow:
+        fail(f"the BVH traversal stack overflowed {n_overflow} times in the full-width render")
+    if tuple(img.shape) != (FULL_RES[1], FULL_RES[0], 3) or not torch.isfinite(img).all():
+        fail(f"full-width statue image: shape {tuple(img.shape)}, finite "
+             f"{bool(torch.isfinite(img).all())}")
+    print(f"[12 statue] {FULL_RES[0]}x{FULL_RES[1]}, {FULL_SPP} spp, depth {DEPTH}, {paths} "
+          f"paths: {st['batches']} batches of up to {rdr.MAX_LANES} paths through "
+          f"{st['lane_width']} lanes, {st['iterations']} iterations; launches {counts}; stack "
+          f"overflows 0; peak device memory {peak / 2**30:.2f} GiB, "
+          f"{(peak - held) / min(paths, rdr.MAX_LANES):.1f} bytes a path of a batch "
+          "above what the scene and its tree hold", flush=True)
+    print(f"[12 statue] {st['paths_per_s']:.6g} camera paths/s (one timed render, "
+          f"{st['wall_s']:.3f} s, after a warm render of 1 spp in {warm['wall_s']:.3f} s) on "
+          f"{card}", flush=True)
+    fixed = {}
+    torch.cuda.reset_peak_memory_stats()
+    img_fixed = rdr.render(scene, camera, cfg, scfg, accel=accel, stats=fixed, regen=False)
+    peak_fixed = torch.cuda.max_memory_allocated()
+    err = float((img - img_fixed).abs().max())
+    if not torch.allclose(img, img_fixed, rtol=1e-5, atol=1e-6):
+        fail(f"the full-width regeneration render differs from regen=False by up to {err}")
+    print(f"[12 statue] finite, matches the regen=False render in {fixed['batches']} batches "
+          f"at rtol 1e-5, atol 1e-6 (max abs err {err:.3g}, "
+          f"{int(torch.equal(img, img_fixed))} "
+          f"bit-equal, mean {float(img.mean()):.5f}); the fixed-depth loop "
+          f"{fixed['paths_per_s']:.6g} camera paths/s ({fixed['wall_s']:.3f} s), peak device "
+          f"memory {peak_fixed / 2**30:.2f} GiB, "
+          f"{(peak_fixed - held) / min(paths, rdr.MAX_LANES):.1f} bytes a path, on {card}",
+          flush=True)
+    del img_fixed
+    batch = cfg._replace(spp=FULL_SPP // st["batches"])
+    profile_render(lambda: rdr.render(scene, camera, batch, scfg, accel=accel),
+                   f"12 profile, one batch of {batch.spp} spp")
+    return dict(counts=counts)
 
 
 def kernel_entry(name, source, replaces, launches, parts, max_abs_err, library_ms=None) -> dict:
@@ -1255,6 +1511,11 @@ def main():
     slices = [phase_slice_render(card, integrator) for integrator in ("directlighting", "whitted")]
     probe = phase_probe(card)
     statue = phase_statue(card)
+    later = [phase_regen_check(card, statue)]
+    del statue["scene"], statue["camera"], statue["accel"]
+    later += list(phase_spatial_crop(card).values())
+    later.append(phase_full_statue(card))
+    more = lambda key: sum(p["counts"][key] for p in later)  # phases 10-12's launches
 
     k2 = flag["k2"]
     csrc, pallas = "rs_pbrt_tpu_torch/csrc/", "rs_pbrt_tpu/ops/pallas_intersect.py:"
@@ -1263,31 +1524,33 @@ def main():
     kernels = [
         dict(kernel_entry("sobol_dims", csrc + "sobol.cu", "rs_pbrt_tpu/ops/pallas_sobol.py:35",
                           flag["counts"]["sobol"] + sum(r["counts"]["sobol"] for r in slices)
-                          + statue["counts"]["sobol"],
+                          + statue["counts"]["sobol"] + more("sobol"),
                           [flag["k1"]] + [r["sobol_dims"] for r in slices] + [statue["sobol_dims"]],
                           worst("sobol_dims", flag["k1"], statue["sobol_dims"])),
              redesigned=True),
         dict(name="bounce", route="cuda", source=csrc + "bounce.cu",
-             replaces="rs_pbrt_tpu/ops/pallas_path.py:410", launches=flag["counts"]["bounce"],
+             replaces="rs_pbrt_tpu/ops/pallas_path.py:410",
+             launches=flag["counts"]["bounce"] + more("bounce"),
              library_ms=None, **k2, redesigned=True),
         # K3 is on no render path: its numbers are phase 6's at the camera rays
         dict(kernel_entry("closest_sweep", csrc + "intersect.cu", pallas + "133", 0,
                           [sweeps["closest"]], sweeps["closest"]["max_abs_err"]),
              redesigned=True),
         dict(kernel_entry("any_sweep", csrc + "intersect.cu", pallas + "285",
-                          sum(r["counts"]["any_sweep"] for r in slices),
+                          sum(r["counts"]["any_sweep"] for r in slices) + more("any_sweep"),
                           [r["any_sweep"] for r in slices], worst("any_sweep", sweeps["any"])),
              redesigned=True),
         kernel_entry("full_sweep", csrc + "intersect.cu", pallas + "376",
-                     sum(r["counts"]["full_sweep"] for r in slices),
+                     sum(r["counts"]["full_sweep"] for r in slices) + more("full_sweep"),
                      [r["full_sweep"] for r in slices], worst("full_sweep", sweeps["full"])),
         # B1 and B2 replace an XLA function, the JAX package's TPU traversal
         dict(kernel_entry("bvh12_closest", csrc + "bvh12.cu", "rs_pbrt_tpu/ops/bvh.py:994",
-                          statue["counts"]["bvh12_closest"], [statue["closest"]],
+                          statue["counts"]["bvh12_closest"] + more("bvh12_closest"),
+                          [statue["closest"]],
                           statue["closest"]["max_abs_err"]),
              redesigned=True),
         dict(kernel_entry("bvh12_any", csrc + "bvh12.cu", "rs_pbrt_tpu/ops/bvh.py:994",
-                          statue["counts"]["bvh12_any"], [statue["any"]],
+                          statue["counts"]["bvh12_any"] + more("bvh12_any"), [statue["any"]],
                           statue["any"]["max_abs_err"]),
              redesigned=True),
         dict(kernel_entry("take_rows", csrc + "gather_probe.cu", "tools/tpu_probe.py:110",

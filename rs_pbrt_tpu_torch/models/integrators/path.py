@@ -9,9 +9,13 @@ ported scene takes the general wavefront bounce: each bounce intersects
 (K5, or B1 through the scene's BVH), adds emission with MIS, samples one
 light by power with a shadow ray (K4, or B2), samples the BSDF and plays
 Russian roulette, in plain PyTorch around the kernels; the bounce dims of
-all bounces are drawn in one K1 launch.  Path regeneration, subsurface
-scattering, environment lights, bump maps, ray differentials, spatial
-light selection and samplers other than Sobol' are not ported yet.
+all bounces are drawn in one K1 launch.  Lights are selected by power, or
+by the shading point's voxel where a spatial distribution
+(``models/lightdistrib.py``) is given.  Through a BVH, with more paths than
+one lane width, ``radiance(..., regen=True)`` runs the regeneration loop of
+``regen.py`` instead, the same estimator.  Subsurface scattering,
+environment lights, bump maps, ray differentials and samplers other than
+Sobol' are not ported yet.
 """
 
 from __future__ import annotations
@@ -80,33 +84,46 @@ def check_supported(scene: sa.Scene, sampler_cfg: smpl.SamplerCfg, accel=None):
         raise NotImplementedError("the path integrator is ported for the Sobol' sampler only")
 
 
-def _add_emitted(scene, light_dist, it, o, L, beta, alive, specular_bounce, prev_bsdf_pdf):
-    """Emitted radiance at a hit, MIS-weighted against light sampling
-    (path.rs:97-116)."""
+def _dist_at(scene: sa.Scene, light_distrib=None):
+    """dist_at(p): the light-selection distribution at points p (N, 3): the
+    spatial lookup of light_distrib, one row a lane, or the power
+    distribution shared by every lane."""
+    if light_distrib is not None:
+        from .. import lightdistrib as ldist
+
+        return lambda p: ldist.lookup(light_distrib, p)
+    light_dist = _light_select_dist(scene) if scene.n_lights > 0 else None
+    return lambda p: light_dist
+
+
+def _add_emitted(scene, dist_at, it, o, L, beta, alive, specular_bounce, prev_bsdf_pdf):
+    """Emitted radiance at a hit, MIS-weighted against light sampling from
+    the previous vertex o (path.rs:97-116)."""
     if scene.n_lights == 0:
         return L
     hit_light = torch.where(it.valid & alive, it.light, -1)
     light = torch.clamp(hit_light, min=0)
     le = lt.area_light_emitted(scene, light, it.ns, it.wo)
     le = torch.where((hit_light >= 0)[:, None], le, 0.0)
-    light_pdf = (smp.distribution_1d_discrete_pdf(light_dist, light)
+    light_pdf = (smp.distribution_1d_discrete_pdf(dist_at(o), light)
                  * lt.pdf_li_area(scene, light, o, it.p, it.ns))
     w_bsdf = torch.where(specular_bounce, 1.0, smp.power_heuristic(prev_bsdf_pdf, light_pdf))
     return L + beta * le * w_bsdf[:, None]
 
 
-def _shade_and_extend(scene, cfg: PathCfg, accel, light_dist, dims, bounce: int, it, state):
+def _shade_and_extend(scene, cfg: PathCfg, accel, dist_at, dims, bounce, it, state):
     """One vertex's shading: the BSDF, NEE with MIS, the BSDF-sampled
     extension and Russian roulette (path.rs:117-262).  dims: (N, 7) this
-    bounce's samples.  No ported lobe transmits, so the JAX package's
-    eta_scale stays 1 and is left out."""
+    vertex's samples.  bounce: the fixed-depth loop's int, or (N,) int, each
+    lane's own bounce in the regeneration loop.  No ported lobe transmits,
+    so the JAX package's eta_scale stays 1 and is left out."""
     o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf = state
     b = bx.make_bsdf_at(scene, it)
     ss, ts = _shading_frame_du(it.ns, it.dpdu)
     wo_l = _to_local(it.wo, ss, ts, it.ns)
 
     if scene.n_lights > 0:
-        li_idx, sel_pdf, _ = smp.sample_distribution_1d_discrete(light_dist, dims[:, 0])
+        li_idx, sel_pdf, _ = smp.sample_distribution_1d_discrete(dist_at(it.p), dims[:, 0])
         ls = lt.sample_li(scene, li_idx, it.p, dims[:, 1:3])
         wi_l = _to_local(ls.wi, ss, ts, it.ns)
         reflect = vm.dot(ls.wi, it.ng) * vm.dot(it.wo, it.ng) > 0.0
@@ -138,10 +155,12 @@ def _shade_and_extend(scene, cfg: PathCfg, accel, light_dist, dims, bounce: int,
     o = torch.where(alive[:, None], vm.offset_ray_origin(it.p, it.p_error, it.ng, wi_w), o)
     d = torch.where(alive[:, None], wi_w, d)
 
-    if bounce > 2:  # Russian roulette (path.rs:253-262)
+    # Russian roulette after bounce 3 (path.rs:253-262); the fixed-depth
+    # loop skips it before then
+    if not isinstance(bounce, int) or bounce > 2:
         rr_beta_max = beta.max(-1).values
         q = torch.clamp(1.0 - rr_beta_max, min=0.05)
-        consider = (rr_beta_max < cfg.rr_threshold) & alive
+        consider = (bounce > 2) & (rr_beta_max < cfg.rr_threshold) & alive
         kill = consider & (dims[:, 6] < q)
         beta = torch.where((consider & ~kill)[:, None],
                            beta / torch.clamp(1.0 - q, min=1e-6)[:, None], beta)
@@ -151,13 +170,14 @@ def _shade_and_extend(scene, cfg: PathCfg, accel, light_dist, dims, bounce: int,
 
 def general_radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
                      ctx: smpl.SampleCtx, ray_o: torch.Tensor, ray_d: torch.Tensor,
-                     accel=None) -> torch.Tensor:
+                     accel=None, light_distrib=None) -> torch.Tensor:
     """(N, 3) radiance along N camera rays through the general wavefront
     bounce, max_depth bounces and then a pass that only collects emission
-    (path.py:474-592 with regen=False)."""
+    (path.py:474-592 with regen=False).  light_distrib: a spatial light
+    distribution (lightdistrib.build_spatial), else selection by power."""
     check_supported(scene, sampler_cfg, accel)
     n, dev = ray_o.shape[0], ray_o.device
-    light_dist = _light_select_dist(scene) if scene.n_lights > 0 else None
+    dist_at = _dist_at(scene, light_distrib)
     # every bounce's dims in one K1 launch where K1 takes them all (up to
     # 128 dims, as the JAX package hoists them: depth 18), else one a bounce
     total_dims = DIMS_PER_BOUNCE * cfg.max_depth
@@ -173,30 +193,38 @@ def general_radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg
     for bounce in range(cfg.max_depth):
         # dead lanes cast with t_max = -1, which the traversal ends at once
         it = si.scene_intersect(scene, o, d, torch.where(alive, inf, -1.0), accel)
-        L = _add_emitted(scene, light_dist, it, o, L, beta, alive, specular_bounce,
-                         prev_bsdf_pdf)
+        L = _add_emitted(scene, dist_at, it, o, L, beta, alive, specular_bounce, prev_bsdf_pdf)
         alive = alive & it.valid
         k0 = bounce * DIMS_PER_BOUNCE
         dims = (all_dims[:, k0:k0 + DIMS_PER_BOUNCE] if all_dims is not None else
                 smpl.get_dims(sampler_cfg, ctx, DIM_CAMERA + k0, DIMS_PER_BOUNCE))
         o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf = _shade_and_extend(
-            scene, cfg, accel, light_dist, dims, bounce, it,
+            scene, cfg, accel, dist_at, dims, bounce, it,
             (o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf))
     # the last vertex only collects emission
     it = si.scene_intersect(scene, o, d, torch.where(alive, inf, -1.0), accel)
-    return _add_emitted(scene, light_dist, it, o, L, beta, alive, specular_bounce, prev_bsdf_pdf)
+    return _add_emitted(scene, dist_at, it, o, L, beta, alive, specular_bounce, prev_bsdf_pdf)
 
 
 def radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
              ctx: smpl.SampleCtx, ray_o: torch.Tensor, ray_d: torch.Tensor,
-             mega: Optional[pk.MegaCfg] = None, accel=None) -> torch.Tensor:
-    """(N, 3) radiance along N camera rays.  Light selection is by power.
-    mega: the scene's MegaCfg when the caller has it already; as in the JAX
-    package, a scene passed with an accel never takes the bounce kernel.
-    K2 where the scene qualifies, else the general bounce."""
+             mega: Optional[pk.MegaCfg] = None, accel=None, light_distrib=None,
+             regen: bool = False, stats: Optional[dict] = None) -> torch.Tensor:
+    """(N, 3) radiance along N camera rays.  mega: the scene's MegaCfg when
+    the caller has it already; as in the JAX package, a scene passed with an
+    accel or a spatial light distribution never takes the bounce kernel.
+    K2 where the scene qualifies; else, with regen, the regeneration loop
+    where ``regen.eligible`` takes the call (stats goes to
+    ``regen.radiance_regen``); else the general bounce."""
     if mega is None and accel is None:
-        mega = pk.mega_cfg(scene)
+        mega = pk.mega_cfg(scene, light_distrib)
     if mega is not None and cfg.max_depth > 0 and sampler_cfg.kind == smpl.SOBOL:
         return pk.mega_radiance(scene, mega, cfg.max_depth, cfg.rr_threshold, ctx.global_index,
                                 smpl.index_bits(sampler_cfg), DIM_CAMERA, ray_o, ray_d)
-    return general_radiance(scene, cfg, sampler_cfg, ctx, ray_o, ray_d, accel)
+    if regen:
+        from . import regen as regen_mod
+
+        if regen_mod.eligible(scene, cfg, sampler_cfg, accel, ray_o.shape[0]):
+            return regen_mod.radiance_regen(scene, cfg, sampler_cfg, ctx, ray_o, ray_d, accel,
+                                            light_distrib, stats=stats)
+    return general_radiance(scene, cfg, sampler_cfg, ctx, ray_o, ray_d, accel, light_distrib)

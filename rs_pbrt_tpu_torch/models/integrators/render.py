@@ -2,12 +2,13 @@
 
 The port of the JAX package's ``models/integrators/render.py`` (reference
 src/core/integrator.rs:70-220) for the path, whitted and directlighting
-integrators.  The pixel grid is one flat wavefront of (pixel, sample)
-lanes, ``nb`` ordered copies of the grid with x fastest, batched over
-samples per pixel to stay under ``max_lanes``.  Scenes above the
+integrators.  The pixel grid (the film's crop window, or the whole film) is
+one flat wavefront of (pixel, sample) lanes, ``nb`` ordered copies of the
+grid with x fastest, batched over samples per pixel.  Scenes above the
 brute-force limit render with their BVH (``accel``,
-``ops/scene_intersect.build_accel``); there is no lane cap for them, as
-there is on the TPU.
+``ops/scene_intersect.build_accel``); there, by default, the path
+integrator streams each batch's paths through a pool of lanes that it
+refills as paths finish (``regen.py``), as the JAX package's render does.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import time
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ...ops import film as filmmod
@@ -24,8 +26,16 @@ from .. import cameras as cam
 from .. import samplers as smpl
 from . import direct as directmod
 from . import path as pathmod
+from . import regen as regenmod
 
 INTEGRATORS = ("path", "whitted", "directlighting")
+# paths a batch at most, by default; sized by memory on an NVIDIA H100
+# 80GB (chip_smoke.py phase 12, PERF.md).  At depth 5 the regeneration loop
+# holds ~243 bytes a path (140 of hoisted dims, 24 of camera ray, 12 of
+# radiance, the rest the camera's and the sample context's), the
+# fixed-depth loop ~920 (every lane's state at once), so 2^26 paths (a
+# 1024x1024, 64 spp render in one batch, one drain) hold ~15 or ~57 GiB
+MAX_LANES = 1 << 26
 
 
 class RenderCfg(NamedTuple):
@@ -41,28 +51,28 @@ class RenderCfg(NamedTuple):
     accelerator: str = "bvh"  # the accel's kind: "bvh" only ("kdtree" is not ported)
 
 
-def check_cfg(scene: sa.Scene, cfg: RenderCfg):
+def check_cfg(cfg: RenderCfg):
     """Raises NotImplementedError for a RenderCfg the port cannot render yet."""
     if cfg.integrator not in INTEGRATORS:
         raise NotImplementedError(f"integrator {cfg.integrator!r} is not ported yet "
                                   "(ROADMAP queue A)")
-    if cfg.crop is not None:
-        raise NotImplementedError("crop windows are not ported yet (ROADMAP queue A)")
-    if cfg.light_strategy == "spatial" and scene.n_lights > 0:
-        raise NotImplementedError("spatial light selection is not ported yet (ROADMAP queue A)")
     if cfg.accelerator != "bvh":
         raise NotImplementedError(f"accelerator {cfg.accelerator!r} is not ported yet "
                                   "(ROADMAP queue A)")
 
 
-def radiance_fn(cfg: RenderCfg, mega: Optional[pk.MegaCfg] = None, accel=None):
+def radiance_fn(cfg: RenderCfg, mega: Optional[pk.MegaCfg] = None, accel=None,
+                light_distrib=None, regen: bool = False, stats: Optional[dict] = None):
     """Integrator dispatch (integrator.rs:31): (scene, sampler_cfg, ctx, o,
     d) -> (N, 3) radiance.  mega: the scene's MegaCfg for "path"; accel:
-    the scene's BVH, passed down to scene intersection."""
+    the scene's BVH, passed down to scene intersection.  light_distrib,
+    regen and stats reach the path integrator only: the direct integrators
+    select lights as they do with every strategy, as in the JAX package."""
     if cfg.integrator == "path":
         pcfg = pathmod.PathCfg(cfg.max_depth, cfg.rr_threshold)
-        return lambda scene, scfg, ctx, o, d: pathmod.radiance(scene, pcfg, scfg, ctx, o, d,
-                                                                 mega=mega, accel=accel)
+        return lambda scene, scfg, ctx, o, d: pathmod.radiance(
+            scene, pcfg, scfg, ctx, o, d, mega=mega, accel=accel, light_distrib=light_distrib,
+            regen=regen, stats=stats)
     if cfg.integrator == "whitted":
         wcfg = directmod.WhittedCfg(cfg.max_depth)
         return lambda scene, scfg, ctx, o, d: directmod.whitted_radiance(scene, wcfg, scfg, ctx,
@@ -75,16 +85,35 @@ def radiance_fn(cfg: RenderCfg, mega: Optional[pk.MegaCfg] = None, accel=None):
     raise ValueError(f"unknown integrator {cfg.integrator!r}")
 
 
-def camera_rays(camera: cam.Camera, sampler_cfg: smpl.SamplerCfg, sample0: int, nb: int):
+def crop_pixel_rect(resolution, crop):
+    """A fractional crop window (x0, x1, y0, y1) -> the integer pixel rect
+    (px0, px1, py0, py1) (film.rs:224-262: the corners ceil(res * crop), at
+    least one pixel wide); the whole film without one."""
+    w, h = resolution
+    if crop is None:
+        return 0, w, 0, h
+    x0, x1, y0, y1 = crop
+    px0 = int(np.ceil(w * x0))
+    px1 = max(int(np.ceil(w * x1)), px0 + 1)
+    py0 = int(np.ceil(h * y0))
+    py1 = max(int(np.ceil(h * y1)), py0 + 1)
+    return px0, px1, py0, py1
+
+
+def camera_rays(camera: cam.Camera, sampler_cfg: smpl.SamplerCfg, sample0: int, nb: int,
+                rect=None):
     """(SampleCtx, CameraRays) of samples sample0 .. sample0+nb-1 of every
-    pixel: nb copies of the pixel grid, x fastest."""
+    pixel of rect (y0, h, x0, w), the whole film without one: nb copies of
+    the grid, x fastest.  The Sobol' indices are those of the pixels' film
+    coordinates."""
     w, h = camera.resolution
+    y0, hh, x0, ww = rect if rect is not None else (0, h, 0, w)
     dev = camera.device
-    xs = torch.arange(w, dtype=torch.int64, device=dev)
-    ys = torch.arange(h, dtype=torch.int64, device=dev)
-    pixel = torch.stack([xs.repeat(h), ys.repeat_interleave(w)], -1).repeat(nb, 1)
+    xs = torch.arange(x0, x0 + ww, dtype=torch.int64, device=dev)
+    ys = torch.arange(y0, y0 + hh, dtype=torch.int64, device=dev)
+    pixel = torch.stack([xs.repeat(hh), ys.repeat_interleave(ww)], -1).repeat(nb, 1)
     sample_num = torch.arange(sample0, sample0 + nb, dtype=torch.int64,
-                              device=dev).repeat_interleave(w * h)
+                              device=dev).repeat_interleave(ww * hh)
     ctx = smpl.make_ctx(sampler_cfg, pixel, sample_num, frame_lt_spp=True)
     u_film, u_time, u_lens = smpl.get_camera_dims(sampler_cfg, ctx, pixel)
     return ctx, cam.generate_rays(camera, pixel.to(torch.float32) + u_film, u_lens, u_time)
@@ -92,46 +121,76 @@ def camera_rays(camera: cam.Camera, sampler_cfg: smpl.SamplerCfg, sample0: int, 
 
 def render_batch(scene: sa.Scene, camera: cam.Camera, cfg: RenderCfg,
                  sampler_cfg: smpl.SamplerCfg, film: filmmod.Film, filter_cfg: filmmod.FilterCfg,
-                 sample0: int, nb: int, mega: Optional[pk.MegaCfg] = None,
-                 accel=None) -> filmmod.Film:
-    """Samples sample0 .. sample0+nb-1 of every pixel, added to `film`."""
-    ctx, rays = camera_rays(camera, sampler_cfg, sample0, nb)
-    L = radiance_fn(cfg, mega, accel)(scene, sampler_cfg, ctx, rays.o, rays.d)
+                 sample0: int, nb: int, mega: Optional[pk.MegaCfg] = None, accel=None,
+                 rect=None, light_distrib=None, regen: bool = False,
+                 stats: Optional[dict] = None) -> filmmod.Film:
+    """Samples sample0 .. sample0+nb-1 of every pixel of rect (the crop
+    window (y0, h, x0, w), else the whole film), added to `film`."""
+    ctx, rays = camera_rays(camera, sampler_cfg, sample0, nb, rect)
+    L = radiance_fn(cfg, mega, accel, light_distrib, regen, stats)(
+        scene, sampler_cfg, ctx, rays.o, rays.d)
     L = L * rays.weight[:, None]
-    return filmmod.add_samples_grid(film, filter_cfg, L, nb)
+    return filmmod.add_samples_grid(film, filter_cfg, L, nb, rect)
 
 
 def render(scene: sa.Scene, camera: cam.Camera, cfg: RenderCfg, sampler_cfg: smpl.SamplerCfg,
            filter_cfg: Optional[filmmod.FilterCfg] = None, accel=None,
-           max_lanes: int = 1 << 20, stats: Optional[dict] = None) -> torch.Tensor:
+           max_lanes: int = MAX_LANES, stats: Optional[dict] = None, crop=None,
+           regen: bool = True) -> torch.Tensor:
     """Renders the whole image; returns linear RGB (H, W, 3) on the scene's
     device.  accel: the scene's ``build_accel``, needed above
-    BRUTE_FORCE_MAX_TRIS triangles.  stats, when given, is filled with
-    camera_rays, spp, wall_s and paths_per_s (wall time on the host clock,
-    synchronized with the card)."""
-    check_cfg(scene, cfg)
+    BRUTE_FORCE_MAX_TRIS triangles.  max_lanes: a batch's paths at most,
+    in either loop.  regen: the path integrator regenerates paths where a
+    batch takes it (``regen.eligible``, the JAX render's gate,
+    render.py:379-397): each batch streams its paths through
+    ``regen.REGEN_LANE_WIDTH`` lanes (the port's own width, chosen on the
+    card; the JAX package further caps a batch for a TPU's dispatch).  crop: a fractional crop window (x0, x1, y0, y1),
+    cfg.crop without one; pixels outside it stay black.  cfg.light_strategy "spatial" builds
+    the spatial light distribution once for the path integrator.  stats,
+    when given, is filled with camera_rays, spp, resolution, wall_s,
+    paths_per_s and max_ray_casts (wall time on the host clock, synchronized
+    with the card), and batches, lane_width (0 without regeneration) and
+    iterations (of the regeneration loop)."""
+    check_cfg(cfg)
     dev = scene.device
     if camera.device != dev:
         raise ValueError(f"camera lies on {camera.device}, scene on {dev}")
     if filter_cfg is None:
         filter_cfg = filmmod.make_filter(filmmod.FILTER_BOX)
     w, h = camera.resolution
-    n_pix = w * h
-    mega = pk.mega_cfg(scene) if cfg.integrator == "path" and accel is None else None
-    film = filmmod.make_film((w, h), dev)
-    t0 = time.perf_counter()
+    px0, px1, py0, py1 = crop_pixel_rect((w, h), crop if crop is not None else cfg.crop)
+    rect = (py0, py1 - py0, px0, px1 - px0)
+    n_pix = rect[1] * rect[3]
+    light_distrib = None
+    if cfg.integrator == "path" and cfg.light_strategy == "spatial" and scene.n_lights > 0:
+        from .. import lightdistrib as ldist
+
+        light_distrib = ldist.build_spatial(scene)
+    mega = (pk.mega_cfg(scene, light_distrib) if cfg.integrator == "path" and accel is None
+            else None)
     spp_per_batch = max(1, min(cfg.spp, max_lanes // n_pix))
-    sample = 0
+    use_regen = regen and cfg.integrator == "path" and regenmod.eligible(
+        scene, pathmod.PathCfg(cfg.max_depth, cfg.rr_threshold), sampler_cfg, accel,
+        spp_per_batch * n_pix)
+    film = filmmod.make_film((w, h), dev)
+    run = {}
+    t0 = time.perf_counter()
+    sample = batches = 0
     while sample < cfg.spp:
         nb = min(spp_per_batch, cfg.spp - sample)
         film = render_batch(scene, camera, cfg, sampler_cfg, film, filter_cfg, sample, nb, mega,
-                            accel)
+                            accel, rect, light_distrib, use_regen, run)
         sample += nb
+        batches += 1
     img = filmmod.to_rgb(film)
     if stats is not None:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = max(time.perf_counter() - t0, 1e-9)
-        stats.update(camera_rays=n_pix * cfg.spp, spp=cfg.spp, resolution=(w, h), wall_s=dt,
-                     paths_per_s=n_pix * cfg.spp / dt)
+        paths = n_pix * cfg.spp
+        stats.update(camera_rays=paths, spp=cfg.spp, resolution=(w, h), wall_s=dt,
+                     paths_per_s=paths / dt, max_ray_casts=paths * (cfg.max_depth + 1) * 2,
+                     batches=batches,
+                     lane_width=regenmod.REGEN_LANE_WIDTH if use_regen else 0,
+                     iterations=run.get("iterations", 0))
     return img

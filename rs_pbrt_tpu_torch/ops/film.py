@@ -45,17 +45,20 @@ def make_film(resolution, device="cuda") -> Film:
     return Film(torch.zeros((h, w, 3), device=dev), torch.zeros((h, w), device=dev))
 
 
-def add_samples_grid(film: Film, cfg: FilterCfg, L: torch.Tensor, nb: int) -> Film:
+def add_samples_grid(film: Film, cfg: FilterCfg, L: torch.Tensor, nb: int,
+                     rect=None) -> Film:
     """Adds L, (nb*h*w, 3) radiance of nb ordered copies of the pixel grid
-    (x fastest), to the film in place.  NaN or infinite samples count as
-    black (integrator.rs:165-193)."""
+    (x fastest), to the film in place.  rect: the crop window (y0, h, x0, w)
+    the grid covers (film.rs:185,224-262), else the whole film.  NaN or
+    infinite samples count as black (integrator.rs:165-193)."""
     if not (cfg.kind == FILTER_BOX and cfg.xwidth <= 0.5 and cfg.ywidth <= 0.5):
         raise NotImplementedError("only the box filter of radius <= 0.5 is ported (ROADMAP slice 4)")
-    h, w = film.weight.shape
+    fh, fw = film.weight.shape
+    y0, h, x0, w = rect if rect is not None else (0, fh, 0, fw)
     bad = ~torch.isfinite(L).all(-1)
     L = torch.where(bad[:, None], 0.0, L)
-    film.rgb += L.reshape(nb, h, w, 3).sum(0)
-    film.weight += float(nb)
+    film.rgb[y0:y0 + h, x0:x0 + w] += L.reshape(nb, h, w, 3).sum(0)
+    film.weight[y0:y0 + h, x0:x0 + w] += float(nb)
     return film
 
 

@@ -25,6 +25,8 @@ VDC_INV = (_DATA["vdc_inv_hi"].astype(np.int64) << 32) | _DATA["vdc_inv_lo"].ast
 NUM_SOBOL_DIMENSIONS = 1024
 SOBOL_MATRIX_SIZE = 52  # direction numbers a dimension: index bits the table covers
 INV_2_32 = np.float32(2.3283064365386963e-10)  # 0x1p-32
+U32_MASK = (1 << 32) - 1
+PRIMES = (2, 3, 5, 7, 11)  # radical_inverse's bases: lightdistrib's Halton points
 
 
 @lru_cache(maxsize=None)
@@ -39,6 +41,35 @@ def u32_to_unit_float(v: torch.Tensor) -> torch.Tensor:
     """u32 values held in int64 -> f32 in [0, 1): the direct round-to-nearest
     conversion, times 2^-32, clamped below 1 (lowdiscrepancy.rs:1046)."""
     return torch.clamp(v.to(torch.float32) * INV_2_32, max=float(ONE_MINUS_EPSILON))
+
+
+def radical_inverse(base_index: int, a: torch.Tensor, max_digits: int = 32) -> torch.Tensor:
+    """Radical inverse of a, (N,) integers below 2^32, in the base_index-th
+    prime (lowdiscrepancy.rs:1126); f32 in [0, 1).  The digits are reversed
+    in u32 arithmetic (held in int64, wrapped to 32 bits) as the reference
+    does; base 2 is the bit reversal."""
+    a = a.to(torch.int64) & U32_MASK
+    if base_index == 0:
+        v = torch.zeros_like(a)
+        for i in range(32):
+            v = v | (((a >> i) & 1) << (31 - i))
+        return u32_to_unit_float(v)
+    base = int(PRIMES[base_index])
+    n_digits = min(int(np.ceil(32 / np.log2(base))), max_digits)
+    inv_base = float(np.float32(1.0 / base))
+    reversed_digits = torch.zeros_like(a)
+    inv_base_n = torch.ones(a.shape, dtype=torch.float32, device=a.device)
+    cur = a
+    for _ in range(n_digits):
+        nonzero = cur > 0
+        nxt = cur // base
+        digit = cur - nxt * base
+        reversed_digits = torch.where(nonzero, (reversed_digits * base + digit) & U32_MASK,
+                                      reversed_digits)
+        inv_base_n = torch.where(nonzero, inv_base_n * inv_base, inv_base_n)
+        cur = nxt
+    return torch.clamp(reversed_digits.to(torch.float32) * inv_base_n,
+                       max=float(ONE_MINUS_EPSILON))
 
 
 def sobol_samples(index: torch.Tensor, dim0: int, n_dims: int, n_bits: int = 52) -> torch.Tensor:

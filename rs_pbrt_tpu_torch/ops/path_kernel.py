@@ -74,10 +74,13 @@ class MegaCfg(NamedTuple):
     a_cols: int  # alight_tri_cdf.shape[1]
 
 
-def mega_cfg(scene: sa.Scene) -> Optional[MegaCfg]:
+def mega_cfg(scene: sa.Scene, light_distrib=None) -> Optional[MegaCfg]:
     """MegaCfg when the bounce kernel can render `scene`, else None.  The
-    same limits as the JAX package (pallas_path.py:58-60,104-147), decided
-    on the host copies of the tables."""
+    same limits as the JAX package (pallas_path.py:58-60,83-84,104-147),
+    decided on the host copies of the tables; the kernel selects lights by
+    power, so a spatial light distribution (light_distrib) refuses it."""
+    if light_distrib is not None:
+        return None
     if (scene.n_spheres or scene.n_curve_segs or scene.has_env or scene.has_alpha
             or scene.has_subsurface or scene.has_hair):
         return None

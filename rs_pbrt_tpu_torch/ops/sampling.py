@@ -62,22 +62,26 @@ def power_heuristic(f_pdf, g_pdf):
 
 
 class Distribution1D(NamedTuple):
-    func: torch.Tensor  # (n,)
-    cdf: torch.Tensor  # (n+1,)
-    func_int: torch.Tensor  # ()
+    """A piecewise-constant distribution: func (n,), cdf (n+1,) and func_int
+    () shared by every lane, or one row a lane: (N, n), (N, n+1) and (N,)
+    (the spatial light distribution's per-lane lookup)."""
+
+    func: torch.Tensor
+    cdf: torch.Tensor
+    func_int: torch.Tensor
 
 
 def make_distribution_1d(func: torch.Tensor) -> Distribution1D:
-    """Piecewise-constant distribution (sampling.rs:17); an all-zero
-    function falls back to the uniform one, as the reference does."""
+    """Piecewise-constant distribution over the last axis of func
+    (sampling.rs:17); an all-zero row falls back to the uniform one, as the
+    reference does."""
     func = func.to(torch.float32).abs()
     n = func.shape[-1]
-    cdf = torch.cat([func.new_zeros(1), torch.cumsum(func / n, 0)])
-    func_int = cdf[-1]
-    if func_int > 0.0:
-        cdf = cdf / func_int
-    else:
-        cdf = torch.arange(n + 1, dtype=torch.float32, device=func.device) / n
+    cdf = torch.cat([func.new_zeros(func.shape[:-1] + (1,)), torch.cumsum(func / n, -1)], -1)
+    func_int = cdf[..., -1]
+    uniform = torch.arange(n + 1, dtype=torch.float32, device=func.device) / n
+    safe = func_int[..., None] > 0.0
+    cdf = torch.where(safe, cdf / torch.where(safe, func_int[..., None], 1.0), uniform)
     return Distribution1D(func, cdf, func_int)
 
 
@@ -89,20 +93,24 @@ def find_interval(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return torch.clamp((cdf <= u[..., None]).sum(-1) - 1, 0, n - 2)
 
 
+def _read_at(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[..., idx] per lane: table is (n,), shared, or (N, n), one row a
+    lane."""
+    full = table.expand(idx.shape + table.shape[-1:])
+    return full.gather(-1, idx.long()[..., None])[..., 0]
+
+
 def bracket_cdf(cdf: torch.Tensor, u: torch.Tensor):
     """(offset, cdf[offset], cdf[offset+1]) per lane; cdf is (N, n) or (n,)."""
     o = find_interval(cdf, u)
-    full = cdf.expand(o.shape + cdf.shape[-1:])
-    c0 = full.gather(-1, o[..., None])[..., 0]
-    c1 = full.gather(-1, o[..., None] + 1)[..., 0]
-    return o, c0, c1
+    return o, _read_at(cdf, o), _read_at(cdf, o + 1)
 
 
 def sample_distribution_1d_discrete(dist: Distribution1D, u: torch.Tensor):
     """-> (offset, pdf, remapped u) (sampling.rs:105)."""
     n = dist.func.shape[-1]
     o, c0, c1 = bracket_cdf(dist.cdf, u)
-    f = dist.func[o]
+    f = _read_at(dist.func, o)
     pdf = torch.where(dist.func_int > 0.0, f / torch.clamp(dist.func_int * n, min=1e-30), 0.0)
     u_remapped = torch.where(c1 > c0, (u - c0) / torch.clamp(c1 - c0, min=1e-30), 0.0)
     return o, pdf, u_remapped
@@ -111,4 +119,4 @@ def sample_distribution_1d_discrete(dist: Distribution1D, u: torch.Tensor):
 def distribution_1d_discrete_pdf(dist: Distribution1D, index: torch.Tensor) -> torch.Tensor:
     """The probability of picking entry `index` (sampling.rs:105 pdf)."""
     n = dist.func.shape[-1]
-    return dist.func[index.long()] / torch.clamp(dist.func_int * n, min=1e-30)
+    return _read_at(dist.func, index) / torch.clamp(dist.func_int * n, min=1e-30)

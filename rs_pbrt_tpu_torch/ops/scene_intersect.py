@@ -72,7 +72,8 @@ def accel_from_numpy(rows, depth: int, device="cuda") -> Accel:
     return Accel(torch.tensor(rows, device=resolve(device)), int(depth))
 
 
-def _uses_bvh(scene: sa.Scene, accel: Optional[Accel]) -> bool:
+def uses_bvh(scene: sa.Scene, accel: Optional[Accel]) -> bool:
+    """Whether the scene's triangles are traversed through accel's BVH."""
     return accel is not None and accel.tri is not None and scene.n_tris > BRUTE_FORCE_MAX_TRIS
 
 
@@ -102,7 +103,7 @@ def check_supported(scene: sa.Scene, accel: Optional[Accel] = None):
     if missing:
         raise NotImplementedError(f"scene intersection of {', '.join(missing)} is not ported "
                                   "yet (ROADMAP queue A)")
-    if scene.n_tris > BRUTE_FORCE_MAX_TRIS and not _uses_bvh(scene, accel):
+    if scene.n_tris > BRUTE_FORCE_MAX_TRIS and not uses_bvh(scene, accel):
         raise NotImplementedError(f"more than {BRUTE_FORCE_MAX_TRIS} triangles need their BVH: "
                                   "pass accel=build_accel(scene)")
     if accel is not None and accel.tri is not None and accel.tri.device != scene.device:
@@ -181,7 +182,7 @@ def scene_intersect(scene: sa.Scene, o, d, t_max, accel: Optional[Accel] = None)
     n = o.shape[0]
     dev = o.device
     zero3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    if _uses_bvh(scene, accel):
+    if uses_bvh(scene, accel):
         th = bvh.bvh12_intersect_tris(o, d, t_max, accel.tri, accel.tri_depth)
         rec = tri_record(scene.tri_attr, th.tri, th.b0, th.b1)
         tv, tt, tprim = th.valid, th.t, th.tri
@@ -230,7 +231,7 @@ def scene_intersect_p(scene: sa.Scene, o, d, t_max, accel: Optional[Accel] = Non
     the scene has its BVH, then the spheres."""
     check_supported(scene, accel)
     occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
-    if _uses_bvh(scene, accel):
+    if uses_bvh(scene, accel):
         occ = occ | bvh.bvh12_intersect_tris(o, d, t_max, accel.tri, accel.tri_depth,
                                              any_hit=True)
     elif scene.n_tris > 0:

@@ -295,12 +295,23 @@ def test_render_launches_k1_once_per_depth(monkeypatch):
 
 
 def test_unported_parts_raise():
+    """The ao integrator and point lights raise.  A crop window and spatial
+    light selection render: the crop's pixels are the whole film's, and the
+    direct integrators select lights as they do without spatial selection,
+    as in the JAX package."""
     scene, camera = presets.spheres_direct((4, 4), device="cpu")
     scfg = smpl.make_sampler(smpl.SOBOL, 1, (4, 4))
-    for cfg in (rdr.RenderCfg("ao", 1, 1, 1.0), rdr.RenderCfg("whitted", 1, 1, 1.0, crop=(0, .5, 0, 1)),
-                rdr.RenderCfg("directlighting", 1, 1, 1.0, light_strategy="spatial")):
-        with pytest.raises(NotImplementedError):
-            rdr.render(scene, camera, cfg, scfg)
+    with pytest.raises(NotImplementedError):
+        rdr.render(scene, camera, rdr.RenderCfg("ao", 1, 1, 1.0), scfg)
+    for cfg, same in ((rdr.RenderCfg("whitted", 1, 1, 1.0, crop=(0, .5, 0, 1)), np.s_[0:4, 0:2]),
+                      (rdr.RenderCfg("directlighting", 1, 1, 1.0, light_strategy="spatial"),
+                       np.s_[:, :])):
+        img = rdr.render(scene, camera, cfg, scfg).numpy()
+        whole = rdr.render(scene, camera, cfg._replace(crop=None, light_strategy="power"),
+                           scfg).numpy()
+        assert img[same].mean() > 0
+        np.testing.assert_array_equal(img[same], whole[same])
+        assert img.sum() == img[same].sum()
     b = JaxBuilder()
     b.add_triangle_mesh([[0, 1, 2]], [[0, 0, 0], [1, 0, 0], [0, 1, 0]])
     b.add_point_light(p=(0, 0, 1))

@@ -40,8 +40,8 @@ def test_no_jax_imports():
     files.append(ROOT / "chip_smoke.py")  # _build/ holds what the build writes, not sources
     assert len(files) > 15
     # the chip tools, which import the package of another checkout with --root
-    assert {"k1_b2_replay.py", "k2_replay.py", "sweep_replay.py", "probe_replay.py"} <= \
-        {f.name for f in files}
+    assert {"k1_b2_replay.py", "k2_replay.py", "sweep_replay.py", "probe_replay.py",
+            "regen_sweep.py"} <= {f.name for f in files}
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
     assert not bad, bad
@@ -53,7 +53,8 @@ def test_import_loads_no_jax():
     code = ("import sys; import rs_pbrt_tpu_torch.models.integrators.render, "
             "rs_pbrt_tpu_torch.scene.presets, rs_pbrt_tpu_torch.io.image, "
             "rs_pbrt_tpu_torch.tools.sweep_replay, rs_pbrt_tpu_torch.tools.k1_b2_replay, "
-            "rs_pbrt_tpu_torch.tools.probe_replay; "
+            "rs_pbrt_tpu_torch.tools.probe_replay, rs_pbrt_tpu_torch.tools.regen_sweep, "
+            "rs_pbrt_tpu_torch.models.lightdistrib; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'rs_pbrt_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

@@ -46,10 +46,9 @@ def test_render_matches_jax():
 
 
 def test_pbrt_cornell_meets_golden(tmp_path):
-    """The scene file asks for spatial light selection, which makes the JAX
-    package take its general path; with one light the spatial and power
-    selections both pick it with pdf 1, so the port's bounce kernel (power
-    selection) computes the same estimator."""
+    """The scene file asks for spatial light selection, which the port
+    renders as the JAX package does: the general bounce (the bounce kernel
+    selects by power) with the spatial distribution built for the render."""
     from PIL import Image
 
     jscene, jcamera, jcfg, jscfg, jfcfg, _ = load_pbrt_cornell(tmp_path, 50, 4)
@@ -57,7 +56,8 @@ def test_pbrt_cornell_meets_golden(tmp_path):
     scene = bridge(jscene)
     camera = cam.camera_from_numpy({f.name: getattr(jcamera, f.name)
                                     for f in dataclasses.fields(jcamera)}, device="cpu")
-    cfg = rdr.RenderCfg(jcfg.integrator, jcfg.spp, jcfg.max_depth, jcfg.rr_threshold)
+    cfg = rdr.RenderCfg(jcfg.integrator, jcfg.spp, jcfg.max_depth, jcfg.rr_threshold,
+                        light_strategy=jcfg.light_strategy)
     fcfg = filmmod.FilterCfg(jfcfg.kind, jfcfg.xwidth, jfcfg.ywidth)
     img = rdr.render(scene, camera, cfg, smpl.make_sampler(smpl.SOBOL, jscfg.spp, (50, 50)), fcfg)
     ours = img_io.to_srgb_u8(img.numpy()).astype(np.float64) / 255.0
