@@ -135,8 +135,31 @@ Run from the root of a checkout.  Phases, one line each (or more):
    image finite and within rtol 1e-5, atol 1e-6 of the same render with
    regen=False in the same batches (each path takes the same samples and
    arithmetic in both); the fixed-depth render's paths/s and peak device
-   memory; the device time by op over one batch.  Phase 11 also times the spatial
-   distribution's build.
+   memory; the device time by op over one batch, and the bounds of that
+   batch's middle B1 and B2 launches (2^21 rays), counted on one ray in 32
+   and scaled.  Phase 11 also times the spatial distribution's build.
+13. The curve kernels C1-C4 against their plain versions on the card
+   (rs_pbrt_tpu_torch/tools/curve_cases.py): 262,144 random rays (finite,
+   infinite and FLT_MAX t_max, 16 of zero direction) against the 8,192-
+   fibre fur patch's tree (C1, C2; 262,144 segments, their host seconds)
+   and against hair_patch's 48 segments (C3, C4); 262,144 rays aimed at a
+   1,024-row table of flat, cylinder and ribbon segments with zero-width
+   and collapsed rows (C3, C4); the same rays against a tree over 162 of
+   those rows whose walk overflows the 64-entry stack (C1, C2; the
+   kernel's clamp count equal to the plain walk's).  valid, seg and the
+   any hits equal; t, u, v, w bit-equal, else within rtol = atol = 2e-3
+   (the line says which).  Each kernel's time on the card (queued behind a
+   sleeping kernel), by events, its plain time and its bound.
+14. The hair renders through render.render at 200x200, 16 spp, path,
+   depth 5: tools/hair_scenes.hair_patch() (the fixed-depth loop: K1 2,
+   K5 6, K4 5, C3 6, C4 5, nothing else; every launch held to its plain
+   version) and fur_patch() (8,192 fibres, regeneration through 2^18
+   lanes: K1 2, K4 = K5 = C1 = C2 = the iterations; C1 and C2 of the
+   first, middle and last iteration held to the plain walk; no stack
+   clamp).  Each image finite and within rtol = atol = 2e-3 of the render
+   with every wrapper swapped for its plain version (the share of pixels
+   off printed), paths/s (best of 3 warm renders), the device time by op
+   and each curve kernel's time a launch beside its bound.
 
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
@@ -172,6 +195,13 @@ REGEN_CHECK_WIDTH = 1 << 14  # phase 10: the lane pool of the refill check
 CROP = (0.25, 0.75, 0.1, 0.6)  # phase 11: the crop window (x0, x1, y0, y1)
 # phase 12: the statue at the size bench.py:252-277 renders it
 FULL_SUBDIV, FULL_RES, FULL_SPP = 9, (1024, 1024), 64
+# phases 13-14: the curve kernels' inputs and the hair renders
+BOUND_SAMPLE_RAYS = 1 << 16  # phase 12: the rays of a launch its bound is counted on
+CURVE_RAYS = 1 << 18  # random rays against the fur tree, the 48 and the 1024 rows
+CURVE_TABLE_ROWS = 1024  # C3/C4's largest table (scene_intersect.BRUTE_FORCE_MAX_CURVES)
+FUR_FIBERS = 8192  # 262,144 segments
+FUR_LANE_WIDTH = 1 << 18  # the fur render's regeneration lanes: its 640,000 paths
+#                           are below the default REGEN_LANE_WIDTH
 
 # published peaks of one H100 SXM (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -262,6 +292,16 @@ BVH_FLOP = dict(
     tri=65,  # per triangle: the SoA watertight test with its error bound
 )
 ROW_BYTES = 512  # one wide12 row
+# C1-C4's f32 arithmetic, counted in csrc/curve.cuh and csrc/curves.cu
+CURVE_FLOP = dict(
+    ray=15,  # make_ray: |d| and d / |d|
+    inv_d=3,  # the walk's 1 / d
+    slab=13,  # per child box the walk tests: 6 sub, 6 mul, t_far * eps
+    test=272,  # seg_test, per (ray, segment) test
+)
+CURVE_ROW_BYTES = 26 * 4  # one segment row
+CURVE_NODE_BYTES = 2 * 4 + 12 * 4  # a node's two child refs and two boxes
+CURVE_OUT_BYTES = 5 * 4  # t, seg, w, u, v (C1, C3); the any hits write one byte
 SMEM_LOADS_PER_CLOCK = 32  # shared-memory loads per clock per SM
 VERT_BYTES = 9 * 4  # the vertex coordinates K3 and K4 read of a table row
 
@@ -363,26 +403,28 @@ def k2_bound_ms(work, args, kw):
 
 def _kernel_modules():
     from rs_pbrt_tpu_torch.ops import bvh
+    from rs_pbrt_tpu_torch.ops import curve_kernel as ck
     from rs_pbrt_tpu_torch.ops import gather_probe as gp
     from rs_pbrt_tpu_torch.ops import intersect_kernel as ik
     from rs_pbrt_tpu_torch.ops import path_kernel as pk
     from rs_pbrt_tpu_torch.ops import sobol_kernel as sk
 
-    return sk, pk, ik, bvh, gp
+    return sk, pk, ik, bvh, gp, ck
 
 
 def zero_counts():
     """Every kernel's launch count to 0."""
-    sk, pk, ik, bvh, gp = _kernel_modules()
+    sk, pk, ik, bvh, gp, ck = _kernel_modules()
     sk.launches = pk.launches = 0
-    for d in (ik.launches, bvh.launches, gp.launches):
+    for d in (ik.launches, bvh.launches, gp.launches, ck.launches):
         d.update(dict.fromkeys(d, 0))
 
 
 def read_counts() -> dict:
-    sk, pk, ik, bvh, gp = _kernel_modules()
+    sk, pk, ik, bvh, gp, ck = _kernel_modules()
     return dict(sobol=sk.launches, bounce=pk.launches, **ik.launches,
-                **{f"bvh12_{k}": v for k, v in bvh.launches.items()}, **gp.launches)
+                **{f"bvh12_{k}": v for k, v in bvh.launches.items()}, **gp.launches,
+                **ck.launches)
 
 
 def expect_counts(**launched) -> dict:
@@ -393,10 +435,11 @@ def expect_counts(**launched) -> dict:
 def _owner(name: str):
     """The module of the kernel wrapper `name` (sobol_dims, bounce,
     closest_sweep, any_sweep, full_sweep, bvh12_intersect_tris, take_rows,
-    take_loop)."""
-    sk, pk, ik, bvh, gp = _kernel_modules()
+    take_loop, walk_closest, walk_any, sweep_closest, sweep_any)."""
+    sk, pk, ik, bvh, gp, ck = _kernel_modules()
     return dict(sobol_dims=sk, bounce=pk, closest_sweep=ik, any_sweep=ik, full_sweep=ik,
-                bvh12_intersect_tris=bvh, take_rows=gp, take_loop=gp)[name]
+                bvh12_intersect_tris=bvh, take_rows=gp, take_loop=gp, walk_closest=ck,
+                walk_any=ck, sweep_closest=ck, sweep_any=ck)[name]
 
 
 def wrapper(name: str):
@@ -1463,9 +1506,363 @@ def phase_full_statue(card):
           flush=True)
     del img_fixed
     batch = cfg._replace(spp=FULL_SPP // st["batches"])
-    profile_render(lambda: rdr.render(scene, camera, batch, scfg, accel=accel),
-                   f"12 profile, one batch of {batch.spp} spp")
+    # the profiled batch also keeps the rays of its middle iteration's B1 and
+    # B2 launches, for their bounds
+    kept, seen = {}, {"closest": 0, "any": 0}
+    middle = st["iterations"] // (2 * st["batches"])
+    traverse = bvh.bvh12_intersect_tris
+
+    def keep_middle(o, d, t_max, rows, depth_, any_hit=False):
+        key = "any" if any_hit else "closest"
+        if seen[key] == middle:
+            kept[key] = (o.clone(), d.clone(), t_max.clone(), rows, depth_)
+        seen[key] += 1
+        return traverse(o, d, t_max, rows, depth_, any_hit=any_hit)
+
+    with ExitStack() as es:
+        patched(es, bvh12_intersect_tris=keep_middle)
+        prof = profile_render(lambda: rdr.render(scene, camera, batch, scfg, accel=accel),
+                              f"12 profile, one batch of {batch.spp} spp")
+    prof_ms = {kind: sum(v for v, _, key in prof if f"::walk_kernel<{flag}>(" in key)
+               for kind, flag in (("closest", "false"), ("any", "true"))}
+    for kind, (o, d, t_max, rows, depth_) in kept.items():
+        n = o.shape[0]
+        bms, fms = sampled_bvh_bound_ms(o, d, t_max, rows, depth_, kind == "any")
+        print(f"[12 {'B2' if kind == 'any' else 'B1'}] the profiled batch's launch {middle} of "
+              f"{seen[kind]}, {n} rays: bound {max(bms, fms):.4f} ms (bytes {bms:.4f}, "
+              f"operations {fms:.4f}; counted on one ray in {n // BOUND_SAMPLE_RAYS} and "
+              f"scaled to the launch), against {prof_ms[kind] / seen[kind]:.4f} ms a launch on "
+              f"the card (profiler) ({card})", flush=True)
     return dict(counts=counts)
+
+
+def sampled_bvh_bound_ms(o, d, t_max, rows, depth, any_hit) -> tuple:
+    """bvh_bound_ms of a launch of n rays counted on a sample of
+    BOUND_SAMPLE_RAYS of them (every n/BOUND_SAMPLE_RAYS-th ray): the
+    operations and each ray's bytes scaled by n over the sample, the
+    distinct rows the sample visits kept as they are (the launch visits at
+    least those), so the sum stays a bound."""
+    from rs_pbrt_tpu_torch.ops import bvh
+
+    n = o.shape[0]
+    step = max(1, n // BOUND_SAMPLE_RAYS)
+    sample = (o[::step].contiguous(), d[::step].contiguous(), t_max[::step].contiguous())
+    work = {}
+    bvh.bvh12_intersect_plain(*sample, rows, depth, any_hit, work=work)
+    m = sample[0].shape[0]
+    live = int((t_max >= 0).sum())
+    nbytes = n * (RAY_BYTES + (1 if any_hit else 16)) + work["rows"] * ROW_BYTES
+    flop = (live * BVH_FLOP["ray"] + (n / m) * (int(work["internal"].sum()) * bvh.W12
+                                                  * BVH_FLOP["slab"]
+                                                  + int(work["leaf"].sum()) * bvh.W12
+                                                  * BVH_FLOP["tri"]))
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flop / FP32_FLOP_PER_S
+
+
+def curve_bound_ms(args, any_hit: bool, work: dict, walk: bool) -> tuple:
+    """Least time of one C1-C4 launch on these inputs, as (bytes_ms,
+    operations_ms), from the plain versions' work on the same inputs.
+    Bytes: each ray's o, d and t_max in and its outputs out; C1/C2 every
+    distinct node and segment row read once, C3/C4 the table once.
+    Operations: CURVE_FLOP per ray (the walk's live rays, with 1/d), per
+    child box tested (two a node visited) and per leaf test (the sweeps'
+    every pair, the any hits' up to each ray's first hit)."""
+    o, t_max = args[0], args[2]
+    n = o.shape[0]
+    f = CURVE_FLOP
+    out = 1 if any_hit else CURVE_OUT_BYTES
+    if walk:
+        live = int((t_max >= 0).sum())
+        nbytes = (n * (RAY_BYTES + out) + work["node_rows"] * CURVE_NODE_BYTES
+                  + work["seg_rows"] * CURVE_ROW_BYTES)
+        flop = (live * (f["ray"] + f["inv_d"]) + int(work["nodes"].sum()) * 2 * f["slab"]
+                + int(work["tests"].sum()) * f["test"])
+    else:
+        rows = args[3]
+        nbytes = n * (RAY_BYTES + out) + rows.shape[0] * CURVE_ROW_BYTES
+        flop = n * f["ray"] + work["tests"] * f["test"]
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flop / FP32_FLOP_PER_S
+
+
+def check_curves(what: str, got, want) -> tuple:
+    """Fails unless a C1-C4 launch matches its plain version: the any hits
+    equal; valid and seg equal, t, u, v, w bit-equal (NaN matching NaN) or,
+    where not, within rtol = atol = TOL.  Returns (largest absolute
+    difference, whether t, u, v, w were bit-equal)."""
+    import torch
+
+    torch.cuda.synchronize()
+    if torch.is_tensor(got):
+        if not torch.equal(got, want):
+            fail(f"{what}: {int((got != want).sum())} any-hit bits differ from the plain version")
+        return 0.0, True
+    for k in ("valid", "seg"):
+        if not torch.equal(getattr(got, k), getattr(want, k)):
+            bad = int((getattr(got, k) != getattr(want, k)).sum())
+            fail(f"{what}: {k} differs from the plain version on {bad} rays")
+    err, exact = 0.0, True
+    for k in ("t", "u", "v", "w"):
+        a, b = getattr(got, k), getattr(want, k)
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+        if bool(same.all()):
+            continue
+        exact = False
+        if not torch.allclose(a, b, rtol=TOL, atol=TOL, equal_nan=True):
+            fail(f"{what}: {k} differs from the plain version by up to "
+                 f"{float((a - b).abs().nan_to_num().max())}")
+        err = max(err, float((a - b)[~same].abs().nan_to_num().max()))
+    return err, exact
+
+
+def timed_ms(fn):
+    """(fn()'s result, its time on the card by CUDA events around one call)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_curves(card):
+    """Phase 13: C1-C4 against their plain versions on the card."""
+    import numpy as np
+    import torch
+
+    from rs_pbrt_tpu_torch.ops import curve_kernel as ck
+    from rs_pbrt_tpu_torch.ops import curves as cv
+    from rs_pbrt_tpu_torch.ops import scene_intersect as si
+    from rs_pbrt_tpu_torch.tools import curve_cases, hair_scenes
+
+    t0 = time.perf_counter()
+    fur, _ = hair_scenes.fur_patch(FUR_FIBERS, device=DEVICE)
+    t1 = time.perf_counter()
+    accel = si.build_accel(fur, device=DEVICE)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"[13 curves] fur patch: {FUR_FIBERS} fibres, {fur.n_curve_segs} segments in "
+          f"{t1 - t0:.3f} s, their binary tree ({accel.crv.child.shape[0]} nodes) in "
+          f"{t2 - t1:.3f} s (host)", flush=True)
+    patch, _ = hair_scenes.hair_patch(device=DEVICE)
+    table = curve_cases.table_rows(CURVE_TABLE_ROWS)
+    deep, _, n_deep = curve_cases.clamp_tree(table, device=DEVICE)
+    table_t = torch.as_tensor(table, device=DEVICE)
+    fur_rays = curve_cases.fur_rays(CURVE_RAYS, device=DEVICE)
+    table_rays = curve_cases.rays_at(table, CURVE_RAYS, device=DEVICE)[:3]
+    clamp = ck.clamp_counter(DEVICE)
+    cases = (
+        ("fur tree", True, fur_rays, (accel.crv, fur.crv_attr)),
+        ("stack-clamp tree", True, table_rays, (deep, table_t[:n_deep])),
+        ("hair_patch rows", False, fur_rays, (patch.crv_attr,)),
+        (f"{CURVE_TABLE_ROWS} rows", False, table_rays, (table_t,)),
+    )
+    out = {k: dict(max_abs_err=0.0, exact=True, cases=[]) for k in
+           ("walk_closest", "walk_any", "sweep_closest", "sweep_any")}
+    for what, walk, rays, extra in cases:
+        for any_hit in (False, True):
+            name = ("walk_" if walk else "sweep_") + ("any" if any_hit else "closest")
+            kernel = getattr(ck, name)
+            args = (*rays, *extra)
+            work = {}
+            if walk:
+                plain_fn = lambda: cv.bvh_intersect_curves_plain(*args, any_hit=any_hit, work=work)
+            else:
+                plain_fn = lambda: cv.intersect_curves_plain(*rays, extra[0], any_hit=any_hit,
+                                                             work=work)
+            clamp.zero_()
+            got = kernel(*args)
+            torch.cuda.synchronize()
+            n_clamped = int(clamp.item())
+            want, plain_ms = timed_ms(plain_fn)
+            err, exact = check_curves(f"{name} on the {what}", got, want)
+            if walk and n_clamped != work["clamped"]:
+                fail(f"{name} on the {what}: the kernel's stack clamped {n_clamped} pushes, the "
+                     f"plain walk {work['clamped']}")
+            dev_ms = queued_ms(lambda: kernel(*args), 5)
+            ev_ms = cuda_ms(lambda: kernel(*args), 5)
+            bound = curve_bound_ms((*rays, *extra[-1:]), any_hit, work, walk)
+            hits = int((got if any_hit else got.valid).sum())
+            o = out[name]
+            o["max_abs_err"] = max(o["max_abs_err"], err)
+            o["exact"] &= exact
+            o["cases"].append(dict(what=what, device_ms=dev_ms, ms=ev_ms, plain_ms=plain_ms,
+                                   bound=bound))
+            detail = ("bit-equal t, u, v, w" if exact or any_hit
+                      else f"t, u, v, w within {TOL} (max abs err {err:.3g}), not bit-equal")
+            tests = int(work["tests"].sum()) if walk else work["tests"]
+            print(f"[13 {name}] {what}, {rays[0].shape[0]} rays: {hits} hits, equal to the plain "
+                  f"version ({'any hit' if any_hit else 'valid, seg'}; {detail})"
+                  + (f", stack clamps {n_clamped} = plain" if walk else "")
+                  + f"; {tests} leaf tests; on the card {dev_ms:.4f} ms, events {ev_ms:.4f} ms, "
+                  f"plain {plain_ms:.1f} ms, bound {max(bound):.4f} ms (bytes {bound[0]:.4f}, "
+                  f"operations {bound[1]:.4f}) ({card})", flush=True)
+            del got, want
+    return out
+
+
+def phase_hair_renders(card):
+    """Phase 14: hair_patch and the fur patch through render.render."""
+    import torch
+
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import regen
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.ops import curve_kernel as ck
+    from rs_pbrt_tpu_torch.ops import curves as cv
+    from rs_pbrt_tpu_torch.ops import intersect_kernel as ik
+    from rs_pbrt_tpu_torch.ops import scene_intersect as si
+    from rs_pbrt_tpu_torch.ops import sobol_kernel as sk
+    from rs_pbrt_tpu_torch.tools import hair_scenes
+
+    cfg = hair_scenes.CFG
+    res = hair_scenes.RESOLUTION
+    scfg = smpl.make_sampler(smpl.SOBOL, cfg.spp, res)
+    paths = res[0] * res[1] * cfg.spp
+    depth = cfg.max_depth
+    results = {}
+    for name in ("hair_patch", "fur_patch"):
+        t0 = time.perf_counter()
+        if name == "hair_patch":
+            scene, camera = hair_scenes.hair_patch(res, device=DEVICE)
+        else:
+            scene, camera = hair_scenes.fur_patch(FUR_FIBERS, resolution=res, device=DEVICE)
+        t1 = time.perf_counter()
+        accel = si.build_accel(scene, device=DEVICE)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        walk = accel.crv is not None
+        width = FUR_LANE_WIDTH if walk else regen.REGEN_LANE_WIDTH
+
+        def go(stats=None):
+            old = regen.REGEN_LANE_WIDTH
+            regen.REGEN_LANE_WIDTH = width
+            try:
+                return rdr.render(scene, camera, cfg, scfg, accel=accel, stats=stats)
+            finally:
+                regen.REGEN_LANE_WIDTH = old
+
+        print(f"[14 {name}] {scene.n_curve_segs} curve segments, {scene.n_tris} triangles, "
+              f"{scene.n_lights} point lights: scene {t1 - t0:.3f} s, "
+              + (f"curve tree {t2 - t1:.3f} s (host)" if walk else "no tree (the dense sweeps)"),
+              flush=True)
+        go()  # warm
+        names = ("walk_closest", "walk_any") if walk else ("sweep_closest", "sweep_any")
+        rec = {k: LaunchTimer(wrapper(k), keep=True) for k in
+               names + ("sobol_dims", "full_sweep", "any_sweep")}
+        clamp = ck.clamp_counter(DEVICE)
+        st = {}
+        with ExitStack() as es:
+            patched(es, **rec)
+            clamp.zero_()
+            torch.cuda.synchronize()
+            zero_counts()
+            img = go(st)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        it = st["iterations"]
+        if walk:
+            if not st["lane_width"]:
+                fail(f"the {name} render did not take the regeneration loop")
+            want_counts = expect_counts(sobol=2 * st["batches"], full_sweep=it, any_sweep=it,
+                                        curve_walk_closest=it, curve_walk_any=it)
+        else:
+            want_counts = expect_counts(sobol=2, full_sweep=depth + 1, any_sweep=depth,
+                                        curve_sweep_closest=depth + 1, curve_sweep_any=depth)
+        if counts != want_counts:
+            fail(f"launch counts of the {name} render {counts}, expected {want_counts}")
+        if int(clamp.item()):
+            fail(f"the curve walk's stack clamped {int(clamp.item())} pushes in the {name} render")
+        if tuple(img.shape) != (res[1], res[0], 3) or not torch.isfinite(img).all():
+            fail(f"{name} image: shape {tuple(img.shape)}, finite "
+                 f"{bool(torch.isfinite(img).all())}")
+        # hair_patch: every launch of that run against its plain version
+        checked = ""
+        if not walk:
+            k1 = [torch.equal(out, sk.sobol_dims_plain(*a, **kw))
+                  for _, a, kw, out in rec["sobol_dims"].calls]
+            if not all(k1):
+                fail(f"a K1 launch of the {name} render differs from its plain version")
+            for kind, plain in (("full", ik.full_sweep_plain), ("any", ik.any_sweep_plain)):
+                for b, (_, a, kw, out) in enumerate(rec[f"{kind}_sweep"].calls):
+                    check_isect(f"{name} K{5 if kind == 'full' else 4} launch {b}", kind, out,
+                                plain(*a, **kw))
+            checked = "; every K1, K4, K5, C3 and C4 launch equal to its plain version"
+        entry = {}
+        for k in names:
+            any_hit = k.endswith("any")
+            plain_fn = (cv.bvh_intersect_curves_plain if walk else cv.intersect_curves_plain)
+            bounds, errs, exact = [], 0.0, True
+            checks = (range(len(rec[k].calls)) if not walk else sorted(
+                {0, len(rec[k].calls) // 2, len(rec[k].calls) - 1}))
+            for b in checks:
+                _, a, kw, out = rec[k].calls[b]
+                work = {}
+                want = plain_fn(*a, any_hit=any_hit, work=work)
+                err, ex = check_curves(f"{name} {k} launch {b}", out, want)
+                errs, exact = max(errs, err), exact and ex
+                bounds.append(curve_bound_ms(a, any_hit, work, walk))
+            replays = [(a, kw) for _, a, kw, _ in rec[k].calls]
+            dev_ms = [queued_ms(lambda a=a, kw=kw: wrapper(k)(*a, **kw), 3) for a, kw in replays]
+            entry[k] = dict(ms=rec[k].times_ms(), device_ms=dev_ms, bound=bounds,
+                            max_abs_err=errs, exact=exact, checked=list(checks))
+        if walk:
+            checked = (f"; C1 and C2 of the first, middle and last iteration "
+                       f"({entry['walk_closest']['checked']}) equal to their plain versions")
+        del rec
+
+        # the same render with every wrapper swapped for its plain version;
+        # the curve kernels' plain times are its launches'
+        plain_t = {k: LaunchTimer(getattr(cv, "bvh_intersect_curves_plain" if walk else
+                                          "intersect_curves_plain")) for k in names}
+
+        def plain_curve(k):
+            timer = plain_t[k]
+            any_hit = k.endswith("any")
+            return lambda *a: timer(*a, any_hit=any_hit)
+
+        with ExitStack() as es:
+            patched(es, sobol_dims=sk.sobol_dims_plain, full_sweep=ik.full_sweep_plain,
+                    any_sweep=ik.any_sweep_plain, **{k: plain_curve(k) for k in names})
+            img_plain = go()
+        torch.cuda.synchronize()
+        diff = (img - img_plain).abs()
+        err = float(diff.max())
+        off = float((diff > TOL + TOL * img_plain.abs()).any(-1).float().mean())
+        if not torch.allclose(img, img_plain, rtol=TOL, atol=TOL):
+            fail(f"{name} image differs from the plain render by up to {err} ({100 * off:.3f}% "
+                 "of the pixels)")
+        for k in names:
+            entry[k]["plain_ms"] = plain_t[k].times_ms()
+        best = None
+        for _ in range(3):
+            s_ = {}
+            go(s_)
+            best = s_ if best is None or s_["wall_s"] < best["wall_s"] else best
+        prof = profile_render(go, f"14 {name} profile")
+        busy = sum(r[0] for r in prof)
+        print(f"[14 {name}] {res[0]}x{res[1]}, {cfg.spp} spp, depth {depth}, {paths} paths"
+              + (f" through {width} lanes, {it} iterations" if walk else ", the fixed-depth loop")
+              + f": finite, matches the plain render (max abs err {err:.3g}, {100 * off:.3f}% of "
+              f"the pixels off by more than {TOL}, mean {float(img.mean()):.5f}); launches "
+              f"{counts}; stack clamps 0{checked}", flush=True)
+        print(f"[14 {name}] {best['paths_per_s']:.6g} camera paths/s (best of 3 warm renders, "
+              f"{1e3 * best['wall_s']:.3f} ms) on {card}; the profiled render's device busy "
+              f"{busy:.3f} ms", flush=True)
+        for k in names:
+            e = entry[k]
+            print(f"[14 {name}] {k} per launch on the card "
+                  f"{', '.join(f'{t:.4f}' for t in e['device_ms'])} ms, events "
+                  f"{', '.join(f'{t:.4f}' for t in e['ms'])} ms, plain "
+                  f"{', '.join(f'{t:.1f}' for t in e['plain_ms'])} ms; bounds of launches "
+                  f"{e['checked']} {', '.join(f'{max(b):.4f}' for b in e['bound'])} ms; "
+                  + ("t, u, v, w bit-equal" if e["exact"] else
+                     f"t, u, v, w within {TOL} (max abs err {e['max_abs_err']:.3g})"), flush=True)
+        results[name] = dict(counts=counts, **entry)
+        del scene, camera, accel, img, img_plain
+    return results
 
 
 def kernel_entry(name, source, replaces, launches, parts, max_abs_err, library_ms=None) -> dict:
@@ -1515,7 +1912,10 @@ def main():
     del statue["scene"], statue["camera"], statue["accel"]
     later += list(phase_spatial_crop(card).values())
     later.append(phase_full_statue(card))
-    more = lambda key: sum(p["counts"][key] for p in later)  # phases 10-12's launches
+    curves = phase_curves(card)
+    hair = phase_hair_renders(card)
+    later += list(hair.values())
+    more = lambda key: sum(p["counts"][key] for p in later)  # phases 10-12 and 14's launches
 
     k2 = flag["k2"]
     csrc, pallas = "rs_pbrt_tpu_torch/csrc/", "rs_pbrt_tpu/ops/pallas_intersect.py:"
@@ -1562,6 +1962,17 @@ def main():
                           probe["take_loop"]["max_abs_err"]),
              redesigned=True),
     ]
+    # C1-C4 replace the JAX package's XLA curve intersection
+    for name, scene_key, replaces in (
+            ("walk_closest", "fur_patch", "rs_pbrt_tpu/ops/curves.py:409"),
+            ("walk_any", "fur_patch", "rs_pbrt_tpu/ops/curves.py:409"),
+            ("sweep_closest", "hair_patch", "rs_pbrt_tpu/ops/curves.py:387"),
+            ("sweep_any", "hair_patch", "rs_pbrt_tpu/ops/scene_intersect.py:767")):
+        part = hair[scene_key][name]
+        kernels.append(dict(kernel_entry(
+            f"curve_{name}", csrc + "curves.cu", replaces, more(f"curve_{name}"), [part],
+            max(part["max_abs_err"], curves[name]["max_abs_err"])),
+            bit_equal=part["exact"] and curves[name]["exact"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

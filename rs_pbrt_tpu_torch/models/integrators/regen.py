@@ -12,8 +12,8 @@ Sobol' dims from one table drawn for the whole batch, indexed by path id and
 bounce, so each path takes the same samples and the same arithmetic as in
 the fixed-depth loop, and the two agree per path.
 
-Eligibility (``eligible``): the path integrator through a BVH, the Sobol'
-sampler, every bounce's dims in one K1 launch (7 x max_depth <= 128), and
+Eligibility (``eligible``): the path integrator through a tree (the
+triangles' BVH or the curves' tree), the Sobol' sampler, every bounce's dims in one K1 launch (7 x max_depth <= 128), and
 more paths than one lane width.
 """
 
@@ -43,11 +43,12 @@ REGEN_LANE_WIDTH = 1 << 21
 def eligible(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg, accel, n_paths: int,
              lane_width: Optional[int] = None) -> bool:
     """Can radiance_regen serve this call?  Only where the scene is
-    traversed through its BVH (build_accel gives small scenes none), and
-    with more paths than one lane width, below which nothing is refilled."""
+    traversed through a tree, its triangles' BVH or its curves' (build_accel
+    gives small scenes none), and with more paths than one lane width,
+    below which nothing is refilled."""
     width = lane_width or REGEN_LANE_WIDTH
     total = DIMS_PER_BOUNCE * cfg.max_depth
-    return (si.uses_bvh(scene, accel) and cfg.max_depth > 0 and sampler_cfg.kind == smpl.SOBOL
+    return ((si.uses_bvh(scene, accel) or si.uses_curve_bvh(scene, accel)) and cfg.max_depth > 0 and sampler_cfg.kind == smpl.SOBOL
             and 0 < total <= sk.MAX_DIMS and n_paths > width)
 
 

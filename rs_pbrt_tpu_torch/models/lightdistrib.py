@@ -37,11 +37,10 @@ class SpatialDistrib(NamedTuple):
 
 
 def scene_aabb(scene: sa.Scene):
-    """The world AABB (lo, hi) of the triangles and quadrics, as float32
-    numpy; a quadric's radius is scaled by the Frobenius norm of its
-    object-to-world 3x3, a bound the JAX package uses."""
-    if scene.n_curve_segs:
-        raise NotImplementedError("curves are not ported yet (ROADMAP queue A)")
+    """The world AABB (lo, hi) of the triangles, quadrics and curve
+    segments, as float32 numpy; a quadric's radius is scaled by the
+    Frobenius norm of its object-to-world 3x3, a bound the JAX package
+    uses."""
     pts = []
     if scene.n_tris:
         pts.append(scene.tri_attr[:scene.n_tris, sa.TA_P0:sa.TA_P0 + 9].cpu().numpy()
@@ -52,6 +51,10 @@ def scene_aabb(scene: sa.Scene):
         c = o2w[:, :3, 3]
         r = (sph[:, sa.SP_PARAMS] * np.linalg.norm(o2w[:, :3, :3], axis=(1, 2)))[:, None]
         pts += [c - r, c + r]
+    if scene.n_curve_segs:
+        from ..ops import curves as cv
+
+        pts += list(cv.segment_boxes(scene.crv_attr.cpu().numpy()))
     if not pts:
         return np.zeros(3, np.float32), np.ones(3, np.float32)
     allp = np.concatenate(pts, 0)

@@ -1,12 +1,12 @@
 """Light sampling and emission, and the light power for light selection.
 
-The port of the JAX package's ``models/lights.py`` for diffuse area lights
-on triangle ranges and on spheres (reference src/core/light.rs,
-lights/diffuse.rs, shapes/triangle.rs and sphere.rs sample).  Table reads
-are plain indexing where the TPU used one-hot matmuls.  Point, spot,
-distant, projection, goniometric and infinite lights and area lights on
-disks and cylinders are not ported yet: ``check_supported`` raises for
-them.  ``compute_light_power`` is host-side numpy that runs once when a
+The port of the JAX package's ``models/lights.py`` for point, spot and
+distant lights and diffuse area lights on triangle ranges and on spheres
+(reference src/core/light.rs, lights/point.rs, spot.rs, distant.rs,
+diffuse.rs, shapes/triangle.rs and sphere.rs sample).  Table reads are
+plain indexing where the TPU used one-hot matmuls.  Projection,
+goniometric and infinite lights and area lights on disks and cylinders are
+not ported yet: ``check_supported`` raises for them.  ``compute_light_power`` is host-side numpy that runs once when a
 scene is finalized.
 """
 
@@ -28,14 +28,17 @@ class LiSample(NamedTuple):
     pdf: torch.Tensor  # (N,) solid-angle pdf
     p_target: torch.Tensor  # (N,3) the shadow ray's target point
     n_light: torch.Tensor  # (N,3) normal at the light sample
-    is_delta: torch.Tensor  # (N,) bool (no delta lights are ported: all False)
+    is_delta: torch.Tensor  # (N,) bool: a point, spot or distant light
+
+PORTED_LIGHTS = ((1 << sa.LIGHT_POINT) | (1 << sa.LIGHT_SPOT) | (1 << sa.LIGHT_DISTANT)
+                 | (1 << sa.LIGHT_AREA))
 
 
 def check_supported(scene: sa.Scene):
     """Raises NotImplementedError for the lights the port cannot sample yet."""
-    if scene.light_type_mask & ~(1 << sa.LIGHT_AREA):
-        raise NotImplementedError("point, spot, distant, projection, goniometric and infinite "
-                                  "lights are not ported yet (ROADMAP queue A)")
+    if scene.light_type_mask & ~PORTED_LIGHTS:
+        raise NotImplementedError("projection, goniometric and infinite lights are not ported "
+                                  "yet (ROADMAP queue A)")
     if scene.has_quadric_lights:
         raise NotImplementedError("area lights on disks and cylinders are not ported yet "
                                   "(ROADMAP queue A)")
@@ -120,11 +123,14 @@ def _area_sample_sphere(scene: sa.Scene, la, ref_p, u2):
 
 
 def sample_li(scene: sa.Scene, light_idx, ref_p, u2) -> LiSample:
-    """A point on light light_idx ((N,) int) as seen from ref_p (N,3), from
-    u2 (N,2) (light.rs sample_li of a diffuse area light)."""
+    """Light light_idx ((N,) int) as seen from ref_p (N,3), from u2 (N,2)
+    (light.rs sample_li): a point on an area light; the position of a point
+    or spot light, with its falloff; a point 2 world radii away along a
+    distant light's direction.  The delta lights' pdf is 1."""
     check_supported(scene)
     la = scene.light_attr[light_idx.long()]
     intensity = la[:, sa.LP_I:sa.LP_I + 3]
+    ltype = torch.round(la[:, sa.LA_TYPE])
     if scene.n_tris > 0:
         p_area, n_area = _area_sample_tri(scene, la, light_idx, u2)
     else:
@@ -146,8 +152,40 @@ def sample_li(scene: sa.Scene, light_idx, ref_p, u2) -> LiSample:
     pdf = torch.where(cos_l.abs() < 1e-7, 0.0, pdf)
     if scene.has_sphere_lights:
         pdf = torch.where(is_sph, pdf_sph, pdf)
-    is_delta = torch.zeros(ref_p.shape[0], dtype=torch.bool, device=ref_p.device)
-    return LiSample(wi, li, pdf, p_area, n_area, is_delta)
+    is_area = ltype == sa.LIGHT_AREA
+    if scene.light_type_mask == 1 << sa.LIGHT_AREA:
+        return LiSample(wi, li, pdf, p_area, n_area, ~is_area)
+
+    # point (lights/point.rs sample_li): I / d^2 from the light's position
+    pos = la[:, sa.LP_P:sa.LP_P + 3]
+    to_l = pos - ref_p
+    d2 = torch.clamp(vm.length_squared(to_l), min=1e-12)
+    wi_point = to_l / torch.sqrt(d2)[:, None]
+    li_point = intensity / d2[:, None]
+    # spot (lights/spot.rs): the point's radiance times the falloff; the
+    # spot's direction rides the world-center slot
+    spot_dir = la[:, sa.LP_WORLD_CENTER:sa.LP_WORLD_CENTER + 3]
+    cos_t = vm.dot(-wi_point, spot_dir)
+    ct_total, ct_fall = la[:, sa.LP_COS_TOTAL], la[:, sa.LP_COS_FALLOFF]
+    delta = torch.clamp((cos_t - ct_total) / torch.clamp(ct_fall - ct_total, min=1e-7), 0.0, 1.0)
+    falloff = torch.where(cos_t < ct_total, 0.0,
+                          torch.where(cos_t > ct_fall, 1.0, (delta * delta) * (delta * delta)))
+    # distant (lights/distant.rs): the position slot holds the direction
+    # toward the light
+    wi_dist = vm.normalize(pos)
+    p_far = ref_p + wi_dist * (2.0 * la[:, sa.LP_WORLD_RADIUS])[:, None]
+
+    is_point, is_spot = ltype == sa.LIGHT_POINT, ltype == sa.LIGHT_SPOT
+    is_dist = ltype == sa.LIGHT_DISTANT
+    positional = (is_point | is_spot)[:, None]
+    wi = torch.where(positional, wi_point, torch.where(is_dist[:, None], wi_dist, wi))
+    li = torch.where(is_point[:, None], li_point,
+                     torch.where(is_spot[:, None], li_point * falloff[:, None],
+                                 torch.where(is_dist[:, None], intensity, li)))
+    pdf = torch.where(is_area, pdf, 1.0)
+    p_target = torch.where(positional, pos, torch.where(is_dist[:, None], p_far, p_area))
+    n_light = torch.where(is_area[:, None], n_area, 0.0)
+    return LiSample(wi, li, pdf, p_target, n_light, is_point | is_spot | is_dist)
 
 
 def pdf_li_area(scene: sa.Scene, light_idx, ref_p, p_hit, n_hit):

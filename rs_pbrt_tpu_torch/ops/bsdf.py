@@ -1,21 +1,26 @@
-"""The BSDF of matte and mirror materials as batched tag-switched code.
+"""The BSDF of matte, mirror and hair materials as batched tag-switched code.
 
-The port of the JAX package's ``ops/bsdf.py`` for the lobes of the matte
-and mirror materials (reference src/core/reflection.rs, materials/matte.rs
-and mirror.rs): Lambert, Oren-Nayar (matte with sigma > 0) and perfect
-specular reflection.  Every lane carries up to two lobe slots of the JAX
+The port of the JAX package's ``ops/bsdf.py`` for the lobes of the matte,
+mirror and hair materials (reference src/core/reflection.rs,
+materials/matte.rs, mirror.rs and hair.rs): Lambert, Oren-Nayar (matte
+with sigma > 0), perfect specular reflection and the Marschner/Chiang hair
+lobe (hair.rs:178-790).  Every lane carries up to two lobe slots of the JAX
 package's Bsdf; each lobe family is evaluated for all lanes and selected
 by its tag.  Other materials and textured parameters raise
 NotImplementedError (``check_supported``).
 
-Convention: the shading-local frame has z = the shading normal; wo and wi
-are unit vectors in it.  Reflection against transmission is decided on
-the geometric normal by the caller (the ``reflect`` flag).
+Convention: the shading-local frame has z = the shading normal and x the
+surface's u tangent (a fibre's direction on curves); wo and wi are unit
+vectors in it.  Reflection against transmission is decided on the
+geometric normal by the caller (the ``reflect`` flag); the hair lobe
+scatters over the whole sphere and ignores it.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import math
 
 import torch
 
@@ -25,13 +30,15 @@ from .sampling import cosine_sample_hemisphere
 
 INV_PI = float(vm.INV_PI)
 
-# lobe tags, numbered as in the JAX package (the other 15 come with their
+# lobe tags, numbered as in the JAX package (the other 14 come with their
 # materials)
 LOBE_NONE = 0
 LOBE_LAMBERT = 1
 LOBE_ORENNAYAR = 2
 LOBE_SPEC_REFL = 3
-PORTED_MATERIALS = (1 << sa.MATTE) | (1 << sa.MIRROR)
+LOBE_HAIR = 10
+PORTED_MATERIALS = (1 << sa.MATTE) | (1 << sa.MIRROR) | (1 << sa.HAIR)
+PI = math.pi
 
 
 def cos_theta(w):
@@ -77,14 +84,270 @@ def oren_nayar_f(r, sigma_deg, wo, wi):
     return r * (INV_PI * (a + b * max_cos * sin_a * tan_b))[..., None]
 
 
+def fr_dielectric(cos_i, eta_i, eta_t):
+    """Fresnel reflectance of a dielectric (reflection.rs fr_dielectric)."""
+    cos_i = torch.clamp(cos_i, -1.0, 1.0)
+    entering = cos_i > 0.0
+    ei = torch.where(entering, eta_i, eta_t)
+    et = torch.where(entering, eta_t, eta_i)
+    ci = cos_i.abs()
+    sin_t = ei / et * torch.sqrt(torch.clamp(1.0 - ci * ci, min=0.0))
+    ct = torch.sqrt(torch.clamp(1.0 - sin_t * sin_t, min=0.0))
+    r_parl = (et * ci - ei * ct) / torch.clamp(et * ci + ei * ct, min=1e-20)
+    r_perp = (ei * ci - et * ct) / torch.clamp(ei * ci + et * ct, min=1e-20)
+    return torch.where(sin_t >= 1.0, 1.0, 0.5 * (r_parl * r_parl + r_perp * r_perp))
+
+
 class Bsdf(NamedTuple):
-    """Two lobe slots per lane (the JAX package's slots 0 and 1)."""
+    """Two lobe slots per lane (the JAX package's slots 0 and 1).  The hair
+    lobe reads sigma_a from r0, beta_m from ax, beta_n from ay, alpha
+    (degrees) from sigma, eta and the fibre offset h."""
 
     kind0: torch.Tensor  # (N,) lobe tags
     kind1: torch.Tensor
-    r0: torch.Tensor  # (N,3) lobe colors (kd, kr)
+    r0: torch.Tensor  # (N,3) lobe colors (kd, kr; hair: sigma_a)
     r1: torch.Tensor
-    sigma: torch.Tensor  # (N,) Oren-Nayar sigma, degrees
+    sigma: torch.Tensor  # (N,) Oren-Nayar sigma, hair alpha, degrees
+    ax: torch.Tensor  # (N,) hair beta_m
+    ay: torch.Tensor  # (N,) hair beta_n
+    eta: torch.Tensor  # (N,) hair index of refraction
+    h: torch.Tensor  # (N,) hair offset across the fibre, -1 + 2 v
+    enable_hair: bool = True  # False: no lane has the hair lobe (its math is skipped)
+
+
+# ---- the hair lobe (materials/hair.rs:178-790, Marschner/Chiang) ----
+# In the BSDF frame x is the fibre's tangent: wo.x = sin(theta_o), and the
+# azimuth phi = atan2(w.z, w.y).
+
+HAIR_P_MAX = 3
+SQRT_PI_OVER_8 = 0.626657069
+
+
+def _safe_sqrt(x):
+    return torch.sqrt(torch.clamp(x, min=0.0))
+
+
+def _hair_i0(x):
+    """The modified Bessel function I0 by the reference's 10-term series
+    (hair.rs:679)."""
+    val = torch.zeros_like(x)
+    x2i = torch.ones_like(x)
+    ifact, i4 = 1.0, 1.0
+    for i in range(10):
+        if i > 1:
+            ifact *= i
+        val = val + x2i / (i4 * ifact * ifact)
+        x2i = x2i * x * x
+        i4 *= 4.0
+    return val
+
+
+def _hair_log_i0(x):
+    xm = torch.clamp(x, min=1e-12)
+    big = x + 0.5 * (-math.log(2.0 * PI) + torch.log(1.0 / xm) + 1.0 / (8.0 * xm))
+    return torch.where(x > 12.0, big, torch.log(torch.clamp(_hair_i0(x), min=1e-37)))
+
+
+def _hair_mp(cos_ti, cos_to, sin_ti, sin_to, v):
+    """Longitudinal scattering Mp (hair.rs:660)."""
+    a = cos_ti * cos_to / v
+    b = sin_ti * sin_to / v
+    small = torch.exp(_hair_log_i0(a) - b - 1.0 / v + 0.6931 + torch.log(1.0 / (2.0 * v)))
+    large = torch.exp(-b) * _hair_i0(a) / (torch.sinh(1.0 / v) * 2.0 * v)
+    return torch.where(v <= 0.1, small, large)
+
+
+def _hair_derived(beta_m, beta_n, alpha_deg):
+    """The lobes' longitudinal variances v[0..3], the azimuthal scale s and
+    the scale tilt's sin/cos of 2^k alpha (hair.rs:196-268)."""
+    bm2 = beta_m * beta_m
+    bm4 = bm2 * bm2
+    bm20 = bm4 * bm4 * bm4 * bm4 * bm4
+    f = 0.726 * beta_m + 0.812 * bm2 + 3.7 * bm20
+    v0 = f * f
+    v = [torch.clamp(x, min=1e-7) for x in (v0, 0.25 * v0, 4.0 * v0, 4.0 * v0)]
+    bn2 = beta_n * beta_n
+    bn4 = bn2 * bn2
+    bn22 = bn4 * bn4 * bn4 * bn4 * bn4 * bn2
+    s = torch.clamp(SQRT_PI_OVER_8 * (0.265 * beta_n + 1.194 * bn2 + 5.372 * bn22), min=1e-5)
+    sin2k = [torch.sin(alpha_deg * (PI / 180.0))]
+    cos2k = [_safe_sqrt(1.0 - sin2k[0] * sin2k[0])]
+    for _ in range(2):
+        sin2k.append(2.0 * cos2k[-1] * sin2k[-1])
+        # the JAX package squares the sin just appended (hair.rs squares
+        # the previous one); the port follows the JAX package
+        cos2k.append(cos2k[-1] * cos2k[-1] - sin2k[-1] * sin2k[-1])
+    return v, s, sin2k, cos2k
+
+
+def _hair_common(b: Bsdf, wo):
+    sin_to = wo[:, 0]
+    cos_to = _safe_sqrt(1.0 - sin_to * sin_to)
+    phi_o = torch.atan2(wo[:, 2], wo[:, 1])
+    sin_tt = sin_to / b.eta
+    cos_tt = _safe_sqrt(1.0 - sin_tt * sin_tt)
+    etap = _safe_sqrt(b.eta * b.eta - sin_to * sin_to) / torch.clamp(cos_to, min=1e-7)
+    sin_gt = b.h / etap
+    cos_gt = _safe_sqrt(1.0 - sin_gt * sin_gt)
+    gamma_t = torch.asin(torch.clamp(sin_gt, -1.0, 1.0))
+    gamma_o = torch.asin(torch.clamp(b.h, -1.0, 1.0))
+    # single-pass transmittance through the fibre (hair.rs:358)
+    t = torch.exp(-b.r0 * (2.0 * cos_gt / torch.clamp(cos_tt, min=1e-7))[:, None])
+    return sin_to, cos_to, phi_o, gamma_o, gamma_t, t
+
+
+def _hair_ap(cos_to, eta, h, t):
+    """The attenuations A_p, p = 0..3 (hair.rs:707)."""
+    cos_go = _safe_sqrt(1.0 - h * h)
+    f = fr_dielectric(cos_to * cos_go, torch.ones_like(eta), eta)[:, None]
+    ap = [f.expand_as(t)]
+    ap.append(t * ((1.0 - f) * (1.0 - f)))
+    ap.append(ap[1] * t * f)
+    ap.append(ap[2] * t * f / torch.clamp(1.0 - t * f, min=1e-4))
+    return ap
+
+
+def _hair_np(phi, p, s, gamma_o, gamma_t):
+    """Azimuthal scattering Np: the trimmed logistic about phi(p)
+    (hair.rs:752)."""
+    dphi = phi - (2.0 * p * gamma_t - 2.0 * gamma_o + p * PI)
+    dphi = torch.remainder(dphi + PI, 2.0 * PI) - PI
+    e = torch.exp(-dphi.abs() / s)
+    logistic = e / (s * ((1.0 + e) * (1.0 + e)))
+    cdf = lambda y: 1.0 / (1.0 + torch.exp(-y / s))
+    return logistic / (cdf(PI) - cdf(-PI))
+
+
+def _hair_tilt(p, sin_to, cos_to, sin2k, cos2k):
+    """sin and cos of theta_o tilted by the scales for lobe p
+    (hair.rs:363-387)."""
+    if p == 0:
+        st = sin_to * cos2k[1] - cos_to * sin2k[1]
+        ct = cos_to * cos2k[1] + sin_to * sin2k[1]
+    elif p == 1:
+        st = sin_to * cos2k[0] + cos_to * sin2k[0]
+        ct = cos_to * cos2k[0] - sin_to * sin2k[0]
+    elif p == 2:
+        st = sin_to * cos2k[2] + cos_to * sin2k[2]
+        ct = cos_to * cos2k[2] - sin_to * sin2k[2]
+    else:
+        return sin_to, cos_to
+    return st, ct.abs()
+
+
+def _luminance(c):
+    return 0.212671 * c[:, 0] + 0.715160 * c[:, 1] + 0.072169 * c[:, 2]
+
+
+def _hair_ap_pdf(b: Bsdf, cos_to, t):
+    ys = [_luminance(a) for a in _hair_ap(cos_to, b.eta, b.h, t)]
+    total = torch.clamp(ys[0] + ys[1] + ys[2] + ys[3], min=1e-12)
+    return [y / total for y in ys]
+
+
+def hair_f(b: Bsdf, wo, wi):
+    """HairBSDF::f (hair.rs:325-417)."""
+    v, s, sin2k, cos2k = _hair_derived(b.ax, b.ay, b.sigma)
+    sin_to, cos_to, phi_o, gamma_o, gamma_t, t = _hair_common(b, wo)
+    sin_ti = wi[:, 0]
+    cos_ti = _safe_sqrt(1.0 - sin_ti * sin_ti)
+    phi = torch.atan2(wi[:, 2], wi[:, 1]) - phi_o
+    ap = _hair_ap(cos_to, b.eta, b.h, t)
+    fsum = torch.zeros_like(t)
+    for p in range(HAIR_P_MAX):
+        st, ct = _hair_tilt(p, sin_to, cos_to, sin2k, cos2k)
+        mp = _hair_mp(cos_ti, ct, sin_ti, st, v[p])
+        fsum = fsum + ap[p] * (mp * _hair_np(phi, p, s, gamma_o, gamma_t))[:, None]
+    mp_last = _hair_mp(cos_ti, cos_to, sin_ti, sin_to, v[HAIR_P_MAX])
+    fsum = fsum + ap[HAIR_P_MAX] * (mp_last / (2.0 * PI))[:, None]
+    aci = wi[:, 2].abs()
+    fsum = torch.where(aci[:, None] > 0.0, fsum / torch.clamp(aci, min=1e-7)[:, None], fsum)
+    return torch.nan_to_num(fsum, nan=0.0, posinf=0.0)
+
+
+def _hair_pdf_lobes(ap_pdf, cos_ti, sin_ti, dphi, tilts, v, s, gamma_o, gamma_t, sin_to, cos_to):
+    pdf = torch.zeros_like(cos_ti)
+    for p in range(HAIR_P_MAX):
+        st, ct = tilts[p]
+        pdf = pdf + ap_pdf[p] * _hair_mp(cos_ti, ct, sin_ti, st, v[p]) * _hair_np(
+            dphi, p, s, gamma_o, gamma_t)
+    pdf = pdf + ap_pdf[HAIR_P_MAX] * _hair_mp(cos_ti, cos_to, sin_ti, sin_to,
+                                              v[HAIR_P_MAX]) * (1.0 / (2.0 * PI))
+    return torch.nan_to_num(pdf, nan=0.0, posinf=0.0)
+
+
+def hair_pdf(b: Bsdf, wo, wi):
+    """HairBSDF::pdf (hair.rs:553-622)."""
+    v, s, sin2k, cos2k = _hair_derived(b.ax, b.ay, b.sigma)
+    sin_to, cos_to, phi_o, gamma_o, gamma_t, t = _hair_common(b, wo)
+    sin_ti = wi[:, 0]
+    cos_ti = _safe_sqrt(1.0 - sin_ti * sin_ti)
+    phi = torch.atan2(wi[:, 2], wi[:, 1]) - phi_o
+    tilts = [_hair_tilt(p, sin_to, cos_to, sin2k, cos2k) for p in range(HAIR_P_MAX)]
+    return _hair_pdf_lobes(_hair_ap_pdf(b, cos_to, t), cos_ti, sin_ti, phi, tilts, v, s,
+                           gamma_o, gamma_t, sin_to, cos_to)
+
+
+def _compact_1_by_1(x):
+    """The even bits of x (int64 holding a uint32) packed into its low 16."""
+    x = x & 0x55555555
+    x = (x ^ (x >> 1)) & 0x33333333
+    x = (x ^ (x >> 2)) & 0x0F0F0F0F
+    x = (x ^ (x >> 4)) & 0x00FF00FF
+    return (x ^ (x >> 8)) & 0x0000FFFF
+
+
+def _demux_float(f):
+    """Two uniforms from one by de-interleaving its bits (hair.rs:647): the
+    32-bit fixed-point value from two 16-bit halves, in int64 (torch has no
+    uint32 arithmetic)."""
+    f = torch.clamp(f, 0.0, 0.99999994)
+    hi16 = torch.floor(f * 65536.0)
+    lo16 = torch.floor((f * 65536.0 - hi16) * 65536.0)
+    v = (hi16.to(torch.int64) << 16) | torch.clamp(lo16, max=65535.0).to(torch.int64)
+    a = _compact_1_by_1(v).to(torch.float32) / 65536.0
+    b = _compact_1_by_1(v >> 1).to(torch.float32) / 65536.0
+    return a, b
+
+
+def hair_sample(b: Bsdf, wo, u2):
+    """HairBSDF::sample_f (hair.rs:418-552): (wi, pdf)."""
+    v, s, sin2k, cos2k = _hair_derived(b.ax, b.ay, b.sigma)
+    sin_to, cos_to, phi_o, gamma_o, gamma_t, t = _hair_common(b, wo)
+    u0x, u0y = _demux_float(u2[:, 0])
+    u1x, u1y = _demux_float(u2[:, 1])
+    ap_pdf = _hair_ap_pdf(b, cos_to, t)
+    # the lobe p by ap_pdf (hair.rs:439-446)
+    c0 = ap_pdf[0]
+    c1 = c0 + ap_pdf[1]
+    c2 = c1 + ap_pdf[2]
+    p_idx = (u0x >= c0).to(torch.int64) + (u0x >= c1).to(torch.int64) + (u0x >= c2).to(torch.int64)
+
+    tilts = [_hair_tilt(p, sin_to, cos_to, sin2k, cos2k) for p in range(HAIR_P_MAX + 1)]
+    pick = lambda xs: torch.stack(xs, -1).gather(1, p_idx[:, None])[:, 0]
+    sin_top = pick([st for st, _ in tilts])
+    cos_top = pick([ct for _, ct in tilts])
+    vp = pick(v)
+    # the longitudinal sample (hair.rs:463-477)
+    u1x = torch.clamp(u1x, min=1e-5)
+    cos_theta = 1.0 + vp * torch.log(u1x + (1.0 - u1x) * torch.exp(-2.0 / vp))
+    sin_theta = _safe_sqrt(1.0 - cos_theta * cos_theta)
+    cos_phi_l = torch.cos(2.0 * PI * u1y)
+    sin_ti = -cos_theta * sin_top + sin_theta * cos_phi_l * cos_top
+    cos_ti = _safe_sqrt(1.0 - sin_ti * sin_ti)
+    # the azimuthal sample (hair.rs:479-491): the trimmed logistic about phi(p)
+    k = 1.0 / (1.0 + torch.exp(-PI / s)) - 1.0 / (1.0 + torch.exp(PI / s))
+    cdf_a = 1.0 / (1.0 + torch.exp(PI / s))
+    x = -s * torch.log(1.0 / torch.clamp(u0y * k + cdf_a, 1e-7, 1.0 - 1e-7) - 1.0)
+    x = torch.clamp(torch.nan_to_num(x, nan=0.0), -PI, PI)
+    pf = 2.0 * p_idx.to(torch.float32) * gamma_t - 2.0 * gamma_o + p_idx * PI
+    dphi = torch.where(p_idx < HAIR_P_MAX, pf + x, 2.0 * PI * u0y)
+    phi_i = phi_o + dphi
+    wi = torch.stack([sin_ti, cos_ti * torch.cos(phi_i), cos_ti * torch.sin(phi_i)], -1)
+    # the pdf over every lobe (hair.rs:500-546)
+    pdf = _hair_pdf_lobes(ap_pdf, cos_ti, sin_ti, dphi, tilts, v, s, gamma_o, gamma_t, sin_to,
+                          cos_to)
+    return wi, pdf
 
 
 class BsdfSample(NamedTuple):
@@ -98,16 +361,18 @@ class BsdfSample(NamedTuple):
 def check_supported(scene: sa.Scene):
     """Raises NotImplementedError for materials the port cannot shade yet."""
     if scene.mat_kind_mask & ~PORTED_MATERIALS:
-        raise NotImplementedError("only the matte and mirror materials are ported so far "
+        raise NotImplementedError("only the matte, mirror and hair materials are ported so far "
                                   "(ROADMAP queue A)")
     if scene.tex_slot_mask:
         raise NotImplementedError("textured material parameters are not ported yet "
                                   "(ROADMAP queue A)")
 
 
-def make_bsdf(mat_type, params) -> Bsdf:
+def make_bsdf(mat_type, params, uv=None, enable_hair: bool = True) -> Bsdf:
     """Material tags (N,) and parameter rows (N, N_MAT_PARAMS) -> Bsdf
-    (material.rs compute_scattering_functions for matte and mirror)."""
+    (material.rs compute_scattering_functions for matte, mirror and hair).
+    uv (N, 2): the hits' coordinates, whose v gives a fibre's offset h.
+    enable_hair False: the scene has no hair (the lobe's math is skipped)."""
     n = mat_type.shape[0]
     kd = params[:, sa.MP_KD:sa.MP_KD + 3]
     kr = params[:, sa.MP_KR:sa.MP_KR + 3]
@@ -125,15 +390,34 @@ def make_bsdf(mat_type, params) -> Bsdf:
     m = mat_type == sa.MIRROR
     kind0 = torch.where(m & ~is_black(kr), LOBE_SPEC_REFL, kind0)
     r0 = torch.where(m[:, None], kr, r0)
-    return Bsdf(kind0, torch.full_like(kind0, LOBE_NONE), r0, torch.zeros_like(r0), sigma)
+    # hair (materials/hair.rs): one Marschner lobe; MP_KD holds sigma_a, or
+    # the color, converted here (sigma_a_from_reflectance)
+    m = mat_type == sa.HAIR
+    kind0 = torch.where(m, LOBE_HAIR, kind0)
+    rough_u, rough_v = params[:, sa.MP_HAIR_BETA_M], params[:, sa.MP_HAIR_BETA_N]
+    bn = torch.clamp(rough_v, 1e-3, 1.0)
+    denom_sa = (5.969 - 0.215 * bn + 2.532 * bn ** 2 - 10.73 * bn ** 3 + 5.574 * bn ** 4
+                + 0.245 * bn ** 5)
+    f_sa = torch.log(torch.clamp(kd, 1e-5, 1.0)) / denom_sa[:, None]
+    from_color = (params[:, sa.MP_HAIR_MODE] > 0.5)[:, None]
+    r0 = torch.where(m[:, None], torch.where(from_color, f_sa * f_sa, kd), r0)
+    zero = torch.zeros_like(sigma)
+    ax = torch.where(m, torch.clamp(rough_u, 1e-3, 1.0), zero)
+    ay = torch.where(m, bn, zero)
+    eta = torch.where(params[:, sa.MP_ETA] > 0.0, params[:, sa.MP_ETA], 1.0)
+    h = zero if uv is None else torch.clamp(-1.0 + 2.0 * uv[:, 1], -1.0, 1.0)
+    return Bsdf(kind0, torch.full_like(kind0, LOBE_NONE), r0, torch.zeros_like(r0), sigma, ax,
+                ay, eta, h, enable_hair)
 
 
 def make_bsdf_at(scene: sa.Scene, it) -> Bsdf:
-    """The Bsdf at each hit of an Interaction, from its material id."""
+    """The Bsdf at each hit of an Interaction, from its material id (and,
+    in a scene with hair, its uv)."""
     check_supported(scene)
     ma = scene.mat_attr[it.mat.long()]
     return make_bsdf(torch.round(ma[:, sa.MA_TYPE]).to(torch.int32),
-                     ma[:, sa.MA_PARAMS:sa.MA_PARAMS + sa.N_MAT_PARAMS])
+                     ma[:, sa.MA_PARAMS:sa.MA_PARAMS + sa.N_MAT_PARAMS],
+                     it.uv if scene.has_hair else None, scene.has_hair)
 
 
 def num_components(b: Bsdf):
@@ -163,21 +447,29 @@ def _lobe_pdf(kind, wo, wi):
 
 
 def bsdf_f(b: Bsdf, wo, wi, reflect):
-    """f summed over the non-specular lobes (reflection.rs:355 Bsdf::f)."""
-    return _lobe_f(b.kind0, b.r0, b, wo, wi, reflect) + _lobe_f(b.kind1, b.r1, b, wo, wi, reflect)
+    """f summed over the non-specular lobes (reflection.rs:355 Bsdf::f); the
+    hair lobe (slot 0) over the whole sphere."""
+    f = _lobe_f(b.kind0, b.r0, b, wo, wi, reflect) + _lobe_f(b.kind1, b.r1, b, wo, wi, reflect)
+    if b.enable_hair:
+        f = torch.where((b.kind0 == LOBE_HAIR)[:, None], hair_f(b, wo, wi), f)
+    return f
 
 
 def bsdf_pdf(b: Bsdf, wo, wi):
     """The pdf averaged over the components (Bsdf::pdf)."""
-    p = _lobe_pdf(b.kind0, wo, wi) + _lobe_pdf(b.kind1, wo, wi)
+    p0 = _lobe_pdf(b.kind0, wo, wi)
+    if b.enable_hair:
+        p0 = torch.where(b.kind0 == LOBE_HAIR, hair_pdf(b, wo, wi), p0)
+    p = p0 + _lobe_pdf(b.kind1, wo, wi)
     n = num_components(b)
     return torch.where(n > 0, p / torch.clamp(n.to(torch.float32), min=1.0), 0.0)
 
 
 def bsdf_sample(b: Bsdf, wo, u2, uc) -> BsdfSample:
     """Importance-sample the BSDF (reflection.rs:280 Bsdf::sample_f): uc
-    picks a present lobe slot, u2 samples it (cosine hemisphere or the
-    mirror direction); f and pdf combine the non-specular lobes."""
+    picks a present lobe slot, u2 samples it (cosine hemisphere, the mirror
+    direction or the hair lobe); f and pdf combine the non-specular
+    lobes."""
     n_comp = num_components(b).to(torch.float32)
     pick1 = (uc * torch.clamp(n_comp, min=1.0)) >= 1.0
     kind = torch.where(pick1, b.kind1, b.kind0)
@@ -186,7 +478,10 @@ def bsdf_sample(b: Bsdf, wo, u2, uc) -> BsdfSample:
     wi = wi * torch.sign(torch.where(cos_theta(wo) == 0, 1.0, cos_theta(wo)))[:, None]
     is_spec = kind == LOBE_SPEC_REFL
     wi_spec = torch.stack([-wo[:, 0], -wo[:, 1], wo[:, 2]], -1)
-    wi = vm.normalize(torch.where(is_spec[:, None], wi_spec, wi))
+    wi = torch.where(is_spec[:, None], wi_spec, wi)
+    if b.enable_hair:
+        wi = torch.where((kind == LOBE_HAIR)[:, None], hair_sample(b, wo, u2)[0], wi)
+    wi = vm.normalize(wi)
     # delta lobes: the pdf of the discrete choice among the components
     pdf = torch.where(is_spec, 1.0 / torch.clamp(n_comp, min=1.0), bsdf_pdf(b, wo, wi))
     f = bsdf_f(b, wo, wi, same_hemisphere(wo, wi))

@@ -33,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..device import resolve
 from ..utils import vecmath as vm
 from . import _build
 from .intersect import TriHit
@@ -322,7 +323,7 @@ def _kernel(name: str):
 def overflow_counter(device) -> torch.Tensor:
     """The (1,) int32 count of stack entries the kernels dropped on
     `device` since it was last zeroed (``.zero_()``)."""
-    dev = torch.device(device)
+    dev = resolve(device)  # "cuda" and "cuda:0" name one counter
     if dev not in _overflow:
         _overflow[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
     return _overflow[dev]

@@ -10,8 +10,12 @@ Pallas kernels on the TPU: the closest hit with its record through K5
 through their 12-wide BVH (``build_accel``): the closest hit through B1
 and shadow rays through B2 (``ops/bvh.py``), the hit record from
 ``ops/record.tri_record``.  Spheres are tested in plain PyTorch, as the
-JAX package tests them in XLA.  Curves, instances, animated triangles,
-alpha masks, cylinders and disks raise.
+JAX package tests them in XLA.  Curve segments go through the curve
+kernels of ``ops/curve_kernel.py``: up to ``BRUTE_FORCE_MAX_CURVES`` the
+dense sweeps C3 (closest) and C4 (shadow rays), above it the walks C1 and
+C2 through the curves' binary tree; their hit record is
+``curves.curve_interaction``.  Instances, animated triangles, alpha masks,
+cylinders and disks raise.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from ..utils import transform as tr
 from ..utils import vecmath as vm
 from . import bvh
 from . import bvh_native
+from . import curve_kernel as ck
+from . import curves as cv
 from . import intersect as isect
 from . import intersect_kernel as ik
 from .record import tri_record
@@ -34,14 +40,19 @@ from .record import tri_record
 # up to this triangle count the triangles are swept densely; above it they
 # are traversed through their BVH
 BRUTE_FORCE_MAX_TRIS = 4096
+# up to this many segments the curves are swept densely; above it they are
+# walked through their tree
+BRUTE_FORCE_MAX_CURVES = 1024
 
 
 class Accel(NamedTuple):
     """The triangle family's 12-wide BVH (scene_intersect.Accel of the JAX
-    package, with its wide12 rows); tri None: the triangles are swept."""
+    package, with its wide12 rows) and the curves' binary tree; tri None:
+    the triangles are swept, crv None: the curves are."""
 
     tri: Optional[torch.Tensor] = None  # (M, 128) f32 wide12 rows
     tri_depth: int = 0  # the wide tree's depth (its traversal stack size)
+    crv: Optional[cv.CurveBVH] = None
 
 
 def build_accel(scene: sa.Scene, kind: str = "bvh", device="cuda") -> Accel:
@@ -53,13 +64,18 @@ def build_accel(scene: sa.Scene, kind: str = "bvh", device="cuda") -> Accel:
         raise NotImplementedError(f"accelerator {kind!r} is not ported yet (ROADMAP queue A); "
                                   "the port builds 'bvh'")
     dev = resolve(device)
-    if scene.n_tris <= BRUTE_FORCE_MAX_TRIS:
-        return Accel()
-    tris = scene.tri_attr[:scene.n_tris, sa.TA_P0:sa.TA_P0 + 9].cpu().numpy()
-    p0, p1, p2 = tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]
-    rows, depth = bvh_native.build_lbvh_native(np.minimum(np.minimum(p0, p1), p2),
-                                               np.maximum(np.maximum(p0, p1), p2), (p0, p1, p2))
-    return Accel(torch.as_tensor(rows, device=dev), depth)
+    accel = Accel()
+    if scene.n_tris > BRUTE_FORCE_MAX_TRIS:
+        tris = scene.tri_attr[:scene.n_tris, sa.TA_P0:sa.TA_P0 + 9].cpu().numpy()
+        p0, p1, p2 = tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]
+        rows, depth = bvh_native.build_lbvh_native(np.minimum(np.minimum(p0, p1), p2),
+                                                   np.maximum(np.maximum(p0, p1), p2),
+                                                   (p0, p1, p2))
+        accel = accel._replace(tri=torch.as_tensor(rows, device=dev), tri_depth=depth)
+    if scene.n_curve_segs > BRUTE_FORCE_MAX_CURVES:
+        tree = bvh_native.build_binary_native(*cv.segment_boxes(scene.crv_attr.cpu().numpy()))
+        accel = accel._replace(crv=cv.curve_bvh_from_numpy(**tree, device=dev))
+    return accel
 
 
 def accel_from_numpy(rows, depth: int, device="cuda") -> Accel:
@@ -77,6 +93,12 @@ def uses_bvh(scene: sa.Scene, accel: Optional[Accel]) -> bool:
     return accel is not None and accel.tri is not None and scene.n_tris > BRUTE_FORCE_MAX_TRIS
 
 
+def uses_curve_bvh(scene: sa.Scene, accel: Optional[Accel]) -> bool:
+    """Whether the scene's curves are walked through accel's curve tree."""
+    return (accel is not None and accel.crv is not None
+            and scene.n_curve_segs > BRUTE_FORCE_MAX_CURVES)
+
+
 class Interaction(NamedTuple):
     valid: torch.Tensor  # (N,) bool
     t: torch.Tensor  # (N,)
@@ -88,14 +110,15 @@ class Interaction(NamedTuple):
     wo: torch.Tensor  # (N,3)
     mat: torch.Tensor  # (N,) int32
     light: torch.Tensor  # (N,) int32 area light id or -1
-    prim: torch.Tensor  # (N,) int32: triangle id, or n_tris + sphere id, or -1
+    prim: torch.Tensor  # (N,) int32: triangle id, n_tris + sphere id,
+    #                     n_tris + n_spheres + curve segment id, or -1
     dpdu: torch.Tensor  # (N,3) surface u-tangent (the BSDF frame's x axis)
 
 
 def check_supported(scene: sa.Scene, accel: Optional[Accel] = None):
     """Raises NotImplementedError for what the port cannot intersect yet."""
     missing = [name for name, present in (
-        ("curves", scene.n_curve_segs), ("instances", scene.n_instances),
+        ("instances", scene.n_instances),
         ("animated triangles", scene.n_anim_tris), ("alpha masks", scene.has_alpha),
         ("cylinders", scene.quad_kind_mask & (1 << sa.QK_CYLINDER)),
         ("disks", scene.quad_kind_mask & (1 << sa.QK_DISK)),
@@ -106,8 +129,13 @@ def check_supported(scene: sa.Scene, accel: Optional[Accel] = None):
     if scene.n_tris > BRUTE_FORCE_MAX_TRIS and not uses_bvh(scene, accel):
         raise NotImplementedError(f"more than {BRUTE_FORCE_MAX_TRIS} triangles need their BVH: "
                                   "pass accel=build_accel(scene)")
-    if accel is not None and accel.tri is not None and accel.tri.device != scene.device:
-        raise ValueError(f"the accel lies on {accel.tri.device}, the scene on {scene.device}")
+    if scene.n_curve_segs > BRUTE_FORCE_MAX_CURVES and not uses_curve_bvh(scene, accel):
+        raise NotImplementedError(f"more than {BRUTE_FORCE_MAX_CURVES} curve segments need their "
+                                  "tree: pass accel=build_accel(scene)")
+    if accel is not None:
+        for t in (accel.tri, None if accel.crv is None else accel.crv.box):
+            if t is not None and t.device != scene.device:
+                raise ValueError(f"the accel lies on {t.device}, the scene on {scene.device}")
 
 
 def dense_tri_hit(scene: sa.Scene, o, d, t_max) -> isect.TriHit:
@@ -174,10 +202,19 @@ def sphere_interaction(scene: sa.Scene, sph_idx, p_obj, phi):
     return p, p_err, ng, ng, torch.stack([u, v], -1), mat, light, dpdu
 
 
+def curve_hit(scene: sa.Scene, o, d, t_max, accel: Optional[Accel]) -> cv.CurveHit:
+    """The closest curve segment within t_max: C1 through the curve tree,
+    else the sweep C3."""
+    if uses_curve_bvh(scene, accel):
+        return ck.walk_closest(o, d, t_max, accel.crv, scene.crv_attr)
+    return ck.sweep_closest(o, d, t_max, scene.crv_attr)
+
+
 def scene_intersect(scene: sa.Scene, o, d, t_max, accel: Optional[Accel] = None) -> Interaction:
     """Closest hit of rays o, d (N, 3) within t_max (N,): triangles through
     K5, or through B1 and the record where the scene has its BVH, then
-    spheres against the triangle hit's distance."""
+    spheres against the triangle hit's distance, then curves against the
+    nearer of the two (scene_intersect.py:626-690 of the JAX package)."""
     check_supported(scene, accel)
     n = o.shape[0]
     dev = o.device
@@ -204,31 +241,48 @@ def scene_intersect(scene: sa.Scene, o, d, t_max, accel: Optional[Accel] = None)
         tmat = torch.zeros(n, dtype=torch.int32, device=dev)
         tlight = torch.full((n,), -1, dtype=torch.int32, device=dev)
 
-    if scene.n_spheres == 0:
-        valid = tv
-        mat, light = torch.where(valid, tmat, 0), torch.where(valid, tlight, -1)
-        return Interaction(valid, tt, tp, tperr, tng, tns, tuv, -vm.normalize(d), mat, light,
-                           torch.where(valid, tprim, -1), tdpdu)
-
-    sv, st, sidx, p_obj, phi = sphere_hits(scene, o, d, torch.where(tv, tt, t_max))
-    use_sph = sv & (~tv | (st < tt))
-    valid = tv | sv
-    t = torch.where(use_sph, st, tt)
-    sp, sperr, sng, sns, suv, smat, slight, sdpdu = sphere_interaction(scene, sidx, p_obj, phi)
-    sel = lambda a, b: torch.where(use_sph[:, None], a, b)
-    mat = torch.where(use_sph, smat, tmat)
-    light = torch.where(use_sph, slight, tlight)
-    prim = torch.where(use_sph, scene.n_tris + sidx, tprim)
-    return Interaction(
-        valid, t, sel(sp, tp), sel(sperr, tperr), sel(sng, tng), sel(sns, tns), sel(suv, tuv),
-        -vm.normalize(d), torch.where(valid, mat, 0), torch.where(valid, light, -1),
-        torch.where(valid, prim, -1), sel(sdpdu, tdpdu),
-    )
+    valid, t, p, p_err, ng, ns, uv, dpdu = tv, tt, tp, tperr, tng, tns, tuv, tdpdu
+    mat, light, prim = tmat, tlight, tprim
+    sel = lambda m, a, b: torch.where(m[:, None], a, b)
+    if scene.n_spheres > 0:
+        sv, st, sidx, p_obj, phi = sphere_hits(scene, o, d, torch.where(tv, tt, t_max))
+        use_sph = sv & (~tv | (st < tt))
+        valid = tv | sv
+        t = torch.where(use_sph, st, tt)
+        sp, sperr, sng, sns, suv, smat, slight, sdpdu = sphere_interaction(scene, sidx, p_obj,
+                                                                           phi)
+        p, p_err, ng, ns = (sel(use_sph, a, b) for a, b in ((sp, p), (sperr, p_err), (sng, ng),
+                                                             (sns, ns)))
+        uv, dpdu = sel(use_sph, suv, uv), sel(use_sph, sdpdu, dpdu)
+        mat = torch.where(use_sph, smat, mat)
+        light = torch.where(use_sph, slight, light)
+        prim = torch.where(use_sph, scene.n_tris + sidx, prim)
+        t_so_far = torch.minimum(torch.where(tv, tt, t_max), torch.where(sv, st, t_max))
+    else:
+        t_so_far = torch.where(tv, tt, t_max)
+    if scene.n_curve_segs > 0:
+        # the curves against the nearer of the triangle and sphere hits; a
+        # curve wins only nearer, its geometric normal is its shading normal
+        ch = curve_hit(scene, o, d, t_so_far, accel)
+        use_crv = ch.valid & (~valid | (ch.t < t))
+        valid = valid | ch.valid
+        t = torch.where(use_crv, ch.t, t)
+        cp_, cperr, cdpdu, cns, cuv, cmat = cv.curve_interaction(o, d, scene.crv_attr, ch)
+        p, p_err, ng, ns = (sel(use_crv, a, b) for a, b in ((cp_, p), (cperr, p_err), (cns, ng),
+                                                             (cns, ns)))
+        uv, dpdu = sel(use_crv, cuv, uv), sel(use_crv, cdpdu, dpdu)
+        mat = torch.where(use_crv, cmat, mat)
+        light = torch.where(use_crv, -1, light)
+        prim = torch.where(use_crv, scene.n_tris + scene.n_spheres + ch.seg, prim)
+    return Interaction(valid, t, p, p_err, ng, ns, uv, -vm.normalize(d),
+                       torch.where(valid, mat, 0), torch.where(valid, light, -1),
+                       torch.where(valid, prim, -1), dpdu)
 
 
 def scene_intersect_p(scene: sa.Scene, o, d, t_max, accel: Optional[Accel] = None) -> torch.Tensor:
     """Any hit (shadow ray) within t_max: triangles through K4, or B2 where
-    the scene has its BVH, then the spheres."""
+    the scene has its BVH, then the spheres, then the curves (C2 through
+    their tree, else C4)."""
     check_supported(scene, accel)
     occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
     if uses_bvh(scene, accel):
@@ -238,4 +292,9 @@ def scene_intersect_p(scene: sa.Scene, o, d, t_max, accel: Optional[Accel] = Non
         occ = occ | dense_tri_hit_p(scene, o, d, t_max)
     if scene.n_spheres > 0:
         occ = occ | sphere_hits(scene, o, d, t_max)[0]
+    if scene.n_curve_segs > 0:
+        if uses_curve_bvh(scene, accel):
+            occ = occ | ck.walk_any(o, d, t_max, accel.crv, scene.crv_attr)
+        else:
+            occ = occ | ck.sweep_any(o, d, t_max, scene.crv_attr)
     return occ

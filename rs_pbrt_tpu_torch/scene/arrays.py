@@ -49,6 +49,13 @@ MP_K3 = 20
 MP_OPACITY = 23
 MP_BSSRDF = 26
 N_MAT_PARAMS = 27
+# the hair material's use of the slots (JAX builder.add_hair): MP_KD holds
+# sigma_a, or the color when MP_HAIR_MODE is 1; beta_m, beta_n, alpha
+# (degrees) and eta
+MP_HAIR_BETA_M = MP_ROUGH_U
+MP_HAIR_BETA_N = MP_ROUGH_V
+MP_HAIR_ALPHA = MP_SIGMA
+MP_HAIR_MODE = MP_OPACITY
 
 N_TEX_SLOTS = 9
 
@@ -125,6 +132,21 @@ TA_ALPHA = 30
 TA_SALPHA = 31
 N_TRI_ATTR = 32
 
+# crv_attr columns: a flattened curve segment (the JAX package's
+# ops/curves.py CV_* layout)
+CV_CP = 0  # 0:12 four control points (world space)
+CV_W0 = 12  # width at u0
+CV_W1 = 13  # width at u1
+CV_U0 = 14  # the parent curve's parameter at the segment's start
+CV_U1 = 15
+CV_N0 = 16  # 16:19 ribbon normal at u0
+CV_N1 = 19  # 19:22 ribbon normal at u1
+CV_NORM_ANGLE = 22  # angle between n0 and n1 (the ribbon slerp)
+CV_INV_SIN_NA = 23  # 1 / sin(norm_angle), 0 where degenerate
+CV_TYPE = 24  # 0 flat, 1 cylinder, 2 ribbon
+CV_MAT = 25
+N_CURVE_ATTR = 26
+
 # mat_attr columns
 MA_TYPE = 0
 MA_PARAMS = 1  # 1 : 1+N_MAT_PARAMS
@@ -158,8 +180,9 @@ class Scene:
     light_type_mask: int = 0  # bit LIGHT_* set when such a light exists
     has_sphere_lights: bool = False  # an area light on a sphere (ALG_SPHERE)
     has_quadric_lights: bool = False  # an area light on a disk or cylinder
-    # features the port does not render yet; the routes that meet them raise
+    crv_attr: torch.Tensor = None  # (C, N_CURVE_ATTR) f32 curve segments; None without
     n_curve_segs: int = 0
+    # features the port does not render yet; the routes that meet them raise
     n_instances: int = 0
     n_anim_tris: int = 0
     has_env: bool = False
@@ -198,6 +221,7 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> Scene:
     This is how scenes built by the JAX front ends (``load_pbrt``) reach the
     port until its own parser exists."""
     dev = resolve(device)
+    crv = np.asarray(arrays["crv_attr"], np.float32).reshape(-1, N_CURVE_ATTR)
 
     def f32(k):
         return torch.tensor(np.asarray(arrays[k], np.float32), device=dev)
@@ -221,7 +245,8 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> Scene:
         light_type_mask=type_mask(arrays["light_type"]),
         has_sphere_lights=n("sphlight_flag") > 0,
         has_quadric_lights=n("qdlight_flag") > 0,
-        n_curve_segs=n("crv_attr"),
+        crv_attr=torch.tensor(crv, device=dev) if crv.shape[0] else None,
+        n_curve_segs=crv.shape[0],
         n_instances=n("inst_o2w"),
         n_anim_tris=n("anim_p0"),
         has_env=n("inf_radiance") > 1,

@@ -1,10 +1,11 @@
 """Programmatic scene construction -> Scene of torch tensors.
 
 The port's reduced copy of the JAX package's ``scene/builder.py`` (reference
-api.rs make_* factories): matte and mirror materials, triangle meshes and
-spheres, either of them optionally emissive (diffuse area lights on a
-triangle range or on a sphere), finalized into the packed tables of
-``scene/arrays.py``.  ``finalize`` also does what the JAX
+api.rs make_* factories): matte, mirror and hair materials, triangle
+meshes and spheres, either of them optionally emissive (diffuse area
+lights on a triangle range or on a sphere), cubic Bézier curves (flattened
+to segments at once, ``ops/curves.py``), and point, spot and distant
+lights, finalized into the packed tables of ``scene/arrays.py``.  ``finalize`` also does what the JAX
 ``arrays.finalize_scene`` does for such scenes: the world bound, the light
 parameters that depend on it, the per-light triangle-area CDF and the
 light-selection power.  Other shapes, materials and lights are not ported
@@ -21,6 +22,7 @@ import torch
 
 from ..device import resolve
 from ..models.lights import compute_light_power
+from ..ops import curves as cv
 from ..utils import transform as tr
 from . import arrays as sa
 
@@ -31,21 +33,26 @@ class SceneBuilder:
         self.n_tri_rows = 0
         self.sph_rows = []  # (N_SPH_ATTR,) f32 row per quadric
         self.mats = []  # (type, params (N_MAT_PARAMS,), tex (N_TEX_SLOTS,))
-        self.lights = []  # dicts: params, geom, tri_start, tri_end, shape_idx, tri_areas
+        # dicts: type, params, geom, tri_start, tri_end, shape_idx, tri_areas (spot_dir)
+        self.lights = []
+        self.curves = []  # (C_i, N_CURVE_ATTR) f32 segment rows per add_curve
         self.add_matte(kd=(0.5, 0.5, 0.5))  # default material 0 (api.rs)
 
-    def _add_material(self, mtype, kd=(0, 0, 0), kr=(0, 0, 0), sigma=0.0) -> int:
+    def _add_material(self, mtype, kd=(0, 0, 0), kr=(0, 0, 0), sigma=0.0, rough_u=0.0,
+                      rough_v=0.0, eta=1.5, remap=True, opacity=(1, 1, 1)) -> int:
         """A material row with the JAX builder's defaults in the parameter
         slots the material does not set; returns its id."""
         p = np.zeros(sa.N_MAT_PARAMS, np.float32)
         p[sa.MP_KD:sa.MP_KD + 3] = kd
         p[sa.MP_KR:sa.MP_KR + 3] = kr
-        p[sa.MP_ETA] = 1.5
+        p[sa.MP_ROUGH_U] = rough_u
+        p[sa.MP_ROUGH_V] = rough_v
+        p[sa.MP_ETA] = eta
         p[sa.MP_SIGMA] = sigma
-        p[sa.MP_REMAP_ROUGH] = 1.0
+        p[sa.MP_REMAP_ROUGH] = float(remap)
         p[sa.MP_ETA3:sa.MP_ETA3 + 3] = (0.2, 0.92, 1.1)
         p[sa.MP_K3:sa.MP_K3 + 3] = (3.9, 2.45, 2.14)
-        p[sa.MP_OPACITY:sa.MP_OPACITY + 3] = (1, 1, 1)
+        p[sa.MP_OPACITY:sa.MP_OPACITY + 3] = opacity
         p[sa.MP_BSSRDF] = -1
         self.mats.append((mtype, p, np.full(sa.N_TEX_SLOTS, -1, np.int32)))
         return len(self.mats) - 1
@@ -58,6 +65,26 @@ class SceneBuilder:
     def add_mirror(self, kr=(0.9, 0.9, 0.9)) -> int:
         """Perfect mirror (materials/mirror.rs)."""
         return self._add_material(sa.MIRROR, kr=kr)
+
+    def add_hair(self, sigma_a=None, color=None, eumelanin=None, pheomelanin=None, eta=1.55,
+                 beta_m=0.3, beta_n=0.3, alpha=2.0) -> int:
+        """Hair (materials/hair.rs:28-126), its absorption resolved as
+        HairMaterial::create does: sigma_a, else the color (MP_HAIR_MODE 1,
+        converted at shading time), else the melanin concentrations, else
+        eumelanin 1.3."""
+        mode = 0.0
+        if sigma_a is not None:
+            kd = sigma_a
+        elif color is not None:
+            kd, mode = color, 1.0
+        else:
+            ce = 1.3 if (eumelanin is None and pheomelanin is None) else (eumelanin or 0.0)
+            cp = pheomelanin or 0.0
+            eu = np.array([0.419, 0.697, 1.37], np.float32)
+            ph = np.array([0.187, 0.4, 1.05], np.float32)
+            kd = tuple(ce * eu + cp * ph)
+        return self._add_material(sa.HAIR, kd=kd, rough_u=beta_m, rough_v=beta_n, sigma=alpha,
+                                  eta=eta, remap=False, opacity=(mode, 0.0, 0.0))
 
     def add_triangle_mesh(self, indices, positions, normals=None, uvs=None, material: int = 0,
                           area_light=None, reverse_orientation: bool = False) -> int:
@@ -116,8 +143,9 @@ class SceneBuilder:
                                        * np.asarray(area_light.get("scale", (1, 1, 1)), np.float32))
             lp[sa.LP_TWO_SIDED] = float(area_light.get("two_sided", False))
             lp[sa.LP_AREA] = 4.0 * np.pi * (radius * scale) ** 2
-            self.lights.append(dict(params=lp, geom=sa.ALG_SPHERE, tri_start=0, tri_end=0,
-                                    shape_idx=len(self.sph_rows), tri_areas=None))
+            self.lights.append(dict(type=sa.LIGHT_AREA, params=lp, geom=sa.ALG_SPHERE,
+                                    tri_start=0, tri_end=0, shape_idx=len(self.sph_rows),
+                                    tri_areas=None))
             light_id = len(self.lights) - 1
         row = np.zeros(sa.N_SPH_ATTR, np.float32)
         row[sa.SP_O2W:sa.SP_O2W + 16] = np.asarray(o2w.m, np.float32).reshape(16)
@@ -139,15 +167,77 @@ class SceneBuilder:
         lp[sa.LP_I:sa.LP_I + 3] = np.asarray(L, np.float32) * np.asarray(scale, np.float32)
         lp[sa.LP_TWO_SIDED] = float(two_sided)
         lp[sa.LP_AREA] = float(areas.sum())
-        self.lights.append(dict(params=lp, geom=sa.ALG_TRI_RANGE, tri_start=self.n_tri_rows,
-                                tri_end=self.n_tri_rows + len(idx), shape_idx=0,
-                                tri_areas=areas))
+        self.lights.append(dict(type=sa.LIGHT_AREA, params=lp, geom=sa.ALG_TRI_RANGE,
+                                tri_start=self.n_tri_rows, tri_end=self.n_tri_rows + len(idx),
+                                shape_idx=0, tri_areas=areas))
         return len(self.lights) - 1
 
-    def _world_bound(self, tri_attr, sph_attr):
-        """Center and radius of the bound over every vertex and every
-        quadric's transformed center +- its scaled bounding radius
-        (arrays.finalize_scene)."""
+    def add_curve(self, cps, width=1.0, width0=None, width1=None, curve_type="flat",
+                  normals=None, splitdepth=3, material: int = 0,
+                  object_to_world: Optional[tr.Transform] = None) -> int:
+        """Cubic Bézier curves (shapes/curve.rs create_curve_shape :556): cps
+        (4, 3) or (N, 4, 3) control points in object space, flattened to
+        segments at once (ops/curves.flatten_curves); normals (N, 2, 3) the
+        ribbons' end normals.  Returns the segment count."""
+        cps = np.asarray(cps, np.float32).reshape(-1, 4, 3)
+        n = cps.shape[0]
+        if object_to_world is not None:
+            m = np.asarray(object_to_world.m, np.float32)
+            cps = cps @ m[:3, :3].T + m[:3, 3]
+        w0 = np.full(n, width if width0 is None else width0, np.float32)
+        w1 = np.full(n, width if width1 is None else width1, np.float32)
+        ctype = {"flat": cv.FLAT, "cylinder": cv.CYLINDER, "ribbon": cv.RIBBON}[curve_type]
+        n0 = n1 = None
+        if normals is not None:
+            nn = np.asarray(normals, np.float32).reshape(-1, 2, 3)
+            if object_to_world is not None:
+                minv_t = np.linalg.inv(np.asarray(object_to_world.m, np.float32)[:3, :3]).T
+                nn = nn @ minv_t.T
+            n0, n1 = nn[:, 0], nn[:, 1]
+        arrs = cv.flatten_curves(cps, w0, w1, np.full(n, ctype, np.int32), n0, n1,
+                                 splitdepth=splitdepth)
+        rows = cv.pack_curve_attr(arrs, np.full(arrs["crv_cp"].shape[0], material, np.int32))
+        self.curves.append(rows)
+        return rows.shape[0]
+
+    def _add_delta_light(self, ltype, I, scale, P, extra=None) -> int:
+        lp = np.zeros(sa.N_LIGHT_PARAMS, np.float32)
+        lp[sa.LP_P:sa.LP_P + 3] = P
+        lp[sa.LP_I:sa.LP_I + 3] = np.asarray(I, np.float32) * np.asarray(scale, np.float32)
+        for k, v in (extra or {}).items():
+            lp[k] = v
+        self.lights.append(dict(type=ltype, params=lp, geom=sa.ALG_NONE, tri_start=0, tri_end=0,
+                                shape_idx=0, tri_areas=None))
+        return len(self.lights) - 1
+
+    def add_point_light(self, p=(0, 0, 0), I=(1, 1, 1), scale=(1, 1, 1)) -> int:
+        """An isotropic point light (lights/point.rs) of intensity I at p."""
+        return self._add_delta_light(sa.LIGHT_POINT, I, scale, p)
+
+    def add_spot_light(self, p=(0, 0, 0), to=(0, 0, 1), I=(1, 1, 1), cone_angle=30.0,
+                       cone_delta=5.0, scale=(1, 1, 1)) -> int:
+        """A spot light (lights/spot.rs) at p aimed at `to`: full intensity
+        within cone_angle - cone_delta degrees, falling off to 0 at
+        cone_angle.  Its direction rides the world-center slot."""
+        d = np.asarray(to, np.float64) - np.asarray(p, np.float64)
+        li = self._add_delta_light(sa.LIGHT_SPOT, I, scale, p, {
+            sa.LP_COS_TOTAL: np.cos(np.deg2rad(cone_angle)),
+            sa.LP_COS_FALLOFF: np.cos(np.deg2rad(cone_angle - cone_delta))})
+        self.lights[li]["spot_dir"] = (d / np.linalg.norm(d)).astype(np.float32)
+        return li
+
+    def add_distant_light(self, from_p=(0, 0, 0), to=(0, 0, 1), L=(1, 1, 1),
+                          scale=(1, 1, 1)) -> int:
+        """A distant light (lights/distant.rs) of radiance L arriving from
+        from_p - to; the position slot holds that direction."""
+        w = np.asarray(from_p, np.float64) - np.asarray(to, np.float64)
+        return self._add_delta_light(sa.LIGHT_DISTANT, L, scale,
+                                     (w / np.linalg.norm(w)).astype(np.float32))
+
+    def _world_bound(self, tri_attr, sph_attr, crv_attr):
+        """Center and radius of the bound over every vertex, every
+        quadric's transformed center +- its scaled bounding radius and every
+        curve segment's box (arrays.finalize_scene)."""
         pts = []
         if self.n_tri_rows:
             pts += [tri_attr[:, c:c + 3] for c in (sa.TA_P0, sa.TA_P1, sa.TA_P2)]
@@ -162,6 +252,8 @@ class SceneBuilder:
                           np.sqrt(prm[:, 0] ** 2 + zmag ** 2)).astype(np.float32)
             r = rb * scale
             pts += [c - r[:, None], c + r[:, None]]
+        if crv_attr is not None:
+            pts += list(cv.segment_boxes(crv_attr))
         if not pts:
             return np.zeros(3, np.float32), 1.0
         allp = np.concatenate(pts, 0)
@@ -176,7 +268,8 @@ class SceneBuilder:
                     else np.zeros((1, sa.N_TRI_ATTR), np.float32))
         sph_attr = (np.stack(self.sph_rows) if n_sph
                     else np.zeros((1, sa.N_SPH_ATTR), np.float32))
-        center, radius = self._world_bound(tri_attr, sph_attr)
+        crv_attr = np.concatenate(self.curves) if self.curves else None
+        center, radius = self._world_bound(tri_attr, sph_attr, crv_attr)
 
         mat_attr = np.zeros((len(self.mats), sa.N_MAT_ATTR), np.float32)
         for i, (mtype, p, tex) in enumerate(self.mats):
@@ -187,13 +280,16 @@ class SceneBuilder:
         max_range = max([l["tri_end"] - l["tri_start"] for l in self.lights] + [1])
         light_attr = np.zeros((max(n_l, 1), sa.N_LIGHT_ATTR), np.float32)
         cdf = np.zeros((n_l, max_range + 1), np.float32)
+        flags = {sa.LIGHT_POINT: sa.LF_DELTA_POSITION, sa.LIGHT_SPOT: sa.LF_DELTA_POSITION,
+                 sa.LIGHT_DISTANT: sa.LF_DELTA_DIRECTION, sa.LIGHT_AREA: sa.LF_AREA}
         for li, l in enumerate(self.lights):
             lp = l["params"].copy()
             lp[sa.LP_WORLD_RADIUS] = radius
-            lp[sa.LP_WORLD_CENTER:sa.LP_WORLD_CENTER + 3] = center
+            # a spot's direction rides the world-center slot
+            lp[sa.LP_WORLD_CENTER:sa.LP_WORLD_CENTER + 3] = l.get("spot_dir", center)
             light_attr[li, :sa.N_LIGHT_PARAMS] = lp
-            light_attr[li, sa.LA_TYPE] = sa.LIGHT_AREA
-            light_attr[li, sa.LA_FLAGS] = sa.LF_AREA
+            light_attr[li, sa.LA_TYPE] = l["type"]
+            light_attr[li, sa.LA_FLAGS] = flags[l["type"]]
             light_attr[li, sa.LA_GEOM] = l["geom"]
             light_attr[li, sa.LA_TRI_START] = l["tri_start"]
             light_attr[li, sa.LA_TRI_END] = l["tri_end"]
@@ -205,7 +301,8 @@ class SceneBuilder:
                 cdf[li, len(c):] = 1.0
             else:  # not a triangle range: the uniform CDF, never read
                 cdf[li] = np.linspace(0, 1, max_range + 1)
-        power = (compute_light_power(np.full(n_l, sa.LIGHT_AREA), light_attr[:n_l, :sa.N_LIGHT_PARAMS])
+        types = [l["type"] for l in self.lights]
+        power = (compute_light_power(np.asarray(types), light_attr[:n_l, :sa.N_LIGHT_PARAMS])
                  if n_l else np.ones(0, np.float32))
         geoms = [l["geom"] for l in self.lights]
 
@@ -216,7 +313,10 @@ class SceneBuilder:
             world_radius=float(np.float32(radius)), n_tris=n_tri, n_lights=n_l,
             sph_attr=f32(sph_attr), n_spheres=n_sph,
             quad_kind_mask=sa.type_mask([r[sa.SP_KIND] for r in self.sph_rows]),
-            light_type_mask=sa.type_mask([sa.LIGHT_AREA] * n_l),
+            light_type_mask=sa.type_mask(types),
             has_sphere_lights=sa.ALG_SPHERE in geoms,
+            crv_attr=None if crv_attr is None else f32(crv_attr),
+            n_curve_segs=0 if crv_attr is None else crv_attr.shape[0],
+            has_hair=any(m[0] == sa.HAIR for m in self.mats),
             mat_kind_mask=sa.type_mask([m[0] for m in self.mats]),
         )

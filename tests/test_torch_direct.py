@@ -295,7 +295,7 @@ def test_render_launches_k1_once_per_depth(monkeypatch):
 
 
 def test_unported_parts_raise():
-    """The ao integrator and point lights raise.  A crop window and spatial
+    """The ao integrator and projection lights raise.  A crop window and spatial
     light selection render: the crop's pixels are the whole film's, and the
     direct integrators select lights as they do without spatial selection,
     as in the JAX package."""
@@ -314,10 +314,10 @@ def test_unported_parts_raise():
         assert img.sum() == img[same].sum()
     b = JaxBuilder()
     b.add_triangle_mesh([[0, 1, 2]], [[0, 0, 0], [1, 0, 0], [0, 1, 0]])
-    b.add_point_light(p=(0, 0, 1))
-    with pytest.raises(NotImplementedError, match="point"):
+    b.add_projection_light(p=(0, 0, 1), to=(0, 0, 0))
+    with pytest.raises(NotImplementedError, match="projection"):
         rdr.render(bridge(b.finalize()), camera, rdr.RenderCfg("whitted", 1, 1, 1.0), scfg)
     b = JaxBuilder()
     b.add_triangle_mesh([[0, 1, 2]], [[0, 0, 0], [1, 0, 0], [0, 1, 0]], material=b.add_plastic())
-    with pytest.raises(NotImplementedError, match="matte and mirror"):
+    with pytest.raises(NotImplementedError, match="matte, mirror and hair"):
         rdr.render(bridge(b.finalize()), camera, rdr.RenderCfg("directlighting", 1, 1, 1.0), scfg)

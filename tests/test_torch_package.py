@@ -25,7 +25,7 @@ from rs_pbrt_tpu_torch.scene import arrays as sa
 from rs_pbrt_tpu_torch.scene import bigscene
 from rs_pbrt_tpu_torch.scene import presets
 from rs_pbrt_tpu_torch.scene.builder import SceneBuilder
-from rs_pbrt_tpu_torch.tools import bvh_ties
+from rs_pbrt_tpu_torch.tools import bvh_ties, hair_scenes
 from rs_pbrt_tpu_torch.utils import transform as tr
 
 torch.set_num_threads(2)
@@ -76,6 +76,8 @@ ENTRY_POINTS = {
         *[torch.zeros(1, 3)] * 2, torch.ones(1), *si.accel_from_numpy(np.zeros((1, 128)), 0)),
     "take_rows": lambda: gp.take_rows(*gp.probe_inputs()),
     "bvh_ties.tie_case": lambda: bvh_ties.tie_case(),
+    "hair_scenes.hair_patch": lambda: hair_scenes.hair_patch((8, 8)),
+    "hair_scenes.fur_patch": lambda: hair_scenes.fur_patch(4, resolution=(8, 8)),
 }
 
 
