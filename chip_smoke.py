@@ -161,6 +161,31 @@ Run from the root of a checkout.  Phases, one line each (or more):
    off printed), paths/s (best of 3 warm renders), the device time by op
    and each curve kernel's time a launch beside its bound.
 
+15. Glass through render.render: tools/caustic_scenes.caustic_only()'s
+   geometry (a smooth glass sphere over a matte floor, two point lights)
+   at 200x200, depth 5, Sobol': path at 16 spp (the file's spatial light
+   selection: K1 2, K5 6, K4 5), whitted and directlighting (one light by
+   power) at 4 spp (K1 6, K5 5, K4 10 and 5).  Every K1, K4 and K5 launch
+   held to its plain version (K1 bit-equal, K4 equal, K5 as in phase 6),
+   each image to the render with every wrapper swapped for its plain
+   version at rtol = atol = 2e-3.
+16. SPPM through render.render: caustic_only() and caustic_hair() at
+   their own settings (200x200, 16 iterations, depth 5, one photon a pixel
+   an iteration, the random sampler), timed as bench.py:336-341 times
+   them (a warm render of 2 iterations, then the timed render; SPPM
+   rays/s = w h iterations 2 / wall), the counters zeroed just before the
+   timed render and read just after (S1 16, K5 160, K4 80; C3 160 and C4 80
+   for the hair).  Every S1 launch of that run held to the plain deposit
+   (ops/sppm_kernel.deposit_plain) on the same inputs: m bit-equal, phi
+   bit-equal (on hair visible points, if not, within rtol 1e-5, atol 1e-7;
+   the line says which); its time on the card (queued replays), by events,
+   the plain version's and its bound; each image against the plain render
+   at rtol = atol = 2e-3; grid_bucket_overflow and the final max_ev; the
+   card's busy share over a profiled render of 2 iterations.  Then one
+   iteration of caustic_only at 1024x1024 with 2^20 photons and the scan's
+   depth at 64: its S1 launch against the plain deposit, its time queued and
+   by events, its bound, the plain version's time.
+
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
 """
@@ -302,6 +327,21 @@ CURVE_FLOP = dict(
 CURVE_ROW_BYTES = 26 * 4  # one segment row
 CURVE_NODE_BYTES = 2 * 4 + 12 * 4  # a node's two child refs and two boxes
 CURVE_OUT_BYTES = 5 * 4  # t, seg, w, u, v (C1, C3); the any hits write one byte
+# phases 15-16: BASELINE config 5 (rs_pbrt_tpu_torch/tools/caustic_scenes.py)
+GLASS_RES = (200, 200)  # phase 15: the caustic scene's geometry with path and Sobol'
+GLASS_RUNS = (("path", 16), ("whitted", 4), ("directlighting", 4))  # (integrator, spp)
+SPPM_RES = (200, 200)  # phase 16: both scenes at their own settings
+SPPM_WARM_ITERATIONS = 2  # bench.py:336-341: a warm render of 2 iterations, then the timed one
+DEPOSIT_RES = (1024, 1024)  # phase 16: one iteration's deposit of 2^20 photons
+# S1's f32 arithmetic, counted in csrc/sppm.cu as CURVE_FLOP is: per tested
+# (VP, event) pair the cell compare and the distance test; per near pair
+# the frame's three dots and the sums, plus its lobe's f (the hair lobe's
+# with its Bessel series of the small-variance lobes)
+S1_FLOP = dict(test=9, near=22, lambert=3, oren_nayar=17, hair=272)
+S1_ROW_BYTES = 11 * 4  # one packed event row
+# per VP: the 27 neighbours' first row, flag and id in; p, frame, wo, r2 and
+# color, the lobe tag and its 44 wo terms in; phi and m out
+S1_VP_BYTES = 27 * (8 + 1 + 4) + 19 * 4 + 4 + 44 * 4 + 16
 SMEM_LOADS_PER_CLOCK = 32  # shared-memory loads per clock per SM
 VERT_BYTES = 9 * 4  # the vertex coordinates K3 and K4 read of a table row
 
@@ -408,23 +448,24 @@ def _kernel_modules():
     from rs_pbrt_tpu_torch.ops import intersect_kernel as ik
     from rs_pbrt_tpu_torch.ops import path_kernel as pk
     from rs_pbrt_tpu_torch.ops import sobol_kernel as sk
+    from rs_pbrt_tpu_torch.ops import sppm_kernel as sd
 
-    return sk, pk, ik, bvh, gp, ck
+    return sk, pk, ik, bvh, gp, ck, sd
 
 
 def zero_counts():
     """Every kernel's launch count to 0."""
-    sk, pk, ik, bvh, gp, ck = _kernel_modules()
+    sk, pk, ik, bvh, gp, ck, sd = _kernel_modules()
     sk.launches = pk.launches = 0
-    for d in (ik.launches, bvh.launches, gp.launches, ck.launches):
+    for d in (ik.launches, bvh.launches, gp.launches, ck.launches, sd.launches):
         d.update(dict.fromkeys(d, 0))
 
 
 def read_counts() -> dict:
-    sk, pk, ik, bvh, gp, ck = _kernel_modules()
+    sk, pk, ik, bvh, gp, ck, sd = _kernel_modules()
     return dict(sobol=sk.launches, bounce=pk.launches, **ik.launches,
                 **{f"bvh12_{k}": v for k, v in bvh.launches.items()}, **gp.launches,
-                **ck.launches)
+                **ck.launches, **sd.launches)
 
 
 def expect_counts(**launched) -> dict:
@@ -435,11 +476,11 @@ def expect_counts(**launched) -> dict:
 def _owner(name: str):
     """The module of the kernel wrapper `name` (sobol_dims, bounce,
     closest_sweep, any_sweep, full_sweep, bvh12_intersect_tris, take_rows,
-    take_loop, walk_closest, walk_any, sweep_closest, sweep_any)."""
-    sk, pk, ik, bvh, gp, ck = _kernel_modules()
+    take_loop, walk_closest, walk_any, sweep_closest, sweep_any, deposit)."""
+    sk, pk, ik, bvh, gp, ck, sd = _kernel_modules()
     return dict(sobol_dims=sk, bounce=pk, closest_sweep=ik, any_sweep=ik, full_sweep=ik,
                 bvh12_intersect_tris=bvh, take_rows=gp, take_loop=gp, walk_closest=ck,
-                walk_any=ck, sweep_closest=ck, sweep_any=ck)[name]
+                walk_any=ck, sweep_closest=ck, sweep_any=ck, deposit=sd)[name]
 
 
 def wrapper(name: str):
@@ -1865,6 +1906,281 @@ def phase_hair_renders(card):
     return results
 
 
+def phase_glass(card):
+    """Phase 15: the caustic scene's geometry (a smooth glass sphere over a
+    matte floor) with path, whitted and directlighting through
+    render.render, each launch and image against their plain versions."""
+    import torch
+
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.ops import intersect_kernel as ik
+    from rs_pbrt_tpu_torch.ops import sobol_kernel as sk
+    from rs_pbrt_tpu_torch.tools import caustic_scenes
+
+    scene, camera = caustic_scenes.caustic_only(GLASS_RES, device=DEVICE)
+    depth = caustic_scenes.CFG.max_depth
+    names = ("sobol_dims", "any_sweep", "full_sweep")
+    out = {}
+    for integrator, spp in GLASS_RUNS:
+        tag = f"15 {integrator}"
+        # the file's light selection for path (spatial); one light by power
+        # for directlighting, where "all" would repeat whitted
+        one = integrator == "directlighting"
+        cfg = rdr.RenderCfg(integrator, spp, depth, 1.0, light_strategy="spatial",
+                            extra={"strategy": "one"} if one else None)
+        scfg = smpl.make_sampler(smpl.SOBOL, spp, GLASS_RES)
+
+        def go(stats=None):
+            return rdr.render(scene, camera, cfg, scfg, stats=stats)
+
+        if integrator == "path":
+            launched = dict(sobol=2, full_sweep=depth + 1, any_sweep=depth)
+        else:
+            launched = dict(sobol=1 + depth, full_sweep=depth,
+                            any_sweep=depth * (1 if one else scene.n_lights))
+        go()  # warm
+        rec = {k: LaunchTimer(wrapper(k), keep=True) for k in names}
+        st = {}
+        with ExitStack() as es:
+            patched(es, **rec)
+            torch.cuda.synchronize()
+            zero_counts()
+            img = go(st)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        if counts != expect_counts(**launched):
+            fail(f"launch counts of the glass {integrator} render {counts}, expected {launched}")
+        if tuple(img.shape) != (GLASS_RES[1], GLASS_RES[0], 3) or not torch.isfinite(img).all():
+            fail(f"glass {integrator} image: shape {tuple(img.shape)}, finite "
+                 f"{bool(torch.isfinite(img).all())}")
+        part = {k: dict(ms=rec[k].times_ms(), bound=[], max_abs_err=0.0) for k in names}
+        for b, (_, a, kw, o) in enumerate(rec["sobol_dims"].calls):
+            if not torch.equal(o, sk.sobol_dims_plain(*a, **kw)):
+                fail(f"glass {integrator} K1 launch {b} differs from its plain version")
+            part["sobol_dims"]["bound"].append(k1_bound_ms(a[0].shape[0], *a[2:4]))
+        for key, kind, kid, plain in (("any_sweep", "any", "K4", ik.any_sweep_plain),
+                                      ("full_sweep", "full", "K5", ik.full_sweep_plain)):
+            for b, (_, a, kw, o) in enumerate(rec[key].calls):
+                err = check_isect(f"glass {integrator} {kid} launch {b}", kind, o, plain(*a, **kw))
+                part[key]["max_abs_err"] = max(part[key]["max_abs_err"], err)
+                part[key]["bound"].append(isect_bound_ms(kind, a, o))
+        del rec
+        plain_t = {k: LaunchTimer(getattr(sk if k == "sobol_dims" else ik, f"{k}_plain"))
+                   for k in names}
+        with ExitStack() as es:
+            patched(es, **plain_t)
+            img_plain = go()
+        torch.cuda.synchronize()
+        err = float((img - img_plain).abs().max())
+        if not torch.allclose(img, img_plain, rtol=TOL, atol=TOL):
+            fail(f"glass {integrator} image differs from the plain render by up to {err}")
+        for k in names:
+            part[k]["plain_ms"] = plain_t[k].times_ms()
+        print(f"[{tag}] caustic_only's geometry {GLASS_RES[0]}x{GLASS_RES[1]}, {spp} spp, depth "
+              f"{depth}: finite, matches the plain render (max abs err {err:.3g}, mean "
+              f"{float(img.mean()):.5f}); launches {counts}; every K1 launch bit-equal, K4 equal, "
+              f"K5 within {TOL}; {st['paths_per_s']:.6g} camera paths/s (one warm render, "
+              f"{1e3 * st['wall_s']:.3f} ms) on {card}", flush=True)
+        for k, kid in (("sobol_dims", "K1"), ("full_sweep", "K5"), ("any_sweep", "K4")):
+            p = part[k]
+            print(f"[{tag}] {kid} per launch {sum(p['ms']) / len(p['ms']):.4f} ms (events, mean "
+                  f"of {len(p['ms'])}), bound {sum(max(b) for b in p['bound']) / len(p['bound']):.4f}"
+                  f" ms, plain {sum(p['plain_ms']) / len(p['plain_ms']):.3f} ms", flush=True)
+        out[integrator] = dict(part, counts=counts)
+    return out
+
+
+def s1_bound_ms(args, work) -> tuple:
+    """Least time of one S1 launch on these inputs, as (bytes_ms,
+    operations_ms), from the plain deposit's work on the same inputs.
+    Bytes: the event rows once, each VP's inputs and outputs (S1_VP_BYTES).
+    Operations: S1_FLOP per tested pair, per near pair and per near pair's
+    lobe."""
+    rows, n_vp = args[0], args[4].shape[0]
+    f = S1_FLOP
+    nbytes = rows.shape[0] * S1_ROW_BYTES + n_vp * S1_VP_BYTES
+    flop = (work["tested"] * f["test"] + work["near"] * f["near"]
+            + work["lambert_near"] * f["lambert"] + work["oren_nayar_near"] * f["oren_nayar"]
+            + work["hair_near"] * f["hair"])
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flop / FP32_FLOP_PER_S
+
+
+def check_deposit(what: str, args, got, want) -> tuple:
+    """Fails unless an S1 launch matches the plain deposit: m bit-equal,
+    phi bit-equal on the VPs of Lambert and Oren-Nayar lobes and on those
+    of the hair lobe bit-equal or, where not, within rtol 1e-5, atol 1e-7
+    (the hair lobe's exp, log and atan2 on the card).  Returns (largest
+    absolute difference, whether phi was bit-equal, hair VPs off)."""
+    import torch
+
+    from rs_pbrt_tpu_torch.ops import bsdf as bx
+
+    torch.cuda.synchronize()
+    phi, m = got
+    want_phi, want_m = want
+    if not torch.equal(m, want_m):
+        fail(f"{what}: m differs from the plain deposit on {int((m != want_m).sum())} VPs")
+    same = (phi == want_phi).all(-1)
+    if bool(same.all()):
+        return 0.0, True, 0
+    hair = args[10].kind0 == bx.LOBE_HAIR
+    if bool((~same & ~hair).any()):
+        fail(f"{what}: phi differs from the plain deposit on {int((~same & ~hair).sum())} VPs "
+             "of a Lambert or Oren-Nayar lobe")
+    if not torch.allclose(phi[hair], want_phi[hair], rtol=1e-5, atol=1e-7):
+        fail(f"{what}: phi on hair VPs differs from the plain deposit by up to "
+             f"{float((phi - want_phi).abs().max())}")
+    return float((phi - want_phi).abs().max()), False, int((~same).sum())
+
+
+def phase_sppm(card):
+    """Phase 16: caustic_only and caustic_hair through render.render with
+    SPPM at their own settings, every S1 launch against the plain deposit,
+    and one iteration's deposit of 2^20 photons on 1024x1024 VPs."""
+    import torch
+
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.models.integrators import sppm
+    from rs_pbrt_tpu_torch.ops import curves as cv
+    from rs_pbrt_tpu_torch.ops import intersect_kernel as ik
+    from rs_pbrt_tpu_torch.ops import scene_intersect as si
+    from rs_pbrt_tpu_torch.ops import sppm_kernel as sd
+    from rs_pbrt_tpu_torch.tools import caustic_scenes
+
+    cfg = caustic_scenes.CFG
+    n_it, depth = cfg.extra["n_iterations"], cfg.max_depth
+    scfg = smpl.make_sampler(smpl.RANDOM, cfg.spp, SPPM_RES)
+    w, h = SPPM_RES
+    out = {}
+    for name in ("caustic_only", "caustic_hair"):
+        tag = f"16 {name}"
+        scene, camera = getattr(caustic_scenes, name)(SPPM_RES, device=DEVICE)
+        accel = si.build_accel(scene, device=DEVICE)
+
+        def go(stats=None, iterations=n_it):
+            c = cfg._replace(extra=dict(cfg.extra, n_iterations=iterations))
+            return rdr.render(scene, camera, c, scfg, accel=accel, stats=stats)
+
+        go(iterations=SPPM_WARM_ITERATIONS)
+        rec = LaunchTimer(wrapper("deposit"), keep=True)
+        st = {}
+        with ExitStack() as es:
+            patched(es, deposit=rec)
+            torch.cuda.synchronize()
+            zero_counts()
+            img = go(st)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        curves = dict(curve_sweep_closest=2 * depth * n_it, curve_sweep_any=depth * n_it)
+        launched = dict(sppm_deposit=n_it, full_sweep=2 * depth * n_it, any_sweep=depth * n_it,
+                        **(curves if scene.n_curve_segs else {}))
+        if counts != expect_counts(**launched):
+            fail(f"launch counts of the {name} render {counts}, expected {launched}")
+        if tuple(img.shape) != (h, w, 3) or not torch.isfinite(img).all():
+            fail(f"{name} image: shape {tuple(img.shape)}, finite "
+                 f"{bool(torch.isfinite(img).all())}")
+        rays_per_s = w * h * n_it * 2 / st["wall_s"]
+        part = dict(ms=rec.times_ms(), device_ms=[], bound=[], max_abs_err=0.0, exact=True,
+                    hair_off=0)
+        for b, (_, a, kw, o) in enumerate(rec.calls):
+            work = {}
+            err, exact, off = check_deposit(f"{name} S1 launch {b}", a, o,
+                                            sd.deposit_plain(*a, work=work))
+            part["max_abs_err"] = max(part["max_abs_err"], err)
+            part["exact"] &= exact
+            part["hair_off"] += off
+            part["bound"].append(s1_bound_ms(a, work))
+            packed = (*a[:4], *sd.pack_vps(*a[4:11]), a[11])
+            part["device_ms"].append(queued_ms(lambda p=packed: sd.launch(*p), 3))
+            if b == 0:
+                part["work0"] = work
+        del rec, a, o
+        plain = LaunchTimer(sd.deposit_plain)
+        with ExitStack() as es:
+            patched(es, deposit=plain, full_sweep=ik.full_sweep_plain,
+                    any_sweep=ik.any_sweep_plain,
+                    sweep_closest=lambda *a: cv.intersect_curves_plain(*a),
+                    sweep_any=lambda *a: cv.intersect_curves_plain(*a, any_hit=True))
+            img_plain = go()
+        torch.cuda.synchronize()
+        part["plain_ms"] = plain.times_ms()
+        diff = (img - img_plain).abs()
+        err = float(diff.max())
+        if not torch.allclose(img, img_plain, rtol=TOL, atol=TOL):
+            off = float((diff > TOL + TOL * img_plain.abs()).any(-1).float().mean())
+            fail(f"{name} image differs from the plain render by up to {err} ({100 * off:.3f}% "
+                 "of the pixels)")
+        # the card's busy share over a render of SPPM_WARM_ITERATIONS: the
+        # profiler's post-processing of a whole render's ~700,000 device ops
+        # would take minutes
+        prof = profile_render(lambda: go(iterations=SPPM_WARM_ITERATIONS), f"{tag} profile")
+        busy = sum(r[0] for r in prof)
+        wk = part.pop("work0")
+        print(f"[{tag}] {w}x{h}, {n_it} iterations, depth {depth}, {w * h} photons an "
+              f"iteration: finite, matches the plain render (max abs err {err:.3g}, mean "
+              f"{float(img.mean()):.5f}); launches {counts}; grid_bucket_overflow "
+              f"{st['grid_bucket_overflow']}, grid_res_last {st['grid_res_last']}, final max_ev "
+              f"{st['max_ev_last']}", flush=True)
+        print(f"[{tag}] {rays_per_s:.6g} SPPM rays/s (w h iterations 2 / wall, bench.py:341; "
+              f"{1e3 * st['wall_s']:.3f} ms after a warm render of {SPPM_WARM_ITERATIONS} "
+              f"iterations) on {card}; a profiled render of {SPPM_WARM_ITERATIONS} iterations: "
+              f"device busy {busy:.3f} ms", flush=True)
+        print(f"[{tag}] every S1 launch against the plain deposit: m bit-equal, phi "
+              + ("bit-equal" if part["exact"] else
+                 f"bit-equal but on {part['hair_off']} hair VPs within rtol 1e-5 (max abs err "
+                 f"{part['max_abs_err']:.3g})")
+              + f"; launch 0: {wk['tested']} pairs tested, {wk['near']} near ({wk['hair_near']} "
+              f"on hair)", flush=True)
+        print(f"[{tag}] S1 per launch on the card "
+              f"{sum(part['device_ms']) / n_it:.4f} ms (queued), events "
+              f"{sum(part['ms']) / n_it:.4f} ms, bound "
+              f"{sum(max(b) for b in part['bound']) / n_it:.4f} ms (bytes "
+              f"{sum(b[0] for b in part['bound']) / n_it:.4f}, operations "
+              f"{sum(b[1] for b in part['bound']) / n_it:.4f}), plain "
+              f"{sum(part['plain_ms']) / n_it:.1f} ms; S1 {100 * sum(part['ms']) / (1e3 * st['wall_s']):.2f}"
+              f"% of the render's wall time ({card})", flush=True)
+        out[name] = dict(counts=counts, deposit=part, rays_per_s=rays_per_s, busy_ms=busy,
+                         wall_s=st["wall_s"])
+        del scene, camera, accel, img, img_plain
+
+    # one iteration's deposit at a size users would call real
+    scene, camera = caustic_scenes.caustic_only(DEPOSIT_RES, device=DEVICE)
+    photons = DEPOSIT_RES[0] * DEPOSIT_RES[1]
+    c1 = cfg._replace(extra=dict(cfg.extra, n_iterations=1, photons_per_iteration=photons))
+    s1 = smpl.make_sampler(smpl.RANDOM, 1, DEPOSIT_RES)
+    rec = LaunchTimer(wrapper("deposit"), keep=True)
+    with ExitStack() as es:
+        patched(es, deposit=rec)
+        # the scan's depth the 16-iteration renders reach after their first overflow
+        es.enter_context(mock.patch.object(sppm, "MAX_VPS_PER_CELL", sppm.MAX_VPS_CAP))
+        img = rdr.render(scene, camera, c1, s1, accel=si.build_accel(scene, device=DEVICE))
+        torch.cuda.synchronize()
+    if len(rec.calls) != 1 or not torch.isfinite(img).all():
+        fail(f"the {DEPOSIT_RES[0]}x{DEPOSIT_RES[1]} iteration launched S1 {len(rec.calls)} "
+             "times or gave a non-finite image")
+    _, a, _, o = rec.calls[0]
+    work = {}
+    want, plain_ms = timed_ms(lambda: sd.deposit_plain(*a, work=work))
+    err, exact, off = check_deposit("the 2^20-photon S1 launch", a, o, want)
+    packed = (*a[:4], *sd.pack_vps(*a[4:11]), a[11])
+    dev_ms = queued_ms(lambda: sd.launch(*packed), 3)
+    ev_ms = cuda_ms(lambda: sd.launch(*packed), 3)
+    bound = s1_bound_ms(a, work)
+    print(f"[16 deposit] caustic_only at {DEPOSIT_RES[0]}x{DEPOSIT_RES[1]}, {photons} photons, "
+          f"one iteration: {a[0].shape[0]} events, {a[4].shape[0]} VPs, max_ev {a[11]}; "
+          f"{work['tested']} pairs tested, {work['near']} near; S1 equal to the plain deposit "
+          f"({'bit-equal' if exact else f'phi of {off} VPs within rtol 1e-5'}); on the card "
+          f"{dev_ms:.4f} ms (queued), events {ev_ms:.4f} ms, bound {max(bound):.4f} ms (bytes "
+          f"{bound[0]:.4f}, operations {bound[1]:.4f}), plain {plain_ms:.1f} ms ({card})",
+          flush=True)
+    out["deposit_1024"] = dict(ms=ev_ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=max(bound),
+                               bound=bound, max_abs_err=err, exact=exact,
+                               tested=work["tested"], near=work["near"])
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, parts, max_abs_err, library_ms=None) -> dict:
     """One kernel's line of the `kernels` JSON: per-launch means over
     `parts`, dicts of per-launch lists ms, plain_ms and bound ((bytes_ms,
@@ -1915,7 +2231,11 @@ def main():
     curves = phase_curves(card)
     hair = phase_hair_renders(card)
     later += list(hair.values())
-    more = lambda key: sum(p["counts"][key] for p in later)  # phases 10-12 and 14's launches
+    glass = phase_glass(card)
+    later += list(glass.values())
+    caustic = phase_sppm(card)
+    later += [caustic["caustic_only"], caustic["caustic_hair"]]
+    more = lambda key: sum(p["counts"][key] for p in later)  # phases 10-12 and 14-16's launches
 
     k2 = flag["k2"]
     csrc, pallas = "rs_pbrt_tpu_torch/csrc/", "rs_pbrt_tpu/ops/pallas_intersect.py:"
@@ -1973,6 +2293,15 @@ def main():
             f"curve_{name}", csrc + "curves.cu", replaces, more(f"curve_{name}"), [part],
             max(part["max_abs_err"], curves[name]["max_abs_err"])),
             bit_equal=part["exact"] and curves[name]["exact"]))
+    # S1 replaces the JAX package's XLA photon deposit
+    parts = [caustic[k]["deposit"] for k in ("caustic_only", "caustic_hair")]
+    d1024 = caustic["deposit_1024"]
+    kernels.append(dict(kernel_entry(
+        "sppm_deposit", csrc + "sppm.cu", "rs_pbrt_tpu/models/integrators/sppm.py:295",
+        more("sppm_deposit"), parts, max([p["max_abs_err"] for p in parts] + [d1024["max_abs_err"]])),
+        bit_equal=all(p["exact"] for p in parts) and d1024["exact"],
+        deposit_1024={k: d1024[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "tested",
+                                            "near")}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,11 @@ integrators.
 The port of the JAX package's ``models/integrators/direct.py`` (reference
 src/integrators/whitted.rs, directlighting.rs and the estimators of
 src/core/integrator.rs:300-570) for the scenes the port can intersect,
-shade and light: triangles and spheres, matte and mirror materials, diffuse
-area lights.  Each depth intersects through K5 (``scene_intersect``), casts
+shade and light: triangles, spheres and curves, matte, mirror, glass and
+hair materials, area, point, spot and distant lights.  The specular
+continuation follows the sampled lobe: a mirror's reflection, or smooth
+glass's reflection or transmission as Fresnel picks it (whitted.rs's
+specular_reflect and specular_transmit).  Each depth intersects through K5 (``scene_intersect``), casts
 one shadow ray per light sample through K4 (``scene_intersect_p``) and
 draws its integrator dims in one K1 launch (``samplers.with_dims``); the
 rest is plain PyTorch.  Scenes with a BVH (``accel``) intersect through

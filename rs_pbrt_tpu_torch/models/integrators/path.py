@@ -13,9 +13,9 @@ all bounces are drawn in one K1 launch.  Lights are selected by power, or
 by the shading point's voxel where a spatial distribution
 (``models/lightdistrib.py``) is given.  Through a BVH, with more paths than
 one lane width, ``radiance(..., regen=True)`` runs the regeneration loop of
-``regen.py`` instead, the same estimator.  Subsurface scattering,
-environment lights, bump maps, ray differentials and samplers other than
-Sobol' are not ported yet.
+``regen.py`` instead, the same estimator.  The Sobol' sampler's dims
+come from K1, the random sampler's from its hash.  Subsurface scattering,
+environment lights, bump maps and ray differentials are not ported yet.
 """
 
 from __future__ import annotations
@@ -80,8 +80,8 @@ def check_supported(scene: sa.Scene, sampler_cfg: smpl.SamplerCfg, accel=None):
         raise NotImplementedError("subsurface scattering is not ported yet (ROADMAP queue A)")
     if scene.has_env:
         raise NotImplementedError("environment lights are not ported yet (ROADMAP queue A)")
-    if sampler_cfg.kind != smpl.SOBOL:
-        raise NotImplementedError("the path integrator is ported for the Sobol' sampler only")
+    if sampler_cfg.kind not in smpl.PORTED_SAMPLERS:
+        raise NotImplementedError(f"sampler kind {sampler_cfg.kind} is not ported yet")
 
 
 def _dist_at(scene: sa.Scene, light_distrib=None):
@@ -115,9 +115,10 @@ def _shade_and_extend(scene, cfg: PathCfg, accel, dist_at, dims, bounce, it, sta
     """One vertex's shading: the BSDF, NEE with MIS, the BSDF-sampled
     extension and Russian roulette (path.rs:117-262).  dims: (N, 7) this
     vertex's samples.  bounce: the fixed-depth loop's int, or (N,) int, each
-    lane's own bounce in the regeneration loop.  No ported lobe transmits,
-    so the JAX package's eta_scale stays 1 and is left out."""
-    o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf = state
+    lane's own bounce in the regeneration loop.  eta_scale tracks the
+    radiance scaling of refraction, which Russian roulette divides out
+    (path.rs:174-187)."""
+    o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf, eta_scale = state
     b = bx.make_bsdf_at(scene, it)
     ss, ts = _shading_frame_du(it.ns, it.dpdu)
     wo_l = _to_local(it.wo, ss, ts, it.ns)
@@ -152,20 +153,23 @@ def _shade_and_extend(scene, cfg: PathCfg, accel, dist_at, dims, bounce, it, sta
     alive = alive & ok
     specular_bounce = torch.where(alive, bs.is_specular, specular_bounce)
     prev_bsdf_pdf = torch.where(alive, torch.where(bs.is_specular, 1.0, bs.pdf), prev_bsdf_pdf)
+    etas = torch.where(bs.is_transmission, b.eta * b.eta, torch.ones_like(b.eta))
+    eta_scale = eta_scale * torch.where(bs.is_transmission & (bx.cos_theta(wo_l) > 0),
+                                        1.0 / torch.clamp(etas, min=1e-6), etas)
     o = torch.where(alive[:, None], vm.offset_ray_origin(it.p, it.p_error, it.ng, wi_w), o)
     d = torch.where(alive[:, None], wi_w, d)
 
     # Russian roulette after bounce 3 (path.rs:253-262); the fixed-depth
     # loop skips it before then
     if not isinstance(bounce, int) or bounce > 2:
-        rr_beta_max = beta.max(-1).values
+        rr_beta_max = (beta * eta_scale[:, None]).max(-1).values
         q = torch.clamp(1.0 - rr_beta_max, min=0.05)
         consider = (bounce > 2) & (rr_beta_max < cfg.rr_threshold) & alive
         kill = consider & (dims[:, 6] < q)
         beta = torch.where((consider & ~kill)[:, None],
                            beta / torch.clamp(1.0 - q, min=1e-6)[:, None], beta)
         alive = alive & ~kill
-    return o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf
+    return o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf, eta_scale
 
 
 def general_radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
@@ -189,6 +193,7 @@ def general_radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     specular_bounce = torch.ones(n, dtype=torch.bool, device=dev)
     prev_bsdf_pdf = torch.ones(n, device=dev)
+    eta_scale = torch.ones(n, device=dev)
     inf = float(vm.INFINITY)
     for bounce in range(cfg.max_depth):
         # dead lanes cast with t_max = -1, which the traversal ends at once
@@ -198,9 +203,9 @@ def general_radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg
         k0 = bounce * DIMS_PER_BOUNCE
         dims = (all_dims[:, k0:k0 + DIMS_PER_BOUNCE] if all_dims is not None else
                 smpl.get_dims(sampler_cfg, ctx, DIM_CAMERA + k0, DIMS_PER_BOUNCE))
-        o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf = _shade_and_extend(
+        o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf, eta_scale = _shade_and_extend(
             scene, cfg, accel, dist_at, dims, bounce, it,
-            (o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf))
+            (o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf, eta_scale))
     # the last vertex only collects emission
     it = si.scene_intersect(scene, o, d, torch.where(alive, inf, -1.0), accel)
     return _add_emitted(scene, dist_at, it, o, L, beta, alive, specular_bounce, prev_bsdf_pdf)

@@ -90,6 +90,7 @@ def radiance_regen(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
     alive = torch.ones(width, dtype=torch.bool, device=dev)
     specular_bounce = torch.ones(width, dtype=torch.bool, device=dev)
     prev_bsdf_pdf = torch.ones(width, device=dev)
+    eta_scale = torch.ones(width, device=dev)
     bounce = torch.zeros(width, dtype=torch.int64, device=dev)
     nxt = torch.tensor(width, dtype=torch.int64, device=dev)  # the next path id to start
     # one row past the paths takes the writes of lanes that hold no path
@@ -106,9 +107,9 @@ def radiance_regen(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
         at_limit = bounce >= md
         rows = (torch.clamp(bounce, max=md - 1) * DIMS_PER_BOUNCE * n)[:, None] + dim_rows
         dims = table.view(-1)[rows + torch.clamp(pid, min=0)[:, None]]
-        o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf = _shade_and_extend(
+        o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf, eta_scale = _shade_and_extend(
             scene, cfg, accel, dist_at, dims, bounce, it,
-            (o, d, L, beta, alive & ~at_limit, specular_bounce, prev_bsdf_pdf))
+            (o, d, L, beta, alive & ~at_limit, specular_bounce, prev_bsdf_pdf, eta_scale))
         bounce = torch.where(alive, bounce + 1, bounce)
 
         # finished paths write their radiance; their lanes take the next ids
@@ -124,6 +125,7 @@ def radiance_regen(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
         beta = torch.where(fill[:, None], 1.0, beta)
         specular_bounce = specular_bounce | fill
         prev_bsdf_pdf = torch.where(fill, 1.0, prev_bsdf_pdf)
+        eta_scale = torch.where(fill, 1.0, eta_scale)
         bounce = torch.where(fill, 0, bounce)
         pid = torch.where(fill, new_id, torch.where(dead, -1, pid))
         alive = alive | fill

@@ -1,8 +1,8 @@
 """Render driver: samples -> camera rays -> integrator -> film.
 
 The port of the JAX package's ``models/integrators/render.py`` (reference
-src/core/integrator.rs:70-220) for the path, whitted and directlighting
-integrators.  The pixel grid (the film's crop window, or the whole film) is
+src/core/integrator.rs:70-220) for the path, whitted, directlighting and
+sppm integrators; sppm runs its own progressive loop (``sppm.py``).  The pixel grid (the film's crop window, or the whole film) is
 one flat wavefront of (pixel, sample) lanes, ``nb`` ordered copies of the
 grid with x fastest, batched over samples per pixel.  Scenes above the
 brute-force limit render with their BVH (``accel``,
@@ -27,8 +27,9 @@ from .. import samplers as smpl
 from . import direct as directmod
 from . import path as pathmod
 from . import regen as regenmod
+from . import sppm as sppmmod
 
-INTEGRATORS = ("path", "whitted", "directlighting")
+INTEGRATORS = ("path", "whitted", "directlighting", "sppm")
 # paths a batch at most, by default; sized by memory on an NVIDIA H100
 # 80GB (chip_smoke.py phase 12, PERF.md).  At depth 5 the regeneration loop
 # holds ~243 bytes a path (140 of hoisted dims, 24 of camera ray, 12 of
@@ -47,7 +48,9 @@ class RenderCfg(NamedTuple):
     rr_threshold: float
     light_strategy: str = "power"  # "uniform" | "power" | "spatial" (lightdistrib.rs:393)
     crop: Optional[tuple] = None  # the film's crop window (x0, x1, y0, y1)
-    extra: Optional[dict] = None  # integrator parameters (directlighting: "strategy")
+    # integrator parameters (directlighting: "strategy"; sppm: "n_iterations",
+    # "photons_per_iteration", "initial_radius")
+    extra: Optional[dict] = None
     accelerator: str = "bvh"  # the accel's kind: "bvh" only ("kdtree" is not ported)
 
 
@@ -150,11 +153,19 @@ def render(scene: sa.Scene, camera: cam.Camera, cfg: RenderCfg, sampler_cfg: smp
     when given, is filled with camera_rays, spp, resolution, wall_s,
     paths_per_s and max_ray_casts (wall time on the host clock, synchronized
     with the card), and batches, lane_width (0 without regeneration) and
-    iterations (of the regeneration loop)."""
+    iterations (of the regeneration loop).  "sppm" renders through
+    ``sppm.render_sppm`` with cfg.extra's n_iterations (16),
+    photons_per_iteration (0: one a pixel) and initial_radius (0: from the
+    world radius); its stats are camera_rays (pixels x iterations),
+    resolution, wall_s, paths_per_s, iterations, grid_bucket_overflow,
+    grid_res_last and max_ev_last."""
     check_cfg(cfg)
     dev = scene.device
     if camera.device != dev:
         raise ValueError(f"camera lies on {camera.device}, scene on {dev}")
+    if cfg.integrator == "sppm":
+        return _render_sppm(scene, camera, cfg, sampler_cfg, accel, stats,
+                            crop if crop is not None else cfg.crop)
     if filter_cfg is None:
         filter_cfg = filmmod.make_filter(filmmod.FILTER_BOX)
     w, h = camera.resolution
@@ -193,4 +204,27 @@ def render(scene: sa.Scene, camera: cam.Camera, cfg: RenderCfg, sampler_cfg: smp
                      batches=batches,
                      lane_width=regenmod.REGEN_LANE_WIDTH if use_regen else 0,
                      iterations=run.get("iterations", 0))
+    return img
+
+
+def _render_sppm(scene, camera, cfg: RenderCfg, sampler_cfg, accel, stats, crop):
+    """render's sppm branch (the JAX render.py:306-320)."""
+    ex = cfg.extra or {}
+    w, h = camera.resolution
+    px0, px1, py0, py1 = crop_pixel_rect((w, h), crop)
+    n_it = int(ex.get("n_iterations", 16))
+    run = {}
+    t0 = time.perf_counter()
+    img = sppmmod.render_sppm(
+        scene, camera, sampler_cfg, n_iterations=n_it,
+        photons_per_iter=int(ex.get("photons_per_iteration", 0)), max_depth=cfg.max_depth,
+        initial_radius=float(ex.get("initial_radius", 0.0)), accel=accel, stats=run,
+        crop_rect=(px0, px1, py0, py1) if crop is not None else None)
+    if stats is not None:
+        if scene.device.type == "cuda":
+            torch.cuda.synchronize(scene.device)
+        dt = max(time.perf_counter() - t0, 1e-9)
+        rays = (px1 - px0) * (py1 - py0) * n_it
+        stats.update(camera_rays=rays, resolution=(w, h), wall_s=dt, paths_per_s=rays / dt,
+                     iterations=n_it, **run)
     return img

@@ -1,4 +1,5 @@
-"""Light sampling and emission, and the light power for light selection.
+"""Light sampling and emission, photon emission, and the light power for
+light selection.
 
 The port of the JAX package's ``models/lights.py`` for point, spot and
 distant lights and diffuse area lights on triangle ranges and on spheres
@@ -7,7 +8,8 @@ diffuse.rs, shapes/triangle.rs and sphere.rs sample).  Table reads are
 plain indexing where the TPU used one-hot matmuls.  Projection,
 goniometric and infinite lights and area lights on disks and cylinders are
 not ported yet: ``check_supported`` raises for them.  ``compute_light_power`` is host-side numpy that runs once when a
-scene is finalized.
+scene is finalized.  ``sample_le`` emits photons (light.rs sample_le) for
+SPPM.
 """
 
 from __future__ import annotations
@@ -42,6 +44,17 @@ def check_supported(scene: sa.Scene):
     if scene.has_quadric_lights:
         raise NotImplementedError("area lights on disks and cylinders are not ported yet "
                                   "(ROADMAP queue A)")
+
+
+class LeSample(NamedTuple):
+    """An emitted ray (light.rs sample_le :118-156)."""
+
+    o: torch.Tensor  # (N,3) origin on or near the light
+    d: torch.Tensor  # (N,3) direction
+    n_light: torch.Tensor  # (N,3)
+    le: torch.Tensor  # (N,3)
+    pdf_pos: torch.Tensor  # (N,)
+    pdf_dir: torch.Tensor  # (N,)
 
 
 def _area_sample_tri(scene: sa.Scene, la, light_idx, u2):
@@ -186,6 +199,78 @@ def sample_li(scene: sa.Scene, light_idx, ref_p, u2) -> LiSample:
     p_target = torch.where(positional, pos, torch.where(is_dist[:, None], p_far, p_area))
     n_light = torch.where(is_area[:, None], n_area, 0.0)
     return LiSample(wi, li, pdf, p_target, n_light, is_point | is_spot | is_dist)
+
+
+def sample_le(scene: sa.Scene, light_idx, u_pos, u_dir) -> LeSample:
+    """An emitted photon ray of light light_idx ((N,) int) from u_pos and
+    u_dir (N, 2) (lights.py sample_le, lights/*.rs sample_le): a point
+    light's uniform sphere, a spot's uniform cone with its falloff, a
+    distant light's disk of the world radius, an area light's point by area
+    (a triangle range's CDF, a sphere's uniform sphere) and cosine
+    hemisphere about its normal.  Both pdfs are floored at 1e-20."""
+    check_supported(scene)
+    la = scene.light_attr[light_idx.long()]
+    n = light_idx.shape[0]
+    pos = la[:, sa.LP_P:sa.LP_P + 3]
+    intensity = la[:, sa.LP_I:sa.LP_I + 3]
+    world_r = la[:, sa.LP_WORLD_RADIUS]
+    world_c = la[:, sa.LP_WORLD_CENTER:sa.LP_WORLD_CENTER + 3]
+    ltype = torch.round(la[:, sa.LA_TYPE])
+    one = torch.ones(n, device=pos.device)
+    # point: a uniform sphere direction
+    d_pt = smp.uniform_sample_sphere(u_dir)
+    # spot: a uniform cone about its direction (the world-center slot)
+    ct_total = la[:, sa.LP_COS_TOTAL]
+    cone = smp.uniform_sample_cone(u_dir, ct_total)
+    spot_dir = vm.normalize(world_c)
+    s1, s2 = vm.coordinate_system(spot_dir)
+    d_spot = cone[:, 0:1] * s1 + cone[:, 1:2] * s2 + cone[:, 2:3] * spot_dir
+    # distant: the origin on a disk of the world radius, the direction fixed
+    w = vm.normalize(pos)
+    v1, v2 = vm.coordinate_system(w)
+    cd = smp.concentric_sample_disk(u_pos)
+    o_dist = (world_c + world_r[:, None] * (cd[:, 0:1] * v1 + cd[:, 1:2] * v2)
+              + world_r[:, None] * w)
+    # area: a point by area and a cosine hemisphere direction about its normal
+    if scene.n_tris > 0:
+        p_area, n_area = _area_sample_tri(scene, la, light_idx, u_pos)
+    else:
+        p_area, n_area = pos, torch.zeros_like(pos)
+    if scene.has_sphere_lights:
+        center, radius, reverse = _sphere_light_geom(scene, la)
+        dir_s = smp.uniform_sample_sphere(u_pos)
+        is_sph = torch.round(la[:, sa.LA_GEOM]) == sa.ALG_SPHERE
+        p_area = torch.where(is_sph[:, None], center + radius[:, None] * dir_s, p_area)
+        n_area = torch.where(is_sph[:, None], torch.where(reverse[:, None], -dir_s, dir_s),
+                             n_area)
+    d_cos = smp.cosine_sample_hemisphere(u_dir)
+    a1, a2 = vm.coordinate_system(n_area)
+    d_area = d_cos[:, 0:1] * a1 + d_cos[:, 1:2] * a2 + d_cos[:, 2:3] * n_area
+
+    is_pt, is_spot = ltype == sa.LIGHT_POINT, ltype == sa.LIGHT_SPOT
+    is_dist, is_area = ltype == sa.LIGHT_DISTANT, ltype == sa.LIGHT_AREA
+    o = torch.where(is_area[:, None], p_area, pos)
+    o = torch.where(is_dist[:, None], o_dist, o)
+    d = torch.where(is_spot[:, None], d_spot, d_pt)
+    d = torch.where(is_dist[:, None], -w, d)
+    d = torch.where(is_area[:, None], d_area, d)
+    n_light = torch.where(is_area[:, None], n_area, d)
+    # the spot's falloff (spot.rs sample_le: I falloff(w))
+    cos_sp = vm.dot(d_spot, spot_dir)
+    ct_fall = la[:, sa.LP_COS_FALLOFF]
+    delta = torch.clamp((cos_sp - ct_total) / torch.clamp(ct_fall - ct_total, min=1e-7), 0.0, 1.0)
+    fall = torch.where(cos_sp < ct_total, 0.0,
+                       torch.where(cos_sp > ct_fall, 1.0, (delta * delta) ** 2))
+    le = torch.where(is_spot[:, None], intensity * fall[:, None], intensity)
+    pdf_pos = torch.where(is_area, 1.0 / torch.clamp(la[:, sa.LP_AREA], min=1e-12), one)
+    pdf_pos = torch.where(is_dist, 1.0 / torch.clamp(float(np.pi) * world_r * world_r, min=1e-12),
+                          pdf_pos)
+    pdf_dir = torch.where(is_pt, smp.UNIFORM_SPHERE_PDF, one)
+    pdf_dir = torch.where(is_spot, smp.uniform_cone_pdf(ct_total), pdf_dir)
+    pdf_dir = torch.where(is_area, smp.cosine_hemisphere_pdf(d_cos[:, 2].abs()), pdf_dir)
+    pdf_dir = torch.where(is_dist, one, pdf_dir)
+    return LeSample(o, d, n_light, le, torch.clamp(pdf_pos, min=1e-20),
+                    torch.clamp(pdf_dir, min=1e-20))
 
 
 def pdf_li_area(scene: sa.Scene, light_idx, ref_p, p_hit, n_hit):

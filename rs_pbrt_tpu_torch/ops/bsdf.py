@@ -1,10 +1,13 @@
-"""The BSDF of matte, mirror and hair materials as batched tag-switched code.
+"""The BSDF of matte, mirror, glass and hair materials as batched
+tag-switched code.
 
 The port of the JAX package's ``ops/bsdf.py`` for the lobes of the matte,
-mirror and hair materials (reference src/core/reflection.rs,
-materials/matte.rs, mirror.rs and hair.rs): Lambert, Oren-Nayar (matte
-with sigma > 0), perfect specular reflection and the Marschner/Chiang hair
-lobe (hair.rs:178-790).  Every lane carries up to two lobe slots of the JAX
+mirror, glass and hair materials (reference src/core/reflection.rs,
+microfacet.rs, materials/matte.rs, mirror.rs, glass.rs and hair.rs):
+Lambert, Oren-Nayar (matte with sigma > 0), perfect specular reflection,
+FresnelSpecular (smooth glass), TrowbridgeReitz microfacet reflection and
+transmission (rough glass) and the Marschner/Chiang hair lobe
+(hair.rs:178-790).  Every lane carries up to two lobe slots of the JAX
 package's Bsdf; each lobe family is evaluated for all lanes and selected
 by its tag.  Other materials and textured parameters raise
 NotImplementedError (``check_supported``).
@@ -26,18 +29,22 @@ import torch
 
 from ..scene import arrays as sa
 from ..utils import vecmath as vm
-from .sampling import cosine_sample_hemisphere
+from .sampling import concentric_sample_disk, cosine_sample_hemisphere
 
 INV_PI = float(vm.INV_PI)
 
-# lobe tags, numbered as in the JAX package (the other 14 come with their
+# lobe tags, numbered as in the JAX package (the other 12 come with their
 # materials)
 LOBE_NONE = 0
 LOBE_LAMBERT = 1
 LOBE_ORENNAYAR = 2
 LOBE_SPEC_REFL = 3
+LOBE_FRESNEL_SPEC = 4  # FresnelSpecular: smooth glass's reflection or refraction
+LOBE_MICROFACET_REFL = 5  # MicrofacetReflection with a dielectric Fresnel term
 LOBE_HAIR = 10
-PORTED_MATERIALS = (1 << sa.MATTE) | (1 << sa.MIRROR) | (1 << sa.HAIR)
+LOBE_MICROFACET_TRANS = 13  # MicrofacetTransmission (reflection.rs:1211)
+SPECULAR_LOBES = (LOBE_SPEC_REFL, LOBE_FRESNEL_SPEC)
+PORTED_MATERIALS = (1 << sa.MATTE) | (1 << sa.MIRROR) | (1 << sa.GLASS) | (1 << sa.HAIR)
 PI = math.pi
 
 
@@ -63,16 +70,43 @@ def sin_phi(w):
     return torch.where(sin2_theta(w) == 0.0, 0.0, torch.clamp(w[..., 1] / s, -1, 1))
 
 
+def cos2_theta(w):
+    return w[..., 2] * w[..., 2]
+
+
+def tan2_theta(w):
+    return sin2_theta(w) / torch.clamp(cos2_theta(w), min=1e-20)
+
+
 def same_hemisphere(a, b):
     return a[..., 2] * b[..., 2] > 0.0
 
 
-def oren_nayar_f(r, sigma_deg, wo, wi):
-    """Oren-Nayar f (reflection.rs OrenNayar); r (N,3), sigma in degrees."""
+def reflect_dir(wo, n):
+    return -wo + 2.0 * vm.dot(wo, n)[..., None] * n
+
+
+def refract_dir(wi, n, eta):
+    """(ok, wt): wi refracted through the interface of normal n with the
+    relative index eta (geometry.rs refract); ok False at total internal
+    reflection."""
+    cos_i = vm.dot(n, wi)
+    sin2_i = torch.clamp(1.0 - cos_i * cos_i, min=0.0)
+    sin2_t = eta * eta * sin2_i
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    return sin2_t < 1.0, eta[..., None] * -wi + (eta * cos_i - cos_t)[..., None] * n
+
+
+def oren_nayar_ab(sigma_deg):
+    """Oren-Nayar's A and B of sigma in degrees (reflection.rs OrenNayar::new)."""
     sigma = torch.deg2rad(sigma_deg)
     sigma2 = sigma * sigma
-    a = 1.0 - sigma2 / (2.0 * (sigma2 + 0.33))
-    b = 0.45 * sigma2 / (sigma2 + 0.09)
+    return 1.0 - sigma2 / (2.0 * (sigma2 + 0.33)), 0.45 * sigma2 / (sigma2 + 0.09)
+
+
+def oren_nayar_f(r, sigma_deg, wo, wi):
+    """Oren-Nayar f (reflection.rs OrenNayar); r (N,3), sigma in degrees."""
+    a, b = oren_nayar_ab(sigma_deg)
     sin_ti = torch.sqrt(torch.clamp(sin2_theta(wi), min=1e-24))
     sin_to = torch.sqrt(torch.clamp(sin2_theta(wo), min=1e-24))
     cos_diff = cos_phi(wi) * cos_phi(wo) + sin_phi(wi) * sin_phi(wo)
@@ -98,21 +132,127 @@ def fr_dielectric(cos_i, eta_i, eta_t):
     return torch.where(sin_t >= 1.0, 1.0, 0.5 * (r_parl * r_parl + r_perp * r_perp))
 
 
+# ---- the TrowbridgeReitz (GGX) distribution (microfacet.rs) ----
+
+def tr_roughness_to_alpha(roughness):
+    """microfacet.rs:243."""
+    x = torch.log(torch.clamp(roughness, min=1e-3))
+    return 1.62142 + 0.819955 * x + 0.1734 * x * x + 0.0171201 * x ** 3 + 0.000640711 * x ** 4
+
+
+def tr_d(wh, ax, ay):
+    t2 = tan2_theta(wh)
+    c4 = cos2_theta(wh) ** 2
+    e = (cos_phi(wh) ** 2 / torch.clamp(ax * ax, min=1e-12)
+         + sin_phi(wh) ** 2 / torch.clamp(ay * ay, min=1e-12)) * t2
+    d = 1.0 / (PI * ax * ay * c4 * (1.0 + e) ** 2)
+    return torch.where(torch.isfinite(t2) & (c4 > 1e-16), d, 0.0)
+
+
+def tr_lambda(w, ax, ay):
+    abs_tan = torch.sqrt(torch.clamp(tan2_theta(w), min=0.0))
+    alpha = torch.sqrt(torch.clamp(cos_phi(w) ** 2 * ax * ax + sin_phi(w) ** 2 * ay * ay,
+                                   min=1e-12))
+    lam = (-1.0 + torch.sqrt(1.0 + (alpha * abs_tan) ** 2)) / 2.0
+    return torch.where(torch.isfinite(abs_tan), lam, 0.0)
+
+
+def tr_g1(w, ax, ay):
+    return 1.0 / (1.0 + tr_lambda(w, ax, ay))
+
+
+def tr_g(wo, wi, ax, ay):
+    return 1.0 / (1.0 + tr_lambda(wo, ax, ay) + tr_lambda(wi, ax, ay))
+
+
+def tr_sample_wh(wo, u, ax, ay):
+    """Visible-normal sampling (Heitz 2018), distribution-equal to
+    microfacet.rs sample_wh with sample_visible_area (bsdf.py:185)."""
+    sign = torch.sign(torch.where(cos_theta(wo) == 0.0, 1.0, cos_theta(wo)))
+    wo_s = wo * sign[..., None]
+    vh = vm.normalize(torch.stack([ax * wo_s[..., 0], ay * wo_s[..., 1], wo_s[..., 2]], -1))
+    lensq = vh[..., 0] ** 2 + vh[..., 1] ** 2
+    inv_len = 1.0 / torch.sqrt(torch.clamp(lensq, min=1e-20))
+    t1 = torch.where((lensq > 1e-14)[..., None],
+                     torch.stack([-vh[..., 1] * inv_len, vh[..., 0] * inv_len,
+                                  torch.zeros_like(inv_len)], -1),
+                     torch.tensor([1.0, 0.0, 0.0], device=wo.device).expand_as(wo))
+    t2 = vm.cross(vh, t1)
+    d = concentric_sample_disk(u)
+    p1 = d[..., 0]
+    s = 0.5 * (1.0 + vh[..., 2])
+    p2 = (1.0 - s) * torch.sqrt(torch.clamp(1.0 - p1 * p1, min=0.0)) + s * d[..., 1]
+    p3 = torch.sqrt(torch.clamp(1.0 - p1 * p1 - p2 * p2, min=0.0))
+    nh = p1[..., None] * t1 + p2[..., None] * t2 + p3[..., None] * vh
+    wh = vm.normalize(torch.stack([ax * nh[..., 0], ay * nh[..., 1],
+                                   torch.clamp(nh[..., 2], min=1e-6)], -1))
+    return wh * sign[..., None]
+
+
+def tr_pdf_wh(wo, wh, ax, ay):
+    """The pdf of tr_sample_wh: D G1 |wo.wh| / |cos wo|."""
+    return (tr_d(wh, ax, ay) * tr_g1(wo, ax, ay) * vm.absdot(wo, wh)
+            / torch.clamp(abs_cos_theta(wo), min=1e-7))
+
+
+def _trans_eta(wo, eta):
+    """The relative index of a transmission with air outside: eta entering
+    (cos wo > 0), else 1 / eta (reflection.rs MicrofacetTransmission::f)."""
+    return torch.where(cos_theta(wo) > 0.0, eta, 1.0 / torch.clamp(eta, min=1e-6))
+
+
+def _microfacet_trans_f(color, wo, wi, ax, ay, eta):
+    """MicrofacetTransmission::f (reflection.rs:1246-1313), radiance
+    transport (the factor 1 / eta)."""
+    cto, cti = cos_theta(wo), cos_theta(wi)
+    e = _trans_eta(wo, eta)
+    wh = vm.normalize(wo + wi * e[..., None])
+    wh = wh * torch.sign(wh[..., 2:3])
+    dot_o, dot_i = vm.dot(wo, wh), vm.dot(wi, wh)
+    fr = fr_dielectric(dot_o, torch.ones_like(eta), eta)
+    sqrt_denom = dot_o + e * dot_i
+    factor = 1.0 / torch.clamp(e, min=1e-6)
+    val = (1.0 - fr)[..., None] * color * (
+        tr_d(wh, ax, ay) * tr_g(wo, wi, ax, ay) * e * e * dot_i.abs() * dot_o.abs() * factor
+        * factor / torch.clamp((cti * cto * sqrt_denom * sqrt_denom).abs(), min=1e-12)
+    ).abs()[..., None]
+    ok = (cto != 0.0) & (cti != 0.0) & (dot_o * dot_i <= 0.0)
+    return torch.where(ok[..., None], val, 0.0)
+
+
+def _microfacet_trans_pdf(wo, wi, ax, ay, eta):
+    """MicrofacetTransmission::pdf (reflection.rs:1348-1370): the pdf of wh
+    times |dwh/dwi|."""
+    e = _trans_eta(wo, eta)
+    wh = vm.normalize(wo + wi * e[..., None])
+    dot_o, dot_i = vm.dot(wo, wh), vm.dot(wi, wh)
+    sqrt_denom = dot_o + e * dot_i
+    dwh_dwi = (e * e * dot_i / torch.clamp(sqrt_denom * sqrt_denom, min=1e-12)).abs()
+    # tr_sample_wh gives wh in wo's hemisphere
+    wh_s = wh * torch.sign(wh[..., 2:3]) * torch.sign(cos_theta(wo))[..., None]
+    pdf = tr_pdf_wh(wo, wh_s, ax, ay) * dwh_dwi
+    return torch.where(~same_hemisphere(wo, wi) & (dot_o * dot_i <= 0.0), pdf, 0.0)
+
+
 class Bsdf(NamedTuple):
-    """Two lobe slots per lane (the JAX package's slots 0 and 1).  The hair
-    lobe reads sigma_a from r0, beta_m from ax, beta_n from ay, alpha
-    (degrees) from sigma, eta and the fibre offset h."""
+    """Two lobe slots per lane (the JAX package's slots 0 and 1).  The
+    microfacet lobes read their alphas from ax and ay; the hair lobe reads
+    sigma_a from r0, beta_m from ax, beta_n from ay, alpha (degrees) from
+    sigma, eta and the fibre offset h.  FresnelSpecular transmits kt."""
 
     kind0: torch.Tensor  # (N,) lobe tags
     kind1: torch.Tensor
     r0: torch.Tensor  # (N,3) lobe colors (kd, kr; hair: sigma_a)
-    r1: torch.Tensor
+    r1: torch.Tensor  # (N,3) (rough glass: kt)
     sigma: torch.Tensor  # (N,) Oren-Nayar sigma, hair alpha, degrees
-    ax: torch.Tensor  # (N,) hair beta_m
-    ay: torch.Tensor  # (N,) hair beta_n
-    eta: torch.Tensor  # (N,) hair index of refraction
+    ax: torch.Tensor  # (N,) microfacet alpha x; hair beta_m
+    ay: torch.Tensor  # (N,) microfacet alpha y; hair beta_n
+    eta: torch.Tensor  # (N,) index of refraction (glass, hair)
     h: torch.Tensor  # (N,) hair offset across the fibre, -1 + 2 v
     enable_hair: bool = True  # False: no lane has the hair lobe (its math is skipped)
+    kt: torch.Tensor = None  # (N,3) smooth glass's transmission color
+    enable_glass: bool = True  # False: no lane has a glass lobe (their math is skipped)
+    enable_microfacet: bool = True  # False: no lane has a microfacet lobe (rough glass)
 
 
 # ---- the hair lobe (materials/hair.rs:178-790, Marschner/Chiang) ----
@@ -148,12 +288,20 @@ def _hair_log_i0(x):
     return torch.where(x > 12.0, big, torch.log(torch.clamp(_hair_i0(x), min=1e-37)))
 
 
-def _hair_mp(cos_ti, cos_to, sin_ti, sin_to, v):
-    """Longitudinal scattering Mp (hair.rs:660)."""
+def _hair_v_terms(v):
+    """The parts of Mp that depend on the variance v alone: (v, 1 / v,
+    log(1 / (2 v)), sinh(1 / v) 2 v)."""
+    inv = 1.0 / v
+    return v, inv, torch.log(1.0 / (2.0 * v)), torch.sinh(inv) * 2.0 * v
+
+
+def _hair_mp(cos_ti, cos_to, sin_ti, sin_to, vt):
+    """Longitudinal scattering Mp (hair.rs:660); vt = _hair_v_terms(v)."""
+    v, inv, log_c, sinh_c = vt
     a = cos_ti * cos_to / v
     b = sin_ti * sin_to / v
-    small = torch.exp(_hair_log_i0(a) - b - 1.0 / v + 0.6931 + torch.log(1.0 / (2.0 * v)))
-    large = torch.exp(-b) * _hair_i0(a) / (torch.sinh(1.0 / v) * 2.0 * v)
+    small = torch.exp(_hair_log_i0(a) - b - inv + 0.6931 + log_c)
+    large = torch.exp(-b) * _hair_i0(a) / sinh_c
     return torch.where(v <= 0.1, small, large)
 
 
@@ -207,15 +355,21 @@ def _hair_ap(cos_to, eta, h, t):
     return ap
 
 
-def _hair_np(phi, p, s, gamma_o, gamma_t):
-    """Azimuthal scattering Np: the trimmed logistic about phi(p)
+def _hair_np_terms(p, s, gamma_o, gamma_t):
+    """The parts of Np that do not depend on wi: the lobe's azimuth
+    phi(p) and the trimmed logistic's normalization (hair.rs:752)."""
+    cdf = lambda y: 1.0 / (1.0 + torch.exp(-y / s))
+    return 2.0 * p * gamma_t - 2.0 * gamma_o + p * PI, cdf(PI) - cdf(-PI)
+
+
+def _hair_np(phi, s, off, norm):
+    """Azimuthal scattering Np: the trimmed logistic about phi(p) = off
     (hair.rs:752)."""
-    dphi = phi - (2.0 * p * gamma_t - 2.0 * gamma_o + p * PI)
+    dphi = phi - off
     dphi = torch.remainder(dphi + PI, 2.0 * PI) - PI
     e = torch.exp(-dphi.abs() / s)
     logistic = e / (s * ((1.0 + e) * (1.0 + e)))
-    cdf = lambda y: 1.0 / (1.0 + torch.exp(-y / s))
-    return logistic / (cdf(PI) - cdf(-PI))
+    return logistic / norm
 
 
 def _hair_tilt(p, sin_to, cos_to, sin2k, cos2k):
@@ -245,20 +399,33 @@ def _hair_ap_pdf(b: Bsdf, cos_to, t):
     return [y / total for y in ys]
 
 
-def hair_f(b: Bsdf, wo, wi):
-    """HairBSDF::f (hair.rs:325-417)."""
+def hair_wo_terms(b: Bsdf, wo):
+    """Everything of HairBSDF::f that depends on wo alone, per lane: the
+    variances' Mp terms (4), the tilted sin/cos of theta_o (3 each), sin
+    and cos of theta_o, phi_o, s, the lobes' Np terms (3 each) and the
+    attenuations A_p (4 of (N, 3))."""
     v, s, sin2k, cos2k = _hair_derived(b.ax, b.ay, b.sigma)
     sin_to, cos_to, phi_o, gamma_o, gamma_t, t = _hair_common(b, wo)
+    return dict(vt=[_hair_v_terms(x) for x in v],
+                tilts=[_hair_tilt(p, sin_to, cos_to, sin2k, cos2k) for p in range(HAIR_P_MAX)],
+                sin_to=sin_to, cos_to=cos_to, phi_o=phi_o, s=s,
+                np=[_hair_np_terms(p, s, gamma_o, gamma_t) for p in range(HAIR_P_MAX)],
+                ap=_hair_ap(cos_to, b.eta, b.h, t))
+
+
+def hair_f(b: Bsdf, wo, wi):
+    """HairBSDF::f (hair.rs:325-417)."""
+    w = hair_wo_terms(b, wo)
     sin_ti = wi[:, 0]
     cos_ti = _safe_sqrt(1.0 - sin_ti * sin_ti)
-    phi = torch.atan2(wi[:, 2], wi[:, 1]) - phi_o
-    ap = _hair_ap(cos_to, b.eta, b.h, t)
-    fsum = torch.zeros_like(t)
+    phi = torch.atan2(wi[:, 2], wi[:, 1]) - w["phi_o"]
+    ap = w["ap"]
+    fsum = torch.zeros_like(ap[0])
     for p in range(HAIR_P_MAX):
-        st, ct = _hair_tilt(p, sin_to, cos_to, sin2k, cos2k)
-        mp = _hair_mp(cos_ti, ct, sin_ti, st, v[p])
-        fsum = fsum + ap[p] * (mp * _hair_np(phi, p, s, gamma_o, gamma_t))[:, None]
-    mp_last = _hair_mp(cos_ti, cos_to, sin_ti, sin_to, v[HAIR_P_MAX])
+        st, ct = w["tilts"][p]
+        mp = _hair_mp(cos_ti, ct, sin_ti, st, w["vt"][p])
+        fsum = fsum + ap[p] * (mp * _hair_np(phi, w["s"], *w["np"][p]))[:, None]
+    mp_last = _hair_mp(cos_ti, w["cos_to"], sin_ti, w["sin_to"], w["vt"][HAIR_P_MAX])
     fsum = fsum + ap[HAIR_P_MAX] * (mp_last / (2.0 * PI))[:, None]
     aci = wi[:, 2].abs()
     fsum = torch.where(aci[:, None] > 0.0, fsum / torch.clamp(aci, min=1e-7)[:, None], fsum)
@@ -269,10 +436,10 @@ def _hair_pdf_lobes(ap_pdf, cos_ti, sin_ti, dphi, tilts, v, s, gamma_o, gamma_t,
     pdf = torch.zeros_like(cos_ti)
     for p in range(HAIR_P_MAX):
         st, ct = tilts[p]
-        pdf = pdf + ap_pdf[p] * _hair_mp(cos_ti, ct, sin_ti, st, v[p]) * _hair_np(
-            dphi, p, s, gamma_o, gamma_t)
+        pdf = pdf + ap_pdf[p] * _hair_mp(cos_ti, ct, sin_ti, st, _hair_v_terms(v[p])) * _hair_np(
+            dphi, s, *_hair_np_terms(p, s, gamma_o, gamma_t))
     pdf = pdf + ap_pdf[HAIR_P_MAX] * _hair_mp(cos_ti, cos_to, sin_ti, sin_to,
-                                              v[HAIR_P_MAX]) * (1.0 / (2.0 * PI))
+                                              _hair_v_terms(v[HAIR_P_MAX])) * (1.0 / (2.0 * PI))
     return torch.nan_to_num(pdf, nan=0.0, posinf=0.0)
 
 
@@ -361,25 +528,39 @@ class BsdfSample(NamedTuple):
 def check_supported(scene: sa.Scene):
     """Raises NotImplementedError for materials the port cannot shade yet."""
     if scene.mat_kind_mask & ~PORTED_MATERIALS:
-        raise NotImplementedError("only the matte, mirror and hair materials are ported so far "
-                                  "(ROADMAP queue A)")
+        raise NotImplementedError("only the matte, mirror, glass and hair materials are ported "
+                                  "so far (ROADMAP queue A)")
     if scene.tex_slot_mask:
         raise NotImplementedError("textured material parameters are not ported yet "
                                   "(ROADMAP queue A)")
 
 
-def make_bsdf(mat_type, params, uv=None, enable_hair: bool = True) -> Bsdf:
+def make_bsdf(mat_type, params, uv=None, enable_hair: bool = True,
+              enable_glass: bool = True, enable_microfacet: bool = True) -> Bsdf:
     """Material tags (N,) and parameter rows (N, N_MAT_PARAMS) -> Bsdf
-    (material.rs compute_scattering_functions for matte, mirror and hair).
-    uv (N, 2): the hits' coordinates, whose v gives a fibre's offset h.
-    enable_hair False: the scene has no hair (the lobe's math is skipped)."""
+    (material.rs compute_scattering_functions for matte, mirror, glass and
+    hair).  uv (N, 2): the hits' coordinates, whose v gives a fibre's
+    offset h (0 without uv).  enable_hair / enable_glass /
+    enable_microfacet False: the scene has no hair / no glass / no rough
+    glass (those lobes' math is skipped; the tags still say which lobe a
+    lane has)."""
     n = mat_type.shape[0]
     kd = params[:, sa.MP_KD:sa.MP_KD + 3]
     kr = params[:, sa.MP_KR:sa.MP_KR + 3]
+    kt = params[:, sa.MP_KT:sa.MP_KT + 3]
     sigma = params[:, sa.MP_SIGMA]
+    rough_u, rough_v = params[:, sa.MP_ROUGH_U], params[:, sa.MP_ROUGH_V]
+    if enable_microfacet:
+        remap = params[:, sa.MP_REMAP_ROUGH] > 0.5
+        ax = torch.clamp(torch.where(remap, tr_roughness_to_alpha(rough_u), rough_u), min=1e-4)
+        ay = torch.clamp(torch.where(remap, tr_roughness_to_alpha(rough_v), rough_v), min=1e-4)
+    else:
+        ax = ay = torch.zeros_like(sigma)
     is_black = lambda c: (c == 0.0).all(-1)
     kind0 = torch.full((n,), LOBE_NONE, dtype=torch.int32, device=params.device)
+    kind1 = torch.full_like(kind0, LOBE_NONE)
     r0 = torch.zeros((n, 3), dtype=torch.float32, device=params.device)
+    r1 = torch.zeros_like(r0)
     # matte (materials/matte.rs): Lambert, or Oren-Nayar for sigma > 0
     m = mat_type == sa.MATTE
     kind0 = torch.where(m & ~is_black(kd),
@@ -390,34 +571,51 @@ def make_bsdf(mat_type, params, uv=None, enable_hair: bool = True) -> Bsdf:
     m = mat_type == sa.MIRROR
     kind0 = torch.where(m & ~is_black(kr), LOBE_SPEC_REFL, kind0)
     r0 = torch.where(m[:, None], kr, r0)
+    # glass (materials/glass.rs:107-205): FresnelSpecular when smooth, else
+    # microfacet reflection (kr) and transmission (kt)
+    m = mat_type == sa.GLASS
+    smooth = (rough_u <= 0.0) & (rough_v <= 0.0)
+    kind0 = torch.where(m & ~(~smooth & is_black(kr)),
+                        torch.where(smooth, LOBE_FRESNEL_SPEC,
+                                    LOBE_MICROFACET_REFL).to(torch.int32), kind0)
+    kind1 = torch.where(m & ~smooth & ~is_black(kt), LOBE_MICROFACET_TRANS, kind1)
+    r0 = torch.where(m[:, None], kr, r0)
+    r1 = torch.where((m & ~smooth)[:, None], kt, r1)
     # hair (materials/hair.rs): one Marschner lobe; MP_KD holds sigma_a, or
     # the color, converted here (sigma_a_from_reflectance)
     m = mat_type == sa.HAIR
     kind0 = torch.where(m, LOBE_HAIR, kind0)
-    rough_u, rough_v = params[:, sa.MP_HAIR_BETA_M], params[:, sa.MP_HAIR_BETA_N]
     bn = torch.clamp(rough_v, 1e-3, 1.0)
     denom_sa = (5.969 - 0.215 * bn + 2.532 * bn ** 2 - 10.73 * bn ** 3 + 5.574 * bn ** 4
                 + 0.245 * bn ** 5)
     f_sa = torch.log(torch.clamp(kd, 1e-5, 1.0)) / denom_sa[:, None]
     from_color = (params[:, sa.MP_HAIR_MODE] > 0.5)[:, None]
     r0 = torch.where(m[:, None], torch.where(from_color, f_sa * f_sa, kd), r0)
-    zero = torch.zeros_like(sigma)
-    ax = torch.where(m, torch.clamp(rough_u, 1e-3, 1.0), zero)
-    ay = torch.where(m, bn, zero)
+    ax = torch.where(m, torch.clamp(rough_u, 1e-3, 1.0), ax)
+    ay = torch.where(m, bn, ay)
     eta = torch.where(params[:, sa.MP_ETA] > 0.0, params[:, sa.MP_ETA], 1.0)
-    h = zero if uv is None else torch.clamp(-1.0 + 2.0 * uv[:, 1], -1.0, 1.0)
-    return Bsdf(kind0, torch.full_like(kind0, LOBE_NONE), r0, torch.zeros_like(r0), sigma, ax,
-                ay, eta, h, enable_hair)
+    h = (torch.zeros_like(sigma) if uv is None
+         else torch.clamp(-1.0 + 2.0 * uv[:, 1], -1.0, 1.0))
+    return Bsdf(kind0, kind1, r0, r1, sigma, ax, ay, eta, h, enable_hair, kt, enable_glass,
+                enable_microfacet and enable_glass)
+
+
+def make_bsdf_from_mat(scene: sa.Scene, mat, uv=None) -> Bsdf:
+    """The Bsdf of material ids mat (N,) (and, in a scene with hair, of the
+    hits' uv; without uv a fibre's offset is 0, as the JAX package's
+    make_bsdf_from_mat gives SPPM's visible points)."""
+    check_supported(scene)
+    ma = scene.mat_attr[mat.long()]
+    return make_bsdf(torch.round(ma[:, sa.MA_TYPE]).to(torch.int32),
+                     ma[:, sa.MA_PARAMS:sa.MA_PARAMS + sa.N_MAT_PARAMS],
+                     uv if scene.has_hair else None, scene.has_hair,
+                     bool(scene.mat_kind_mask & (1 << sa.GLASS)), scene.has_rough_glass)
 
 
 def make_bsdf_at(scene: sa.Scene, it) -> Bsdf:
     """The Bsdf at each hit of an Interaction, from its material id (and,
     in a scene with hair, its uv)."""
-    check_supported(scene)
-    ma = scene.mat_attr[it.mat.long()]
-    return make_bsdf(torch.round(ma[:, sa.MA_TYPE]).to(torch.int32),
-                     ma[:, sa.MA_PARAMS:sa.MA_PARAMS + sa.N_MAT_PARAMS],
-                     it.uv if scene.has_hair else None, scene.has_hair)
+    return make_bsdf_from_mat(scene, it.mat, it.uv if scene.has_hair else None)
 
 
 def num_components(b: Bsdf):
@@ -427,7 +625,7 @@ def num_components(b: Bsdf):
 def has_nonspecular(b: Bsdf):
     """Any non-specular lobe in either slot (Bsdf::num_components without
     BSDF_SPECULAR)."""
-    non = lambda k: (k != LOBE_NONE) & (k != LOBE_SPEC_REFL)
+    non = lambda k: (k != LOBE_NONE) & (k != LOBE_SPEC_REFL) & (k != LOBE_FRESNEL_SPEC)
     return non(b.kind0) | non(b.kind1)
 
 
@@ -435,15 +633,42 @@ def _lobe_f(kind, color, b: Bsdf, wo, wi, reflect):
     """One lobe slot's f for all lanes (specular lobes give 0)."""
     out = torch.where((kind == LOBE_LAMBERT)[:, None], color * INV_PI, 0.0)
     out = torch.where((kind == LOBE_ORENNAYAR)[:, None], oren_nayar_f(color, b.sigma, wo, wi), out)
+    if b.enable_microfacet:
+        # MicrofacetReflection with the dielectric Fresnel term, wh facing
+        # forward (reflection.rs MicrofacetReflection::f)
+        wh = wi + wo
+        wh_ok = (wh != 0.0).any(-1) & (abs_cos_theta(wi) > 0) & (abs_cos_theta(wo) > 0)
+        wh_n = vm.normalize(wh)
+        wh_f = wh_n * torch.sign(wh_n[..., 2:3])
+        denom = 4.0 * abs_cos_theta(wi) * abs_cos_theta(wo)
+        f_mf = torch.where((wh_ok & (denom > 0))[:, None],
+                           color * (tr_d(wh_n, b.ax, b.ay) * tr_g(wo, wi, b.ax, b.ay)
+                                    / torch.clamp(denom, min=1e-12))[:, None], 0.0)
+        fr = fr_dielectric(vm.dot(wi, wh_f), torch.ones_like(b.eta), b.eta)
+        out = torch.where((kind == LOBE_MICROFACET_REFL)[:, None], f_mf * fr[:, None], out)
     # reflective lobes contribute only on the reflecting side, with wo and wi
     # in the same shading hemisphere
-    return torch.where((reflect & same_hemisphere(wo, wi))[:, None], out, 0.0)
+    out = torch.where((reflect & same_hemisphere(wo, wi))[:, None], out, 0.0)
+    if b.enable_microfacet:
+        ft = _microfacet_trans_f(color, wo, wi, b.ax, b.ay, b.eta)
+        out = torch.where((kind == LOBE_MICROFACET_TRANS)[:, None],
+                          torch.where((~same_hemisphere(wo, wi) & ~reflect)[:, None], ft, 0.0),
+                          out)
+    return out
 
 
-def _lobe_pdf(kind, wo, wi):
+def _lobe_pdf(kind, b: Bsdf, wo, wi):
     pdf_cos = abs_cos_theta(wi) * INV_PI
     out = torch.where((kind == LOBE_LAMBERT) | (kind == LOBE_ORENNAYAR), pdf_cos, 0.0)
-    return torch.where(same_hemisphere(wo, wi), out, 0.0)
+    if b.enable_microfacet:
+        wh = vm.normalize(wi + wo)
+        pdf_mf = tr_pdf_wh(wo, wh, b.ax, b.ay) / torch.clamp(4.0 * vm.dot(wo, wh), min=1e-12)
+        out = torch.where(kind == LOBE_MICROFACET_REFL, pdf_mf, out)
+    out = torch.where(same_hemisphere(wo, wi), out, 0.0)
+    if b.enable_microfacet:
+        out = torch.where(kind == LOBE_MICROFACET_TRANS,
+                          _microfacet_trans_pdf(wo, wi, b.ax, b.ay, b.eta), out)
+    return out
 
 
 def bsdf_f(b: Bsdf, wo, wi, reflect):
@@ -457,10 +682,10 @@ def bsdf_f(b: Bsdf, wo, wi, reflect):
 
 def bsdf_pdf(b: Bsdf, wo, wi):
     """The pdf averaged over the components (Bsdf::pdf)."""
-    p0 = _lobe_pdf(b.kind0, wo, wi)
+    p0 = _lobe_pdf(b.kind0, b, wo, wi)
     if b.enable_hair:
         p0 = torch.where(b.kind0 == LOBE_HAIR, hair_pdf(b, wo, wi), p0)
-    p = p0 + _lobe_pdf(b.kind1, wo, wi)
+    p = p0 + _lobe_pdf(b.kind1, b, wo, wi)
     n = num_components(b)
     return torch.where(n > 0, p / torch.clamp(n.to(torch.float32), min=1.0), 0.0)
 
@@ -468,27 +693,64 @@ def bsdf_pdf(b: Bsdf, wo, wi):
 def bsdf_sample(b: Bsdf, wo, u2, uc) -> BsdfSample:
     """Importance-sample the BSDF (reflection.rs:280 Bsdf::sample_f): uc
     picks a present lobe slot, u2 samples it (cosine hemisphere, the mirror
-    direction or the hair lobe); f and pdf combine the non-specular
-    lobes."""
+    direction, a visible microfacet normal to reflect or refract through,
+    Fresnel's choice of smooth glass's reflection or refraction by u2.x, or
+    the hair lobe); f and pdf combine the non-specular lobes."""
     n_comp = num_components(b).to(torch.float32)
     pick1 = (uc * torch.clamp(n_comp, min=1.0)) >= 1.0
     kind = torch.where(pick1, b.kind1, b.kind0)
     color = torch.where(pick1[:, None], b.r1, b.r0)
     wi = cosine_sample_hemisphere(u2)
     wi = wi * torch.sign(torch.where(cos_theta(wo) == 0, 1.0, cos_theta(wo)))[:, None]
-    is_spec = kind == LOBE_SPEC_REFL
+    is_spec_r = kind == LOBE_SPEC_REFL
     wi_spec = torch.stack([-wo[:, 0], -wo[:, 1], wo[:, 2]], -1)
-    wi = torch.where(is_spec[:, None], wi_spec, wi)
+    is_mf = kind == LOBE_MICROFACET_REFL
+    is_mft = kind == LOBE_MICROFACET_TRANS
+    is_fs = kind == LOBE_FRESNEL_SPEC
+    entering = cos_theta(wo) > 0.0
+    fr = fr_dielectric(cos_theta(wo), torch.ones_like(b.eta), b.eta)
+    choose_refl = u2[:, 0] < fr
+    ok_t = mft_ok = torch.ones_like(entering)
+    if b.enable_microfacet:
+        # glossy reflection and transmission through a sampled wh
+        # (MicrofacetTransmission::sample_f, reflection.rs:1316-1346)
+        wh = tr_sample_wh(wo, u2, b.ax, b.ay)
+        wi = torch.where(is_mf[:, None], reflect_dir(wo, wh), wi)
+        wh_side = wh * torch.sign(vm.dot(wo, wh))[:, None]
+        ok_rt, wi_rt = refract_dir(wo, wh_side, torch.where(entering, 1.0 / b.eta, b.eta))
+        wi = torch.where(is_mft[:, None], wi_rt, wi)
+        mft_ok = torch.where(is_mft, ok_rt, mft_ok)
+    wi = torch.where(is_spec_r[:, None], wi_spec, wi)
+    if b.enable_glass:
+        # smooth glass: reflect with Fresnel's probability, else refract
+        # (FresnelSpecular::sample_f)
+        n_up = torch.tensor([0.0, 0.0, 1.0], device=wo.device).expand_as(wo)
+        ok_t, wi_t = refract_dir(wo, torch.where(entering[:, None], n_up, -n_up),
+                                 torch.where(entering, 1.0 / b.eta, b.eta))
+        wi = torch.where(is_fs[:, None], torch.where(choose_refl[:, None], wi_spec, wi_t), wi)
     if b.enable_hair:
         wi = torch.where((kind == LOBE_HAIR)[:, None], hair_sample(b, wo, u2)[0], wi)
     wi = vm.normalize(wi)
-    # delta lobes: the pdf of the discrete choice among the components
-    pdf = torch.where(is_spec, 1.0 / torch.clamp(n_comp, min=1.0), bsdf_pdf(b, wo, wi))
+    is_specular = is_spec_r | is_fs
+    # delta lobes: the pdf of the discrete choice (Fresnel's for smooth
+    # glass) over the components
+    pdf_delta = torch.where(is_fs, torch.where(choose_refl, fr, 1.0 - fr), 1.0)
+    pdf = torch.where(is_specular, pdf_delta / torch.clamp(n_comp, min=1.0),
+                      bsdf_pdf(b, wo, wi))
     f = bsdf_f(b, wo, wi, same_hemisphere(wo, wi))
     # the mirror's f = R / |cos wi|, the delta absorbed
     aci = torch.clamp(abs_cos_theta(wi), min=1e-7)
-    f = torch.where(is_spec[:, None], color / aci[:, None], f)
-    none = num_components(b) == 0
+    f = torch.where(is_spec_r[:, None], color / aci[:, None], f)
+    if b.enable_glass:
+        # radiance transport scales refraction by (eta_i / eta_t)^2
+        scale_t = torch.where(entering, 1.0 / (b.eta * b.eta), b.eta * b.eta)
+        f_fs = torch.where(choose_refl[:, None], (fr / aci)[:, None] * b.r0,
+                           ((1.0 - fr) * scale_t / aci)[:, None] * b.kt)
+        f_fs = torch.where((is_fs & ~choose_refl & ~ok_t)[:, None], 0.0, f_fs)
+        f = torch.where(is_fs[:, None], f_fs, f)
+    # a microfacet sample below the horizon, or a failed refraction: no sample
+    bad = (is_mf & ~same_hemisphere(wo, wi)) | (is_mft & (same_hemisphere(wo, wi) | ~mft_ok))
+    none = (num_components(b) == 0) | bad
     pdf = torch.where(none, 0.0, pdf)
     f = torch.where(none[:, None], 0.0, f)
-    return BsdfSample(wi, f, pdf, is_spec, torch.zeros_like(is_spec))
+    return BsdfSample(wi, f, pdf, is_specular, (is_fs & ~choose_refl) | is_mft)

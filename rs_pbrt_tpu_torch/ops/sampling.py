@@ -45,8 +45,23 @@ def uniform_sample_sphere(u: torch.Tensor) -> torch.Tensor:
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)
 
 
+UNIFORM_SPHERE_PDF = float(1.0 / (4.0 * PI))
+
+
+def cosine_hemisphere_pdf(cos_theta):
+    return cos_theta * float(1.0 / PI)
+
+
 def uniform_cone_pdf(cos_theta_max):
     return 1.0 / (2.0 * np.pi * (1.0 - cos_theta_max))
+
+
+def uniform_sample_cone(u: torch.Tensor, cos_theta_max) -> torch.Tensor:
+    """(..., 2) uniform -> a direction in the cone of cos_theta_max about +z."""
+    cos_theta = (1.0 - u[..., 0]) + u[..., 0] * cos_theta_max
+    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    phi = u[..., 1] * 2.0 * float(PI)
+    return torch.stack([torch.cos(phi) * sin_theta, torch.sin(phi) * sin_theta, cos_theta], -1)
 
 
 def uniform_sample_triangle(u: torch.Tensor) -> torch.Tensor:

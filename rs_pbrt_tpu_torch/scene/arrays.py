@@ -189,6 +189,9 @@ class Scene:
     has_alpha: bool = False
     has_subsurface: bool = False
     has_hair: bool = False
+    # a glass material with roughness (microfacet lobes); the BSDF skips
+    # their math without one
+    has_rough_glass: bool = False
     tex_slot_mask: int = 0
     mat_kind_mask: int = 1 << MATTE
 
@@ -213,6 +216,12 @@ def type_mask(tags) -> int:
     for t in np.unique(np.asarray(tags, np.int64)):
         mask |= 1 << int(t)
     return mask
+
+
+def rough_glass(mat_attr: np.ndarray) -> bool:
+    """Whether any glass row of mat_attr (M, N_MAT_ATTR) has roughness."""
+    rough = mat_attr[:, [MA_PARAMS + MP_ROUGH_U, MA_PARAMS + MP_ROUGH_V]].max(-1) > 0
+    return bool((np.rint(mat_attr[:, MA_TYPE]) == GLASS)[rough].any())
 
 
 def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> Scene:
@@ -253,6 +262,7 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> Scene:
         has_alpha=n("alpha_flag") > 0,
         has_subsurface=n("bss_profile") > 0,
         has_hair=n("hair_flag") > 0,
+        has_rough_glass=rough_glass(np.asarray(arrays["mat_attr"], np.float32)),
         tex_slot_mask=n("tex_slot_flag"),
         mat_kind_mask=n("mat_kind_flag"),
     )

@@ -1,7 +1,7 @@
 """Programmatic scene construction -> Scene of torch tensors.
 
 The port's reduced copy of the JAX package's ``scene/builder.py`` (reference
-api.rs make_* factories): matte, mirror and hair materials, triangle
+api.rs make_* factories): matte, mirror, glass and hair materials, triangle
 meshes and spheres, either of them optionally emissive (diffuse area
 lights on a triangle range or on a sphere), cubic Bézier curves (flattened
 to segments at once, ``ops/curves.py``), and point, spot and distant
@@ -38,13 +38,14 @@ class SceneBuilder:
         self.curves = []  # (C_i, N_CURVE_ATTR) f32 segment rows per add_curve
         self.add_matte(kd=(0.5, 0.5, 0.5))  # default material 0 (api.rs)
 
-    def _add_material(self, mtype, kd=(0, 0, 0), kr=(0, 0, 0), sigma=0.0, rough_u=0.0,
-                      rough_v=0.0, eta=1.5, remap=True, opacity=(1, 1, 1)) -> int:
+    def _add_material(self, mtype, kd=(0, 0, 0), kr=(0, 0, 0), kt=(0, 0, 0), sigma=0.0,
+                      rough_u=0.0, rough_v=0.0, eta=1.5, remap=True, opacity=(1, 1, 1)) -> int:
         """A material row with the JAX builder's defaults in the parameter
         slots the material does not set; returns its id."""
         p = np.zeros(sa.N_MAT_PARAMS, np.float32)
         p[sa.MP_KD:sa.MP_KD + 3] = kd
         p[sa.MP_KR:sa.MP_KR + 3] = kr
+        p[sa.MP_KT:sa.MP_KT + 3] = kt
         p[sa.MP_ROUGH_U] = rough_u
         p[sa.MP_ROUGH_V] = rough_v
         p[sa.MP_ETA] = eta
@@ -65,6 +66,13 @@ class SceneBuilder:
     def add_mirror(self, kr=(0.9, 0.9, 0.9)) -> int:
         """Perfect mirror (materials/mirror.rs)."""
         return self._add_material(sa.MIRROR, kr=kr)
+
+    def add_glass(self, kr=(1, 1, 1), kt=(1, 1, 1), eta=1.5, roughness=0.0,
+                  remap=True) -> int:
+        """Glass (materials/glass.rs): FresnelSpecular when smooth, else
+        microfacet reflection and transmission of the given roughness."""
+        return self._add_material(sa.GLASS, kr=kr, kt=kt, eta=eta, rough_u=roughness,
+                                  rough_v=roughness, remap=remap)
 
     def add_hair(self, sigma_a=None, color=None, eumelanin=None, pheomelanin=None, eta=1.55,
                  beta_m=0.3, beta_n=0.3, alpha=2.0) -> int:
@@ -318,5 +326,6 @@ class SceneBuilder:
             crv_attr=None if crv_attr is None else f32(crv_attr),
             n_curve_segs=0 if crv_attr is None else crv_attr.shape[0],
             has_hair=any(m[0] == sa.HAIR for m in self.mats),
+            has_rough_glass=sa.rough_glass(mat_attr),
             mat_kind_mask=sa.type_mask([m[0] for m in self.mats]),
         )

@@ -319,5 +319,5 @@ def test_unported_parts_raise():
         rdr.render(bridge(b.finalize()), camera, rdr.RenderCfg("whitted", 1, 1, 1.0), scfg)
     b = JaxBuilder()
     b.add_triangle_mesh([[0, 1, 2]], [[0, 0, 0], [1, 0, 0], [0, 1, 0]], material=b.add_plastic())
-    with pytest.raises(NotImplementedError, match="matte, mirror and hair"):
+    with pytest.raises(NotImplementedError, match="matte, mirror, glass and hair"):
         rdr.render(bridge(b.finalize()), camera, rdr.RenderCfg("directlighting", 1, 1, 1.0), scfg)

@@ -25,7 +25,7 @@ from rs_pbrt_tpu_torch.scene import arrays as sa
 from rs_pbrt_tpu_torch.scene import bigscene
 from rs_pbrt_tpu_torch.scene import presets
 from rs_pbrt_tpu_torch.scene.builder import SceneBuilder
-from rs_pbrt_tpu_torch.tools import bvh_ties, hair_scenes
+from rs_pbrt_tpu_torch.tools import bvh_ties, caustic_scenes, hair_scenes
 from rs_pbrt_tpu_torch.utils import transform as tr
 
 torch.set_num_threads(2)
@@ -54,7 +54,9 @@ def test_import_loads_no_jax():
             "rs_pbrt_tpu_torch.scene.presets, rs_pbrt_tpu_torch.io.image, "
             "rs_pbrt_tpu_torch.tools.sweep_replay, rs_pbrt_tpu_torch.tools.k1_b2_replay, "
             "rs_pbrt_tpu_torch.tools.probe_replay, rs_pbrt_tpu_torch.tools.regen_sweep, "
-            "rs_pbrt_tpu_torch.models.lightdistrib; "
+            "rs_pbrt_tpu_torch.models.lightdistrib, rs_pbrt_tpu_torch.models.integrators.sppm, "
+            "rs_pbrt_tpu_torch.ops.sppm_kernel, rs_pbrt_tpu_torch.utils.rng, "
+            "rs_pbrt_tpu_torch.tools.caustic_scenes; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'rs_pbrt_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
@@ -78,6 +80,8 @@ ENTRY_POINTS = {
     "bvh_ties.tie_case": lambda: bvh_ties.tie_case(),
     "hair_scenes.hair_patch": lambda: hair_scenes.hair_patch((8, 8)),
     "hair_scenes.fur_patch": lambda: hair_scenes.fur_patch(4, resolution=(8, 8)),
+    "caustic_scenes.caustic_only": lambda: caustic_scenes.caustic_only((8, 8)),
+    "caustic_scenes.caustic_hair": lambda: caustic_scenes.caustic_hair((8, 8)),
 }
 
 
