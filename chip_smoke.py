@@ -185,6 +185,25 @@ Run from the root of a checkout.  Phases, one line each (or more):
    iteration of caustic_only at 1024x1024 with 2^20 photons and the scan's
    depth at 64: its S1 launch against the plain deposit, its time queued and
    by events, its bound, the plain version's time.
+17. BASELINE config 4 through render.render:
+   tools/sss_scenes.sss_dragonette() (a subsurface sphere on a matte floor,
+   two point lights) at 200x200, depth 6, Sobol'.  Volpath at 512 spp in
+   batches of 2^22 paths after a warm render of 8 spp (bench.py:288-306):
+   the launch counts (19 dims a bounce, more than K1's 128 for 7 bounces:
+   K1 8, K5 35, K4 14 a batch), camera paths/s, peak device memory, the
+   card's busy share over a profiled render of 8 spp.  Then volpath and
+   path at 16 spp (path: K1 2, K5 31, K4 12), every K1, K4 and K5 launch
+   held to its plain version (K1 bit-equal, K4 equal, K5 as in phase 6) and
+   each image to the render with every wrapper swapped for its plain
+   version at rtol = atol = 2e-3; paths/s (best of 3 warm renders).
+18. tools/sss_scenes.smoke_dragonette(): the same scene with the camera in a
+   heterogeneous medium of a 128^3 grid, volpath at 200x200, 16 spp: K1 8,
+   K5 35, K4 14, M1 7, M2 7; every M1 and M2 launch held to its plain
+   version (ops/medium_kernel.py delta_track_plain, ratio_track_plain:
+   sampled equal, the rest bit-equal or, if not, within rtol = atol = 1e-5;
+   the line says which), timed queued and by events beside its bound (the
+   plain version's steps, lookups and distinct voxels on the same inputs)
+   and the plain version's time; K1, K4, K5 and the image as in phase 17.
 
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
@@ -342,6 +361,21 @@ S1_ROW_BYTES = 11 * 4  # one packed event row
 # per VP: the 27 neighbours' first row, flag and id in; p, frame, wo, r2 and
 # color, the lobe tag and its 44 wo terms in; phi and m out
 S1_VP_BYTES = 27 * (8 + 1 + 4) + 19 * 4 + 4 + 44 * 4 + 16
+# phases 17-18: BASELINE config 4 (rs_pbrt_tpu_torch/tools/sss_scenes.py)
+SSS_RES = (200, 200)  # the file's film
+SSS_WARM_SPP = 8  # bench.py:288-306: a warm render of 8 spp, then 512 spp in batches of 2^22
+SSS_CHECK_SPP = 16  # the renders held to their plain renders (the file's spp)
+SMOKE_GRID_RES = 128  # phase 18: the smoke's (128, 128, 128) f32 grid, 8 MB
+# M1 and M2's operations, counted in csrc/medium.cu as K2_FLOP is: a step
+# draws its uniforms (a hash of 39 integer operations each: two combines of
+# 14, the finalizer's 8, the conversion), takes 1 - u, its log (1) and the
+# distance (2); a lookup (a step not past the segment) forms its point (6),
+# transforms it (24) and divides (3), finds its voxel (12), weighs and sums
+# 8 taps (35) and divides by the largest density (1); M2 adds its product
+# and its clamp (2)
+M_FLOP = dict(delta_step=83, ratio_step=44, delta_lookup=81, ratio_lookup=83)
+M_RAY_BYTES = 4 + 1 + 12 + 12 + 4 + 4  # mid, in_med, o, d, t_max or dist, the lane key
+M_OUT_BYTES = dict(delta_track=1 + 4 + 12, ratio_track=4)  # sampled, t, weight; tr
 SMEM_LOADS_PER_CLOCK = 32  # shared-memory loads per clock per SM
 VERT_BYTES = 9 * 4  # the vertex coordinates K3 and K4 read of a table row
 
@@ -446,26 +480,27 @@ def _kernel_modules():
     from rs_pbrt_tpu_torch.ops import curve_kernel as ck
     from rs_pbrt_tpu_torch.ops import gather_probe as gp
     from rs_pbrt_tpu_torch.ops import intersect_kernel as ik
+    from rs_pbrt_tpu_torch.ops import medium_kernel as mk
     from rs_pbrt_tpu_torch.ops import path_kernel as pk
     from rs_pbrt_tpu_torch.ops import sobol_kernel as sk
     from rs_pbrt_tpu_torch.ops import sppm_kernel as sd
 
-    return sk, pk, ik, bvh, gp, ck, sd
+    return sk, pk, ik, bvh, gp, ck, sd, mk
 
 
 def zero_counts():
     """Every kernel's launch count to 0."""
-    sk, pk, ik, bvh, gp, ck, sd = _kernel_modules()
+    sk, pk, ik, bvh, gp, ck, sd, mk = _kernel_modules()
     sk.launches = pk.launches = 0
-    for d in (ik.launches, bvh.launches, gp.launches, ck.launches, sd.launches):
+    for d in (ik.launches, bvh.launches, gp.launches, ck.launches, sd.launches, mk.launches):
         d.update(dict.fromkeys(d, 0))
 
 
 def read_counts() -> dict:
-    sk, pk, ik, bvh, gp, ck, sd = _kernel_modules()
+    sk, pk, ik, bvh, gp, ck, sd, mk = _kernel_modules()
     return dict(sobol=sk.launches, bounce=pk.launches, **ik.launches,
                 **{f"bvh12_{k}": v for k, v in bvh.launches.items()}, **gp.launches,
-                **ck.launches, **sd.launches)
+                **ck.launches, **sd.launches, **mk.launches)
 
 
 def expect_counts(**launched) -> dict:
@@ -476,11 +511,13 @@ def expect_counts(**launched) -> dict:
 def _owner(name: str):
     """The module of the kernel wrapper `name` (sobol_dims, bounce,
     closest_sweep, any_sweep, full_sweep, bvh12_intersect_tris, take_rows,
-    take_loop, walk_closest, walk_any, sweep_closest, sweep_any, deposit)."""
-    sk, pk, ik, bvh, gp, ck, sd = _kernel_modules()
+    take_loop, walk_closest, walk_any, sweep_closest, sweep_any, deposit,
+    delta_track, ratio_track)."""
+    sk, pk, ik, bvh, gp, ck, sd, mk = _kernel_modules()
     return dict(sobol_dims=sk, bounce=pk, closest_sweep=ik, any_sweep=ik, full_sweep=ik,
                 bvh12_intersect_tris=bvh, take_rows=gp, take_loop=gp, walk_closest=ck,
-                walk_any=ck, sweep_closest=ck, sweep_any=ck, deposit=sd)[name]
+                walk_any=ck, sweep_closest=ck, sweep_any=ck, deposit=sd, delta_track=mk,
+                ratio_track=mk)[name]
 
 
 def wrapper(name: str):
@@ -1914,13 +1951,10 @@ def phase_glass(card):
 
     from rs_pbrt_tpu_torch.models import samplers as smpl
     from rs_pbrt_tpu_torch.models.integrators import render as rdr
-    from rs_pbrt_tpu_torch.ops import intersect_kernel as ik
-    from rs_pbrt_tpu_torch.ops import sobol_kernel as sk
     from rs_pbrt_tpu_torch.tools import caustic_scenes
 
     scene, camera = caustic_scenes.caustic_only(GLASS_RES, device=DEVICE)
     depth = caustic_scenes.CFG.max_depth
-    names = ("sobol_dims", "any_sweep", "full_sweep")
     out = {}
     for integrator, spp in GLASS_RUNS:
         tag = f"15 {integrator}"
@@ -1940,7 +1974,7 @@ def phase_glass(card):
             launched = dict(sobol=1 + depth, full_sweep=depth,
                             any_sweep=depth * (1 if one else scene.n_lights))
         go()  # warm
-        rec = {k: LaunchTimer(wrapper(k), keep=True) for k in names}
+        rec = {k: LaunchTimer(wrapper(k), keep=True) for k in SWEEP_NAMES}
         st = {}
         with ExitStack() as es:
             patched(es, **rec)
@@ -1954,28 +1988,15 @@ def phase_glass(card):
         if tuple(img.shape) != (GLASS_RES[1], GLASS_RES[0], 3) or not torch.isfinite(img).all():
             fail(f"glass {integrator} image: shape {tuple(img.shape)}, finite "
                  f"{bool(torch.isfinite(img).all())}")
-        part = {k: dict(ms=rec[k].times_ms(), bound=[], max_abs_err=0.0) for k in names}
-        for b, (_, a, kw, o) in enumerate(rec["sobol_dims"].calls):
-            if not torch.equal(o, sk.sobol_dims_plain(*a, **kw)):
-                fail(f"glass {integrator} K1 launch {b} differs from its plain version")
-            part["sobol_dims"]["bound"].append(k1_bound_ms(a[0].shape[0], *a[2:4]))
-        for key, kind, kid, plain in (("any_sweep", "any", "K4", ik.any_sweep_plain),
-                                      ("full_sweep", "full", "K5", ik.full_sweep_plain)):
-            for b, (_, a, kw, o) in enumerate(rec[key].calls):
-                err = check_isect(f"glass {integrator} {kid} launch {b}", kind, o, plain(*a, **kw))
-                part[key]["max_abs_err"] = max(part[key]["max_abs_err"], err)
-                part[key]["bound"].append(isect_bound_ms(kind, a, o))
+        part = check_sweep_launches(f"glass {integrator}", rec)
         del rec
-        plain_t = {k: LaunchTimer(getattr(sk if k == "sobol_dims" else ik, f"{k}_plain"))
-                   for k in names}
+        plain_t = {k: LaunchTimer(v) for k, v in plain_fns().items() if k in SWEEP_NAMES}
         with ExitStack() as es:
             patched(es, **plain_t)
             img_plain = go()
         torch.cuda.synchronize()
-        err = float((img - img_plain).abs().max())
-        if not torch.allclose(img, img_plain, rtol=TOL, atol=TOL):
-            fail(f"glass {integrator} image differs from the plain render by up to {err}")
-        for k in names:
+        err = compare_plain(f"glass {integrator} image", img, img_plain)
+        for k in SWEEP_NAMES:
             part[k]["plain_ms"] = plain_t[k].times_ms()
         print(f"[{tag}] caustic_only's geometry {GLASS_RES[0]}x{GLASS_RES[1]}, {spp} spp, depth "
               f"{depth}: finite, matches the plain render (max abs err {err:.3g}, mean "
@@ -2106,12 +2127,7 @@ def phase_sppm(card):
             img_plain = go()
         torch.cuda.synchronize()
         part["plain_ms"] = plain.times_ms()
-        diff = (img - img_plain).abs()
-        err = float(diff.max())
-        if not torch.allclose(img, img_plain, rtol=TOL, atol=TOL):
-            off = float((diff > TOL + TOL * img_plain.abs()).any(-1).float().mean())
-            fail(f"{name} image differs from the plain render by up to {err} ({100 * off:.3f}% "
-                 "of the pixels)")
+        err = compare_plain(f"{name} image", img, img_plain)
         # the card's busy share over a render of SPPM_WARM_ITERATIONS: the
         # profiler's post-processing of a whole render's ~700,000 device ops
         # would take minutes
@@ -2181,6 +2197,304 @@ def phase_sppm(card):
     return out
 
 
+SWEEP_NAMES = ("sobol_dims", "any_sweep", "full_sweep")
+
+
+def best_of_3(go) -> dict:
+    """The stats of the fastest of 3 calls go(stats) (warm renders)."""
+    runs = []
+    for _ in range(3):
+        runs.append({})
+        go(runs[-1])
+    return min(runs, key=lambda st: st["wall_s"])
+
+
+def check_sweep_launches(tag: str, rec: dict) -> dict:
+    """Holds every recorded K1, K4 and K5 launch (LaunchTimer with keep) to
+    its plain version on the same inputs (K1 bit-equal, K4 equal, K5 as in
+    phase 6); returns each kernel's ms, bound and max_abs_err."""
+    import torch
+
+    from rs_pbrt_tpu_torch.ops import intersect_kernel as ik
+    from rs_pbrt_tpu_torch.ops import sobol_kernel as sk
+
+    part = {k: dict(ms=rec[k].times_ms(), bound=[], max_abs_err=0.0) for k in SWEEP_NAMES}
+    for b, (_, a, kw, o) in enumerate(rec["sobol_dims"].calls):
+        if not torch.equal(o, sk.sobol_dims_plain(*a, **kw)):
+            fail(f"{tag} K1 launch {b} differs from its plain version")
+        part["sobol_dims"]["bound"].append(k1_bound_ms(a[0].shape[0], *a[2:4]))
+    for key, kind, kid, plain in (("any_sweep", "any", "K4", ik.any_sweep_plain),
+                                  ("full_sweep", "full", "K5", ik.full_sweep_plain)):
+        for b, (_, a, kw, o) in enumerate(rec[key].calls):
+            err = check_isect(f"{tag} {kid} launch {b}", kind, o, plain(*a, **kw))
+            part[key]["max_abs_err"] = max(part[key]["max_abs_err"], err)
+            part[key]["bound"].append(isect_bound_ms(kind, a, o))
+    return part
+
+
+def plain_fns(**timers) -> dict:
+    """Every wrapper of the config 4 renders swapped for its plain version
+    (a LaunchTimer around it where timers names one)."""
+    from rs_pbrt_tpu_torch.ops import intersect_kernel as ik
+    from rs_pbrt_tpu_torch.ops import medium_kernel as mk
+    from rs_pbrt_tpu_torch.ops import sobol_kernel as sk
+
+    fns = dict(sobol_dims=sk.sobol_dims_plain, any_sweep=ik.any_sweep_plain,
+               full_sweep=ik.full_sweep_plain, delta_track=mk.delta_track_plain,
+               ratio_track=mk.ratio_track_plain)
+    return {k: timers.get(k, v) for k, v in fns.items()}
+
+
+def compare_plain(what: str, img, img_plain) -> float:
+    """Fails unless a render is within rtol = atol = TOL of its plain
+    render; returns the largest absolute difference."""
+    import torch
+
+    diff = (img - img_plain).abs()
+    err = float(diff.max())
+    if not torch.allclose(img, img_plain, rtol=TOL, atol=TOL):
+        off = float((diff > TOL + TOL * img_plain.abs()).any(-1).float().mean())
+        fail(f"{what} differs from the plain render by up to {err} ({100 * off:.3f}% of the "
+             "pixels)")
+    return err
+
+
+def phase_sss(card):
+    """Phase 17: BASELINE config 4 (tools/sss_scenes.sss_dragonette())
+    through render.render: volpath at 512 spp in batches of 2^22 paths after
+    a warm render of 8 spp (bench.py:288-306), its card's busy share over a
+    profiled render of 8 spp; volpath and path at 16 spp, every K1, K4 and
+    K5 launch and the image against their plain versions."""
+    import torch
+
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.tools import sss_scenes
+
+    t0 = time.perf_counter()
+    scene, camera = sss_scenes.sss_dragonette(SSS_RES, device=DEVICE)
+    host_s = time.perf_counter() - t0
+    depth = sss_scenes.CFG.max_depth
+    w, h = SSS_RES
+    lanes = sss_scenes.BENCH_LANES
+
+    def go(integrator, spp, stats=None, max_lanes=rdr.MAX_LANES):
+        c = sss_scenes.CFG._replace(integrator=integrator, spp=spp)
+        return rdr.render(scene, camera, c, smpl.make_sampler(smpl.SOBOL, spp, SSS_RES),
+                          max_lanes=max_lanes, stats=stats)
+
+    def launched(integrator, batches=1):
+        # volpath: 19 dims a bounce, 7 x 19 > 128, so one K1 launch a bounce
+        # and the camera's; each of its depth + 1 bounces a closest hit and 4
+        # probes (K5), NEE and the exit point's NEE (K4).  path: 15 x 6 dims
+        # in one launch; depth bounces and the emit-only pass
+        if integrator == "volpath":
+            return dict(sobol=(depth + 2) * batches, full_sweep=5 * (depth + 1) * batches,
+                        any_sweep=2 * (depth + 1) * batches)
+        return dict(sobol=2, full_sweep=5 * depth + 1, any_sweep=2 * depth)
+
+    warm = {}
+    go("volpath", SSS_WARM_SPP, warm, lanes)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    st = {}
+    zero_counts()
+    img = go("volpath", sss_scenes.BENCH_SPP, st, lanes)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = expect_counts(**launched("volpath", st["batches"]))
+    if counts != want:
+        fail(f"launch counts of the 512 spp config 4 render {counts}, expected {want}")
+    if tuple(img.shape) != (h, w, 3) or not torch.isfinite(img).all():
+        fail(f"config 4 image: shape {tuple(img.shape)}, finite {bool(torch.isfinite(img).all())}")
+    paths = w * h * sss_scenes.BENCH_SPP
+    print(f"[17 config 4] sss_dragonette {w}x{h}, volpath, depth {depth}, "
+          f"{sss_scenes.BENCH_SPP} spp: {paths} paths in {st['batches']} batches of up to "
+          f"{lanes}; launches {counts}; mean {float(img.mean()):.5f}; scene built in "
+          f"{host_s:.3f} s (host)", flush=True)
+    print(f"[17 config 4] {st['paths_per_s']:.6g} camera paths/s ({st['wall_s']:.3f} s after a "
+          f"warm render of {SSS_WARM_SPP} spp in {warm['wall_s']:.3f} s); peak device memory "
+          f"{peak / 2**30:.2f} GiB, {(peak - held) / min(paths, lanes):.1f} bytes a path of a "
+          f"batch; on {card}", flush=True)
+    prof = profile_render(lambda: go("volpath", SSS_WARM_SPP, max_lanes=lanes),
+                          f"17 profile, volpath {SSS_WARM_SPP} spp")
+    out = dict(bench=dict(counts=counts, paths_per_s=st["paths_per_s"], peak=peak,
+                          busy_ms=sum(r[0] for r in prof)))
+    for integrator in ("volpath", "path"):
+        tag = f"17 {integrator}"
+        rec = {k: LaunchTimer(wrapper(k), keep=True) for k in SWEEP_NAMES}
+        with ExitStack() as es:
+            patched(es, **rec)
+            torch.cuda.synchronize()
+            zero_counts()
+            img = go(integrator, SSS_CHECK_SPP)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        if counts != expect_counts(**launched(integrator)):
+            fail(f"launch counts of the {SSS_CHECK_SPP} spp {integrator} render {counts}, "
+                 f"expected {launched(integrator)}")
+        part = check_sweep_launches(tag, rec)
+        del rec
+        plain_t = {k: LaunchTimer(v) for k, v in plain_fns().items() if k in SWEEP_NAMES}
+        with ExitStack() as es:
+            patched(es, **plain_fns(**plain_t))
+            img_plain = go(integrator, SSS_CHECK_SPP)
+        torch.cuda.synchronize()
+        err = compare_plain(f"config 4 {integrator} image", img, img_plain)
+        for k in SWEEP_NAMES:
+            part[k]["plain_ms"] = plain_t[k].times_ms()
+        st = best_of_3(lambda stats: go(integrator, SSS_CHECK_SPP, stats))
+        print(f"[{tag}] {w}x{h}, {SSS_CHECK_SPP} spp, depth {depth}: finite, matches the plain "
+              f"render (max abs err {err:.3g}, mean {float(img.mean()):.5f}); launches {counts}; "
+              f"every K1 launch bit-equal, K4 equal, K5 within {TOL}; {st['paths_per_s']:.6g} "
+              f"camera paths/s (best of 3 warm renders, {1e3 * st['wall_s']:.3f} ms) on {card}",
+              flush=True)
+        for k, kid in (("sobol_dims", "K1"), ("full_sweep", "K5"), ("any_sweep", "K4")):
+            p = part[k]
+            print(f"[{tag}] {kid} per launch {sum(p['ms']) / len(p['ms']):.4f} ms (events, mean "
+                  f"of {len(p['ms'])}), bound {sum(max(b) for b in p['bound']) / len(p['bound']):.4f}"
+                  f" ms, plain {sum(p['plain_ms']) / len(p['plain_ms']):.3f} ms", flush=True)
+        out[integrator] = dict(part, counts=counts, paths_per_s=st["paths_per_s"])
+        del img, img_plain
+    return out
+
+
+def medium_bound_ms(key: str, args, work) -> tuple:
+    """Least time of one M1 or M2 launch on these inputs, as (bytes_ms,
+    operations_ms), from the plain version's work on the same inputs.
+    Bytes: each ray's inputs and outputs (M_RAY_BYTES, M_OUT_BYTES), the
+    distinct voxels the lookups read and the media's small tables, once.
+    Operations: M_FLOP per step and per lookup."""
+    import torch
+
+    n = args[7].shape[0]
+    voxels = (torch.unique(torch.cat(work["voxel_set"])).numel() if work.get("voxel_set")
+              else 0)
+    small = sum(a.numel() * 4 for a in args[1:5])
+    nbytes = n * (M_RAY_BYTES + M_OUT_BYTES[key]) + 4 * voxels + small
+    kind = "delta" if key == "delta_track" else "ratio"
+    flop = (work.get("steps", 0) * M_FLOP[f"{kind}_step"]
+            + work.get("lookups", 0) * M_FLOP[f"{kind}_lookup"])
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flop / FP32_FLOP_PER_S, voxels
+
+
+def check_medium(what: str, got, want) -> tuple:
+    """Fails unless an M1 or M2 launch matches its plain version: M1's
+    sampled equal, and every output bit-equal or, where not, within rtol =
+    atol = 1e-5 (the line says which).  Returns (largest absolute
+    difference, whether bit-equal)."""
+    import torch
+
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    if len(got) == 3 and not torch.equal(got[0], want[0]):
+        fail(f"{what}: sampled differs from the plain version on "
+             f"{int((got[0] != want[0]).sum())} rays")
+    floats = [(g, w_) for g, w_ in zip(got, want) if g.dtype == torch.float32]
+    if all(torch.equal(g, w_) for g, w_ in floats):
+        return 0.0, True
+    err = max(float((g - w_).abs().max()) for g, w_ in floats)
+    if not all(torch.allclose(g, w_, rtol=1e-5, atol=1e-5) for g, w_ in floats):
+        fail(f"{what}: differs from the plain version by up to {err}")
+    return err, False
+
+
+def phase_smoke(card):
+    """Phase 18: tools/sss_scenes.smoke_dragonette() (the camera in a
+    128^3 grid medium) through render.render with volpath at 200x200, 16
+    spp: every M1 and M2 launch against its plain version on the same
+    inputs, timed by events and queued beside its bound and the plain
+    version; every K1, K4 and K5 launch and the image against their plain
+    versions."""
+    import torch
+
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.ops import medium_kernel as mk
+    from rs_pbrt_tpu_torch.tools import sss_scenes
+
+    t0 = time.perf_counter()
+    scene, camera = sss_scenes.smoke_dragonette(SMOKE_GRID_RES, resolution=SSS_RES,
+                                                device=DEVICE)
+    host_s = time.perf_counter() - t0
+    cfg = sss_scenes.CFG._replace(spp=SSS_CHECK_SPP)
+    scfg = smpl.make_sampler(smpl.SOBOL, SSS_CHECK_SPP, SSS_RES)
+    depth, (w, h) = cfg.max_depth, SSS_RES
+    names = SWEEP_NAMES + ("delta_track", "ratio_track")
+
+    def go(stats=None):
+        return rdr.render(scene, camera, cfg, scfg, stats=stats)
+
+    go()  # warm
+    rec = {k: LaunchTimer(wrapper(k), keep=True) for k in names}
+    with ExitStack() as es:
+        patched(es, **rec)
+        torch.cuda.synchronize()
+        zero_counts()
+        img = go()
+        torch.cuda.synchronize()
+        counts = read_counts()
+    launched = dict(sobol=depth + 2, full_sweep=5 * (depth + 1), any_sweep=2 * (depth + 1),
+                    delta_track=depth + 1, ratio_track=depth + 1)
+    if counts != expect_counts(**launched):
+        fail(f"launch counts of the smoke render {counts}, expected {launched}")
+    if tuple(img.shape) != (h, w, 3) or not torch.isfinite(img).all():
+        fail(f"smoke image: shape {tuple(img.shape)}, finite {bool(torch.isfinite(img).all())}")
+    part = check_sweep_launches("18 smoke", rec)
+    for key, kid in (("delta_track", "M1"), ("ratio_track", "M2")):
+        plain = getattr(mk, f"{key}_plain")
+        p = part[key] = dict(ms=rec[key].times_ms(), device_ms=[], bound=[], max_abs_err=0.0,
+                             exact=True, voxels=[], steps=0, lookups=0)
+        for b, (_, a, kw, o) in enumerate(rec[key].calls):
+            work = {}
+            err, exact = check_medium(f"smoke {kid} launch {b}", o, plain(*a, work=work))
+            p["max_abs_err"] = max(p["max_abs_err"], err)
+            p["exact"] &= exact
+            bms, fms, voxels = medium_bound_ms(key, a, work)
+            p["bound"].append((bms, fms))
+            p["voxels"].append(voxels)
+            p["steps"] += work["steps"]
+            p["lookups"] += work["lookups"]
+            p["device_ms"].append(queued_ms(lambda a=a: getattr(mk, key)(*a), 3))
+    del rec
+    plain_t = {k: LaunchTimer(getattr(mk, f"{k}_plain")) for k in ("delta_track", "ratio_track")}
+    plain_t.update({k: LaunchTimer(v) for k, v in plain_fns().items() if k in SWEEP_NAMES})
+    with ExitStack() as es:
+        patched(es, **plain_fns(**plain_t))
+        img_plain = go()
+    torch.cuda.synchronize()
+    err = compare_plain("smoke image", img, img_plain)
+    for k in names:
+        part[k]["plain_ms"] = plain_t[k].times_ms()
+    st = best_of_3(go)
+    print(f"[18 smoke] smoke_dragonette {w}x{h}, a {SMOKE_GRID_RES}^3 grid (scene built in "
+          f"{host_s:.3f} s, host), volpath, {SSS_CHECK_SPP} spp, depth {depth}: finite, matches "
+          f"the plain render (max abs err {err:.3g}, mean {float(img.mean()):.5f}); launches "
+          f"{counts}; every K1 launch bit-equal, K4 equal, K5 within {TOL}; "
+          f"{st['paths_per_s']:.6g} camera paths/s (best of 3 warm renders, "
+          f"{1e3 * st['wall_s']:.3f} ms) on {card}", flush=True)
+    for key, kid in (("delta_track", "M1"), ("ratio_track", "M2")):
+        p = part[key]
+        n = len(p["ms"])
+        print(f"[18 {kid}] {n} launches of {w * h * SSS_CHECK_SPP} rays, every one against the "
+              + ("plain version: bit-equal" if p["exact"] else
+                 f"plain version: sampled equal, within rtol 1e-5 (max abs err "
+                 f"{p['max_abs_err']:.3g})")
+              + f"; {p['steps']} steps, {p['lookups']} lookups, distinct voxels per launch "
+              f"{p['voxels']}", flush=True)
+        print(f"[18 {kid}] per launch on the card {sum(p['device_ms']) / n:.4f} ms (queued), "
+              f"events {sum(p['ms']) / n:.4f} ms, bound {sum(max(b) for b in p['bound']) / n:.4f}"
+              f" ms (bytes {sum(b[0] for b in p['bound']) / n:.4f}, operations "
+              f"{sum(b[1] for b in p['bound']) / n:.4f}), plain "
+              f"{sum(p['plain_ms']) / n:.3f} ms; {kid} "
+              f"{100 * sum(p['ms']) / (1e3 * st['wall_s']):.2f}% of the render's wall time "
+              f"({card})", flush=True)
+    return dict(part, counts=counts, paths_per_s=st["paths_per_s"])
+
+
 def kernel_entry(name, source, replaces, launches, parts, max_abs_err, library_ms=None) -> dict:
     """One kernel's line of the `kernels` JSON: per-launch means over
     `parts`, dicts of per-launch lists ms, plain_ms and bound ((bytes_ms,
@@ -2235,7 +2549,11 @@ def main():
     later += list(glass.values())
     caustic = phase_sppm(card)
     later += [caustic["caustic_only"], caustic["caustic_hair"]]
-    more = lambda key: sum(p["counts"][key] for p in later)  # phases 10-12 and 14-16's launches
+    sss = phase_sss(card)
+    later += [sss["bench"], sss["volpath"], sss["path"]]
+    smoke = phase_smoke(card)
+    later.append(smoke)
+    more = lambda key: sum(p["counts"][key] for p in later)  # phases 10-12 and 14-18's launches
 
     k2 = flag["k2"]
     csrc, pallas = "rs_pbrt_tpu_torch/csrc/", "rs_pbrt_tpu/ops/pallas_intersect.py:"
@@ -2302,6 +2620,12 @@ def main():
         bit_equal=all(p["exact"] for p in parts) and d1024["exact"],
         deposit_1024={k: d1024[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "tested",
                                             "near")}))
+    # M1 and M2 replace the JAX package's XLA tracking loops; no one PyTorch
+    # call computes them
+    for key, line in (("delta_track", 57), ("ratio_track", 86)):
+        kernels.append(dict(kernel_entry(
+            key, csrc + "medium.cu", f"rs_pbrt_tpu/models/integrators/volpath.py:{line}",
+            more(key), [smoke[key]], smoke[key]["max_abs_err"]), bit_equal=smoke[key]["exact"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

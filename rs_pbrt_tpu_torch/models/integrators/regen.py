@@ -7,14 +7,16 @@ wavefront: Laine et al. 2013).  The fixed-depth loop traverses every lane at
 every bounce, dead or alive; here each iteration runs one vertex of every
 lane, each lane at its own bounce, and then refills the dead lanes with the
 next camera paths: a cumsum over the dead lanes ranks them, and the new
-paths' rays are gathered by path id.  Every lane reads its bounce's seven
-Sobol' dims from one table drawn for the whole batch, indexed by path id and
-bounce, so each path takes the same samples and the same arithmetic as in
-the fixed-depth loop, and the two agree per path.
+paths' rays are gathered by path id.  Every lane reads its bounce's Sobol'
+dims (seven, or 15 in a scene with subsurface materials) from one table
+drawn for the whole batch, indexed by path id and bounce, so each path
+takes the same samples and the same arithmetic as in the fixed-depth loop,
+and the two agree per path.
 
 Eligibility (``eligible``): the path integrator through a tree (the
-triangles' BVH or the curves' tree), the Sobol' sampler, every bounce's dims in one K1 launch (7 x max_depth <= 128), and
-more paths than one lane width.
+triangles' BVH or the curves' tree), the Sobol' sampler, every bounce's
+dims in one K1 launch (dims_per_bounce x max_depth <= 128, as the JAX
+regen.py:59-61 counts them), and more paths than one lane width.
 """
 
 from __future__ import annotations
@@ -28,8 +30,8 @@ from ...ops import sobol_kernel as sk
 from ...scene import arrays as sa
 from ...utils import vecmath as vm
 from .. import samplers as smpl
-from .path import (DIM_CAMERA, DIMS_PER_BOUNCE, PathCfg, _add_emitted, _dist_at,
-                   _shade_and_extend, check_supported)
+from .path import (DIM_CAMERA, PathCfg, _add_emitted, _dist_at, _light_select_dist,
+                   _shade_and_extend, check_supported, dims_per_bounce)
 
 # lanes in flight; a batch streams its paths through them.  Chosen on an
 # NVIDIA H100 at 700 W (rs_pbrt_tpu_torch/tools/regen_sweep.py, PERF.md):
@@ -47,7 +49,7 @@ def eligible(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg, accel,
     gives small scenes none), and with more paths than one lane width,
     below which nothing is refilled."""
     width = lane_width or REGEN_LANE_WIDTH
-    total = DIMS_PER_BOUNCE * cfg.max_depth
+    total = dims_per_bounce(scene) * cfg.max_depth
     return ((si.uses_bvh(scene, accel) or si.uses_curve_bvh(scene, accel)) and cfg.max_depth > 0 and sampler_cfg.kind == smpl.SOBOL
             and 0 < total <= sk.MAX_DIMS and n_paths > width)
 
@@ -72,14 +74,16 @@ def radiance_regen(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
     width = min(lane_width or REGEN_LANE_WIDTH, n)
     md = cfg.max_depth
     dist_at = _dist_at(scene, light_distrib)
-    # every path's bounce dims in one K1 launch, dims-major: (7 md, n), so a
-    # lane's dims of bounce b are rows 7b..7b+6 at its path id.  A refilled
-    # lane reads its new path's dims from this table and draws none, so
-    # every index K1 reads is one the batch's context made, and the
-    # context's promise of sample numbers below spp (frame_lt_spp), on
-    # which K1's exact index width rests, holds for every lane.
-    table = smpl.get_dims(sampler_cfg, ctx, DIM_CAMERA, DIMS_PER_BOUNCE * md).t().contiguous()
-    dim_rows = torch.arange(DIMS_PER_BOUNCE, dtype=torch.int64, device=dev)[None, :] * n
+    light_dist = _light_select_dist(scene) if scene.n_lights > 0 else None
+    dpb = dims_per_bounce(scene)
+    # every path's bounce dims in one K1 launch, dims-major: (dpb md, n), so
+    # a lane's dims of bounce b are rows dpb b .. dpb b + dpb - 1 at its path
+    # id.  A refilled lane reads its new path's dims from this table and
+    # draws none, so every index K1 reads is one the batch's context made,
+    # and the context's promise of sample numbers below spp (frame_lt_spp),
+    # on which K1's exact index width rests, holds for every lane.
+    table = smpl.get_dims(sampler_cfg, ctx, DIM_CAMERA, dpb * md).t().contiguous()
+    dim_rows = torch.arange(dpb, dtype=torch.int64, device=dev)[None, :] * n
     ray_o, ray_d = ray_o.contiguous(), ray_d.contiguous()
     inf = float(vm.INFINITY)
 
@@ -105,11 +109,12 @@ def radiance_regen(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
         # the vertex at max_depth only collects emission, as the fixed-depth
         # loop's last pass does
         at_limit = bounce >= md
-        rows = (torch.clamp(bounce, max=md - 1) * DIMS_PER_BOUNCE * n)[:, None] + dim_rows
+        rows = (torch.clamp(bounce, max=md - 1) * dpb * n)[:, None] + dim_rows
         dims = table.view(-1)[rows + torch.clamp(pid, min=0)[:, None]]
         o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf, eta_scale = _shade_and_extend(
             scene, cfg, accel, dist_at, dims, bounce, it,
-            (o, d, L, beta, alive & ~at_limit, specular_bounce, prev_bsdf_pdf, eta_scale))
+            (o, d, L, beta, alive & ~at_limit, specular_bounce, prev_bsdf_pdf, eta_scale),
+            light_dist)
         bounce = torch.where(alive, bounce + 1, bounce)
 
         # finished paths write their radiance; their lanes take the next ids

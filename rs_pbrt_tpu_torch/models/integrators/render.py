@@ -1,8 +1,9 @@
 """Render driver: samples -> camera rays -> integrator -> film.
 
 The port of the JAX package's ``models/integrators/render.py`` (reference
-src/core/integrator.rs:70-220) for the path, whitted, directlighting and
-sppm integrators; sppm runs its own progressive loop (``sppm.py``).  The pixel grid (the film's crop window, or the whole film) is
+src/core/integrator.rs:70-220) for the path, volpath, whitted,
+directlighting and sppm integrators; sppm runs its own progressive loop
+(``sppm.py``).  The pixel grid (the film's crop window, or the whole film) is
 one flat wavefront of (pixel, sample) lanes, ``nb`` ordered copies of the
 grid with x fastest, batched over samples per pixel.  Scenes above the
 brute-force limit render with their BVH (``accel``,
@@ -28,8 +29,9 @@ from . import direct as directmod
 from . import path as pathmod
 from . import regen as regenmod
 from . import sppm as sppmmod
+from . import volpath as volpathmod
 
-INTEGRATORS = ("path", "whitted", "directlighting", "sppm")
+INTEGRATORS = ("path", "volpath", "whitted", "directlighting", "sppm")
 # paths a batch at most, by default; sized by memory on an NVIDIA H100
 # 80GB (chip_smoke.py phase 12, PERF.md).  At depth 5 the regeneration loop
 # holds ~243 bytes a path (140 of hoisted dims, 24 of camera ray, 12 of
@@ -69,13 +71,18 @@ def radiance_fn(cfg: RenderCfg, mega: Optional[pk.MegaCfg] = None, accel=None,
     """Integrator dispatch (integrator.rs:31): (scene, sampler_cfg, ctx, o,
     d) -> (N, 3) radiance.  mega: the scene's MegaCfg for "path"; accel:
     the scene's BVH, passed down to scene intersection.  light_distrib,
-    regen and stats reach the path integrator only: the direct integrators
-    select lights as they do with every strategy, as in the JAX package."""
+    regen and stats reach the path integrator only: volpath and the direct
+    integrators select lights as they do with every strategy, as in the
+    JAX package."""
     if cfg.integrator == "path":
         pcfg = pathmod.PathCfg(cfg.max_depth, cfg.rr_threshold)
         return lambda scene, scfg, ctx, o, d: pathmod.radiance(
             scene, pcfg, scfg, ctx, o, d, mega=mega, accel=accel, light_distrib=light_distrib,
             regen=regen, stats=stats)
+    if cfg.integrator == "volpath":
+        vcfg = pathmod.PathCfg(cfg.max_depth, cfg.rr_threshold)
+        return lambda scene, scfg, ctx, o, d: volpathmod.radiance(scene, vcfg, scfg, ctx, o, d,
+                                                                   accel)
     if cfg.integrator == "whitted":
         wcfg = directmod.WhittedCfg(cfg.max_depth)
         return lambda scene, scfg, ctx, o, d: directmod.whitted_radiance(scene, wcfg, scfg, ctx,

@@ -1,9 +1,10 @@
-"""The BSDF of matte, mirror, glass and hair materials as batched
-tag-switched code.
+"""The BSDF of matte, mirror, glass, hair and subsurface materials as
+batched tag-switched code.
 
 The port of the JAX package's ``ops/bsdf.py`` for the lobes of the matte,
-mirror, glass and hair materials (reference src/core/reflection.rs,
-microfacet.rs, materials/matte.rs, mirror.rs, glass.rs and hair.rs):
+mirror, glass and hair materials, and the subsurface material's surface,
+which has glass's lobes (reference src/core/reflection.rs, microfacet.rs,
+materials/matte.rs, mirror.rs, glass.rs, hair.rs and subsurface.rs):
 Lambert, Oren-Nayar (matte with sigma > 0), perfect specular reflection,
 FresnelSpecular (smooth glass), TrowbridgeReitz microfacet reflection and
 transmission (rough glass) and the Marschner/Chiang hair lobe
@@ -44,7 +45,8 @@ LOBE_MICROFACET_REFL = 5  # MicrofacetReflection with a dielectric Fresnel term
 LOBE_HAIR = 10
 LOBE_MICROFACET_TRANS = 13  # MicrofacetTransmission (reflection.rs:1211)
 SPECULAR_LOBES = (LOBE_SPEC_REFL, LOBE_FRESNEL_SPEC)
-PORTED_MATERIALS = (1 << sa.MATTE) | (1 << sa.MIRROR) | (1 << sa.GLASS) | (1 << sa.HAIR)
+PORTED_MATERIALS = ((1 << sa.MATTE) | (1 << sa.MIRROR) | (1 << sa.GLASS) | (1 << sa.HAIR)
+                    | (1 << sa.SUBSURFACE))
 PI = math.pi
 
 
@@ -528,8 +530,8 @@ class BsdfSample(NamedTuple):
 def check_supported(scene: sa.Scene):
     """Raises NotImplementedError for materials the port cannot shade yet."""
     if scene.mat_kind_mask & ~PORTED_MATERIALS:
-        raise NotImplementedError("only the matte, mirror, glass and hair materials are ported "
-                                  "so far (ROADMAP queue A)")
+        raise NotImplementedError("only the subsurface, matte, mirror, glass and hair materials "
+                                  "are ported so far (ROADMAP queue A)")
     if scene.tex_slot_mask:
         raise NotImplementedError("textured material parameters are not ported yet "
                                   "(ROADMAP queue A)")
@@ -538,12 +540,12 @@ def check_supported(scene: sa.Scene):
 def make_bsdf(mat_type, params, uv=None, enable_hair: bool = True,
               enable_glass: bool = True, enable_microfacet: bool = True) -> Bsdf:
     """Material tags (N,) and parameter rows (N, N_MAT_PARAMS) -> Bsdf
-    (material.rs compute_scattering_functions for matte, mirror, glass and
-    hair).  uv (N, 2): the hits' coordinates, whose v gives a fibre's
+    (material.rs compute_scattering_functions for matte, mirror, glass,
+    hair and subsurface).  uv (N, 2): the hits' coordinates, whose v gives a fibre's
     offset h (0 without uv).  enable_hair / enable_glass /
-    enable_microfacet False: the scene has no hair / no glass / no rough
-    glass (those lobes' math is skipped; the tags still say which lobe a
-    lane has)."""
+    enable_microfacet False: the scene has no hair / no glass (nor
+    subsurface) / no rough glass (those lobes' math is skipped; the tags
+    still say which lobe a lane has)."""
     n = mat_type.shape[0]
     kd = params[:, sa.MP_KD:sa.MP_KD + 3]
     kr = params[:, sa.MP_KR:sa.MP_KR + 3]
@@ -572,8 +574,10 @@ def make_bsdf(mat_type, params, uv=None, enable_hair: bool = True,
     kind0 = torch.where(m & ~is_black(kr), LOBE_SPEC_REFL, kind0)
     r0 = torch.where(m[:, None], kr, r0)
     # glass (materials/glass.rs:107-205): FresnelSpecular when smooth, else
-    # microfacet reflection (kr) and transmission (kt)
-    m = mat_type == sa.GLASS
+    # microfacet reflection (kr) and transmission (kt); the subsurface
+    # material (materials/subsurface.rs) has the same surface lobes, its
+    # BSSRDF is the integrators' (path.sss_transport)
+    m = (mat_type == sa.GLASS) | (mat_type == sa.SUBSURFACE)
     smooth = (rough_u <= 0.0) & (rough_v <= 0.0)
     kind0 = torch.where(m & ~(~smooth & is_black(kr)),
                         torch.where(smooth, LOBE_FRESNEL_SPEC,
@@ -609,7 +613,8 @@ def make_bsdf_from_mat(scene: sa.Scene, mat, uv=None) -> Bsdf:
     return make_bsdf(torch.round(ma[:, sa.MA_TYPE]).to(torch.int32),
                      ma[:, sa.MA_PARAMS:sa.MA_PARAMS + sa.N_MAT_PARAMS],
                      uv if scene.has_hair else None, scene.has_hair,
-                     bool(scene.mat_kind_mask & (1 << sa.GLASS)), scene.has_rough_glass)
+                     bool(scene.mat_kind_mask & ((1 << sa.GLASS) | (1 << sa.SUBSURFACE))),
+                     scene.has_rough_glass)
 
 
 def make_bsdf_at(scene: sa.Scene, it) -> Bsdf:

@@ -3,9 +3,13 @@
 The layout (column constants) is the JAX package's ``scene/arrays.py``,
 kept here as the port's own copy.  The Scene holds only what the ported
 paths read: the packed triangle, quadric, material and light tables, the
-light-pick power and the per-light triangle-area CDF, plus the counts and
-feature flags that decide which route a scene may take
-(``ops/path_kernel.mega_cfg``) and which parts the port refuses.
+light-pick power and the per-light triangle-area CDF, the media (a
+homogeneous table and the density grids) and the subsurface materials'
+folded BSSRDF profiles, plus the counts and feature flags that decide
+which route a scene may take (``ops/path_kernel.mega_cfg``) and which
+parts the port refuses.  A primitive's media are its inside and outside
+medium ids, columns TA_MED_IN/OUT of tri_attr and SP_MED_IN/OUT of
+sph_attr (-1: vacuum).
 """
 
 from __future__ import annotations
@@ -194,6 +198,28 @@ class Scene:
     has_rough_glass: bool = False
     tex_slot_mask: int = 0
     mat_kind_mask: int = 1 << MATTE
+    # participating media (K >= 1 rows; a scene without media holds one
+    # unused row, as the JAX package's empty tables do): sigma_a, sigma_s
+    # (K, 3), the HG asymmetry g (K,), the density grids (K, D, H, W),
+    # padded with 0 to the largest (a homogeneous medium's grid is all
+    # ones), world to the unit medium cube (K, 4, 4) and each grid's
+    # largest density (K,), at least 1e-6
+    med_sigma_a: torch.Tensor = None
+    med_sigma_s: torch.Tensor = None
+    med_g: torch.Tensor = None
+    med_grid: torch.Tensor = None
+    med_w2m: torch.Tensor = None
+    med_max_density: torch.Tensor = None
+    camera_medium: int = -1  # the medium the camera sits in, -1 vacuum
+    has_grid: bool = False  # a grid wider than one voxel (the JAX volpath's _has_grid)
+    # subsurface materials' folded BSSRDF tables (ops/bssrdf.py), B rows
+    # indexed by the material's MP_BSSRDF: profile and cdf (B, 3, K),
+    # rho_eff and sigma_t (B, 3), eta (B,); None without such a material
+    bss_profile: torch.Tensor = None
+    bss_cdf: torch.Tensor = None
+    bss_rho_eff: torch.Tensor = None
+    bss_sigma_t: torch.Tensor = None
+    bss_eta: torch.Tensor = None
 
     @property
     def device(self) -> torch.device:
@@ -207,6 +233,8 @@ BRIDGE_FIELDS = (
     "world_radius", "tri_p0", "light_type", "sph_o2w", "sph_attr", "quad_kind_flag",
     "sphlight_flag", "qdlight_flag", "crv_attr", "inst_o2w", "anim_p0", "inf_radiance",
     "alpha_flag", "bss_profile", "hair_flag", "tex_slot_flag", "mat_kind_flag",
+    "bss_cdf", "bss_rho_eff", "bss_sigma_t", "bss_eta", "med_sigma_a", "med_sigma_s", "med_g",
+    "med_grid", "med_w2m", "med_max_density", "camera_medium",
 )
 
 
@@ -219,9 +247,31 @@ def type_mask(tags) -> int:
 
 
 def rough_glass(mat_attr: np.ndarray) -> bool:
-    """Whether any glass row of mat_attr (M, N_MAT_ATTR) has roughness."""
+    """Whether any glass or subsurface row of mat_attr (M, N_MAT_ATTR), the
+    materials with glass's surface lobes, has roughness."""
     rough = mat_attr[:, [MA_PARAMS + MP_ROUGH_U, MA_PARAMS + MP_ROUGH_V]].max(-1) > 0
-    return bool((np.rint(mat_attr[:, MA_TYPE]) == GLASS)[rough].any())
+    return bool(np.isin(np.rint(mat_attr[:, MA_TYPE]), (GLASS, SUBSURFACE))[rough].any())
+
+
+def media_fields(med_sigma_a, med_sigma_s, med_g, med_grid, med_w2m, med_max_density,
+                 camera_medium, device) -> dict:
+    """Scene's media fields from numpy tables laid out as the JAX package's
+    (K rows; a grid of (1, 1, 1) voxels is homogeneous)."""
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    grid = np.asarray(med_grid, np.float32)
+    return dict(med_sigma_a=f32(med_sigma_a), med_sigma_s=f32(med_sigma_s), med_g=f32(med_g),
+                med_grid=f32(grid), med_w2m=f32(med_w2m), med_max_density=f32(med_max_density),
+                camera_medium=int(camera_medium), has_grid=grid.shape[1:] != (1, 1, 1))
+
+
+def bssrdf_fields(profile, cdf, rho_eff, sigma_t, eta, device) -> dict:
+    """Scene's BSSRDF fields (and has_subsurface) from numpy tables, B rows;
+    None where B is 0."""
+    if np.shape(profile)[0] == 0:
+        return dict(has_subsurface=False)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    return dict(has_subsurface=True, bss_profile=f32(profile), bss_cdf=f32(cdf),
+                bss_rho_eff=f32(rho_eff), bss_sigma_t=f32(sigma_t), bss_eta=f32(eta))
 
 
 def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> Scene:
@@ -260,9 +310,13 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> Scene:
         n_anim_tris=n("anim_p0"),
         has_env=n("inf_radiance") > 1,
         has_alpha=n("alpha_flag") > 0,
-        has_subsurface=n("bss_profile") > 0,
         has_hair=n("hair_flag") > 0,
         has_rough_glass=rough_glass(np.asarray(arrays["mat_attr"], np.float32)),
         tex_slot_mask=n("tex_slot_flag"),
         mat_kind_mask=n("mat_kind_flag"),
+        **media_fields(*(arrays[k] for k in (
+            "med_sigma_a", "med_sigma_s", "med_g", "med_grid", "med_w2m", "med_max_density",
+            "camera_medium")), dev),
+        **bssrdf_fields(*(arrays[k] for k in (
+            "bss_profile", "bss_cdf", "bss_rho_eff", "bss_sigma_t", "bss_eta")), dev),
     )

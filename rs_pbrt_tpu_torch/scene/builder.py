@@ -1,16 +1,19 @@
 """Programmatic scene construction -> Scene of torch tensors.
 
 The port's reduced copy of the JAX package's ``scene/builder.py`` (reference
-api.rs make_* factories): matte, mirror, glass and hair materials, triangle
-meshes and spheres, either of them optionally emissive (diffuse area
-lights on a triangle range or on a sphere), cubic Bézier curves (flattened
-to segments at once, ``ops/curves.py``), and point, spot and distant
-lights, finalized into the packed tables of ``scene/arrays.py``.  ``finalize`` also does what the JAX
+api.rs make_* factories): matte, mirror, glass, hair and subsurface
+materials, triangle meshes and spheres, either of them optionally emissive
+(diffuse area lights on a triangle range or on a sphere) and either with a
+medium interface, cubic Bézier curves (flattened to segments at once,
+``ops/curves.py``), point, spot and distant lights, and homogeneous and
+density-grid media, finalized into the packed tables of
+``scene/arrays.py``.  ``finalize`` also does what the JAX
 ``arrays.finalize_scene`` does for such scenes: the world bound, the light
 parameters that depend on it, the per-light triangle-area CDF and the
-light-selection power.  Other shapes, materials and lights are not ported
-yet (ROADMAP); scenes that need them come from the JAX front ends through
-``arrays.scene_from_numpy``.
+light-selection power; it stacks the media's grids and the subsurface
+materials' folded BSSRDF tables as the JAX ``finalize`` does.  Other
+shapes, materials and lights are not ported yet (ROADMAP); scenes that
+need them come from the JAX front ends through ``arrays.scene_from_numpy``.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from ..device import resolve
 from ..models.lights import compute_light_power
+from ..ops import bssrdf as bss
 from ..ops import curves as cv
 from ..utils import transform as tr
 from . import arrays as sa
@@ -36,6 +40,9 @@ class SceneBuilder:
         # dicts: type, params, geom, tri_start, tri_end, shape_idx, tri_areas (spot_dir)
         self.lights = []
         self.curves = []  # (C_i, N_CURVE_ATTR) f32 segment rows per add_curve
+        self.bssrdfs = []  # per subsurface material, ops/bssrdf.make_material_tables' dict
+        self.media = []  # (sigma_a, sigma_s, g, grid or None, w2m) per medium
+        self.camera_medium = -1  # the medium the camera sits in; -1 vacuum
         self.add_matte(kd=(0.5, 0.5, 0.5))  # default material 0 (api.rs)
 
     def _add_material(self, mtype, kd=(0, 0, 0), kr=(0, 0, 0), kt=(0, 0, 0), sigma=0.0,
@@ -94,10 +101,49 @@ class SceneBuilder:
         return self._add_material(sa.HAIR, kd=kd, rough_u=beta_m, rough_v=beta_n, sigma=alpha,
                                   eta=eta, remap=False, opacity=(mode, 0.0, 0.0))
 
+    def add_subsurface(self, sigma_a=None, sigma_s=None, name=None, scale=1.0, eta=1.33, g=0.0,
+                       kr=(1.0,) * 3, kt=(1.0,) * 3, roughness=0.0, remap=True) -> int:
+        """Subsurface material (materials/subsurface.rs): glass's surface
+        lobes and a tabulated BSSRDF from the photon-beam-diffusion table
+        (core/bssrdf.rs:569-682), folded along rho into per-channel radius
+        profiles here (ops/bssrdf.make_material_tables).  sigma_a and
+        sigma_s default to the reference's (whole milk's coefficients); the
+        measured presets (``name``) are not ported yet."""
+        if name is not None:
+            raise NotImplementedError("measured subsurface presets are not ported yet "
+                                      "(ROADMAP A18)")
+        sigma_a = np.asarray((0.0011, 0.0024, 0.014) if sigma_a is None else sigma_a,
+                             np.float32) * scale
+        sigma_s = np.asarray((2.55, 3.21, 3.77) if sigma_s is None else sigma_s,
+                             np.float32) * scale
+        self.bssrdfs.append(bss.make_material_tables(sigma_a, sigma_s, g, eta))
+        mid = self._add_material(sa.SUBSURFACE, kr=kr, kt=kt, eta=eta, rough_u=roughness,
+                                 rough_v=roughness, remap=remap)
+        self.mats[mid][1][sa.MP_BSSRDF] = len(self.bssrdfs) - 1
+        return mid
+
+    def add_medium(self, sigma_a=(1.0,) * 3, sigma_s=(1.0,) * 3, g=0.0, scale=1.0,
+                   density_grid=None, medium_to_world: Optional[tr.Transform] = None) -> int:
+        """A homogeneous or density-grid medium (media/homogeneous.rs,
+        media/grid.rs, api.rs make_medium :953).  density_grid: (D, H, W)
+        densities; medium_to_world places the unit cube the grid spans.
+        Returns its id, for medium_interface= and camera_medium."""
+        grid = None
+        w2m = np.eye(4, dtype=np.float32)
+        if density_grid is not None:
+            grid = np.asarray(density_grid, np.float32)
+            if medium_to_world is not None:
+                w2m = np.asarray(medium_to_world.m_inv, np.float32)
+        self.media.append((np.asarray(sigma_a, np.float32) * scale,
+                           np.asarray(sigma_s, np.float32) * scale, float(g), grid, w2m))
+        return len(self.media) - 1
+
     def add_triangle_mesh(self, indices, positions, normals=None, uvs=None, material: int = 0,
-                          area_light=None, reverse_orientation: bool = False) -> int:
+                          area_light=None, reverse_orientation: bool = False,
+                          medium_interface=(-1, -1)) -> int:
         """World-space triangle mesh.  area_light: dict(L=(r,g,b),
         two_sided=bool, scale=(r,g,b)) makes every triangle emissive.
+        medium_interface: the (inside, outside) medium ids, -1 vacuum.
         Returns the light id, or -1."""
         idx = np.asarray(indices, np.int32).reshape(-1, 3)
         P = np.asarray(positions, np.float32).reshape(-1, 3)
@@ -127,18 +173,19 @@ class SceneBuilder:
         rows[:, sa.TA_MAT] = material
         rows[:, sa.TA_LIGHT] = light_id
         rows[:, sa.TA_REVERSE] = float(reverse_orientation)
-        rows[:, [sa.TA_MED_IN, sa.TA_MED_OUT, sa.TA_ALPHA, sa.TA_SALPHA]] = -1.0
+        rows[:, [sa.TA_MED_IN, sa.TA_MED_OUT]] = medium_interface
+        rows[:, [sa.TA_ALPHA, sa.TA_SALPHA]] = -1.0
         self.tri_blocks.append(rows)
         self.n_tri_rows += n_tri
         return light_id
 
     def add_sphere(self, object_to_world: Optional[tr.Transform] = None, radius=1.0, z_min=None,
                    z_max=None, phi_max=360.0, material: int = 0, area_light=None,
-                   reverse_orientation: bool = False) -> int:
+                   reverse_orientation: bool = False, medium_interface=(-1, -1)) -> int:
         """Analytic (partial) sphere (shapes/sphere.rs) in object space under
         object_to_world.  area_light: dict(L=(r,g,b), two_sided=bool,
-        scale=(r,g,b)) makes it a diffuse area light.  Returns the light id,
-        or -1."""
+        scale=(r,g,b)) makes it a diffuse area light.  medium_interface: the
+        (inside, outside) medium ids.  Returns the light id, or -1."""
         o2w = object_to_world or tr.identity()
         z_min = -radius if z_min is None else z_min
         z_max = radius if z_max is None else z_max
@@ -162,7 +209,7 @@ class SceneBuilder:
         row[sa.SP_MAT] = material
         row[sa.SP_LIGHT] = light_id
         row[sa.SP_REVERSE] = float(reverse_orientation)
-        row[[sa.SP_MED_IN, sa.SP_MED_OUT]] = -1.0
+        row[[sa.SP_MED_IN, sa.SP_MED_OUT]] = medium_interface
         row[sa.SP_KIND] = sa.QK_SPHERE
         self.sph_rows.append(row)
         return light_id
@@ -269,6 +316,43 @@ class SceneBuilder:
         center = 0.5 * (lo + hi)
         return center, float(np.linalg.norm(hi - center)) + 1e-6
 
+    def _media_tables(self) -> dict:
+        """The media's numpy tables as the JAX finalize stacks them: the
+        grids padded with 0 to the largest, a homogeneous medium's grid all
+        ones, max densities at least 1e-6; one unused row without media."""
+        if not self.media:
+            return dict(med_sigma_a=np.zeros((1, 3), np.float32),
+                        med_sigma_s=np.zeros((1, 3), np.float32), med_g=np.zeros(1, np.float32),
+                        med_grid=np.ones((1, 1, 1, 1), np.float32),
+                        med_w2m=np.eye(4, dtype=np.float32)[None],
+                        med_max_density=np.ones(1, np.float32), camera_medium=self.camera_medium)
+        grids = [m[3] for m in self.media]
+        dims = [(g.shape if g is not None else (1, 1, 1)) for g in grids]
+        D, H, W = (max(dd[k] for dd in dims) for k in range(3))
+        gstack = np.ones((len(self.media), D, H, W), np.float32)
+        maxd = np.ones(len(self.media), np.float32)
+        for i, g in enumerate(grids):
+            if g is not None:
+                gstack[i] = 0.0
+                gstack[i, :g.shape[0], :g.shape[1], :g.shape[2]] = g
+                maxd[i] = float(g.max())
+        return dict(med_sigma_a=np.stack([m[0] for m in self.media]),
+                    med_sigma_s=np.stack([m[1] for m in self.media]),
+                    med_g=np.asarray([m[2] for m in self.media], np.float32), med_grid=gstack,
+                    med_w2m=np.stack([m[4] for m in self.media]),
+                    med_max_density=np.maximum(maxd, 1e-6), camera_medium=self.camera_medium)
+
+    def _bssrdf_tables(self) -> tuple:
+        """(profile, cdf, rho_eff, sigma_t, eta) stacked over the subsurface
+        materials (0 rows without one)."""
+        t = self.bssrdfs
+        if not t:
+            return (np.zeros((0, 3, bss.N_RADIUS), np.float32),) * 2 + (np.zeros((0, 3)),) * 2 + (
+                np.zeros(0),)
+        return (np.stack([x["profile"] for x in t]), np.stack([x["cdf"] for x in t]),
+                np.stack([x["rho_eff"] for x in t]), np.stack([x["sigma_t"] for x in t]),
+                np.asarray([x["eta"] for x in t], np.float32))
+
     def finalize(self, device="cuda") -> sa.Scene:
         dev = resolve(device)
         n_tri, n_l, n_sph = self.n_tri_rows, len(self.lights), len(self.sph_rows)
@@ -328,4 +412,6 @@ class SceneBuilder:
             has_hair=any(m[0] == sa.HAIR for m in self.mats),
             has_rough_glass=sa.rough_glass(mat_attr),
             mat_kind_mask=sa.type_mask([m[0] for m in self.mats]),
+            **sa.media_fields(device=dev, **self._media_tables()),
+            **sa.bssrdf_fields(*self._bssrdf_tables(), dev),
         )

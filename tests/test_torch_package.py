@@ -25,7 +25,7 @@ from rs_pbrt_tpu_torch.scene import arrays as sa
 from rs_pbrt_tpu_torch.scene import bigscene
 from rs_pbrt_tpu_torch.scene import presets
 from rs_pbrt_tpu_torch.scene.builder import SceneBuilder
-from rs_pbrt_tpu_torch.tools import bvh_ties, caustic_scenes, hair_scenes
+from rs_pbrt_tpu_torch.tools import bvh_ties, caustic_scenes, hair_scenes, sss_scenes
 from rs_pbrt_tpu_torch.utils import transform as tr
 
 torch.set_num_threads(2)
@@ -56,7 +56,9 @@ def test_import_loads_no_jax():
             "rs_pbrt_tpu_torch.tools.probe_replay, rs_pbrt_tpu_torch.tools.regen_sweep, "
             "rs_pbrt_tpu_torch.models.lightdistrib, rs_pbrt_tpu_torch.models.integrators.sppm, "
             "rs_pbrt_tpu_torch.ops.sppm_kernel, rs_pbrt_tpu_torch.utils.rng, "
-            "rs_pbrt_tpu_torch.tools.caustic_scenes; "
+            "rs_pbrt_tpu_torch.tools.caustic_scenes, rs_pbrt_tpu_torch.ops.bssrdf, "
+            "rs_pbrt_tpu_torch.ops.medium, rs_pbrt_tpu_torch.ops.medium_kernel, "
+            "rs_pbrt_tpu_torch.models.integrators.volpath, rs_pbrt_tpu_torch.tools.sss_scenes; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'rs_pbrt_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
@@ -82,6 +84,8 @@ ENTRY_POINTS = {
     "hair_scenes.fur_patch": lambda: hair_scenes.fur_patch(4, resolution=(8, 8)),
     "caustic_scenes.caustic_only": lambda: caustic_scenes.caustic_only((8, 8)),
     "caustic_scenes.caustic_hair": lambda: caustic_scenes.caustic_hair((8, 8)),
+    "sss_scenes.sss_dragonette": lambda: sss_scenes.sss_dragonette((8, 8)),
+    "sss_scenes.smoke_dragonette": lambda: sss_scenes.smoke_dragonette(4, resolution=(8, 8)),
 }
 
 
