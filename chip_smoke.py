@@ -205,6 +205,33 @@ Run from the root of a checkout.  Phases, one line each (or more):
    plain version's steps, lookups and distinct voxels on the same inputs)
    and the plain version's time; K1, K4, K5 and the image as in phase 17.
 
+19. tools/env_scenes.quadric_env() (a ground disk, a cylinder clipped to
+   270 degrees, a mirror sphere and a box, an annulus and a thin cylinder
+   area light, a 1024x2048 sky map as the infinite light) through
+   render.render at 256x256, depth 5: path, directlighting ("all" and
+   "one") and whitted at 64 spp, ao (64 samples) and volpath at 16 spp,
+   SPPM of 4 iterations.  The counters are zeroed just before each render
+   and read just after: K1, K4 and K5 as each integrator draws and casts
+   (path: K1 2, K5 6, K4 5; SPPM also S1 once an iteration), K2 never
+   (mega_cfg refuses quadrics and an environment).  Each image finite and
+   within rtol = atol = 2e-3 of the render with every wrapper swapped for
+   its plain version; paths/s (SPPM rays/s) best of 3 warm renders and
+   the peak device memory of each; the device time by op and the busy
+   share over one path render, with the device time of the quadric tests
+   and records and of the sky's sampling, pdf and lookup on escape, each
+   timed in a profiler range around its function.  Then sample_distribution_2d at 2^22
+   lanes on the sky: its time a call and the most memory it holds above
+   its inputs (a row a lane would be 34 GB).
+20. tools/env_scenes.statue_env(): phase 9's statue and BVH (the same
+   triangles) under the sky, through render's defaults at 1024x1024, 16
+   spp (16.7M paths, regeneration through 2^21 lanes): K1 2, B1 = B2 =
+   the iterations, no stack overflow; paths/s, peak device memory, and
+   the busy share over a profiled render of 4 spp.  Then a 128x128 crop's
+   2^18 paths through the regeneration loop at 2^14 lanes, every path
+   within rtol 1e-5, atol 1e-6 of the fixed-depth loop's.  It runs right
+   after phase 10, so that phase 9's statue is freed before phase 11 and
+   no later phase's peak memory holds it.
+
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
 """
@@ -373,6 +400,22 @@ SMOKE_GRID_RES = 128  # phase 18: the smoke's (128, 128, 128) f32 grid, 8 MB
 # transforms it (24) and divides (3), finds its voxel (12), weighs and sums
 # 8 taps (35) and divides by the largest density (1); M2 adds its product
 # and its clamp (2)
+# phase 19: tools/env_scenes.quadric_env at BASELINE config 2's width
+ENV_RES = (256, 256)
+ENV_SKY_HW = (1024, 2048)  # the sky map (env_scenes.SKY_HW)
+# (tag, integrator, spp, extra); depth DEPTH; sppm's spp is its iterations
+ENV_RUNS = (("path", "path", 64, None),
+            ("directlighting all", "directlighting", 64, dict(strategy="all")),
+            ("directlighting one", "directlighting", 64, dict(strategy="one")),
+            ("whitted", "whitted", 64, None),
+            ("ao", "ao", 16, dict(n_samples=64)),  # the .pbrt default (api.rs make_integrator)
+            ("volpath", "volpath", 16, None),
+            ("sppm", "sppm", 4, dict(n_iterations=4)))
+SEARCH_LANES = 1 << 22  # phase 19: sample_distribution_2d's lanes on the 1024x2048 sky
+# phase 20: the statue under the sky through render's defaults (regeneration)
+STATUE_ENV_RES, STATUE_ENV_SPP = (1024, 1024), 16
+STATUE_ENV_PROFILE_SPP = 4  # the profiled render: 4M paths, above one lane width
+STATUE_ENV_CROP = (128, 128)  # with 16 spp, 2^18 paths against the fixed-depth loop
 M_FLOP = dict(delta_step=83, ratio_step=44, delta_lookup=81, ratio_lookup=83)
 M_RAY_BYTES = 4 + 1 + 12 + 12 + 4 + 4  # mid, in_med, o, d, t_max or dist, the lane key
 M_OUT_BYTES = dict(delta_track=1 + 4 + 12, ratio_track=4)  # sampled, t, weight; tr
@@ -744,27 +787,56 @@ def check_k2_launch(what, got, want) -> float:
     return err
 
 
-def profile_render(go, tag: str, top: int = 12):
+def _ranged(label: str, fn):
+    """fn inside a torch.profiler.record_function range named label."""
+    from torch.profiler import record_function
+
+    def run(*args, **kw):
+        with record_function(label):
+            return fn(*args, **kw)
+    return run
+
+
+def profile_render(go, tag: str, top: int = 12, ranges=None):
     """Device time by op over one warm render (torch.profiler), and the
-    device's busy share of that render's wall time."""
+    device's busy share of that render's wall time.  ranges maps a label
+    to (module, function name): that function runs in a record_function
+    range of the label for the render, and each label's device time (the
+    kernels launched inside the range) is printed beside the busy time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    ranges = ranges or {}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        go()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
+    with ExitStack() as stack:
+        for label, (module, name) in ranges.items():
+            stack.enter_context(mock.patch.object(module, name,
+                                                  _ranged(label, getattr(module, name))))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            go()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
     # device-side events only (kernels, copies): a CPU op's entry repeats
-    # the device time of the kernels it launched
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-            if "CUDA" in str(e.device_type) and e.self_device_time_total > 0]
+    # the device time of the kernels it launched, and a range's device-side
+    # entry spans its kernels and the gaps between them
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in events
+            if "CUDA" in str(e.device_type) and e.self_device_time_total > 0
+            and e.key not in ranges]
     busy = sum(r[0] for r in rows)
     print(f"[{tag}] device busy {busy:.3f} ms of a {wall_ms:.3f} ms profiled render "
           f"({100 * busy / wall_ms:.1f}%); {len(rows)} device ops, the top {top}:", flush=True)
     for ms, count, key in sorted(rows, reverse=True)[:top]:
         print(f"[{tag}]   {ms:9.3f} ms {count:6d}x  {key[:90]}")
+    for label, (module, name) in ranges.items():
+        hits = [e for e in events if e.key == label and "CPU" in str(e.device_type)]
+        ms = sum(e.device_time_total for e in hits) / 1e3
+        calls = sum(e.count for e in hits)
+        share = 100 * ms / max(busy, 1e-9)
+        print(f"[{tag}]   range {label!r} ({module.__name__.rsplit('.', 1)[-1]}.{name}): "
+              f"{ms:.3f} ms of device time in {calls} calls, {share:.1f}% of the busy time",
+              flush=True)
     return rows
 
 
@@ -2495,6 +2567,212 @@ def phase_smoke(card):
     return dict(part, counts=counts, paths_per_s=st["paths_per_s"])
 
 
+def _env_counts(tag: str, spp: int, n_lights: int) -> dict:
+    """Phase 19's launch counts of a quadric_env render of one batch at
+    depth DEPTH: K1 for the camera and the integrator's dims, K5 a closest
+    hit, K4 a shadow ray (a light sample, or an ao sample), S1 once an SPPM
+    iteration; nothing else (K2's mega_cfg refuses quadrics and an
+    environment)."""
+    if tag == "path":  # the bounce dims of every bounce in one launch
+        return dict(sobol=2, full_sweep=DEPTH + 1, any_sweep=DEPTH)
+    if tag == "volpath":  # 11 dims a bounce x 6 bounces in one launch
+        return dict(sobol=2, full_sweep=DEPTH + 1, any_sweep=DEPTH + 1)
+    if tag == "ao":  # 64 samples' 128 dims in one launch
+        return dict(sobol=2, full_sweep=1, any_sweep=64)
+    if tag == "sppm":  # each iteration: camera dims and a block a depth;
+        # camera and photon closest hits; one light's shadow ray a depth
+        return dict(sobol=spp * (1 + DEPTH), full_sweep=2 * DEPTH * spp,
+                    any_sweep=DEPTH * spp, sppm_deposit=spp)
+    return dict(sobol=1 + DEPTH, full_sweep=DEPTH,
+                any_sweep=DEPTH * (1 if tag == "directlighting one" else n_lights))
+
+
+def phase_env(card):
+    """Phase 19: tools/env_scenes.quadric_env() at 256x256 through
+    render.render with each integrator (ENV_RUNS), each against its render
+    with every wrapper swapped for its plain version; the 2-D search of the
+    1024x2048 sky at 2^22 lanes."""
+    import torch
+
+    from rs_pbrt_tpu_torch.models import lights as lt
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.ops import sampling as smp
+    from rs_pbrt_tpu_torch.ops import scene_intersect as si
+    from rs_pbrt_tpu_torch.ops import sppm_kernel as sd
+    from rs_pbrt_tpu_torch.tools import env_scenes
+
+    t0 = time.perf_counter()
+    scene, camera = env_scenes.quadric_env(ENV_RES, sky_hw=ENV_SKY_HW, device=DEVICE)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    w, h = ENV_RES
+    print(f"[19 quadric_env] {scene.n_tris} triangles, {scene.n_spheres} quadrics (kinds mask "
+          f"{scene.quad_kind_mask}), {scene.n_lights} lights, a {ENV_SKY_HW[0]}x{ENV_SKY_HW[1]} "
+          f"sky; built with its importance tables in {host_s:.3f} s", flush=True)
+    plain = dict(plain_fns(), deposit=sd.deposit_plain)
+    out = {}
+    for tag, integrator, spp, extra in ENV_RUNS:
+        cfg = rdr.RenderCfg(integrator, spp, DEPTH, 1.0, extra=extra)
+        scfg = smpl.make_sampler(smpl.SOBOL, 1 if integrator == "sppm" else spp, ENV_RES)
+        go = lambda stats=None: rdr.render(scene, camera, cfg, scfg, stats=stats)
+        go()  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        zero_counts()
+        img = go()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = expect_counts(**_env_counts(tag, spp, scene.n_lights))
+        if counts != want:
+            fail(f"launch counts of the quadric_env {tag} render {counts}, expected {want}")
+        if tuple(img.shape) != (h, w, 3) or not torch.isfinite(img).all():
+            fail(f"quadric_env {tag} image: shape {tuple(img.shape)}, finite "
+                 f"{bool(torch.isfinite(img).all())}")
+        with ExitStack() as es:
+            patched(es, **plain)
+            img_plain = go()
+        torch.cuda.synchronize()
+        err = compare_plain(f"quadric_env {tag} image", img, img_plain)
+        del img_plain
+        st = best_of_3(go)
+        unit = "SPPM rays/s (w h iterations 2)" if integrator == "sppm" else "camera paths/s"
+        rate = (w * h * spp * 2 / st["wall_s"] if integrator == "sppm" else st["paths_per_s"])
+        print(f"[19 {tag}] {w}x{h}, {spp} {'iterations' if integrator == 'sppm' else 'spp'}, "
+              f"depth {DEPTH}: finite, matches the plain render (max abs err {err:.3g}, mean "
+              f"{float(img.mean()):.5f}); launches {counts}; {rate:.6g} {unit} (best of 3 warm "
+              f"renders, {1e3 * st['wall_s']:.3f} ms); peak device memory "
+              f"{peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} GiB above the scene) on "
+              f"{card}", flush=True)
+        out[tag] = dict(counts=counts, rate=rate, peak=peak)
+        if tag == "path":
+            prof = profile_render(go, "19 profile, path", ranges={
+                "quadric tests": (si, "sphere_hits"),
+                "quadric records": (si, "sphere_interaction"),
+                "sky sample": (lt, "_env_sample"),
+                "sky pdf": (lt, "pdf_li_env"),
+                "sky on escape": (lt, "env_le")})
+            out[tag]["busy_ms"] = sum(r[0] for r in prof)
+        del img
+    # the sky's importance search at 2^22 lanes: no lane copies a row
+    dist = scene.inf_dist
+    u = torch.rand((SEARCH_LANES, 2), device=DEVICE, generator=torch.Generator(DEVICE)
+                   .manual_seed(19))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ms = cuda_ms(lambda: smp.sample_distribution_2d(dist, u), 5)
+    extra_bytes = torch.cuda.max_memory_allocated() - held
+    row_bytes = SEARCH_LANES * dist.cond_cdf.shape[1] * 4
+    print(f"[19 search] sample_distribution_2d at {SEARCH_LANES} lanes on the "
+          f"{dist.cond_func.shape[0]}x{dist.cond_func.shape[1]} sky: {ms:.3f} ms a call (events, "
+          f"mean of 5 after a warm call); it holds at most {extra_bytes / 2**20:.1f} MiB above "
+          f"its inputs ({extra_bytes / SEARCH_LANES:.1f} bytes a lane; a row a lane would be "
+          f"{row_bytes / 2**30:.1f} GiB) on {card}", flush=True)
+    if extra_bytes >= row_bytes / 16:
+        fail(f"the 2-D search held {extra_bytes} bytes at {SEARCH_LANES} lanes")
+    out["search"] = dict(counts=expect_counts(), ms=ms, bytes=extra_bytes)
+    return out
+
+
+def phase_statue_env(card, statue):
+    """Phase 20: tools/env_scenes.statue_env() (phase 9's statue and BVH
+    under the sky) through render's defaults at 1024x1024, 16 spp
+    (regeneration); then 2^18 paths of a crop through the regeneration loop
+    against the fixed-depth loop, per path."""
+    import torch
+
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import path as pathmod
+    from rs_pbrt_tpu_torch.models.integrators import regen
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.ops import bvh
+    from rs_pbrt_tpu_torch.tools import env_scenes
+
+    t0 = time.perf_counter()
+    scene, camera = env_scenes.statue_env(STATUE_ENV_RES, STATUE_SUBDIV, sky_hw=ENV_SKY_HW,
+                                          device=DEVICE)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    # the triangles are phase 9's, so its BVH serves
+    if not torch.equal(scene.tri_attr, statue["scene"].tri_attr):
+        fail("statue_env's triangles differ from phase 9's statue")
+    accel = statue["accel"]
+    print(f"[20 statue_env] {scene.n_tris} triangles (phase 9's BVH), {scene.n_lights} lights, a "
+          f"{ENV_SKY_HW[0]}x{ENV_SKY_HW[1]} sky; scene built in {host_s:.3f} s (host)",
+          flush=True)
+    cfg = rdr.RenderCfg("path", STATUE_ENV_SPP, DEPTH, 1.0)
+    scfg = smpl.make_sampler(smpl.SOBOL, STATUE_ENV_SPP, STATUE_ENV_RES)
+    w, h = STATUE_ENV_RES
+    paths = w * h * STATUE_ENV_SPP
+    go = lambda c=cfg, stats=None: rdr.render(scene, camera, c, scfg, accel=accel, stats=stats)
+    go(cfg._replace(spp=1))  # warm
+    overflow = bvh.overflow_counter(DEVICE)
+    overflow.zero_()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    st = {}
+    zero_counts()
+    img = go(stats=st)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not st["lane_width"]:
+        fail("the statue_env render did not take the regeneration loop")
+    want = expect_counts(sobol=2 * st["batches"], bvh12_closest=st["iterations"],
+                         bvh12_any=st["iterations"])
+    if counts != want:
+        fail(f"launch counts of the statue_env render {counts}, expected {want}")
+    if int(overflow.item()):
+        fail(f"the BVH traversal stack overflowed {int(overflow.item())} times under the sky")
+    if tuple(img.shape) != (h, w, 3) or not torch.isfinite(img).all():
+        fail(f"statue_env image: shape {tuple(img.shape)}, finite "
+             f"{bool(torch.isfinite(img).all())}")
+    print(f"[20 statue_env] {w}x{h}, {STATUE_ENV_SPP} spp, depth {DEPTH}, {paths} paths through "
+          f"{st['lane_width']} lanes, {st['iterations']} iterations; launches {counts}; stack "
+          f"overflows 0; mean {float(img.mean()):.5f}; {st['paths_per_s']:.6g} camera paths/s "
+          f"({st['wall_s']:.3f} s, after a warm render of 1 spp); peak device memory "
+          f"{peak / 2**30:.2f} GiB ({(peak - held) / paths:.1f} bytes a path above the scene) "
+          f"on {card}", flush=True)
+    del img
+    prof = profile_render(lambda: go(cfg._replace(spp=STATUE_ENV_PROFILE_SPP)),
+                          f"20 profile, {STATUE_ENV_PROFILE_SPP} spp (regeneration)")
+    # a crop's paths: the regeneration loop per path against the fixed-depth loop
+    cw, ch = STATUE_ENV_CROP
+    rect = ((h - ch) // 2, ch, (w - cw) // 2, cw)
+    ctx, rays = rdr.camera_rays(camera, scfg, 0, STATUE_ENV_SPP, rect)
+    pcfg = pathmod.PathCfg(DEPTH, 1.0)
+    n = rays.o.shape[0]
+    rst = {}
+    overflow.zero_()
+    zero_counts()
+    L = regen.radiance_regen(scene, pcfg, scfg, ctx, rays.o, rays.d, accel,
+                             lane_width=REGEN_CHECK_WIDTH, stats=rst)
+    torch.cuda.synchronize()
+    crop_counts = read_counts()
+    n_it = rst["iterations"]
+    if crop_counts != expect_counts(sobol=1, bvh12_closest=n_it, bvh12_any=n_it):
+        fail(f"launch counts of the statue_env regeneration check {crop_counts}")
+    L_fixed = pathmod.general_radiance(scene, pcfg, scfg, ctx, rays.o, rays.d, accel)
+    torch.cuda.synchronize()
+    fixed_counts = read_counts()
+    path_err = float((L - L_fixed).abs().max())
+    if int(overflow.item()) or not torch.isfinite(L).all():
+        fail("the statue_env regeneration check overflowed its stack or is not finite")
+    if not torch.allclose(L, L_fixed, rtol=1e-5, atol=1e-6):
+        fail(f"statue_env: the regeneration loop's radiance differs from the fixed-depth loop's "
+             f"by up to {path_err}")
+    print(f"[20 regen] {n} paths of a {cw}x{ch} crop through {REGEN_CHECK_WIDTH} lanes: {n_it} "
+          f"iterations; every path equals the fixed-depth loop's at rtol 1e-5, atol 1e-6 (max "
+          f"abs err {path_err:.3g}, {int(torch.equal(L, L_fixed))} bit-equal); stack overflows 0",
+          flush=True)
+    # the render's launches and the regeneration check's (both loops)
+    return dict(counts={k: counts[k] + fixed_counts[k] for k in counts},
+                paths_per_s=st["paths_per_s"], peak=peak, busy_ms=sum(r[0] for r in prof))
+
+
 def kernel_entry(name, source, replaces, launches, parts, max_abs_err, library_ms=None) -> dict:
     """One kernel's line of the `kernels` JSON: per-launch means over
     `parts`, dicts of per-launch lists ms, plain_ms and bound ((bytes_ms,
@@ -2539,7 +2817,9 @@ def main():
     probe = phase_probe(card)
     statue = phase_statue(card)
     later = [phase_regen_check(card, statue)]
-    del statue["scene"], statue["camera"], statue["accel"]
+    # phase 20 reuses phase 9's statue and BVH, which go before phase 11
+    later.append(phase_statue_env(card, statue))
+    del statue["camera"], statue["scene"], statue["accel"]
     later += list(phase_spatial_crop(card).values())
     later.append(phase_full_statue(card))
     curves = phase_curves(card)
@@ -2553,7 +2833,8 @@ def main():
     later += [sss["bench"], sss["volpath"], sss["path"]]
     smoke = phase_smoke(card)
     later.append(smoke)
-    more = lambda key: sum(p["counts"][key] for p in later)  # phases 10-12 and 14-18's launches
+    later += list(phase_env(card).values())
+    more = lambda key: sum(p["counts"][key] for p in later)  # phases 10-12 and 14-20's launches
 
     k2 = flag["k2"]
     csrc, pallas = "rs_pbrt_tpu_torch/csrc/", "rs_pbrt_tpu/ops/pallas_intersect.py:"

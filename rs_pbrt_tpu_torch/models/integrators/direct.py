@@ -1,18 +1,22 @@
-"""The direct-lighting estimators and the whitted and directlighting
+"""The direct-lighting estimators and the whitted, directlighting and ao
 integrators.
 
 The port of the JAX package's ``models/integrators/direct.py`` (reference
-src/integrators/whitted.rs, directlighting.rs and the estimators of
+src/integrators/whitted.rs, directlighting.rs, ao.rs and the estimators of
 src/core/integrator.rs:300-570) for the scenes the port can intersect,
-shade and light: triangles, spheres and curves, matte, mirror, glass and
-hair materials, area, point, spot and distant lights.  The specular
-continuation follows the sampled lobe: a mirror's reflection, or smooth
-glass's reflection or transmission as Fresnel picks it (whitted.rs's
-specular_reflect and specular_transmit).  Each depth intersects through K5 (``scene_intersect``), casts
-one shadow ray per light sample through K4 (``scene_intersect_p``) and
-draws its integrator dims in one K1 launch (``samplers.with_dims``); the
-rest is plain PyTorch.  Scenes with a BVH (``accel``) intersect through
-B1 and B2 instead of K5 and K4.  The ao integrator is not ported yet.
+shade and light: triangles, quadrics and curves, matte, mirror, glass and
+hair materials, area, point, spot, distant and infinite lights.  The
+specular continuation follows the sampled lobe: a mirror's reflection, or
+smooth glass's reflection or transmission as Fresnel picks it (whitted.rs's
+specular_reflect and specular_transmit).  Each depth intersects through K5
+(``scene_intersect``), casts one shadow ray per light sample through K4
+(``scene_intersect_p``) and draws its integrator dims in one K1 launch
+(``samplers.with_dims``); the rest is plain PyTorch.  Scenes with a BVH
+(``accel``) intersect through B1 and B2 instead of K5 and K4.  A ray that
+escapes collects the infinite light's radiance.  As in the JAX package,
+directlighting's estimator has only the light-sampling half (no
+BSDF-sampled MIS half).  The ao integrator casts one closest hit a camera
+ray and then its shadow rays (K4, or B2).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 from ...ops import bsdf as bx
 from ...ops import sampling as smp
 from ...ops import scene_intersect as si
+from ...ops import sobol_kernel as sk
 from ...scene import arrays as sa
 from ...utils import vecmath as vm
 from .. import lights as lt
@@ -94,18 +99,17 @@ class DirectLightingCfg(NamedTuple):
 
 def check_supported(scene: sa.Scene, accel=None):
     """Raises NotImplementedError for what these integrators cannot render
-    yet: the intersection, material and light checks, and environment light."""
+    yet: the intersection, material and light checks."""
     si.check_supported(scene, accel)
     bx.check_supported(scene)
     lt.check_supported(scene)
-    if scene.has_env:
-        raise NotImplementedError("environment lights are not ported yet (ROADMAP queue A)")
 
 
 def _direct_radiance(scene, max_depth, sample_all, cfg_s, ctx, ray_o, ray_d, accel=None):
     """The loop whitted.rs and directlighting.rs share: at each depth the
-    emission of a hit light, direct light at the hit (every light, or one
-    by power), then the specular continuation only."""
+    emission of a hit light or of the infinite light where the ray escapes,
+    direct light at the hit (every light, or one by power), then the
+    specular continuation only."""
     check_supported(scene, accel)
     n = ray_o.shape[0]
     dev = ray_o.device
@@ -123,6 +127,9 @@ def _direct_radiance(scene, max_depth, sample_all, cfg_s, ctx, ray_o, ray_d, acc
             hl = torch.where(it.valid & alive, it.light, -1)
             le = lt.area_light_emitted(scene, torch.clamp(hl, min=0), it.ns, it.wo)
             L = L + torch.where((hl >= 0)[:, None], beta * le, 0.0)
+        if scene.has_env:
+            # the infinite light along a ray that escapes, unweighted
+            L = L + torch.where((alive & ~it.valid)[:, None], beta * lt.env_le(scene, d), 0.0)
         alive = alive & it.valid
 
         b = bx.make_bsdf_at(scene, it)
@@ -163,3 +170,41 @@ def directlighting_radiance(scene, dcfg: DirectLightingCfg, cfg_s, ctx, ray_o, r
     """DirectLighting (directlighting.rs) with the "all" or "one" strategy."""
     return _direct_radiance(scene, dcfg.max_depth, dcfg.sample_all, cfg_s, ctx, ray_o, ray_d,
                             accel)
+
+
+class AOCfg(NamedTuple):
+    n_samples: int  # shadow rays a camera ray
+    cos_sample: bool  # cosine-weighted directions, else uniform on the hemisphere
+
+
+def ao_radiance(scene, acfg: AOCfg, cfg_s, ctx, ray_o, ray_d, accel=None):
+    """Ambient occlusion (ao.rs): at the camera ray's hit, n_samples
+    directions on the hemisphere of the geometric normal faced toward the
+    ray (sample s from dims DIM_CAMERA + 2s and + 2s + 1), each shadow ray
+    unbounded, adding dot(wi, n) / pdf where it escapes: no 1/pi, so an
+    open plane gives pi (ao.rs:94).  The dims are drawn in launches of at
+    most sobol_kernel.MAX_DIMS.  -> (N, 3), the value on every channel."""
+    check_supported(scene, accel)
+    n, dev = ray_o.shape[0], ray_o.device
+    inf = torch.full((n,), float(vm.INFINITY), device=dev)
+    it = si.scene_intersect(scene, ray_o.contiguous(), ray_d.contiguous(), inf, accel)
+    nf = vm.face_forward(it.ng, -ray_d)
+    ss, ts = vm.coordinate_system(nf)
+    n_dims = 2 * acfg.n_samples
+    dims = torch.cat([smpl.get_dims(cfg_s, ctx, DIM_CAMERA + k, min(sk.MAX_DIMS, n_dims - k))
+                      for k in range(0, n_dims, sk.MAX_DIMS)], 1)
+    acc = torch.zeros(n, device=dev)
+    for s in range(acfg.n_samples):
+        u = dims[:, 2 * s:2 * s + 2]
+        if acfg.cos_sample:
+            wi_l = smp.cosine_sample_hemisphere(u)
+            pdf = smp.cosine_hemisphere_pdf(wi_l[:, 2].abs())
+        else:
+            wi_l = smp.uniform_sample_hemisphere(u)
+            pdf = torch.full((n,), smp.UNIFORM_HEMISPHERE_PDF, device=dev)
+        wi = _to_world(wi_l, ss, ts, nf)
+        o = vm.offset_ray_origin(it.p, it.p_error, nf, wi)
+        occ = si.scene_intersect_p(scene, o, wi, inf, accel)
+        acc = acc + torch.where((pdf > 0.0) & ~occ & it.valid,
+                                vm.dot(wi, nf) / torch.clamp(pdf, min=1e-9), 0.0)
+    return (acc / acfg.n_samples)[:, None].expand(-1, 3).contiguous()

@@ -19,8 +19,9 @@ bounce off a subsurface material, ``sss_transport`` (path.py:86-269 of the
 JAX package, shared with ``volpath.py``) samples the exit point of the
 BSSRDF by a probe chain of SSS_PROBE_HITS closest hits and continues the
 path from there; a scene with subsurface materials draws 7 + 8 dims a
-bounce.  Environment lights, bump maps and ray differentials are not
-ported yet.
+bounce.  A ray that escapes collects the infinite light's radiance,
+MIS-weighted against its light sampling.  Bump maps and ray differentials
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -96,8 +97,6 @@ def check_supported(scene: sa.Scene, sampler_cfg: smpl.SamplerCfg, accel=None):
     si.check_supported(scene, accel)
     bx.check_supported(scene)
     lt.check_supported(scene)
-    if scene.has_env:
-        raise NotImplementedError("environment lights are not ported yet (ROADMAP queue A)")
     if sampler_cfg.kind not in smpl.PORTED_SAMPLERS:
         raise NotImplementedError(f"sampler kind {sampler_cfg.kind} is not ported yet")
 
@@ -240,19 +239,27 @@ def sss_transport(scene: sa.Scene, accel, it, bs, ss, ts, beta, L, alive, o, d, 
     return L, beta, o, d, alive, specular_bounce, prev_bsdf_pdf
 
 
-def _add_emitted(scene, dist_at, it, o, L, beta, alive, specular_bounce, prev_bsdf_pdf):
-    """Emitted radiance at a hit, MIS-weighted against light sampling from
-    the previous vertex o (path.rs:97-116)."""
-    if scene.n_lights == 0:
-        return L
-    hit_light = torch.where(it.valid & alive, it.light, -1)
-    light = torch.clamp(hit_light, min=0)
-    le = lt.area_light_emitted(scene, light, it.ns, it.wo)
-    le = torch.where((hit_light >= 0)[:, None], le, 0.0)
-    light_pdf = (smp.distribution_1d_discrete_pdf(dist_at(o), light)
-                 * lt.pdf_li_area(scene, light, o, it.p, it.ns))
-    w_bsdf = torch.where(specular_bounce, 1.0, smp.power_heuristic(prev_bsdf_pdf, light_pdf))
-    return L + beta * le * w_bsdf[:, None]
+def _add_emitted(scene, dist_at, it, o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf):
+    """Emitted radiance at a hit, and the infinite light's along rays d that
+    escape, each MIS-weighted against light sampling from the previous
+    vertex o (path.rs:97-116)."""
+    if scene.n_lights > 0:
+        hit_light = torch.where(it.valid & alive, it.light, -1)
+        light = torch.clamp(hit_light, min=0)
+        le = lt.area_light_emitted(scene, light, it.ns, it.wo)
+        le = torch.where((hit_light >= 0)[:, None], le, 0.0)
+        light_pdf = (smp.distribution_1d_discrete_pdf(dist_at(o), light)
+                     * lt.pdf_li_area(scene, light, o, it.p, it.ns))
+        w_bsdf = torch.where(specular_bounce, 1.0, smp.power_heuristic(prev_bsdf_pdf, light_pdf))
+        L = L + beta * le * w_bsdf[:, None]
+    if scene.has_env:
+        escaped = alive & ~it.valid
+        env = torch.full_like(it.light, scene.env_light)
+        env_pdf = (smp.distribution_1d_discrete_pdf(dist_at(o), env)
+                   * lt.pdf_li_env(scene, d))
+        w_env = torch.where(specular_bounce, 1.0, smp.power_heuristic(prev_bsdf_pdf, env_pdf))
+        L = L + torch.where(escaped[:, None], beta * lt.env_le(scene, d) * w_env[:, None], 0.0)
+    return L
 
 
 def _shade_and_extend(scene, cfg: PathCfg, accel, dist_at, dims, bounce, it, state,
@@ -352,7 +359,8 @@ def general_radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg
     for bounce in range(cfg.max_depth):
         # dead lanes cast with t_max = -1, which the traversal ends at once
         it = si.scene_intersect(scene, o, d, torch.where(alive, inf, -1.0), accel)
-        L = _add_emitted(scene, dist_at, it, o, L, beta, alive, specular_bounce, prev_bsdf_pdf)
+        L = _add_emitted(scene, dist_at, it, o, d, L, beta, alive, specular_bounce,
+                         prev_bsdf_pdf)
         alive = alive & it.valid
         k0 = bounce * dpb
         dims = (all_dims[:, k0:k0 + dpb] if all_dims is not None else
@@ -362,7 +370,8 @@ def general_radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg
             (o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf, eta_scale), light_dist)
     # the last vertex only collects emission
     it = si.scene_intersect(scene, o, d, torch.where(alive, inf, -1.0), accel)
-    return _add_emitted(scene, dist_at, it, o, L, beta, alive, specular_bounce, prev_bsdf_pdf)
+    return _add_emitted(scene, dist_at, it, o, d, L, beta, alive, specular_bounce,
+                        prev_bsdf_pdf)
 
 
 def radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,

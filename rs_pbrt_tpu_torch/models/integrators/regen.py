@@ -104,7 +104,8 @@ def radiance_regen(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
         # one vertex of every lane, each at its own bounce; dead lanes cast
         # with t_max = -1, which the traversal ends at once
         it = si.scene_intersect(scene, o, d, torch.where(alive, inf, -1.0), accel)
-        L = _add_emitted(scene, dist_at, it, o, L, beta, alive, specular_bounce, prev_bsdf_pdf)
+        L = _add_emitted(scene, dist_at, it, o, d, L, beta, alive, specular_bounce,
+                         prev_bsdf_pdf)
         alive = alive & it.valid
         # the vertex at max_depth only collects emission, as the fixed-depth
         # loop's last pass does

@@ -2,7 +2,7 @@
 
 The port of the JAX package's ``models/integrators/render.py`` (reference
 src/core/integrator.rs:70-220) for the path, volpath, whitted,
-directlighting and sppm integrators; sppm runs its own progressive loop
+directlighting, ao and sppm integrators; sppm runs its own progressive loop
 (``sppm.py``).  The pixel grid (the film's crop window, or the whole film) is
 one flat wavefront of (pixel, sample) lanes, ``nb`` ordered copies of the
 grid with x fastest, batched over samples per pixel.  Scenes above the
@@ -31,7 +31,7 @@ from . import regen as regenmod
 from . import sppm as sppmmod
 from . import volpath as volpathmod
 
-INTEGRATORS = ("path", "volpath", "whitted", "directlighting", "sppm")
+INTEGRATORS = ("path", "volpath", "whitted", "directlighting", "ao", "sppm")
 # paths a batch at most, by default; sized by memory on an NVIDIA H100
 # 80GB (chip_smoke.py phase 12, PERF.md).  At depth 5 the regeneration loop
 # holds ~243 bytes a path (140 of hoisted dims, 24 of camera ray, 12 of
@@ -50,8 +50,9 @@ class RenderCfg(NamedTuple):
     rr_threshold: float
     light_strategy: str = "power"  # "uniform" | "power" | "spatial" (lightdistrib.rs:393)
     crop: Optional[tuple] = None  # the film's crop window (x0, x1, y0, y1)
-    # integrator parameters (directlighting: "strategy"; sppm: "n_iterations",
-    # "photons_per_iteration", "initial_radius")
+    # integrator parameters (directlighting: "strategy"; ao: "n_samples",
+    # "cos_sample"; sppm: "n_iterations", "photons_per_iteration",
+    # "initial_radius")
     extra: Optional[dict] = None
     accelerator: str = "bvh"  # the accel's kind: "bvh" only ("kdtree" is not ported)
 
@@ -92,6 +93,11 @@ def radiance_fn(cfg: RenderCfg, mega: Optional[pk.MegaCfg] = None, accel=None,
         dcfg = directmod.DirectLightingCfg(cfg.max_depth, sample_all)
         return lambda scene, scfg, ctx, o, d: directmod.directlighting_radiance(
             scene, dcfg, scfg, ctx, o, d, accel)
+    if cfg.integrator == "ao":
+        ex = cfg.extra or {}
+        acfg = directmod.AOCfg(int(ex.get("n_samples", 8)), bool(ex.get("cos_sample", True)))
+        return lambda scene, scfg, ctx, o, d: directmod.ao_radiance(scene, acfg, scfg, ctx, o, d,
+                                                                     accel)
     raise ValueError(f"unknown integrator {cfg.integrator!r}")
 
 

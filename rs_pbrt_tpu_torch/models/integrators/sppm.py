@@ -5,11 +5,14 @@ src/integrators/sppm.rs), its phases as plain functions on tensors:
 
 1. ``camera_pass``: trace each pixel's camera ray to its first vertex with
    a non-specular lobe, the visible point (VP), adding direct light by NEE
-   along the way and following specular bounces (sppm.rs:108-331);
+   along the way and following specular bounces (sppm.rs:108-331); as in
+   the JAX package, a camera ray that escapes adds no infinite light
+   (pbrt's SPPM adds it);
 2. ``build_grid``: the VPs sorted by cell of a uniform grid whose cells are
    at least the largest radius wide (sppm.rs:336-448 builds a hash grid of
    atomic lists; the JAX package sorts, and so does the port);
-3. ``photon_pass``: photons emitted from the lights (``lights.sample_le``)
+3. ``photon_pass``: photons emitted from the lights (``lights.sample_le``,
+   the infinite and the quadric lights included)
    and traced through the scene, their hits at depths 1 and on collected
    as events (p, wi, beta);
 4. ``deposit_events``: the events sorted by cell into a packed table,

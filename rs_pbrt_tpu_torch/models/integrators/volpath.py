@@ -25,8 +25,9 @@ constant seed, and for ratio tracking a constant salt, as in the JAX
 package: the same lane draws the same tracking numbers in every batch, so
 a render with grid media equals the JAX package's only at the same
 batching.  Volpath never regenerates paths (the JAX package regenerates
-only "path").  Environment lights raise, and so do textures (which would
-need ray differentials).
+only "path").  A ray that escapes collects the infinite light's radiance,
+MIS-weighted against its light sampling by power.  Textures (which would
+need ray differentials) raise.
 """
 
 from __future__ import annotations
@@ -59,13 +60,11 @@ def dims_per_bounce(scene: sa.Scene) -> int:
 
 def check_supported(scene: sa.Scene, sampler_cfg: smpl.SamplerCfg, accel=None):
     """Raises NotImplementedError for what volpath cannot render yet:
-    environment lights, and (through the material check) textures, whose
-    mip filtering would need ray differentials."""
+    (through the material check) textures, whose mip filtering would need
+    ray differentials."""
     si.check_supported(scene, accel)
     bx.check_supported(scene)
     lt.check_supported(scene)
-    if scene.has_env:
-        raise NotImplementedError("environment lights are not ported yet (ROADMAP queue A)")
     if sampler_cfg.kind not in smpl.PORTED_SAMPLERS:
         raise NotImplementedError(f"sampler kind {sampler_cfg.kind} is not ported yet")
 
@@ -154,9 +153,10 @@ def radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg, ctx: s
         med_scatter = in_med & ms.sampled
         beta = torch.where(in_med[:, None], beta * ms.weight, beta)
 
-        # emission where the segment reaches the surface
-        L = _add_emitted(scene, dist_at, it, o, L, beta, alive & ~med_scatter, specular_bounce,
-                         prev_pdf)
+        # emission where the segment reaches the surface, the infinite
+        # light's where it escapes
+        L = _add_emitted(scene, dist_at, it, o, d, L, beta, alive & ~med_scatter,
+                         specular_bounce, prev_pdf)
         alive = alive & (it.valid | med_scatter) & (bounce < cfg.max_depth)
         p_med = o + ms.t[:, None] * d
         g = scene.med_g[mid]

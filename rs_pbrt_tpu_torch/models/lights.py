@@ -1,19 +1,23 @@
 """Light sampling and emission, photon emission, and the light power for
 light selection.
 
-The port of the JAX package's ``models/lights.py`` for point, spot and
-distant lights and diffuse area lights on triangle ranges and on spheres
-(reference src/core/light.rs, lights/point.rs, spot.rs, distant.rs,
-diffuse.rs, shapes/triangle.rs and sphere.rs sample).  Table reads are
-plain indexing where the TPU used one-hot matmuls.  Projection,
-goniometric and infinite lights and area lights on disks and cylinders are
-not ported yet: ``check_supported`` raises for them.  ``compute_light_power`` is host-side numpy that runs once when a
-scene is finalized.  ``sample_le`` emits photons (light.rs sample_le) for
-SPPM.
+The port of the JAX package's ``models/lights.py`` for point, spot,
+distant and infinite lights and diffuse area lights on triangle ranges,
+spheres, cylinders and disks (reference src/core/light.rs,
+lights/point.rs, spot.rs, distant.rs, infinite.rs, diffuse.rs,
+shapes/triangle.rs, sphere.rs, cylinder.rs and disk.rs sample).  The
+infinite light is an equirect map, importance-sampled by its luminance x
+sin theta (``ops/sampling.sample_distribution_2d``) and read bilinearly
+(``_env_lookup``).  Table reads are plain indexing where the TPU used
+one-hot matmuls.  Projection and goniometric lights are not ported yet:
+``check_supported`` raises for them.  ``compute_light_power`` is host-side
+numpy that runs once when a scene is finalized.  ``sample_le`` emits
+photons (light.rs sample_le) for SPPM.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -21,6 +25,7 @@ import torch
 
 from ..ops import sampling as smp
 from ..scene import arrays as sa
+from ..utils import transform as tr
 from ..utils import vecmath as vm
 
 
@@ -33,16 +38,16 @@ class LiSample(NamedTuple):
     is_delta: torch.Tensor  # (N,) bool: a point, spot or distant light
 
 PORTED_LIGHTS = ((1 << sa.LIGHT_POINT) | (1 << sa.LIGHT_SPOT) | (1 << sa.LIGHT_DISTANT)
-                 | (1 << sa.LIGHT_AREA))
+                 | (1 << sa.LIGHT_AREA) | (1 << sa.LIGHT_INFINITE))
+# the solid-angle pdf of an equirect map's direction is its pdf over the
+# unit square divided by 2 pi^2 sin theta (infinite.rs pdf_li)
+_EQUIRECT_JACOBIAN = 2.0 * math.pi * math.pi
 
 
 def check_supported(scene: sa.Scene):
     """Raises NotImplementedError for the lights the port cannot sample yet."""
     if scene.light_type_mask & ~PORTED_LIGHTS:
-        raise NotImplementedError("projection, goniometric and infinite lights are not ported "
-                                  "yet (ROADMAP queue A)")
-    if scene.has_quadric_lights:
-        raise NotImplementedError("area lights on disks and cylinders are not ported yet "
+        raise NotImplementedError("projection and goniometric lights are not ported yet "
                                   "(ROADMAP queue A)")
 
 
@@ -135,11 +140,97 @@ def _area_sample_sphere(scene: sa.Scene, la, ref_p, u2):
     return p, nrm, torch.where(inside, pdf_in, pdf_cone)
 
 
+def _quadric_light_sample(scene: sa.Scene, la, u2):
+    """Uniform-by-area point on a disk or cylinder area light (disk.rs and
+    cylinder.rs sample; as in the reference, a disk's sample covers the
+    whole disk even for an annulus or a partial phi, while its pdf takes
+    the true area).  Returns (p, n, is_quadric)."""
+    sidx = torch.clamp(torch.round(la[:, sa.LA_SHAPE_IDX]).long(), 0, scene.sph_attr.shape[0] - 1)
+    sat = scene.sph_attr[sidx]
+    o2w = sat[:, sa.SP_O2W:sa.SP_O2W + 16].reshape(-1, 4, 4)
+    w2o = sat[:, sa.SP_W2O:sa.SP_W2O + 16].reshape(-1, 4, 4)
+    prm = sat[:, sa.SP_PARAMS:sa.SP_PARAMS + 4]
+    geom = torch.round(la[:, sa.LA_GEOM])
+    is_cyl, is_dsk = geom == sa.ALG_CYLINDER, geom == sa.ALG_DISK
+    radius = prm[:, 0]
+    # a disk (radius, inner, height, phi_max): the concentric disk
+    cd = smp.concentric_sample_disk(u2)
+    p_dsk = torch.stack([cd[:, 0] * radius, cd[:, 1] * radius, prm[:, 2]], -1)
+    n_dsk = torch.zeros_like(p_dsk)
+    n_dsk[:, 2] = 1.0
+    # a cylinder (radius, z_min, z_max, phi_max)
+    z = vm.lerp(u2[:, 0], prm[:, 1], prm[:, 2])
+    phi = u2[:, 1] * prm[:, 3]
+    p_cyl = torch.stack([radius * torch.cos(phi), radius * torch.sin(phi), z], -1)
+    n_cyl = torch.stack([torch.cos(phi), torch.sin(phi), torch.zeros_like(phi)], -1)
+    p = tr.xform_point(o2w, torch.where(is_cyl[:, None], p_cyl, p_dsk))
+    nrm = vm.normalize(tr.xform_normal(w2o, torch.where(is_cyl[:, None], n_cyl, n_dsk)))
+    flip = (sat[:, sa.SP_REVERSE] > 0.5) ^ tr.swaps_handedness(o2w)
+    return p, torch.where(flip[:, None], -nrm, nrm), is_cyl | is_dsk
+
+
+def _env_lookup(scene: sa.Scene, uv):
+    """The equirect map at uv (N, 2), bilinear, the azimuth wrapping and
+    the polar angle clamped (infinite.rs:339 reads level 0 of its MIP map,
+    which a bilinear lookup matches)."""
+    img = scene.inf_radiance
+    h, w = img.shape[:2]
+    fx = uv[:, 0] * w - 0.5
+    fy = uv[:, 1] * h - 0.5
+    x0, y0 = torch.floor(fx), torch.floor(fy)
+    tx, ty = (fx - x0)[:, None], (fy - y0)[:, None]
+    x0i, y0i = x0.to(torch.int64), y0.to(torch.int64)
+    xw0, xw1 = torch.remainder(x0i, w), torch.remainder(x0i + 1, w)
+    yc0, yc1 = torch.clamp(y0i, 0, h - 1), torch.clamp(y0i + 1, 0, h - 1)
+    top = img[yc0, xw0] * (1.0 - tx) + img[yc0, xw1] * tx
+    bot = img[yc1, xw0] * (1.0 - tx) + img[yc1, xw1] * tx
+    return top * (1.0 - ty) + bot * ty
+
+
+def _env_uv(scene: sa.Scene, w):
+    """(uv (N, 2) of world directions w in the map, sin theta)."""
+    dl = vm.normalize(tr.xform_vector(scene.inf_w2l, w))
+    theta = vm.spherical_theta(dl)
+    uv = torch.stack([vm.spherical_phi(dl) * float(vm.INV_2_PI), theta * float(vm.INV_PI)], -1)
+    return uv, torch.sin(theta)
+
+
+def _env_sample(scene: sa.Scene, u2):
+    """A map direction by importance (infinite.rs sample_li): (world
+    direction toward the map, its solid-angle pdf, the map's radiance)."""
+    uv, map_pdf = smp.sample_distribution_2d(scene.inf_dist, u2)
+    theta = uv[:, 1] * math.pi
+    st = torch.sin(theta)
+    d_light = vm.spherical_direction(st, torch.cos(theta), uv[:, 0] * 2.0 * math.pi)
+    wi = vm.normalize(tr.xform_vector(scene.inf_l2w, d_light))
+    pdf = torch.where(st > 1e-9, map_pdf / (_EQUIRECT_JACOBIAN * torch.clamp(st, min=1e-9)), 0.0)
+    return wi, pdf, _env_lookup(scene, uv)
+
+
+def pdf_li_env(scene: sa.Scene, wi):
+    """The solid-angle pdf with which sample_li on the infinite light picks
+    direction wi (N, 3) (infinite.rs pdf_li); 0 without one."""
+    if not scene.has_env:
+        return torch.zeros(wi.shape[:-1], device=wi.device)
+    uv, st = _env_uv(scene, wi)
+    map_pdf = smp.distribution_2d_pdf(scene.inf_dist, uv)
+    return torch.where(st > 1e-9, map_pdf / (_EQUIRECT_JACOBIAN * torch.clamp(st, min=1e-9)), 0.0)
+
+
+def env_le(scene: sa.Scene, d):
+    """The radiance of the infinite light along escaped rays d (N, 3)
+    (infinite.rs le); 0 without one."""
+    if not scene.has_env:
+        return torch.zeros(d.shape[:-1] + (3,), device=d.device)
+    return _env_lookup(scene, _env_uv(scene, d)[0])
+
+
 def sample_li(scene: sa.Scene, light_idx, ref_p, u2) -> LiSample:
     """Light light_idx ((N,) int) as seen from ref_p (N,3), from u2 (N,2)
     (light.rs sample_li): a point on an area light; the position of a point
     or spot light, with its falloff; a point 2 world radii away along a
-    distant light's direction.  The delta lights' pdf is 1."""
+    distant light's direction, or along a direction of the infinite light's
+    map drawn by its importance.  The delta lights' pdf is 1."""
     check_supported(scene)
     la = scene.light_attr[light_idx.long()]
     intensity = la[:, sa.LP_I:sa.LP_I + 3]
@@ -153,6 +244,10 @@ def sample_li(scene: sa.Scene, light_idx, ref_p, u2) -> LiSample:
         is_sph = torch.round(la[:, sa.LA_GEOM]) == sa.ALG_SPHERE
         p_area = torch.where(is_sph[:, None], p_sph, p_area)
         n_area = torch.where(is_sph[:, None], n_sph, n_area)
+    if scene.has_quadric_lights:
+        p_qd, n_qd, is_qd = _quadric_light_sample(scene, la, u2)
+        p_area = torch.where(is_qd[:, None], p_qd, p_area)
+        n_area = torch.where(is_qd[:, None], n_qd, n_area)
     to_a = p_area - ref_p
     d2a = torch.clamp(vm.length_squared(to_a), min=1e-12)
     wi = to_a / torch.sqrt(d2a)[:, None]
@@ -197,6 +292,16 @@ def sample_li(scene: sa.Scene, light_idx, ref_p, u2) -> LiSample:
                                  torch.where(is_dist[:, None], intensity, li)))
     pdf = torch.where(is_area, pdf, 1.0)
     p_target = torch.where(positional, pos, torch.where(is_dist[:, None], p_far, p_area))
+    if scene.has_env:
+        # infinite (infinite.rs sample_li): a map direction by importance, the
+        # shadow ray's target 2 world radii along it
+        is_inf = ltype == sa.LIGHT_INFINITE
+        wi_inf, pdf_inf, li_inf = _env_sample(scene, u2)
+        wi = torch.where(is_inf[:, None], wi_inf, wi)
+        li = torch.where(is_inf[:, None], li_inf, li)
+        pdf = torch.where(is_inf, pdf_inf, pdf)
+        p_far_inf = ref_p + wi_inf * (2.0 * la[:, sa.LP_WORLD_RADIUS])[:, None]
+        p_target = torch.where(is_inf[:, None], p_far_inf, p_target)
     n_light = torch.where(is_area[:, None], n_area, 0.0)
     return LiSample(wi, li, pdf, p_target, n_light, is_point | is_spot | is_dist)
 
@@ -206,8 +311,10 @@ def sample_le(scene: sa.Scene, light_idx, u_pos, u_dir) -> LeSample:
     u_dir (N, 2) (lights.py sample_le, lights/*.rs sample_le): a point
     light's uniform sphere, a spot's uniform cone with its falloff, a
     distant light's disk of the world radius, an area light's point by area
-    (a triangle range's CDF, a sphere's uniform sphere) and cosine
-    hemisphere about its normal.  Both pdfs are floored at 1e-20."""
+    (a triangle range's CDF, a sphere's uniform sphere, a disk's or
+    cylinder's uniform point) and cosine hemisphere about its normal, the
+    infinite light's map direction by importance from a disk of the world
+    radius.  Both pdfs are floored at 1e-20."""
     check_supported(scene)
     la = scene.light_attr[light_idx.long()]
     n = light_idx.shape[0]
@@ -243,6 +350,10 @@ def sample_le(scene: sa.Scene, light_idx, u_pos, u_dir) -> LeSample:
         p_area = torch.where(is_sph[:, None], center + radius[:, None] * dir_s, p_area)
         n_area = torch.where(is_sph[:, None], torch.where(reverse[:, None], -dir_s, dir_s),
                              n_area)
+    if scene.has_quadric_lights:
+        p_qd, n_qd, is_qd = _quadric_light_sample(scene, la, u_pos)
+        p_area = torch.where(is_qd[:, None], p_qd, p_area)
+        n_area = torch.where(is_qd[:, None], n_qd, n_area)
     d_cos = smp.cosine_sample_hemisphere(u_dir)
     a1, a2 = vm.coordinate_system(n_area)
     d_area = d_cos[:, 0:1] * a1 + d_cos[:, 1:2] * a2 + d_cos[:, 2:3] * n_area
@@ -269,6 +380,22 @@ def sample_le(scene: sa.Scene, light_idx, u_pos, u_dir) -> LeSample:
     pdf_dir = torch.where(is_spot, smp.uniform_cone_pdf(ct_total), pdf_dir)
     pdf_dir = torch.where(is_area, smp.cosine_hemisphere_pdf(d_cos[:, 2].abs()), pdf_dir)
     pdf_dir = torch.where(is_dist, one, pdf_dir)
+    if scene.has_env:
+        # infinite (infinite.rs sample_le): a map direction by importance,
+        # emitted into the scene from a disk of the world radius behind it
+        is_inf = ltype == sa.LIGHT_INFINITE
+        w_env, pdf_dir_inf, le_inf = _env_sample(scene, u_dir)
+        d_inf = -w_env
+        v1e, v2e = vm.coordinate_system(-d_inf)
+        cd_e = smp.concentric_sample_disk(u_pos)
+        p_disk = world_c + world_r[:, None] * (cd_e[:, 0:1] * v1e + cd_e[:, 1:2] * v2e)
+        o = torch.where(is_inf[:, None], p_disk - d_inf * world_r[:, None], o)
+        d = torch.where(is_inf[:, None], d_inf, d)
+        n_light = torch.where(is_inf[:, None], d_inf, n_light)
+        le = torch.where(is_inf[:, None], le_inf, le)
+        pdf_pos = torch.where(is_inf, 1.0 / torch.clamp(math.pi * world_r * world_r, min=1e-12),
+                              pdf_pos)
+        pdf_dir = torch.where(is_inf, pdf_dir_inf, pdf_dir)
     return LeSample(o, d, n_light, le, torch.clamp(pdf_pos, min=1e-20),
                     torch.clamp(pdf_dir, min=1e-20))
 

@@ -1,11 +1,18 @@
-"""Sampling warps and the piecewise-constant 1D distribution.
+"""Sampling warps and the piecewise-constant 1D and 2D distributions.
 
 The port's copy of the parts of the JAX package's ``ops/sampling.py`` the
 ported paths use (reference src/core/sampling.rs).  The CDF lookups index
-the tables directly where the TPU needed one-hot reductions."""
+the tables directly where the TPU needed one-hot reductions.  The 2D
+distribution (an environment map's importance) searches its shared tables
+without a per-lane copy of a row: the marginal, like every cdf shared by
+all lanes, by ``torch.searchsorted`` in ``find_interval``, the conditional
+row by a fixed bisection that gathers from the flat (nv, nu+1) table
+(``find_interval_rows``); both give the index of the JAX package's
+``find_interval``."""
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -36,6 +43,17 @@ def cosine_sample_hemisphere(u: torch.Tensor) -> torch.Tensor:
     d = concentric_sample_disk(u)
     z = torch.sqrt(torch.clamp(1.0 - d[..., 0] ** 2 - d[..., 1] ** 2, min=0.0))
     return torch.stack([d[..., 0], d[..., 1], z], -1)
+
+
+def uniform_sample_hemisphere(u: torch.Tensor) -> torch.Tensor:
+    """(..., 2) uniform -> a direction on the +z hemisphere, by area."""
+    z = u[..., 0]
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * float(PI) * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)
+
+
+UNIFORM_HEMISPHERE_PDF = float(1.0 / (2.0 * PI))
 
 
 def uniform_sample_sphere(u: torch.Tensor) -> torch.Tensor:
@@ -102,10 +120,15 @@ def make_distribution_1d(func: torch.Tensor) -> Distribution1D:
 
 def find_interval(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Largest i with cdf[..., i] <= u, clamped to [0, n-2] (pbrt.rs:214
-    find_interval): the comparison count.  cdf (..., n) broadcasts against
-    u (...)."""
+    find_interval).  One cdf (n,) shared by every lane of u is searched by
+    bisection of the sorted table, so no (N, n) comparison is made; rows
+    (..., n) that broadcast against u (...) by the comparison count."""
     n = cdf.shape[-1]
-    return torch.clamp((cdf <= u[..., None]).sum(-1) - 1, 0, n - 2)
+    if cdf.dim() == 1:
+        below = torch.searchsorted(cdf, u.contiguous(), right=True)
+    else:
+        below = (cdf <= u[..., None]).sum(-1)
+    return torch.clamp(below - 1, 0, n - 2)
 
 
 def _read_at(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -135,3 +158,83 @@ def distribution_1d_discrete_pdf(dist: Distribution1D, index: torch.Tensor) -> t
     """The probability of picking entry `index` (sampling.rs:105 pdf)."""
     n = dist.func.shape[-1]
     return _read_at(dist.func, index) / torch.clamp(dist.func_int * n, min=1e-30)
+
+
+def find_interval_rows(table: torch.Tensor, row: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """find_interval in row `row` (N,) of table (R, n), each lane its own
+    row: a bisection of ceil(log2(n - 1)) steps, each one gather from the
+    flat table, so no lane's row is copied.  Each row must be
+    non-decreasing, with cdf[0] <= u < cdf[n-1] (a CDF's rows)."""
+    n = table.shape[-1]
+    flat = table.reshape(-1)
+    base = row.long() * n
+    lo = torch.zeros_like(base)
+    hi = torch.full_like(base, n - 1)
+    for _ in range(max(1, math.ceil(math.log2(max(n - 1, 1))))):
+        mid = (lo + hi) // 2
+        below = flat[base + mid] <= u
+        lo = torch.where(below, mid, lo)
+        hi = torch.where(below, hi, mid)
+    return torch.clamp(lo, 0, n - 2)
+
+
+def sample_distribution_1d_continuous(dist: Distribution1D, u: torch.Tensor):
+    """-> (value in [0, 1), pdf, offset) (sampling.rs:69) of a distribution
+    shared by every lane."""
+    n = dist.func.shape[-1]
+    o = find_interval(dist.cdf, u)
+    c0, c1 = dist.cdf[o], dist.cdf[o + 1]
+    denom = c1 - c0
+    du = torch.where(denom > 0.0, (u - c0) / torch.where(denom > 0.0, denom, 1.0), u - c0)
+    pdf = torch.where(dist.func_int > 0.0, dist.func[o] / torch.clamp(dist.func_int, min=1e-30),
+                      0.0)
+    return (o.to(torch.float32) + du) / n, pdf, o
+
+
+class Distribution2D(NamedTuple):
+    """A 2D piecewise-constant distribution (sampling.rs:150): one
+    conditional distribution over u a row (stacked) and the marginal over
+    the rows."""
+
+    cond_func: torch.Tensor  # (nv, nu)
+    cond_cdf: torch.Tensor  # (nv, nu+1)
+    cond_func_int: torch.Tensor  # (nv,)
+    marg_func: torch.Tensor  # (nv,)
+    marg_cdf: torch.Tensor  # (nv+1,)
+    marg_func_int: torch.Tensor  # ()
+
+
+def make_distribution_2d(func: torch.Tensor) -> Distribution2D:
+    """The distribution of func (nv, nu), its rows the conditionals."""
+    cond = make_distribution_1d(func)
+    marg = make_distribution_1d(cond.func_int)
+    return Distribution2D(cond.func, cond.cdf, cond.func_int, marg.func, marg.cdf,
+                          marg.func_int)
+
+
+def sample_distribution_2d(dist: Distribution2D, u: torch.Tensor):
+    """u (N, 2) -> (a point (N, 2) in [0, 1)^2, its pdf (N,)): the row from
+    the marginal by u[:, 1], then the column from that row by u[:, 0]."""
+    nu = dist.cond_func.shape[1]
+    marg = Distribution1D(dist.marg_func, dist.marg_cdf, dist.marg_func_int)
+    d1, pdf1, v_idx = sample_distribution_1d_continuous(marg, u[:, 1])
+    u0 = u[:, 0]
+    o = find_interval_rows(dist.cond_cdf, v_idx, u0)
+    at = v_idx * (nu + 1) + o
+    cdf = dist.cond_cdf.reshape(-1)
+    c0, c1 = cdf[at], cdf[at + 1]
+    denom = c1 - c0
+    du = torch.where(denom > 0.0, (u0 - c0) / torch.where(denom > 0.0, denom, 1.0), 0.0)
+    f = dist.cond_func.reshape(-1)[v_idx * nu + o]
+    cond_int = dist.cond_func_int[v_idx]
+    pdf0 = torch.where(cond_int > 0.0, f / torch.clamp(cond_int, min=1e-30), 0.0)
+    d0 = (o.to(torch.float32) + du) / nu
+    return torch.stack([d0, d1], -1), pdf0 * pdf1
+
+
+def distribution_2d_pdf(dist: Distribution2D, p: torch.Tensor) -> torch.Tensor:
+    """The pdf of points p (N, 2) in [0, 1)^2 (Distribution2D::pdf)."""
+    nv, nu = dist.cond_func.shape
+    iu = torch.clamp((p[:, 0] * nu).to(torch.int32), 0, nu - 1).long()
+    iv = torch.clamp((p[:, 1] * nv).to(torch.int32), 0, nv - 1).long()
+    return dist.cond_func[iv, iu] / torch.clamp(dist.marg_func_int, min=1e-30)

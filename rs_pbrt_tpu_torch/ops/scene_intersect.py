@@ -1,21 +1,22 @@
-"""Scene intersection: triangles and spheres -> Interaction records.
+"""Scene intersection: triangles, quadrics and curves -> Interaction records.
 
 The port of the JAX package's ``ops/scene_intersect.py`` (reference
-src/core/scene.rs:55-106, interaction.rs) for scenes of triangles and
-analytic spheres.  Up to ``BRUTE_FORCE_MAX_TRIS`` triangles go through the
-sweep kernels of ``ops/intersect_kernel.py``, as they go through the
-Pallas kernels on the TPU: the closest hit with its record through K5
-(``full_sweep``), shadow rays through K4 (``any_sweep``); K3
-(``closest_sweep``) serves ``dense_tri_hit``.  Larger triangle sets go
-through their 12-wide BVH (``build_accel``): the closest hit through B1
-and shadow rays through B2 (``ops/bvh.py``), the hit record from
-``ops/record.tri_record``.  Spheres are tested in plain PyTorch, as the
-JAX package tests them in XLA.  Curve segments go through the curve
-kernels of ``ops/curve_kernel.py``: up to ``BRUTE_FORCE_MAX_CURVES`` the
-dense sweeps C3 (closest) and C4 (shadow rays), above it the walks C1 and
-C2 through the curves' binary tree; their hit record is
-``curves.curve_interaction``.  Instances, animated triangles, alpha masks,
-cylinders and disks raise.
+src/core/scene.rs:55-106, interaction.rs) for scenes of triangles,
+analytic quadrics (spheres, cylinders and disks) and curves.  Up to
+``BRUTE_FORCE_MAX_TRIS`` triangles go through the sweep kernels of
+``ops/intersect_kernel.py``, as they go through the Pallas kernels on the
+TPU: the closest hit with its record through K5 (``full_sweep``), shadow
+rays through K4 (``any_sweep``); K3 (``closest_sweep``) serves
+``dense_tri_hit``.  Larger triangle sets go through their 12-wide BVH
+(``build_accel``): the closest hit through B1 and shadow rays through B2
+(``ops/bvh.py``), the hit record from ``ops/record.tri_record``.  The
+quadrics are tested in plain PyTorch, every ray against every quadric of
+the kinds the scene has, as the JAX package tests them in XLA.  Curve
+segments go through the curve kernels of ``ops/curve_kernel.py``: up to
+``BRUTE_FORCE_MAX_CURVES`` the dense sweeps C3 (closest) and C4 (shadow
+rays), above it the walks C1 and C2 through the curves' binary tree; their
+hit record is ``curves.curve_interaction``.  Instances, animated triangles
+and alpha masks raise.
 """
 
 from __future__ import annotations
@@ -120,8 +121,6 @@ def check_supported(scene: sa.Scene, accel: Optional[Accel] = None):
     missing = [name for name, present in (
         ("instances", scene.n_instances),
         ("animated triangles", scene.n_anim_tris), ("alpha masks", scene.has_alpha),
-        ("cylinders", scene.quad_kind_mask & (1 << sa.QK_CYLINDER)),
-        ("disks", scene.quad_kind_mask & (1 << sa.QK_DISK)),
     ) if present]
     if missing:
         raise NotImplementedError(f"scene intersection of {', '.join(missing)} is not ported "
@@ -148,34 +147,62 @@ def dense_tri_hit_p(scene: sa.Scene, o, d, t_max) -> torch.Tensor:
     return ik.any_sweep(o, d, t_max, scene.tri_attr, scene.n_tris)
 
 
+def _has_kind(scene: sa.Scene, kind: int) -> bool:
+    """Whether quadrics of `kind` (QK_*) may exist: its bit of the scene's
+    quad_kind_mask, or every kind where the mask is 0 (as the JAX package
+    reads it)."""
+    return scene.quad_kind_mask == 0 or bool(scene.quad_kind_mask & (1 << kind))
+
+
 def sphere_hits(scene: sa.Scene, o, d, t_max):
-    """Closest hit over every sphere, tested in object space:
-    (valid, t (t_max where none), sphere index, object-space point, phi)."""
+    """Closest hit over every quadric (sphere, cylinder, disk), each tested
+    in object space by its kind's test; the kinds quad_kind_mask says are
+    absent are not tested.  -> (valid, t (t_max where none), quadric index,
+    object-space point, phi)."""
     n_s = scene.n_spheres
     sat = scene.sph_attr[:n_s]
     w2o = sat[:, sa.SP_W2O:sa.SP_W2O + 16].reshape(n_s, 4, 4)
     o_obj = tr.xform_point(w2o, o[:, None, :])  # (N, S, 3)
     d_obj = tr.xform_vector(w2o, d[:, None, :])
     prm = sat[:, sa.SP_PARAMS:sa.SP_PARAMS + 4]
-    qh = isect.intersect_sphere(o_obj, d_obj, t_max[:, None], prm[:, 0], prm[:, 1], prm[:, 2],
-                                prm[:, 3])
-    t = torch.where(qh.valid, qh.t, float(isect.BIG_T))
+    kind = torch.round(sat[:, sa.SP_KIND])
+    tm = t_max[:, None]
+    t = torch.full(o_obj.shape[:-1], float(isect.BIG_T), device=o.device)
+    p_obj = torch.zeros_like(o_obj)
+    phi = torch.zeros_like(t)
+    tests = (
+        (sa.QK_SPHERE, lambda: isect.intersect_sphere(o_obj, d_obj, tm, *prm.unbind(-1))),
+        (sa.QK_CYLINDER, lambda: isect.intersect_cylinder(o_obj, d_obj, tm, *prm.unbind(-1))),
+        # a disk's params are (radius, inner radius, height, phi_max)
+        (sa.QK_DISK, lambda: isect.intersect_disk(o_obj, d_obj, tm, prm[:, 2], prm[:, 0],
+                                                  prm[:, 1], prm[:, 3])),
+    )
+    for k, test in tests:
+        if _has_kind(scene, k):
+            qh = test()
+            sel = (kind == k) & qh.valid
+            t = torch.where(sel, qh.t, t)
+            p_obj = torch.where(sel[..., None], qh.p_obj, p_obj)
+            phi = torch.where(sel, qh.phi, phi)
     best = torch.argmin(t, dim=1)
     best_t = t.gather(1, best[:, None])[:, 0]
     valid = best_t < isect.BIG_T
     lane = torch.arange(o.shape[0], device=o.device)
     return (valid, torch.where(valid, best_t, t_max), best.to(torch.int32),
-            qh.p_obj[lane, best], qh.phi[lane, best])
+            p_obj[lane, best], phi[lane, best])
 
 
 def sphere_interaction(scene: sa.Scene, sph_idx, p_obj, phi):
-    """(p, p_err, ng, ns, uv, mat, light, dpdu) of sphere hits
-    (sphere.rs interaction; ns = ng)."""
+    """(p, p_err, ng, ns, uv, mat, light, dpdu) of quadric hits (sphere.rs,
+    cylinder.rs, disk.rs interaction; ns = ng): a sphere's normal is its
+    point, a cylinder's (x, y, 0) with v along z, a disk's +z with v from
+    the rim inward."""
     at = scene.sph_attr[sph_idx.long()]
     radius = at[:, sa.SP_PARAMS]
-    z_min = at[:, sa.SP_PARAMS + 1]
+    z_min = at[:, sa.SP_PARAMS + 1]  # a disk's inner radius
     z_max = at[:, sa.SP_PARAMS + 2]
     phi_max = at[:, sa.SP_PARAMS + 3]
+    kind = torch.round(at[:, sa.SP_KIND])
     o2w = at[:, sa.SP_O2W:sa.SP_O2W + 16].reshape(-1, 4, 4)
     w2o = at[:, sa.SP_W2O:sa.SP_W2O + 16].reshape(-1, 4, 4)
     acos = lambda x: torch.arccos(torch.clamp(x, -1.0, 1.0))
@@ -185,13 +212,24 @@ def sphere_interaction(scene: sa.Scene, sph_idx, p_obj, phi):
     u = phi / phi_max
     v = (theta - theta_min) / torch.where(theta_max == theta_min, 1.0, theta_max - theta_min)
     n_obj = vm.normalize(p_obj)
+    if _has_kind(scene, sa.QK_CYLINDER):
+        is_cyl = kind == sa.QK_CYLINDER
+        n_cyl = vm.normalize(torch.stack([p_obj[:, 0], p_obj[:, 1], torch.zeros_like(phi)], -1))
+        n_obj = torch.where(is_cyl[:, None], n_cyl, n_obj)
+        v = torch.where(is_cyl, (p_obj[:, 2] - z_min) / torch.clamp(z_max - z_min, min=1e-12), v)
+    if _has_kind(scene, sa.QK_DISK):
+        is_dsk = kind == sa.QK_DISK
+        r_hit = torch.sqrt(torch.clamp(p_obj[:, 0] ** 2 + p_obj[:, 1] ** 2, min=1e-20))
+        n_dsk = torch.cat([torch.zeros_like(p_obj[:, :2]), torch.ones_like(phi)[:, None]], -1)
+        n_obj = torch.where(is_dsk[:, None], n_dsk, n_obj)
+        v = torch.where(is_dsk, (radius - r_hit) / torch.clamp(radius - z_min, min=1e-12), v)
     p, p_err_local = tr.xform_point_with_error(o2w, p_obj)
     # the object-space hit error gamma(5) |p_obj|, carried conservatively
     p_err = p_err_local + float(vm.gamma(5.0)) * p.abs()
     ng = vm.normalize(tr.xform_normal(w2o, n_obj))
     flip = (at[:, sa.SP_REVERSE] > 0.5) ^ tr.swaps_handedness(o2w)
     ng = torch.where(flip[:, None], -ng, ng)
-    # dpdu = (-phi_max y, phi_max x, 0) in object space (sphere.rs)
+    # dpdu = (-phi_max y, phi_max x, 0) in object space (every kind)
     dpdu_obj = torch.stack([-phi_max * p_obj[:, 1], phi_max * p_obj[:, 0],
                             torch.zeros_like(phi_max)], -1)
     dpdu = tr.xform_vector(o2w, dpdu_obj)

@@ -5,7 +5,8 @@ kept here as the port's own copy.  The Scene holds only what the ported
 paths read: the packed triangle, quadric, material and light tables, the
 light-pick power and the per-light triangle-area CDF, the media (a
 homogeneous table and the density grids) and the subsurface materials'
-folded BSSRDF profiles, plus the counts and feature flags that decide
+folded BSSRDF profiles, the infinite light's map, transforms and
+importance, plus the counts and feature flags that decide
 which route a scene may take (``ops/path_kernel.mega_cfg``) and which
 parts the port refuses.  A primitive's media are its inside and outside
 medium ids, columns TA_MED_IN/OUT of tri_attr and SP_MED_IN/OUT of
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..ops import sampling as smp
 
 # material type tags
 MATTE = 0
@@ -189,7 +191,6 @@ class Scene:
     # features the port does not render yet; the routes that meet them raise
     n_instances: int = 0
     n_anim_tris: int = 0
-    has_env: bool = False
     has_alpha: bool = False
     has_subsurface: bool = False
     has_hair: bool = False
@@ -220,6 +221,16 @@ class Scene:
     bss_rho_eff: torch.Tensor = None
     bss_sigma_t: torch.Tensor = None
     bss_eta: torch.Tensor = None
+    # the infinite light (env_fields): its equirect radiance map (H, W, 3),
+    # a (1, 1, 3) placeholder without one, light-to-world and its inverse
+    # (4, 4), the map's importance (luminance x sin theta), and the light's
+    # index (-1 without one)
+    has_env: bool = False
+    inf_radiance: torch.Tensor = None
+    inf_l2w: torch.Tensor = None
+    inf_w2l: torch.Tensor = None
+    inf_dist: smp.Distribution2D = None
+    env_light: int = -1
 
     @property
     def device(self) -> torch.device:
@@ -232,6 +243,7 @@ BRIDGE_FIELDS = (
     "tri_attr", "mat_attr", "light_attr", "light_power", "alight_tri_cdf", "world_center",
     "world_radius", "tri_p0", "light_type", "sph_o2w", "sph_attr", "quad_kind_flag",
     "sphlight_flag", "qdlight_flag", "crv_attr", "inst_o2w", "anim_p0", "inf_radiance",
+    "inf_l2w", "inf_w2l",
     "alpha_flag", "bss_profile", "hair_flag", "tex_slot_flag", "mat_kind_flag",
     "bss_cdf", "bss_rho_eff", "bss_sigma_t", "bss_eta", "med_sigma_a", "med_sigma_s", "med_g",
     "med_grid", "med_w2m", "med_max_density", "camera_medium",
@@ -274,6 +286,30 @@ def bssrdf_fields(profile, cdf, rho_eff, sigma_t, eta, device) -> dict:
                 bss_rho_eff=f32(rho_eff), bss_sigma_t=f32(sigma_t), bss_eta=f32(eta))
 
 
+def env_fields(radiance, l2w, w2l, light_type, device) -> dict:
+    """Scene's infinite-light fields from the equirect map (H, W, 3) (a
+    (1, 1, 3) placeholder: none) and its transforms, as the JAX
+    finalize_scene makes them (scene/arrays.py:574-581): the importance is
+    the map's luminance times sin theta of each row's centre, a uniform
+    (1, 1) distribution without a map.  light_type: every light's LIGHT_*
+    tag, for the infinite light's index."""
+    rad = np.asarray(radiance, np.float32)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    has_env = rad.shape[0] > 1
+    if has_env:
+        h = rad.shape[0]
+        lum = rad @ np.array([0.212671, 0.715160, 0.072169], np.float32)
+        sin_theta = np.sin(np.pi * (np.arange(h) + 0.5) / h).astype(np.float32)
+        func = lum * sin_theta[:, None]
+    else:
+        func = np.ones((1, 1), np.float32)
+    types = np.rint(np.asarray(light_type, np.float64)).astype(np.int64)
+    inf = np.flatnonzero(types == LIGHT_INFINITE)
+    return dict(has_env=has_env, inf_radiance=f32(rad), inf_l2w=f32(l2w), inf_w2l=f32(w2l),
+                inf_dist=smp.make_distribution_2d(f32(func)),
+                env_light=int(inf[0]) if inf.size else -1)
+
+
 def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> Scene:
     """Scene from numpy arrays named as the JAX package's Scene fields
     (``{k: np.asarray(getattr(jax_scene, k)) for k in BRIDGE_FIELDS}``).
@@ -308,7 +344,6 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> Scene:
         n_curve_segs=crv.shape[0],
         n_instances=n("inst_o2w"),
         n_anim_tris=n("anim_p0"),
-        has_env=n("inf_radiance") > 1,
         has_alpha=n("alpha_flag") > 0,
         has_hair=n("hair_flag") > 0,
         has_rough_glass=rough_glass(np.asarray(arrays["mat_attr"], np.float32)),
@@ -319,4 +354,6 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> Scene:
             "camera_medium")), dev),
         **bssrdf_fields(*(arrays[k] for k in (
             "bss_profile", "bss_cdf", "bss_rho_eff", "bss_sigma_t", "bss_eta")), dev),
+        **env_fields(arrays["inf_radiance"], arrays["inf_l2w"], arrays["inf_w2l"],
+                     arrays["light_type"], dev),
     )

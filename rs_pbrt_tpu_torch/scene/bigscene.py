@@ -74,16 +74,16 @@ def _fbm3(p, octaves=5, seed=7):
     return out
 
 
-def statue_scene(resolution=(256, 256), subdivisions=8, device="cuda"):
-    """(scene, camera): the displaced icosphere 'statue' (20 * 4^n
-    triangles: n = 8 gives 1,310,720, n = 9 5,242,880), all matte, on a
-    ground quad, lit by one 2-triangle quad area light overhead."""
+def statue_build(b, subdivisions=8):
+    """The statue's calls on builder b (this package's SceneBuilder or one
+    with its calls): the displaced icosphere (20 * 4^n triangles: n = 8
+    gives 1,310,720, n = 9 5,242,880), all matte, on a ground quad, lit by
+    one 2-triangle quad area light overhead.  Returns b."""
     v, f = icosphere(subdivisions)
     disp = 1.0 + 0.18 * _fbm3(v) + 0.05 * _fbm3(2.7 * v, seed=13)
     v = v * disp[:, None]
     v = v * 1.0 + np.array([0.0, 1.25, 0.0])  # rest on the ground
 
-    b = SceneBuilder()
     grey = b.add_matte(kd=(0.55, 0.52, 0.48))
     ground = b.add_matte(kd=(0.4, 0.4, 0.4))
     light_mat = b.add_matte(kd=(0.0, 0.0, 0.0))
@@ -98,7 +98,15 @@ def statue_scene(resolution=(256, 256), subdivisions=8, device="cuda"):
         [[-1.2, 5.0, -1.2], [1.2, 5.0, -1.2], [1.2, 5.0, 1.2], [-1.2, 5.0, 1.2]],
         material=light_mat, area_light=dict(L=(14.0, 13.0, 12.0), two_sided=False),
     )
-    scene = b.finalize(device)
-    camera = cam.make_perspective(tr.look_at([0.0, 1.7, 4.2], [0.0, 1.15, 0.0], [0, 1, 0]),
-                                  resolution, fov=36.0, device=device)
-    return scene, camera
+    return b
+
+
+def statue_camera(resolution=(256, 256), device="cuda"):
+    return cam.make_perspective(tr.look_at([0.0, 1.7, 4.2], [0.0, 1.15, 0.0], [0, 1, 0]),
+                                resolution, fov=36.0, device=device)
+
+
+def statue_scene(resolution=(256, 256), subdivisions=8, device="cuda"):
+    """(scene, camera): statue_build's scene on `device`."""
+    scene = statue_build(SceneBuilder(), subdivisions).finalize(device)
+    return scene, statue_camera(resolution, device)

@@ -2,18 +2,20 @@
 
 The port's reduced copy of the JAX package's ``scene/builder.py`` (reference
 api.rs make_* factories): matte, mirror, glass, hair and subsurface
-materials, triangle meshes and spheres, either of them optionally emissive
-(diffuse area lights on a triangle range or on a sphere) and either with a
-medium interface, cubic Bézier curves (flattened to segments at once,
-``ops/curves.py``), point, spot and distant lights, and homogeneous and
-density-grid media, finalized into the packed tables of
-``scene/arrays.py``.  ``finalize`` also does what the JAX
+materials, triangle meshes, spheres, cylinders and disks, each of them
+optionally emissive (diffuse area lights on a triangle range or on a
+quadric) and with a medium interface, cubic Bézier curves (flattened to
+segments at once, ``ops/curves.py``), point, spot, distant and infinite
+lights, and homogeneous and density-grid media, finalized into the packed
+tables of ``scene/arrays.py``.  ``finalize`` also does what the JAX
 ``arrays.finalize_scene`` does for such scenes: the world bound, the light
 parameters that depend on it, the per-light triangle-area CDF and the
-light-selection power; it stacks the media's grids and the subsurface
-materials' folded BSSRDF tables as the JAX ``finalize`` does.  Other
-shapes, materials and lights are not ported yet (ROADMAP); scenes that
-need them come from the JAX front ends through ``arrays.scene_from_numpy``.
+light-selection power (the infinite light's from its map's mean, as the
+JAX builder's finalize takes it); it stacks the media's grids and the
+subsurface materials' folded BSSRDF tables and makes the environment
+map's importance as the JAX ``finalize`` does.  Other shapes, materials
+and lights are not ported yet (ROADMAP); scenes that need them come from
+the JAX front ends through ``arrays.scene_from_numpy``.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ class SceneBuilder:
         self.bssrdfs = []  # per subsurface material, ops/bssrdf.make_material_tables' dict
         self.media = []  # (sigma_a, sigma_s, g, grid or None, w2m) per medium
         self.camera_medium = -1  # the medium the camera sits in; -1 vacuum
+        self.env = None  # the infinite light's (map, light-to-world, inverse)
         self.add_matte(kd=(0.5, 0.5, 0.5))  # default material 0 (api.rs)
 
     def _add_material(self, mtype, kd=(0, 0, 0), kr=(0, 0, 0), kt=(0, 0, 0), sigma=0.0,
@@ -189,30 +192,83 @@ class SceneBuilder:
         o2w = object_to_world or tr.identity()
         z_min = -radius if z_min is None else z_min
         z_max = radius if z_max is None else z_max
+        # the full sphere's area in world units, the o2w uniform scale folded in
+        area = lambda scale: 4.0 * np.pi * (radius * scale) ** 2
+        return self._add_quadric(o2w, sa.QK_SPHERE, (radius, z_min, z_max, np.deg2rad(phi_max)),
+                                 material, area_light, sa.ALG_SPHERE, area, reverse_orientation,
+                                 medium_interface)
+
+    def add_cylinder(self, object_to_world: Optional[tr.Transform] = None, radius=1.0,
+                     z_min=-1.0, z_max=1.0, phi_max=360.0, material: int = 0, area_light=None,
+                     reverse_orientation: bool = False, medium_interface=(-1, -1)) -> int:
+        """Analytic (partial) cylinder about z (shapes/cylinder.rs), its
+        arguments as add_sphere's.  Returns the light id, or -1."""
+        area = lambda scale: (z_max - z_min) * radius * np.deg2rad(phi_max) * scale * scale
+        return self._add_quadric(object_to_world or tr.identity(), sa.QK_CYLINDER,
+                                 (radius, z_min, z_max, np.deg2rad(phi_max)), material,
+                                 area_light, sa.ALG_CYLINDER, area, reverse_orientation,
+                                 medium_interface)
+
+    def add_disk(self, object_to_world: Optional[tr.Transform] = None, height=0.0, radius=1.0,
+                 inner_radius=0.0, phi_max=360.0, material: int = 0, area_light=None,
+                 reverse_orientation: bool = False, medium_interface=(-1, -1)) -> int:
+        """Analytic disk or annulus in the plane z = height, facing +z
+        (shapes/disk.rs), its other arguments as add_sphere's.  Returns the
+        light id, or -1."""
+        area = lambda scale: (0.5 * np.deg2rad(phi_max)
+                              * (radius * radius - inner_radius * inner_radius) * scale * scale)
+        return self._add_quadric(object_to_world or tr.identity(), sa.QK_DISK,
+                                 (radius, inner_radius, height, np.deg2rad(phi_max)), material,
+                                 area_light, sa.ALG_DISK, area, reverse_orientation,
+                                 medium_interface)
+
+    def _add_quadric(self, o2w, kind, params, material, area_light, geom, area,
+                     reverse_orientation, medium_interface) -> int:
+        """A quadric row of `kind` and its params, and with area_light its
+        diffuse area light of geometry `geom`, whose world area is
+        area(scale) for the o2w scale (the norm of its first column).
+        Returns the light id, or -1."""
         light_id = -1
         if area_light is not None:
-            # full-sphere area in world units, the o2w uniform scale folded in
             scale = float(np.linalg.norm(np.asarray(o2w.m, np.float32)[:3, 0]))
             lp = np.zeros(sa.N_LIGHT_PARAMS, np.float32)
             lp[sa.LP_I:sa.LP_I + 3] = (np.asarray(area_light.get("L", (1, 1, 1)), np.float32)
                                        * np.asarray(area_light.get("scale", (1, 1, 1)), np.float32))
             lp[sa.LP_TWO_SIDED] = float(area_light.get("two_sided", False))
-            lp[sa.LP_AREA] = 4.0 * np.pi * (radius * scale) ** 2
-            self.lights.append(dict(type=sa.LIGHT_AREA, params=lp, geom=sa.ALG_SPHERE,
-                                    tri_start=0, tri_end=0, shape_idx=len(self.sph_rows),
-                                    tri_areas=None))
+            lp[sa.LP_AREA] = area(scale)
+            self.lights.append(dict(type=sa.LIGHT_AREA, params=lp, geom=geom, tri_start=0,
+                                    tri_end=0, shape_idx=len(self.sph_rows), tri_areas=None))
             light_id = len(self.lights) - 1
         row = np.zeros(sa.N_SPH_ATTR, np.float32)
         row[sa.SP_O2W:sa.SP_O2W + 16] = np.asarray(o2w.m, np.float32).reshape(16)
         row[sa.SP_W2O:sa.SP_W2O + 16] = np.asarray(o2w.m_inv, np.float32).reshape(16)
-        row[sa.SP_PARAMS:sa.SP_PARAMS + 4] = (radius, z_min, z_max, np.deg2rad(phi_max))
+        row[sa.SP_PARAMS:sa.SP_PARAMS + 4] = params
         row[sa.SP_MAT] = material
         row[sa.SP_LIGHT] = light_id
         row[sa.SP_REVERSE] = float(reverse_orientation)
         row[[sa.SP_MED_IN, sa.SP_MED_OUT]] = medium_interface
-        row[sa.SP_KIND] = sa.QK_SPHERE
+        row[sa.SP_KIND] = kind
         self.sph_rows.append(row)
         return light_id
+
+    def add_infinite_light(self, radiance_map=None, L=(1, 1, 1), scale=(1, 1, 1),
+                           light_to_world: Optional[tr.Transform] = None) -> int:
+        """An infinite light (lights/infinite.rs): an equirect radiance map
+        (H, W, 3), rows from +z (theta 0) down, columns phi from +x, times L
+        and scale, under light_to_world; a constant 2x2 map of L without
+        one.  The scene holds one map: a later call's replaces an earlier
+        one's, as in the JAX builder.  Returns its light id."""
+        if radiance_map is None:
+            radiance_map = np.ones((2, 2, 3), np.float32)
+        rad = (np.asarray(radiance_map, np.float32)
+               * (np.asarray(L, np.float32) * np.asarray(scale, np.float32)))
+        l2w = light_to_world or tr.identity()
+        self.env = (rad, np.asarray(l2w.m, np.float32), np.asarray(l2w.m_inv, np.float32))
+        self.lights.append(dict(type=sa.LIGHT_INFINITE, params=np.zeros(sa.N_LIGHT_PARAMS,
+                                                                       np.float32),
+                                geom=sa.ALG_NONE, tri_start=0, tri_end=0, shape_idx=0,
+                                tri_areas=None))
+        return len(self.lights) - 1
 
     def _add_area_light_tri(self, P, idx, L=(1, 1, 1), two_sided=False, scale=(1, 1, 1)) -> int:
         areas = np.zeros(len(idx), np.float32)
@@ -373,7 +429,8 @@ class SceneBuilder:
         light_attr = np.zeros((max(n_l, 1), sa.N_LIGHT_ATTR), np.float32)
         cdf = np.zeros((n_l, max_range + 1), np.float32)
         flags = {sa.LIGHT_POINT: sa.LF_DELTA_POSITION, sa.LIGHT_SPOT: sa.LF_DELTA_POSITION,
-                 sa.LIGHT_DISTANT: sa.LF_DELTA_DIRECTION, sa.LIGHT_AREA: sa.LF_AREA}
+                 sa.LIGHT_DISTANT: sa.LF_DELTA_DIRECTION, sa.LIGHT_AREA: sa.LF_AREA,
+                 sa.LIGHT_INFINITE: sa.LF_INFINITE}
         for li, l in enumerate(self.lights):
             lp = l["params"].copy()
             lp[sa.LP_WORLD_RADIUS] = radius
@@ -394,8 +451,12 @@ class SceneBuilder:
             else:  # not a triangle range: the uniform CDF, never read
                 cdf[li] = np.linspace(0, 1, max_range + 1)
         types = [l["type"] for l in self.lights]
-        power = (compute_light_power(np.asarray(types), light_attr[:n_l, :sa.N_LIGHT_PARAMS])
-                 if n_l else np.ones(0, np.float32))
+        # the infinite light's power takes the map's mean over its channels
+        env_total = float(np.mean(self.env[0])) * 3 if self.env is not None else 0.0
+        power = (compute_light_power(np.asarray(types), light_attr[:n_l, :sa.N_LIGHT_PARAMS],
+                                     env_total) if n_l else np.ones(0, np.float32))
+        env = self.env or (np.zeros((1, 1, 3), np.float32), np.eye(4, dtype=np.float32),
+                           np.eye(4, dtype=np.float32))
         geoms = [l["geom"] for l in self.lights]
 
         f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
@@ -407,6 +468,7 @@ class SceneBuilder:
             quad_kind_mask=sa.type_mask([r[sa.SP_KIND] for r in self.sph_rows]),
             light_type_mask=sa.type_mask(types),
             has_sphere_lights=sa.ALG_SPHERE in geoms,
+            has_quadric_lights=sa.ALG_CYLINDER in geoms or sa.ALG_DISK in geoms,
             crv_attr=None if crv_attr is None else f32(crv_attr),
             n_curve_segs=0 if crv_attr is None else crv_attr.shape[0],
             has_hair=any(m[0] == sa.HAIR for m in self.mats),
@@ -414,4 +476,5 @@ class SceneBuilder:
             mat_kind_mask=sa.type_mask([m[0] for m in self.mats]),
             **sa.media_fields(device=dev, **self._media_tables()),
             **sa.bssrdf_fields(*self._bssrdf_tables(), dev),
+            **sa.env_fields(*env, types, dev),
         )

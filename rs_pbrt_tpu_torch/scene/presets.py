@@ -1,10 +1,11 @@
 """Built-in scenes (host-side constructors).
 
-The port's copies of two scenes of the JAX package's ``scene/presets.py``,
+The port's copies of three scenes of the JAX package's ``scene/presets.py``,
 with identical geometry: ``cornell_box``, the classic Cornell data set in
 cm units (white floor, ceiling and back wall, red left wall, green right
-wall, two boxes, a ceiling area light), and ``spheres_direct``, matte and
-mirror spheres on a floor under a quad light and a sphere light.
+wall, two boxes, a ceiling area light), ``spheres_direct``, matte and
+mirror spheres on a floor under a quad light and a sphere light, and
+``furnace_sphere``, a matte sphere in a constant environment.
 """
 
 from __future__ import annotations
@@ -91,4 +92,19 @@ def spheres_direct(resolution=(256, 256), device="cuda"):
     scene = b.finalize(device)
     camera = cam.make_perspective(tr.look_at([0, 2.2, 6.5], [0, 1.0, 0], [0, 1, 0]), resolution,
                                   fov=45.0, device=device)
+    return scene, camera
+
+
+def furnace_sphere(resolution=(64, 64), albedo=0.5, env_l=1.0, device="cuda"):
+    """The furnace test: a matte sphere of the given albedo inside a
+    constant infinite light of radiance env_l; every pixel on the sphere
+    converges to env_l (energy conservation).  Returns (scene, camera) on
+    `device`."""
+    b = SceneBuilder()
+    m = b.add_matte(kd=(albedo,) * 3)
+    b.add_sphere(tr.translate([0, 0, 0]), radius=1.0, material=m)
+    b.add_infinite_light(radiance_map=np.full((4, 8, 3), env_l, np.float32))
+    scene = b.finalize(device)
+    camera = cam.make_perspective(tr.look_at([0, 0, -4], [0, 0, 0], [0, 1, 0]), resolution,
+                                  fov=30.0, device=device)
     return scene, camera

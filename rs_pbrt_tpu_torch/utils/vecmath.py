@@ -13,6 +13,8 @@ MACHINE_EPSILON = np.float32(np.finfo(np.float32).eps / 2)
 DENORM_MIN = np.float32(1e-45)  # smallest positive f32 (0x00000001)
 INFINITY = np.float32(np.finfo(np.float32).max)  # "no limit" ray length
 INV_PI = np.float32(1.0 / np.pi)
+INV_2_PI = np.float32(0.5 / np.pi)
+PI = np.float32(np.pi)
 
 
 def gamma(n):
@@ -99,3 +101,22 @@ def offset_ray_origin(p, p_error, n, w):
         offset > 0.0, next_float_up(po),
         torch.where(offset < 0.0, next_float_down(po), po),
     )
+
+
+def lerp(t, a, b):
+    return (1.0 - t) * a + t * b
+
+
+def spherical_direction(sin_theta, cos_theta, phi):
+    """The direction of polar angle theta and azimuth phi about +z."""
+    return torch.stack([sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta], -1)
+
+
+def spherical_theta(v):
+    return torch.arccos(torch.clamp(v[..., 2], -1.0, 1.0))
+
+
+def spherical_phi(v):
+    """The azimuth of v about +z in [0, 2 pi)."""
+    p = torch.atan2(v[..., 1], v[..., 0])
+    return torch.where(p < 0.0, p + 2.0 * float(PI), p)

@@ -33,6 +33,7 @@ from rs_pbrt_tpu_torch.models.integrators import render as rdr
 from rs_pbrt_tpu_torch.ops import bsdf as bx
 from rs_pbrt_tpu_torch.ops import intersect_kernel as ik
 from rs_pbrt_tpu_torch.ops import sobol_kernel as sk
+from rs_pbrt_tpu_torch.scene import arrays as sa
 from rs_pbrt_tpu_torch.scene import presets
 from rs_pbrt_tpu_torch.scene.builder import SceneBuilder
 from test_torch_scene import assert_tables_equal, bridge
@@ -295,14 +296,16 @@ def test_render_launches_k1_once_per_depth(monkeypatch):
 
 
 def test_unported_parts_raise():
-    """The ao integrator and projection lights raise.  A crop window and spatial
-    light selection render: the crop's pixels are the whole film's, and the
+    """A goniometric light raises.  A crop window and spatial light
+    selection render: the crop's pixels are the whole film's, and the
     direct integrators select lights as they do without spatial selection,
     as in the JAX package."""
     scene, camera = presets.spheres_direct((4, 4), device="cpu")
     scfg = smpl.make_sampler(smpl.SOBOL, 1, (4, 4))
-    with pytest.raises(NotImplementedError):
-        rdr.render(scene, camera, rdr.RenderCfg("ao", 1, 1, 1.0), scfg)
+    scene.light_type_mask |= 1 << sa.LIGHT_GONIO
+    with pytest.raises(NotImplementedError, match="goniometric"):
+        rdr.render(scene, camera, rdr.RenderCfg("whitted", 1, 1, 1.0), scfg)
+    scene.light_type_mask &= ~(1 << sa.LIGHT_GONIO)
     for cfg, same in ((rdr.RenderCfg("whitted", 1, 1, 1.0, crop=(0, .5, 0, 1)), np.s_[0:4, 0:2]),
                       (rdr.RenderCfg("directlighting", 1, 1, 1.0, light_strategy="spatial"),
                        np.s_[:, :])):

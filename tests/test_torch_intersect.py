@@ -405,16 +405,19 @@ def test_scene_intersect_spheres_direct(kind):
 
 
 def test_unported_geometry_raises():
-    """Cylinders and disks reach scene_from_numpy but not the intersection."""
+    """Cylinders reach the intersection; alpha masks reach scene_from_numpy
+    but not the intersection."""
     b = JaxBuilder()
     b.add_triangle_mesh([[0, 1, 2]], [[0, 0, 0], [1, 0, 0], [0, 1, 0]])
     b.add_cylinder(jtr.translate([0, 0, 2]))
     scene = bridge(b.finalize())
     assert scene.quad_kind_mask == 1 << sa.QK_CYLINDER
     z = torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError, match="cylinders"):
+    assert not si.scene_intersect(scene, z, z + 1.0, torch.ones(4)).valid.any()
+    scene.has_alpha = True
+    with pytest.raises(NotImplementedError, match="alpha masks"):
         si.scene_intersect(scene, z, z + 1.0, torch.ones(4))
-    scene.quad_kind_mask, scene.n_tris = 0, si.BRUTE_FORCE_MAX_TRIS + 1
+    scene.has_alpha, scene.n_tris = False, si.BRUTE_FORCE_MAX_TRIS + 1
     with pytest.raises(NotImplementedError, match="BVH"):
         si.scene_intersect_p(scene, z, z + 1.0, torch.ones(4))
 

@@ -25,7 +25,7 @@ from rs_pbrt_tpu_torch.scene import arrays as sa
 from rs_pbrt_tpu_torch.scene import bigscene
 from rs_pbrt_tpu_torch.scene import presets
 from rs_pbrt_tpu_torch.scene.builder import SceneBuilder
-from rs_pbrt_tpu_torch.tools import bvh_ties, caustic_scenes, hair_scenes, sss_scenes
+from rs_pbrt_tpu_torch.tools import bvh_ties, caustic_scenes, env_scenes, hair_scenes, sss_scenes
 from rs_pbrt_tpu_torch.utils import transform as tr
 
 torch.set_num_threads(2)
@@ -58,7 +58,9 @@ def test_import_loads_no_jax():
             "rs_pbrt_tpu_torch.ops.sppm_kernel, rs_pbrt_tpu_torch.utils.rng, "
             "rs_pbrt_tpu_torch.tools.caustic_scenes, rs_pbrt_tpu_torch.ops.bssrdf, "
             "rs_pbrt_tpu_torch.ops.medium, rs_pbrt_tpu_torch.ops.medium_kernel, "
-            "rs_pbrt_tpu_torch.models.integrators.volpath, rs_pbrt_tpu_torch.tools.sss_scenes; "
+            "rs_pbrt_tpu_torch.models.integrators.volpath, rs_pbrt_tpu_torch.tools.sss_scenes, "
+            "rs_pbrt_tpu_torch.tools.env_scenes, rs_pbrt_tpu_torch.models.integrators.direct, "
+            "rs_pbrt_tpu_torch.ops.intersect, rs_pbrt_tpu_torch.ops.sampling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'rs_pbrt_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
@@ -86,6 +88,10 @@ ENTRY_POINTS = {
     "caustic_scenes.caustic_hair": lambda: caustic_scenes.caustic_hair((8, 8)),
     "sss_scenes.sss_dragonette": lambda: sss_scenes.sss_dragonette((8, 8)),
     "sss_scenes.smoke_dragonette": lambda: sss_scenes.smoke_dragonette(4, resolution=(8, 8)),
+    "presets.furnace_sphere": lambda: presets.furnace_sphere((8, 8)),
+    "env_scenes.quadric_env": lambda: env_scenes.quadric_env((8, 8), sky_hw=(8, 16)),
+    "env_scenes.statue_env": lambda: env_scenes.statue_env((8, 8), subdivisions=1,
+                                                           sky_hw=(8, 16)),
 }
 
 

@@ -222,7 +222,7 @@ def test_unported_parts_raise():
         rdr.render(scene, camera, rdr.RenderCfg("path", 1, 2, 1.0, accelerator="kdtree"), scfg,
                    accel=si.build_accel(scene, device="cpu"))
     small, camera = presets.spheres_direct((8, 8), device="cpu")
-    for flag in ("has_alpha", "has_env"):
+    for flag in ("has_alpha", "n_instances"):
         setattr(small, flag, True)
         with pytest.raises(NotImplementedError):
             rdr.render(small, camera, rdr.RenderCfg("path", 1, 2, 1.0), scfg)

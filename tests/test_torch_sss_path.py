@@ -22,6 +22,7 @@ from rs_pbrt_tpu_torch.models.integrators import regen
 from rs_pbrt_tpu_torch.models.integrators import render as rdr
 from rs_pbrt_tpu_torch.models import cameras as cam
 from rs_pbrt_tpu_torch.ops import scene_intersect as si
+from rs_pbrt_tpu_torch.scene import arrays as sa
 from rs_pbrt_tpu_torch.scene import bigscene
 from rs_pbrt_tpu_torch.scene.builder import SceneBuilder
 from rs_pbrt_tpu_torch.tools import sss_scenes
@@ -88,8 +89,10 @@ def test_regen_with_subsurface_equals_fixed_depth():
 
 
 def test_volpath_raises_on_an_environment_light():
+    """Volpath renders an environment light; of the lights, it raises on
+    the projection and goniometric lights, which are not ported yet."""
     scene, camera = sss_scenes.sss_dragonette((4, 4), device="cpu")
-    scene.has_env = True
-    with pytest.raises(NotImplementedError, match="environment"):
+    scene.light_type_mask |= 1 << sa.LIGHT_GONIO
+    with pytest.raises(NotImplementedError, match="goniometric"):
         rdr.render(scene, camera, sss_scenes.CFG._replace(spp=1),
                    smpl.make_sampler(smpl.SOBOL, 1, (4, 4)))
