@@ -232,6 +232,36 @@ Run from the root of a checkout.  Phases, one line each (or more):
    after phase 10, so that phase 9's statue is freed before phase 11 and
    no later phase's peak memory holds it.
 
+21. tools/material_scenes.material_grid() (nine spheres and a box of
+   plastic, copper, substrate, a five-lobe uber, translucent, three Disney
+   materials, a mix of plastic and copper, and the Fourier lobe on a
+   64-node glossy table, on a matte ground under an area light and the
+   1024x2048 sky) through render.render at 256x256, depth 5: path,
+   directlighting ("all") and whitted at 64 spp, volpath at 16 spp, SPPM
+   of 4 iterations.  The counters are zeroed just before each render and
+   read just after (the counted render is each integrator's first, the
+   timed ones follow it); they must equal the counts of the same render on the
+   CPU at 8x8 (every wrapper swapped for one that counts its calls and
+   runs the plain version): K1, K4, K5, S1 (SPPM: its general visible
+   points through csrc/bxdf.cuh), F1 and F2, K2 never.  Each image finite
+   and within rtol = atol = 2e-3 of the render with every wrapper swapped
+   for its plain version; paths/s (SPPM rays/s) best of 3 warm renders,
+   peak device memory; the busy share of one profiled path render with
+   the device time in make_bsdf_at, bsdf_f, bsdf_pdf, bsdf_sample, F1 and
+   F2 (profiler ranges; bsdf_sample's holds its own bsdf_f and bsdf_pdf).
+   Then every F1 and F2 launch of the path render against its plain
+   version (bit-equal, else within 1e-5, the line says which), timed
+   queued and by events beside its bound (the orders each lane's sums
+   take) and the plain version's time.
+22. tools/material_scenes.statue_disney(): phase 9's statue and BVH in a
+   Disney material with clearcoat and sheen (lobe slots 0-3 on every
+   statue hit), through render's defaults at 1024x1024, 16 spp
+   (regeneration through 2^21 lanes): K1 2, B1 = B2 = the iterations;
+   paths/s, peak memory, the busy share of a profiled 4 spp render; then
+   the 128x128 crop's 2^18 paths through the regeneration loop at 2^14
+   lanes, each within rtol 1e-5, atol 1e-6 of the fixed-depth loop.  It
+   runs right after phase 20, before phase 9's statue is freed.
+
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
 """
@@ -416,6 +446,22 @@ SEARCH_LANES = 1 << 22  # phase 19: sample_distribution_2d's lanes on the 1024x2
 STATUE_ENV_RES, STATUE_ENV_SPP = (1024, 1024), 16
 STATUE_ENV_PROFILE_SPP = 4  # the profiled render: 4M paths, above one lane width
 STATUE_ENV_CROP = (128, 128)  # with 16 spp, 2^18 paths against the fixed-depth loop
+# phase 21: tools/material_scenes.material_grid at BASELINE config 2's width
+GRID_RES = (256, 256)
+# (tag, integrator, spp, extra); depth DEPTH; sppm's spp is its iterations
+GRID_RUNS = (("path", "path", 64, None),
+             ("directlighting all", "directlighting", 64, dict(strategy="all")),
+             ("whitted", "whitted", 64, None),
+             ("volpath", "volpath", 16, None),
+             ("sppm", "sppm", 4, dict(n_iterations=4)))
+# F1 and F2's operations (ops/fourier_bsdf.py, counted as the bounds
+# below count): F1's lane: its weights, cos phi, transform and pdf (~120);
+# an order of its sums: 3 channels x 16 taps x 2 and the recurrence
+# (~100); F2's lane: the 4-row interpolation's search, 12 Newton steps and
+# the direction (~600) plus each cdf entry's interpolation (8); an order of
+# its luminance taps and 20 Newton steps of the sine/cosine recurrence
+# (~32 + 20 x 8)
+F_FLOP = dict(lane=120, order=100, sample_lane=600, cdf_entry=8, sample_order=192)
 M_FLOP = dict(delta_step=83, ratio_step=44, delta_lookup=81, ratio_lookup=83)
 M_RAY_BYTES = 4 + 1 + 12 + 12 + 4 + 4  # mid, in_med, o, d, t_max or dist, the lane key
 M_OUT_BYTES = dict(delta_track=1 + 4 + 12, ratio_track=4)  # sampled, t, weight; tr
@@ -521,6 +567,7 @@ def k2_bound_ms(work, args, kw):
 def _kernel_modules():
     from rs_pbrt_tpu_torch.ops import bvh
     from rs_pbrt_tpu_torch.ops import curve_kernel as ck
+    from rs_pbrt_tpu_torch.ops import fourier_kernel as fk
     from rs_pbrt_tpu_torch.ops import gather_probe as gp
     from rs_pbrt_tpu_torch.ops import intersect_kernel as ik
     from rs_pbrt_tpu_torch.ops import medium_kernel as mk
@@ -528,22 +575,23 @@ def _kernel_modules():
     from rs_pbrt_tpu_torch.ops import sobol_kernel as sk
     from rs_pbrt_tpu_torch.ops import sppm_kernel as sd
 
-    return sk, pk, ik, bvh, gp, ck, sd, mk
+    return sk, pk, ik, bvh, gp, ck, sd, mk, fk
 
 
 def zero_counts():
     """Every kernel's launch count to 0."""
-    sk, pk, ik, bvh, gp, ck, sd, mk = _kernel_modules()
+    sk, pk, ik, bvh, gp, ck, sd, mk, fk = _kernel_modules()
     sk.launches = pk.launches = 0
-    for d in (ik.launches, bvh.launches, gp.launches, ck.launches, sd.launches, mk.launches):
+    for d in (ik.launches, bvh.launches, gp.launches, ck.launches, sd.launches, mk.launches,
+              fk.launches):
         d.update(dict.fromkeys(d, 0))
 
 
 def read_counts() -> dict:
-    sk, pk, ik, bvh, gp, ck, sd, mk = _kernel_modules()
+    sk, pk, ik, bvh, gp, ck, sd, mk, fk = _kernel_modules()
     return dict(sobol=sk.launches, bounce=pk.launches, **ik.launches,
                 **{f"bvh12_{k}": v for k, v in bvh.launches.items()}, **gp.launches,
-                **ck.launches, **sd.launches, **mk.launches)
+                **ck.launches, **sd.launches, **mk.launches, **fk.launches)
 
 
 def expect_counts(**launched) -> dict:
@@ -555,12 +603,12 @@ def _owner(name: str):
     """The module of the kernel wrapper `name` (sobol_dims, bounce,
     closest_sweep, any_sweep, full_sweep, bvh12_intersect_tris, take_rows,
     take_loop, walk_closest, walk_any, sweep_closest, sweep_any, deposit,
-    delta_track, ratio_track)."""
-    sk, pk, ik, bvh, gp, ck, sd, mk = _kernel_modules()
+    delta_track, ratio_track, fourier_eval, fourier_sample)."""
+    sk, pk, ik, bvh, gp, ck, sd, mk, fk = _kernel_modules()
     return dict(sobol_dims=sk, bounce=pk, closest_sweep=ik, any_sweep=ik, full_sweep=ik,
                 bvh12_intersect_tris=bvh, take_rows=gp, take_loop=gp, walk_closest=ck,
                 walk_any=ck, sweep_closest=ck, sweep_any=ck, deposit=sd, delta_track=mk,
-                ratio_track=mk)[name]
+                ratio_track=mk, fourier_eval=fk, fourier_sample=fk)[name]
 
 
 def wrapper(name: str):
@@ -2305,15 +2353,17 @@ def check_sweep_launches(tag: str, rec: dict) -> dict:
 
 
 def plain_fns(**timers) -> dict:
-    """Every wrapper of the config 4 renders swapped for its plain version
-    (a LaunchTimer around it where timers names one)."""
+    """Every wrapper of the config 4 and material renders swapped for its
+    plain version (a LaunchTimer around it where timers names one)."""
+    from rs_pbrt_tpu_torch.ops import fourier_bsdf as fb
     from rs_pbrt_tpu_torch.ops import intersect_kernel as ik
     from rs_pbrt_tpu_torch.ops import medium_kernel as mk
     from rs_pbrt_tpu_torch.ops import sobol_kernel as sk
 
     fns = dict(sobol_dims=sk.sobol_dims_plain, any_sweep=ik.any_sweep_plain,
                full_sweep=ik.full_sweep_plain, delta_track=mk.delta_track_plain,
-               ratio_track=mk.ratio_track_plain)
+               ratio_track=mk.ratio_track_plain, fourier_eval=fb.fourier_eval_plain,
+               fourier_sample=fb.fourier_sample_plain)
     return {k: timers.get(k, v) for k, v in fns.items()}
 
 
@@ -2567,24 +2617,24 @@ def phase_smoke(card):
     return dict(part, counts=counts, paths_per_s=st["paths_per_s"])
 
 
-def _env_counts(tag: str, spp: int, n_lights: int) -> dict:
+def _env_counts(tag: str, spp: int, n_lights: int, depth: int = DEPTH) -> dict:
     """Phase 19's launch counts of a quadric_env render of one batch at
-    depth DEPTH: K1 for the camera and the integrator's dims, K5 a closest
+    `depth`: K1 for the camera and the integrator's dims, K5 a closest
     hit, K4 a shadow ray (a light sample, or an ao sample), S1 once an SPPM
     iteration; nothing else (K2's mega_cfg refuses quadrics and an
     environment)."""
     if tag == "path":  # the bounce dims of every bounce in one launch
-        return dict(sobol=2, full_sweep=DEPTH + 1, any_sweep=DEPTH)
+        return dict(sobol=2, full_sweep=depth + 1, any_sweep=depth)
     if tag == "volpath":  # 11 dims a bounce x 6 bounces in one launch
-        return dict(sobol=2, full_sweep=DEPTH + 1, any_sweep=DEPTH + 1)
+        return dict(sobol=2, full_sweep=depth + 1, any_sweep=depth + 1)
     if tag == "ao":  # 64 samples' 128 dims in one launch
         return dict(sobol=2, full_sweep=1, any_sweep=64)
     if tag == "sppm":  # each iteration: camera dims and a block a depth;
         # camera and photon closest hits; one light's shadow ray a depth
-        return dict(sobol=spp * (1 + DEPTH), full_sweep=2 * DEPTH * spp,
-                    any_sweep=DEPTH * spp, sppm_deposit=spp)
-    return dict(sobol=1 + DEPTH, full_sweep=DEPTH,
-                any_sweep=DEPTH * (1 if tag == "directlighting one" else n_lights))
+        return dict(sobol=spp * (1 + depth), full_sweep=2 * depth * spp,
+                    any_sweep=depth * spp, sppm_deposit=spp)
+    return dict(sobol=1 + depth, full_sweep=depth,
+                any_sweep=depth * (1 if tag == "directlighting one" else n_lights))
 
 
 def phase_env(card):
@@ -2773,6 +2823,297 @@ def phase_statue_env(card, statue):
                 paths_per_s=st["paths_per_s"], peak=peak, busy_ms=sum(r[0] for r in prof))
 
 
+# ---- phases 21-22: the other BxDFs ----
+
+def grid_counts(tag: str, spp: int, n_lights: int, depth: int = DEPTH) -> dict:
+    """Phase 21's launch counts of a material_grid render of one batch at
+    `depth`: K1, K4, K5 and S1 as phase 19's (_env_counts); F2 once a BSDF
+    sample (a bounce of the path and directlighting loops, each of
+    volpath's depth + 1 vertices, a camera and a photon vertex of SPPM);
+    F1 once a light sample (its f and pdf share one launch, as many as the
+    shadow rays) and once a BSDF sample (f and pdf at the sampled wi).
+    S1 evaluates SPPM's visible points' Fourier lobes itself."""
+    c = _env_counts(tag, spp, n_lights, depth)
+    samples = {"path": depth, "volpath": depth + 1, "sppm": 2 * depth * spp}.get(tag, depth)
+    c.update(fourier_sample=samples, fourier_eval=c["any_sweep"] + samples)
+    return c
+
+
+def fourier_work(ft, wo, wi, on) -> dict:
+    """The lanes of one F1 or F2 launch and the orders their sums take (the
+    largest order of each lane's 16 cells, as the kernel stops) at (mu_i,
+    mu_o) of wi: F1's wi, or for F2 the wi its sample lands on (the same
+    cells serve its luminance series and its evaluation of f)."""
+    import torch
+
+    from rs_pbrt_tpu_torch.ops import fourier_bsdf as fb
+
+    idx = torch.nonzero(on).flatten()
+    MU = ft.mu.shape[0]
+    _, off_i, _ = fb._cr_weights(ft.mu, -wi[idx, 2])
+    _, off_o, _ = fb._cr_weights(ft.mu, wo[idx, 2])
+    m_max = torch.zeros_like(idx)
+    for b in range(4):
+        for a in range(4):
+            cell = (torch.clamp(off_o + b, 0, MU - 1) * MU + torch.clamp(off_i + a, 0, MU - 1))
+            m_max = torch.maximum(m_max, ft.m[cell].long())
+    return dict(lanes=int(idx.shape[0]), orders=int(torch.clamp(m_max, max=64).sum()),
+                n=int(on.shape[0]))
+
+
+def fourier_bound_ms(ft, work: dict, sample: bool) -> tuple:
+    """Least time of one F1 or F2 launch, as (bytes_ms, operations_ms).
+    Bytes: every lane's flag (on, 1) in and its outputs out (F1: f 12 and
+    pdf 4; F2: wi 12); the lanes on the lobe's directions in (wo 12, and wi
+    12 or u2 8), as the kernels read them only there; the table once.
+    Operations: F_FLOP's terms per lane on the lobe and per order its sums
+    take (work from fourier_work)."""
+    table = sum(t.numel() * 4 for t in (ft.mu, ft.dense, ft.m, ft.cdf, ft.a0))
+    n, lanes, orders = work["n"], work["lanes"], work["orders"]
+    nbytes = n * (1 + (12 if sample else 16)) + lanes * (12 + (8 if sample else 12)) + table
+    if sample:
+        MU = ft.mu.shape[0]
+        flop = lanes * (F_FLOP["sample_lane"] + MU * F_FLOP["cdf_entry"]) + orders * (
+            F_FLOP["sample_order"])
+    else:
+        flop = lanes * F_FLOP["lane"] + orders * F_FLOP["order"]
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flop / FP32_FLOP_PER_S
+
+
+def check_fourier(what: str, got, want) -> tuple:
+    """Fails unless a launch's outputs equal the plain version's, or are
+    within rtol = atol = 1e-5 (bit_equal False, the line says which).
+    Returns (max_abs_err, bit_equal)."""
+    import torch
+
+    err, exact = 0.0, True
+    for g, w in zip(got, want):
+        exact = exact and torch.equal(g, w)
+        err = max(err, float((g - w).abs().max()) if g.numel() else 0.0)
+        if not torch.allclose(g, w, rtol=1e-5, atol=1e-5):
+            fail(f"{what} differs from its plain version by up to {err}")
+    return err, exact
+
+
+def phase_grid(card):
+    """Phase 21: tools/material_scenes.material_grid() at 256x256 through
+    render.render with each integrator (GRID_RUNS), each against its render
+    with every wrapper swapped for its plain version and its launch counts
+    against grid_counts; then every F1 and F2 launch of the path render
+    against its plain version, timed."""
+    import torch
+
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.ops import bsdf as bx
+    from rs_pbrt_tpu_torch.ops import fourier_bsdf as fb
+    from rs_pbrt_tpu_torch.ops import fourier_kernel as fk
+    from rs_pbrt_tpu_torch.ops import sppm_kernel as sd
+    from rs_pbrt_tpu_torch.tools import material_scenes
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    scene, camera = material_scenes.material_grid(GRID_RES, sky_hw=ENV_SKY_HW, device=DEVICE)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    w, h = GRID_RES
+    ft = fb.table_of(scene)
+    print(f"[21 material_grid] {scene.n_tris} triangles, {scene.n_spheres} spheres, "
+          f"materials mask {scene.mat_kind_mask:#x}, a {ft.mu.shape[0]}-node Fourier table "
+          f"(dense {tuple(ft.dense.shape)}, largest order {int(ft.m.max())}), a "
+          f"{ENV_SKY_HW[0]}x{ENV_SKY_HW[1]} sky; built in {host_s:.3f} s", flush=True)
+    plain = dict(plain_fns(), deposit=sd.deposit_plain)
+    out = {}
+    for tag, integrator, spp, extra in GRID_RUNS:
+        cfg = rdr.RenderCfg(integrator, spp, DEPTH, 1.0, extra=extra)
+        scfg = smpl.make_sampler(smpl.SOBOL, 1 if integrator == "sppm" else spp, GRID_RES)
+        go = lambda stats=None: rdr.render(scene, camera, cfg, scfg, stats=stats)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        timers = {}
+        if tag == "path":  # keep F1's and F2's launches for their checks
+            timers = {k: LaunchTimer(wrapper(k), keep=True)
+                      for k in ("fourier_eval", "fourier_sample")}
+        zero_counts()
+        with ExitStack() as es:
+            patched(es, **timers)
+            img = go()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = expect_counts(**grid_counts(tag, spp, scene.n_lights))
+        if counts != want:
+            fail(f"launch counts of the material_grid {tag} render {counts}, expected {want}")
+        if tuple(img.shape) != (h, w, 3) or not torch.isfinite(img).all():
+            fail(f"material_grid {tag} image: shape {tuple(img.shape)}, finite "
+                 f"{bool(torch.isfinite(img).all())}")
+        with ExitStack() as es:
+            patched(es, **plain)
+            img_plain = go()
+        torch.cuda.synchronize()
+        err = compare_plain(f"material_grid {tag} image", img, img_plain)
+        del img_plain
+        st = best_of_3(go)
+        unit = "SPPM rays/s (w h iterations 2)" if integrator == "sppm" else "camera paths/s"
+        rate = (w * h * spp * 2 / st["wall_s"] if integrator == "sppm" else st["paths_per_s"])
+        print(f"[21 {tag}] {w}x{h}, {spp} {'iterations' if integrator == 'sppm' else 'spp'}, "
+              f"depth {DEPTH}: finite, matches the plain render (max abs err {err:.3g}, mean "
+              f"{float(img.mean()):.5f}); launches {counts}, as expected; "
+              f"{rate:.6g} {unit} (best of 3 warm renders, {1e3 * st['wall_s']:.3f} ms); peak "
+              f"device memory {peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} GiB above the "
+              f"scene) on {card}", flush=True)
+        out[tag] = dict(counts=counts, rate=rate, peak=peak)
+        if tag == "path":
+            prof = profile_render(go, "21 profile, path", ranges={
+                "make_bsdf_at": (bx, "make_bsdf_at"), "bsdf_f": (bx, "bsdf_f"),
+                "bsdf_pdf": (bx, "bsdf_pdf"), "bsdf_sample": (bx, "bsdf_sample"),
+                "F1 fourier_eval": (fk, "fourier_eval"),
+                "F2 fourier_sample": (fk, "fourier_sample")})
+            out[tag]["busy_ms"] = busy = sum(r[0] for r in prof)
+            out[tag]["timers"] = timers
+            # F1 and F2 launch through their own libraries' runtime, whose
+            # launches the profiler times but does not put in a range
+            for kid, name in (("F1", "::eval_kernel("), ("F2", "::sample_kernel(")):
+                ms = sum(r[0] for r in prof if name in r[2])
+                print(f"[21 profile, path]   {kid} ({name[2:-1]}): {ms:.3f} ms of device time, "
+                      f"{100 * ms / max(busy, 1e-9):.1f}% of the busy time", flush=True)
+        del img
+    # F1 and F2 on each launch's inputs of the path render
+    for key, sample in (("fourier_eval", False), ("fourier_sample", True)):
+        timer = out["path"]["timers"][key]
+        plain_fn = getattr(fb, key + "_plain")
+        part = dict(ms=timer.times_ms(), device_ms=[], plain_ms=[], bound=[], max_abs_err=0.0,
+                    exact=True, lanes=0)
+        for b, (_, a, kw, o) in enumerate(timer.calls):
+            t0 = time.perf_counter()
+            ref = plain_fn(*a, **kw)
+            torch.cuda.synchronize()
+            part["plain_ms"].append(1e3 * (time.perf_counter() - t0))
+            if sample:  # F2 gives wi alone
+                o, ref = (o,), (ref,)
+            e, exact = check_fourier(f"material_grid path {key} launch {b}", o, ref)
+            part["max_abs_err"] = max(part["max_abs_err"], e)
+            part["exact"] = part["exact"] and exact
+            part["device_ms"].append(queued_ms(lambda a=a: getattr(fk, key)(*a), 3))
+            work = fourier_work(a[0], a[1], ref[0] if sample else a[2], a[3])
+            part["lanes"] += work["lanes"]
+            part["bound"].append(fourier_bound_ms(a[0], work, sample))
+        n = len(timer.calls)
+        if not n:
+            fail(f"the material_grid path render launched no {key}")
+        kid = "F2" if sample else "F1"
+        print(f"[21 {kid}] {n} launches of {timer.calls[0][1][1].shape[0]} lanes "
+              f"({part['lanes'] // n} a launch on the lobe): "
+              f"{'bit-equal to' if part['exact'] else 'within 1e-5 of'} the plain version "
+              f"(max abs err {part['max_abs_err']:.3g}"
+              f"{'' if part['exact'] else '; the card and torch differ in the last bits'}); "
+              f"on the card {sum(part['device_ms']) / n:.4f} ms (queued), events "
+              f"{sum(part['ms']) / n:.4f} ms, bound {sum(max(x) for x in part['bound']) / n:.4f} "
+              f"ms (bytes {sum(x[0] for x in part['bound']) / n:.4f}, operations "
+              f"{sum(x[1] for x in part['bound']) / n:.4f}), plain {sum(part['plain_ms']) / n:.3f}"
+              f" ms ({card})", flush=True)
+        out[key] = part
+    del out["path"]["timers"]
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[21] {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def phase_statue_disney(card, statue):
+    """Phase 22: tools/material_scenes.statue_disney() (phase 9's statue and
+    BVH, the statue in a Disney material with clearcoat and sheen) through
+    render's defaults at 1024x1024, 16 spp (regeneration); then 2^18 paths
+    of a crop through the regeneration loop against the fixed-depth loop,
+    per path."""
+    import torch
+
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import path as pathmod
+    from rs_pbrt_tpu_torch.models.integrators import regen
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.ops import bvh
+    from rs_pbrt_tpu_torch.tools import material_scenes
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    scene, camera = material_scenes.statue_disney(STATUE_ENV_RES, STATUE_SUBDIV, device=DEVICE)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    if not torch.equal(scene.tri_attr, statue["scene"].tri_attr):
+        fail("statue_disney's triangles differ from phase 9's statue")
+    accel = statue["accel"]
+    print(f"[22 statue_disney] {scene.n_tris} triangles (phase 9's BVH), materials mask "
+          f"{scene.mat_kind_mask:#x}; scene built in {host_s:.3f} s (host)", flush=True)
+    spp = STATUE_ENV_SPP
+    cfg = rdr.RenderCfg("path", spp, DEPTH, 1.0)
+    scfg = smpl.make_sampler(smpl.SOBOL, spp, STATUE_ENV_RES)
+    w, h = STATUE_ENV_RES
+    paths = w * h * spp
+    go = lambda c=cfg, stats=None: rdr.render(scene, camera, c, scfg, accel=accel, stats=stats)
+    go(cfg._replace(spp=1))  # warm
+    overflow = bvh.overflow_counter(DEVICE)
+    overflow.zero_()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    st = {}
+    zero_counts()
+    img = go(stats=st)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not st["lane_width"]:
+        fail("the statue_disney render did not take the regeneration loop")
+    want = expect_counts(sobol=2 * st["batches"], bvh12_closest=st["iterations"],
+                         bvh12_any=st["iterations"])
+    if counts != want:
+        fail(f"launch counts of the statue_disney render {counts}, expected {want}")
+    if int(overflow.item()) or tuple(img.shape) != (h, w, 3) or not torch.isfinite(img).all():
+        fail(f"statue_disney: stack overflows {int(overflow.item())}, image shape "
+             f"{tuple(img.shape)}, finite {bool(torch.isfinite(img).all())}")
+    print(f"[22 statue_disney] {w}x{h}, {spp} spp, depth {DEPTH}, {paths} paths through "
+          f"{st['lane_width']} lanes, {st['iterations']} iterations; launches {counts}; stack "
+          f"overflows 0; mean {float(img.mean()):.5f}; {st['paths_per_s']:.6g} camera paths/s "
+          f"({st['wall_s']:.3f} s, after a warm render of 1 spp); peak device memory "
+          f"{peak / 2**30:.2f} GiB ({(peak - held) / paths:.1f} bytes a path above the scene) "
+          f"on {card}", flush=True)
+    del img
+    prof = profile_render(lambda: go(cfg._replace(spp=STATUE_ENV_PROFILE_SPP)),
+                          f"22 profile, {STATUE_ENV_PROFILE_SPP} spp (regeneration)")
+    cw, ch = STATUE_ENV_CROP
+    rect = ((h - ch) // 2, ch, (w - cw) // 2, cw)
+    ctx, rays = rdr.camera_rays(camera, scfg, 0, spp, rect)
+    pcfg = pathmod.PathCfg(DEPTH, 1.0)
+    n = rays.o.shape[0]
+    rst = {}
+    overflow.zero_()
+    zero_counts()
+    L = regen.radiance_regen(scene, pcfg, scfg, ctx, rays.o, rays.d, accel,
+                             lane_width=REGEN_CHECK_WIDTH, stats=rst)
+    torch.cuda.synchronize()
+    crop_counts = read_counts()
+    n_it = rst["iterations"]
+    if crop_counts != expect_counts(sobol=1, bvh12_closest=n_it, bvh12_any=n_it):
+        fail(f"launch counts of the statue_disney regeneration check {crop_counts}")
+    L_fixed = pathmod.general_radiance(scene, pcfg, scfg, ctx, rays.o, rays.d, accel)
+    torch.cuda.synchronize()
+    fixed_counts = read_counts()
+    path_err = float((L - L_fixed).abs().max())
+    if int(overflow.item()) or not torch.isfinite(L).all():
+        fail("the statue_disney regeneration check overflowed its stack or is not finite")
+    if not torch.allclose(L, L_fixed, rtol=1e-5, atol=1e-6):
+        fail(f"statue_disney: the regeneration loop's radiance differs from the fixed-depth "
+             f"loop's by up to {path_err}")
+    seconds = time.perf_counter() - t_phase
+    print(f"[22 regen] {n} paths of a {cw}x{ch} crop through {REGEN_CHECK_WIDTH} lanes: {n_it} "
+          f"iterations; every path equals the fixed-depth loop's at rtol 1e-5, atol 1e-6 (max "
+          f"abs err {path_err:.3g}, {int(torch.equal(L, L_fixed))} bit-equal); stack overflows 0;"
+          f" phase 22 {seconds:.1f} s", flush=True)
+    return dict(counts={k: counts[k] + fixed_counts[k] for k in counts},
+                paths_per_s=st["paths_per_s"], peak=peak, busy_ms=sum(r[0] for r in prof),
+                seconds=seconds)
+
+
 def kernel_entry(name, source, replaces, launches, parts, max_abs_err, library_ms=None) -> dict:
     """One kernel's line of the `kernels` JSON: per-launch means over
     `parts`, dicts of per-launch lists ms, plain_ms and bound ((bytes_ms,
@@ -2819,6 +3160,7 @@ def main():
     later = [phase_regen_check(card, statue)]
     # phase 20 reuses phase 9's statue and BVH, which go before phase 11
     later.append(phase_statue_env(card, statue))
+    later.append(phase_statue_disney(card, statue))
     del statue["camera"], statue["scene"], statue["accel"]
     later += list(phase_spatial_crop(card).values())
     later.append(phase_full_statue(card))
@@ -2834,7 +3176,9 @@ def main():
     smoke = phase_smoke(card)
     later.append(smoke)
     later += list(phase_env(card).values())
-    more = lambda key: sum(p["counts"][key] for p in later)  # phases 10-12 and 14-20's launches
+    grid = phase_grid(card)
+    later += [grid[tag] for tag, _, _, _ in GRID_RUNS]
+    more = lambda key: sum(p["counts"][key] for p in later)  # phases 10-12 and 14-22's launches
 
     k2 = flag["k2"]
     csrc, pallas = "rs_pbrt_tpu_torch/csrc/", "rs_pbrt_tpu/ops/pallas_intersect.py:"
@@ -2907,6 +3251,12 @@ def main():
         kernels.append(dict(kernel_entry(
             key, csrc + "medium.cu", f"rs_pbrt_tpu/models/integrators/volpath.py:{line}",
             more(key), [smoke[key]], smoke[key]["max_abs_err"]), bit_equal=smoke[key]["exact"]))
+    # F1 and F2 replace the JAX package's XLA Fourier BSDF; no one PyTorch
+    # call computes them
+    for key, line in (("fourier_eval", 212), ("fourier_sample", 249)):
+        kernels.append(dict(kernel_entry(
+            key, csrc + "fourier.cu", f"rs_pbrt_tpu/ops/fourier_bsdf.py:{line}", more(key),
+            [grid[key]], grid[key]["max_abs_err"]), bit_equal=grid[key]["exact"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -16,9 +16,11 @@
 // and phi += beta_w * f, m += w, in registers, in the plain loop's order,
 // so the sums round as its do.
 //
-// The VP's BSDF has one lobe: Lambert, Oren-Nayar (matte) or hair (VPs are
-// stored only on surfaces with a non-specular lobe, and the port's
-// materials give those).  Everything of f that depends on wo alone (Oren-
+// A VP's BSDF is one lobe, Lambert, Oren-Nayar (matte) or hair, or, in a
+// scene of the other materials, a general one (kind -1): up to six slots of
+// reflecting lobes and the Fourier lobe, evaluated whole per pair by
+// bxdf.cuh (with fourier.cuh and the scene's table).  For the one-lobe
+// VPs, everything of f that depends on wo alone (Oren-
 // Nayar's A, B and wo's angles; the hair lobe's variances' terms, tilts,
 // azimuths, Np normalizations and attenuations) comes in per VP, computed
 // by the plain functions of ops/bsdf.py; the terms of wi are computed here
@@ -38,6 +40,8 @@
 #include <float.h>
 #include <stdint.h>
 
+#include "bxdf.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -46,6 +50,7 @@ constexpr int kVpCols = 19;  // p, ss, ts, ns, wo (local), r2, color
 constexpr int kCoefs = 44;
 constexpr int kLambert = 1;
 constexpr int kHair = 10;
+constexpr int kGeneral = -1;  // sppm_kernel.GENERAL: the VP's row of bxdf.cuh
 constexpr float kInvPi = static_cast<float>(0.31830988618379067154);
 constexpr float kPi = static_cast<float>(3.14159265358979323846);
 constexpr float kTwoPi = static_cast<float>(6.28318530717958647692);
@@ -158,10 +163,14 @@ __global__ void __launch_bounds__(kThreads)
     deposit_kernel(const float* __restrict__ rows, long long n_ev,
                    const long long* __restrict__ start, const uint8_t* __restrict__ okc,
                    const float* __restrict__ nbf, const float* __restrict__ vps,
-                   const int* __restrict__ kind, const float* __restrict__ coef, int n_vp,
-                   int max_ev, float* __restrict__ phi_out, float* __restrict__ m_out) {
+                   const int* __restrict__ kind, const float* __restrict__ coef,
+                   const float* __restrict__ gen, fou::Table table, const float* fou_eta,
+                   int n_vp, int max_ev, float* __restrict__ phi_out,
+                   float* __restrict__ m_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_vp) return;
+  if (fou_eta != nullptr) table.eta = *fou_eta;
+  const fou::Table* fou_table = fou_eta != nullptr ? &table : nullptr;
   const float* v = vps + static_cast<size_t>(i) * kVpCols;
   const float px = v[0], py = v[1], pz = v[2];
   const float r2 = v[15];
@@ -187,6 +196,9 @@ __global__ void __launch_bounds__(kThreads)
       float f[3];
       if (kd == kHair) {
         hair(c, wx, wy, wz, f);
+      } else if (kd == kGeneral) {
+        bxdf::general_f(gen + static_cast<size_t>(i) * bxdf::kGenCols, fou_table,
+                        bxdf::V3{v[12], v[13], v[14]}, bxdf::V3{wx, wy, wz}, f);
       } else {
         // Lambert or Oren-Nayar on the reflecting side, plus slot 1's 0
         const float g = kd == kLambert ? kInvPi : oren_nayar(c, wx, wy, wz);
@@ -207,17 +219,25 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
+// gen: the general VPs' rows (null without one); mu .. eta: the scene's
+// Fourier table (mu and eta null without one)
 extern "C" int rs_sppm_deposit(const void* rows, long long n_ev, const void* start,
                                const void* okc, const void* nbf, const void* vps,
-                               const void* kind, const void* coef, int n_vp, int max_ev,
-                               void* phi_out, void* m_out, void* stream) {
+                               const void* kind, const void* coef, const void* gen,
+                               const void* mu, const void* dense, const void* m_tab,
+                               const void* cdf, const void* a0, int n_mu, const void* eta,
+                               int n_vp, int max_ev, void* phi_out, void* m_out, void* stream) {
   if (n_vp == 0) return 0;
   const int grid = (n_vp + kThreads - 1) / kThreads;
+  const fou::Table table{static_cast<const float*>(mu), static_cast<const float*>(dense),
+                         static_cast<const int*>(m_tab), static_cast<const float*>(cdf),
+                         static_cast<const float*>(a0), n_mu, 1.0f};
   deposit_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(rows), n_ev, static_cast<const long long*>(start),
       static_cast<const uint8_t*>(okc), static_cast<const float*>(nbf),
       static_cast<const float*>(vps), static_cast<const int*>(kind),
-      static_cast<const float*>(coef), n_vp, max_ev, static_cast<float*>(phi_out),
+      static_cast<const float*>(coef), static_cast<const float*>(gen), table,
+      static_cast<const float*>(eta), n_vp, max_ev, static_cast<float*>(phi_out),
       static_cast<float*>(m_out));
   return static_cast<int>(cudaGetLastError());
 }

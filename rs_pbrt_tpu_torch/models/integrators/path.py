@@ -282,8 +282,9 @@ def _shade_and_extend(scene, cfg: PathCfg, accel, dist_at, dims, bounce, it, sta
         ls = lt.sample_li(scene, li_idx, it.p, dims[:, 1:3])
         wi_l = _to_local(ls.wi, ss, ts, it.ns)
         reflect = vm.dot(ls.wi, it.ng) * vm.dot(it.wo, it.ng) > 0.0
-        f = bx.bsdf_f(b, wo_l, wi_l, reflect) * bx.abs_cos_theta(wi_l)[:, None]
-        scat_pdf = bx.bsdf_pdf(b, wo_l, wi_l)
+        fou = bx.fourier_terms(b, wo_l, wi_l)  # one F1 for f and pdf
+        f = bx.bsdf_f(b, wo_l, wi_l, reflect, fou) * bx.abs_cos_theta(wi_l)[:, None]
+        scat_pdf = bx.bsdf_pdf(b, wo_l, wi_l, fou)
         contrib_ok = (alive & bx.has_nonspecular(b) & (ls.pdf > 0.0) & (ls.li > 0.0).any(-1)
                       & (f > 0.0).any(-1))
         p_shadow = vm.offset_ray_origin(it.p, it.p_error, it.ng, ls.wi)

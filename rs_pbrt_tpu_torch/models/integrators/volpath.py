@@ -171,8 +171,9 @@ def radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg, ctx: s
             ls = lt.sample_li(scene, li_idx, ref_p, dims[:, 1:3])
             wi_l = _to_local(ls.wi, ss, ts, it.ns)
             reflect = vm.dot(ls.wi, it.ng) * vm.dot(it.wo, it.ng) > 0.0
-            f_surf = bx.bsdf_f(b, wo_l, wi_l, reflect) * bx.abs_cos_theta(wi_l)[:, None]
-            pdf_surf = bx.bsdf_pdf(b, wo_l, wi_l)
+            fou = bx.fourier_terms(b, wo_l, wi_l)  # one F1 for f and pdf
+            f_surf = bx.bsdf_f(b, wo_l, wi_l, reflect, fou) * bx.abs_cos_theta(wi_l)[:, None]
+            pdf_surf = bx.bsdf_pdf(b, wo_l, wi_l, fou)
             ph = med.phase_hg(vm.dot(-d, ls.wi), g)
             f_scat = torch.where(med_scatter[:, None], ph[:, None], f_surf)
             pdf_scat = torch.where(med_scatter, ph, pdf_surf)

@@ -6,7 +6,8 @@ paths read: the packed triangle, quadric, material and light tables, the
 light-pick power and the per-light triangle-area CDF, the media (a
 homogeneous table and the density grids) and the subsurface materials'
 folded BSSRDF profiles, the infinite light's map, transforms and
-importance, plus the counts and feature flags that decide
+importance, the Fourier BSDF's table, plus the counts and feature flags
+that decide
 which route a scene may take (``ops/path_kernel.mega_cfg``) and which
 parts the port refuses.  A primitive's media are its inside and outside
 medium ids, columns TA_MED_IN/OUT of tri_attr and SP_MED_IN/OUT of
@@ -231,6 +232,17 @@ class Scene:
     inf_w2l: torch.Tensor = None
     inf_dist: smp.Distribution2D = None
     env_light: int = -1
+    # the Fourier material's table (ops/fourier_bsdf.make_fourier_table, one
+    # a scene): the mu nodes (MU,), the dense coefficient rows (MU*MU,
+    # 3*M_CAP), each cell's order (MU*MU,) int32, the cdf and a0 (MU, MU)
+    # and eta (a 0-d tensor); None without a Fourier material's table
+    has_fourier: bool = False
+    fou_mu: torch.Tensor = None
+    fou_dense: torch.Tensor = None
+    fou_m: torch.Tensor = None
+    fou_cdf: torch.Tensor = None
+    fou_a0: torch.Tensor = None
+    fou_eta: torch.Tensor = None
 
     @property
     def device(self) -> torch.device:
@@ -247,6 +259,7 @@ BRIDGE_FIELDS = (
     "alpha_flag", "bss_profile", "hair_flag", "tex_slot_flag", "mat_kind_flag",
     "bss_cdf", "bss_rho_eff", "bss_sigma_t", "bss_eta", "med_sigma_a", "med_sigma_s", "med_g",
     "med_grid", "med_w2m", "med_max_density", "camera_medium",
+    "fou_mu", "fou_dense", "fou_m", "fou_cdf", "fou_a0", "fou_eta",
 )
 
 
@@ -310,6 +323,18 @@ def env_fields(radiance, l2w, w2l, light_type, device) -> dict:
                 env_light=int(inf[0]) if inf.size else -1)
 
 
+def fourier_fields(mu, dense, m, cdf, a0, eta, device) -> dict:
+    """Scene's Fourier fields from the numpy table (ops/fourier_bsdf
+    make_fourier_table's arrays); has_fourier False where mu has no node,
+    as the JAX Scene's empty default (scene/arrays.py:494-499) holds."""
+    if np.shape(mu)[0] == 0:
+        return dict(has_fourier=False)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    return dict(has_fourier=True, fou_mu=f32(mu), fou_dense=f32(dense),
+                fou_m=torch.tensor(np.asarray(m, np.int32), device=device), fou_cdf=f32(cdf),
+                fou_a0=f32(a0), fou_eta=f32(eta).reshape(()))
+
+
 def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> Scene:
     """Scene from numpy arrays named as the JAX package's Scene fields
     (``{k: np.asarray(getattr(jax_scene, k)) for k in BRIDGE_FIELDS}``).
@@ -356,4 +381,6 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> Scene:
             "bss_profile", "bss_cdf", "bss_rho_eff", "bss_sigma_t", "bss_eta")), dev),
         **env_fields(arrays["inf_radiance"], arrays["inf_l2w"], arrays["inf_w2l"],
                      arrays["light_type"], dev),
+        **fourier_fields(*(arrays[k] for k in (
+            "fou_mu", "fou_dense", "fou_m", "fou_cdf", "fou_a0", "fou_eta")), dev),
     )

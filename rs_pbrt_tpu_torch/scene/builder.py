@@ -1,8 +1,10 @@
 """Programmatic scene construction -> Scene of torch tensors.
 
 The port's reduced copy of the JAX package's ``scene/builder.py`` (reference
-api.rs make_* factories): matte, mirror, glass, hair and subsurface
-materials, triangle meshes, spheres, cylinders and disks, each of them
+api.rs make_* factories): the matte, plastic, mirror, glass, metal,
+substrate, uber, translucent, Disney, hair, subsurface, Fourier and mix
+materials (the JAX builder's signatures and parameter packing, untextured),
+triangle meshes, spheres, cylinders and disks, each of them
 optionally emissive (diffuse area lights on a triangle range or on a
 quadric) and with a medium interface, cubic Bézier curves (flattened to
 segments at once, ``ops/curves.py``), point, spot, distant and infinite
@@ -12,10 +14,11 @@ tables of ``scene/arrays.py``.  ``finalize`` also does what the JAX
 parameters that depend on it, the per-light triangle-area CDF and the
 light-selection power (the infinite light's from its map's mean, as the
 JAX builder's finalize takes it); it stacks the media's grids and the
-subsurface materials' folded BSSRDF tables and makes the environment
-map's importance as the JAX ``finalize`` does.  Other shapes, materials
-and lights are not ported yet (ROADMAP); scenes that need them come from
-the JAX front ends through ``arrays.scene_from_numpy``.
+subsurface materials' folded BSSRDF tables, carries the Fourier
+material's table and makes the environment map's importance as the JAX
+``finalize`` does.  Other shapes, textures and
+lights are not ported yet (ROADMAP); scenes that need them come from the
+JAX front ends through ``arrays.scene_from_numpy``.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ from ..device import resolve
 from ..models.lights import compute_light_power
 from ..ops import bssrdf as bss
 from ..ops import curves as cv
+from ..ops import fourier_bsdf as fb
+from ..utils import spectrum
 from ..utils import transform as tr
 from . import arrays as sa
 
@@ -46,14 +51,17 @@ class SceneBuilder:
         self.media = []  # (sigma_a, sigma_s, g, grid or None, w2m) per medium
         self.camera_medium = -1  # the medium the camera sits in; -1 vacuum
         self.env = None  # the infinite light's (map, light-to-world, inverse)
+        self.fourier_table = None  # the Fourier material's dense table (one a scene)
         self.add_matte(kd=(0.5, 0.5, 0.5))  # default material 0 (api.rs)
 
     def _add_material(self, mtype, kd=(0, 0, 0), kr=(0, 0, 0), kt=(0, 0, 0), sigma=0.0,
-                      rough_u=0.0, rough_v=0.0, eta=1.5, remap=True, opacity=(1, 1, 1)) -> int:
+                      rough_u=0.0, rough_v=0.0, eta=1.5, remap=True, opacity=(1, 1, 1),
+                      ks=(0, 0, 0), eta3=(0.2, 0.92, 1.1), k3=(3.9, 2.45, 2.14)) -> int:
         """A material row with the JAX builder's defaults in the parameter
         slots the material does not set; returns its id."""
         p = np.zeros(sa.N_MAT_PARAMS, np.float32)
         p[sa.MP_KD:sa.MP_KD + 3] = kd
+        p[sa.MP_KS:sa.MP_KS + 3] = ks
         p[sa.MP_KR:sa.MP_KR + 3] = kr
         p[sa.MP_KT:sa.MP_KT + 3] = kt
         p[sa.MP_ROUGH_U] = rough_u
@@ -61,8 +69,8 @@ class SceneBuilder:
         p[sa.MP_ETA] = eta
         p[sa.MP_SIGMA] = sigma
         p[sa.MP_REMAP_ROUGH] = float(remap)
-        p[sa.MP_ETA3:sa.MP_ETA3 + 3] = (0.2, 0.92, 1.1)
-        p[sa.MP_K3:sa.MP_K3 + 3] = (3.9, 2.45, 2.14)
+        p[sa.MP_ETA3:sa.MP_ETA3 + 3] = eta3
+        p[sa.MP_K3:sa.MP_K3 + 3] = k3
         p[sa.MP_OPACITY:sa.MP_OPACITY + 3] = opacity
         p[sa.MP_BSSRDF] = -1
         self.mats.append((mtype, p, np.full(sa.N_TEX_SLOTS, -1, np.int32)))
@@ -72,6 +80,78 @@ class SceneBuilder:
         """Matte material (materials/matte.rs): Lambert, Oren-Nayar for
         sigma > 0 (degrees)."""
         return self._add_material(sa.MATTE, kd=kd, sigma=sigma)
+
+    def add_plastic(self, kd=(0.25,) * 3, ks=(0.25,) * 3, roughness=0.1, remap=True) -> int:
+        """Plastic (materials/plastic.rs): Lambert and a dielectric
+        TrowbridgeReitz gloss at eta 1.5."""
+        return self._add_material(sa.PLASTIC, kd=kd, ks=ks, rough_u=roughness, rough_v=roughness,
+                                  remap=remap)
+
+    def add_metal(self, eta3=None, k3=None, roughness=0.01, remap=True) -> int:
+        """Conductor (materials/metal.rs): TrowbridgeReitz with the conductor
+        Fresnel term; eta3 and k3 default to measured copper resampled to
+        RGB (metal.rs:12-121, utils/spectrum.copper_rgb)."""
+        if eta3 is None or k3 is None:
+            cu_eta, cu_k = spectrum.copper_rgb()
+            eta3 = cu_eta if eta3 is None else eta3
+            k3 = cu_k if k3 is None else k3
+        return self._add_material(sa.METAL, eta3=eta3, k3=k3, rough_u=roughness,
+                                  rough_v=roughness, remap=remap)
+
+    def add_substrate(self, kd=(0.5,) * 3, ks=(0.5,) * 3, roughness=0.1, remap=True) -> int:
+        """Substrate (materials/substrate.rs): FresnelBlend."""
+        return self._add_material(sa.SUBSTRATE, kd=kd, ks=ks, rough_u=roughness,
+                                  rough_v=roughness, remap=remap)
+
+    def add_uber(self, kd=(0.25,) * 3, ks=(0.25,) * 3, kr=(0, 0, 0), kt=(0, 0, 0), roughness=0.1,
+                 eta=1.5, opacity=(1, 1, 1), remap=True) -> int:
+        """Uber (materials/uber.rs:142-257): Lambert, gloss, specular
+        reflection and transmission, each scaled by the opacity, and the
+        opacity's pass-through."""
+        return self._add_material(sa.UBER, kd=kd, ks=ks, kr=kr, kt=kt, rough_u=roughness,
+                                  rough_v=roughness, eta=eta, opacity=opacity, remap=remap)
+
+    def add_translucent(self, kd=(0.25,) * 3, reflect=(0.5,) * 3, transmit=(0.5,) * 3) -> int:
+        """Translucent (materials/translucent.rs): diffuse reflection and
+        transmission scaled by reflect and transmit (the KR and KT slots)."""
+        return self._add_material(sa.TRANSLUCENT, kd=kd, kr=reflect, kt=transmit)
+
+    def add_disney(self, color=(0.5,) * 3, metallic=0.0, roughness=0.5, sheen=0.0,
+                   clearcoat=0.0, eta=1.5, spec_tint=0.0, anisotropic=0.0, spec_trans=0.0,
+                   clearcoat_gloss=1.0, sheen_tint=0.5, thin=False, flatness=0.0,
+                   diff_trans=0.0) -> int:
+        """The principled BSDF (materials/disney.rs:640), packed as the JAX
+        builder packs it: MP_KS = (metallic, sheen, clearcoat); MP_OPACITY
+        = (spec_tint, anisotropic, spec_trans); MP_KR = (clearcoat_gloss,
+        sheen_tint, flatness); MP_KT = (thin, diff_trans, 0)."""
+        return self._add_material(
+            sa.DISNEY, kd=color, ks=(metallic, sheen, clearcoat),
+            opacity=(spec_tint, anisotropic, spec_trans),
+            kr=(clearcoat_gloss, sheen_tint, float(flatness)),
+            kt=(float(bool(thin)), float(diff_trans), 0.0), rough_u=roughness,
+            rough_v=roughness, eta=eta, remap=False)
+
+    def add_fourier(self, bsdffile=None, table=None) -> int:
+        """The tabulated BSDF (materials/fourier.rs): a SCATFUN file's table
+        (ops/fourier_bsdf.read_bsdf_file, repacked), or a dense table
+        (fourier_bsdf.make_fourier_table's dict).  One table a scene."""
+        if table is None and bsdffile is not None:
+            table = fb.make_fourier_table(fb.read_bsdf_file(bsdffile))
+        if table is not None:
+            self.fourier_table = table
+        return self._add_material(sa.FOURIER)
+
+    def add_mix(self, mat1: int, mat2: int, amount=(0.5,) * 3) -> int:
+        """Mix (materials/mixmat.rs): mat1's two primary lobes scaled by
+        amount and mat2's by 1 - amount, resolved at shading time.  Packing:
+        MP_KD = amount, MP_KS[0:2] = the two material ids."""
+        p = np.zeros(sa.N_MAT_PARAMS, np.float32)
+        p[sa.MP_KD:sa.MP_KD + 3] = amount
+        p[sa.MP_KS] = float(mat1)
+        p[sa.MP_KS + 1] = float(mat2)
+        p[sa.MP_BSSRDF] = -1
+        self.mats.append((sa.MIXMAT, p, np.full(sa.N_TEX_SLOTS, -1, np.int32)))
+        return len(self.mats) - 1
 
     def add_mirror(self, kr=(0.9, 0.9, 0.9)) -> int:
         """Perfect mirror (materials/mirror.rs)."""
@@ -460,6 +540,7 @@ class SceneBuilder:
         geoms = [l["geom"] for l in self.lights]
 
         f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        fou = self.fourier_table
         return sa.Scene(
             tri_attr=f32(tri_attr), mat_attr=f32(mat_attr), light_attr=f32(light_attr),
             light_power=f32(power), alight_tri_cdf=f32(cdf), world_center=f32(center),
@@ -477,4 +558,6 @@ class SceneBuilder:
             **sa.media_fields(device=dev, **self._media_tables()),
             **sa.bssrdf_fields(*self._bssrdf_tables(), dev),
             **sa.env_fields(*env, types, dev),
+            **(sa.fourier_fields(*(fou[k] for k in ("mu", "dense", "m", "cdf", "a0", "eta")), dev)
+               if fou is not None else {}),
         )

@@ -320,7 +320,11 @@ def test_unported_parts_raise():
     b.add_projection_light(p=(0, 0, 1), to=(0, 0, 0))
     with pytest.raises(NotImplementedError, match="projection"):
         rdr.render(bridge(b.finalize()), camera, rdr.RenderCfg("whitted", 1, 1, 1.0), scfg)
+    # every material type renders; a textured parameter raises
     b = JaxBuilder()
     b.add_triangle_mesh([[0, 1, 2]], [[0, 0, 0], [1, 0, 0], [0, 1, 0]], material=b.add_plastic())
-    with pytest.raises(NotImplementedError, match="matte, mirror, glass and hair"):
-        rdr.render(bridge(b.finalize()), camera, rdr.RenderCfg("directlighting", 1, 1, 1.0), scfg)
+    plastic = bridge(b.finalize())
+    rdr.render(plastic, camera, rdr.RenderCfg("directlighting", 1, 1, 1.0), scfg)
+    plastic.tex_slot_mask = 1
+    with pytest.raises(NotImplementedError, match="textured"):
+        rdr.render(plastic, camera, rdr.RenderCfg("directlighting", 1, 1, 1.0), scfg)

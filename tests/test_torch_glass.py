@@ -255,7 +255,8 @@ def test_microfacet_gate_without_rough_glass(tmp_path):
     args = (torch.round(ma[:, sa.MA_TYPE]).to(torch.int32),
             ma[:, sa.MA_PARAMS:sa.MA_PARAMS + sa.N_MAT_PARAMS])
     gated, full = bx.make_bsdf(*args, enable_microfacet=False), bx.make_bsdf(*args)
-    assert not gated.enable_microfacet and full.enable_microfacet
+    mf = 1 << bx.LOBE_MICROFACET_REFL
+    assert not gated.lobe_mask & mf and full.lobe_mask & mf
     wo, wi = torch.as_tensor(_unit(rng, n)), torch.as_tensor(_unit(rng, n))
     u2 = torch.as_tensor(rng.uniform(size=(n, 2)).astype(np.float32))
     uc = torch.as_tensor(rng.uniform(size=n).astype(np.float32))

@@ -25,7 +25,8 @@ from rs_pbrt_tpu_torch.scene import arrays as sa
 from rs_pbrt_tpu_torch.scene import bigscene
 from rs_pbrt_tpu_torch.scene import presets
 from rs_pbrt_tpu_torch.scene.builder import SceneBuilder
-from rs_pbrt_tpu_torch.tools import bvh_ties, caustic_scenes, env_scenes, hair_scenes, sss_scenes
+from rs_pbrt_tpu_torch.tools import (bvh_ties, caustic_scenes, env_scenes, hair_scenes,
+                                     material_scenes, sss_scenes)
 from rs_pbrt_tpu_torch.utils import transform as tr
 
 torch.set_num_threads(2)
@@ -41,7 +42,7 @@ def test_no_jax_imports():
     assert len(files) > 15
     # the chip tools, which import the package of another checkout with --root
     assert {"k1_b2_replay.py", "k2_replay.py", "sweep_replay.py", "probe_replay.py",
-            "regen_sweep.py"} <= {f.name for f in files}
+            "regen_sweep.py", "op_count.py"} <= {f.name for f in files}
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
     assert not bad, bad
@@ -60,7 +61,9 @@ def test_import_loads_no_jax():
             "rs_pbrt_tpu_torch.ops.medium, rs_pbrt_tpu_torch.ops.medium_kernel, "
             "rs_pbrt_tpu_torch.models.integrators.volpath, rs_pbrt_tpu_torch.tools.sss_scenes, "
             "rs_pbrt_tpu_torch.tools.env_scenes, rs_pbrt_tpu_torch.models.integrators.direct, "
-            "rs_pbrt_tpu_torch.ops.intersect, rs_pbrt_tpu_torch.ops.sampling; "
+            "rs_pbrt_tpu_torch.ops.intersect, rs_pbrt_tpu_torch.ops.sampling, "
+            "rs_pbrt_tpu_torch.ops.fourier_kernel, rs_pbrt_tpu_torch.tools.material_scenes, "
+            "rs_pbrt_tpu_torch.utils.spectrum, rs_pbrt_tpu_torch.tools.op_count; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'rs_pbrt_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
@@ -92,6 +95,10 @@ ENTRY_POINTS = {
     "env_scenes.quadric_env": lambda: env_scenes.quadric_env((8, 8), sky_hw=(8, 16)),
     "env_scenes.statue_env": lambda: env_scenes.statue_env((8, 8), subdivisions=1,
                                                            sky_hw=(8, 16)),
+    "material_scenes.material_grid": lambda: material_scenes.material_grid(
+        (8, 8), sky_hw=(8, 16), n_mu=8),
+    "material_scenes.statue_disney": lambda: material_scenes.statue_disney((8, 8),
+                                                                           subdivisions=1),
 }
 
 
