@@ -262,6 +262,36 @@ Run from the root of a checkout.  Phases, one line each (or more):
    lanes, each within rtol 1e-5, atol 1e-6 of the fixed-depth loop.  It
    runs right after phase 20, before phase 9's statue is freed.
 
+23. tools/texture_scenes.texture_grid() (a checker of a seeded 1000x750
+   image map and an fbm on the floor, nine spheres binding every texture
+   slot and family, a bump map, an alpha-masked and a shadow-alpha quad, a
+   projection and a goniometric light) through render.render at 256x256,
+   depth 5: path, whitted and directlighting ("all") and volpath at 16
+   spp, SPPM of 4 iterations.  The counters are zeroed just before each
+   render and read just after; they must equal texture_counts (K1, K5, S1 and T1
+   by formula from the integrator and the alpha recasts' trips, read
+   through a wrapper of scene_intersect.alpha_recast_loop; K4 never: with
+   alpha masks a shadow ray takes the closest hit and the recast loop).
+   Each image finite and within rtol = atol = 2e-3 of the render with
+   every wrapper swapped for its plain version; the trips and the lanes
+   still masked after 16; paths/s (SPPM rays/s) best of 3 warm renders,
+   peak memory; the busy share of one profiled path render with the device
+   time in make_bsdf_at, apply_bump, the recast loop and T1.  Every T1
+   launch of the path render held to its plain version (bit-equal, else
+   within 1e-5, the line says which), timed queued and by events beside
+   its bound (texture_work: each lane's family, octaves and texels) and the
+   plain version's time; then one T1 launch at 2^22 lanes over the grid's
+   bound textures (seeded uv, points and footprints), the same way.
+24. tools/texture_scenes.statue_marble(): phase 9's statue and BVH in a
+   plastic with a marble kd and an fbm bump map (no image map, so it
+   regenerates), through render's defaults at 1024x1024, 16 spp: K1 2,
+   B1 = B2 = the iterations, T1 twice an iteration (the kd and the bump
+   map) on its 2^21-lane launches; paths/s beside statue_env's and
+   statue_disney's of this call, peak memory, the busy share of a
+   profiled 4 spp render; then the 128x128 crop's 2^18 paths through the
+   regeneration loop at 2^14 lanes against the fixed-depth loop within
+   rtol 1e-5, atol 1e-6.  It runs right after phase 22.
+
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
 """
@@ -462,6 +492,28 @@ GRID_RUNS = (("path", "path", 64, None),
 # its luminance taps and 20 Newton steps of the sine/cosine recurrence
 # (~32 + 20 x 8)
 F_FLOP = dict(lane=120, order=100, sample_lane=600, cdf_entry=8, sample_order=192)
+# phases 23-24: tools/texture_scenes.py at BASELINE config 2's width
+TEX_RES = (256, 256)
+# (tag, integrator, spp, extra); depth DEPTH; sppm's spp is its iterations
+TEX_RUNS = (("path", "path", 16, None),
+            ("whitted", "whitted", 16, None),
+            ("directlighting all", "directlighting", 16, dict(strategy="all")),
+            ("volpath", "volpath", 16, None),
+            ("sppm", "sppm", 4, dict(n_iterations=4)))
+TEX_SWEEP_LANES = 1 << 22  # phase 23: one T1 launch over the grid's texture mix
+# T1's operations (ops/texture.py, counted as the bounds below count; the
+# integer hash steps count one): a Perlin noise's floors, offsets, 8
+# gradients of 2 index adds, 2 masks and an add each, 3 weights of 9 and 7
+# lerps of 4 (~120); an octave's p * lambda, o * n, the sum and o * omega
+# (6) beside its noise; the 3D mapping's point transform (23); a marble's
+# scale, displacement, sine and spline (45); a bilinear tap's wrap, weight
+# and 3 products and sums (11) and its set-up (9); a footprint's log2,
+# level and blend (15); the uv mapping (4); a combinator's own work
+TEX_FLOP = dict(noise=120, octave=6, xform=23, marble=45, tap=11, lookup=9, trilinear=15,
+                uv=4, value=3, scale=3, mix=12, checker=4, dots=20)
+TEX_LANE_BYTES = 4 + 12  # id in, rgb out
+TEX_POINT_BYTES = 8 + 12  # uv, p in: once a point, or once a lane where each row has its own
+TEXEL_BYTES = 12
 M_FLOP = dict(delta_step=83, ratio_step=44, delta_lookup=81, ratio_lookup=83)
 M_RAY_BYTES = 4 + 1 + 12 + 12 + 4 + 4  # mid, in_med, o, d, t_max or dist, the lane key
 M_OUT_BYTES = dict(delta_track=1 + 4 + 12, ratio_track=4)  # sampled, t, weight; tr
@@ -574,24 +626,25 @@ def _kernel_modules():
     from rs_pbrt_tpu_torch.ops import path_kernel as pk
     from rs_pbrt_tpu_torch.ops import sobol_kernel as sk
     from rs_pbrt_tpu_torch.ops import sppm_kernel as sd
+    from rs_pbrt_tpu_torch.ops import texture_kernel as tk
 
-    return sk, pk, ik, bvh, gp, ck, sd, mk, fk
+    return sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk
 
 
 def zero_counts():
     """Every kernel's launch count to 0."""
-    sk, pk, ik, bvh, gp, ck, sd, mk, fk = _kernel_modules()
+    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk = _kernel_modules()
     sk.launches = pk.launches = 0
     for d in (ik.launches, bvh.launches, gp.launches, ck.launches, sd.launches, mk.launches,
-              fk.launches):
+              fk.launches, tk.launches):
         d.update(dict.fromkeys(d, 0))
 
 
 def read_counts() -> dict:
-    sk, pk, ik, bvh, gp, ck, sd, mk, fk = _kernel_modules()
+    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk = _kernel_modules()
     return dict(sobol=sk.launches, bounce=pk.launches, **ik.launches,
                 **{f"bvh12_{k}": v for k, v in bvh.launches.items()}, **gp.launches,
-                **ck.launches, **sd.launches, **mk.launches, **fk.launches)
+                **ck.launches, **sd.launches, **mk.launches, **fk.launches, **tk.launches)
 
 
 def expect_counts(**launched) -> dict:
@@ -603,12 +656,12 @@ def _owner(name: str):
     """The module of the kernel wrapper `name` (sobol_dims, bounce,
     closest_sweep, any_sweep, full_sweep, bvh12_intersect_tris, take_rows,
     take_loop, walk_closest, walk_any, sweep_closest, sweep_any, deposit,
-    delta_track, ratio_track, fourier_eval, fourier_sample)."""
-    sk, pk, ik, bvh, gp, ck, sd, mk, fk = _kernel_modules()
+    delta_track, ratio_track, fourier_eval, fourier_sample, texture_eval)."""
+    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk = _kernel_modules()
     return dict(sobol_dims=sk, bounce=pk, closest_sweep=ik, any_sweep=ik, full_sweep=ik,
                 bvh12_intersect_tris=bvh, take_rows=gp, take_loop=gp, walk_closest=ck,
                 walk_any=ck, sweep_closest=ck, sweep_any=ck, deposit=sd, delta_track=mk,
-                ratio_track=mk, fourier_eval=fk, fourier_sample=fk)[name]
+                ratio_track=mk, fourier_eval=fk, fourier_sample=fk, texture_eval=tk)[name]
 
 
 def wrapper(name: str):
@@ -2353,17 +2406,18 @@ def check_sweep_launches(tag: str, rec: dict) -> dict:
 
 
 def plain_fns(**timers) -> dict:
-    """Every wrapper of the config 4 and material renders swapped for its
-    plain version (a LaunchTimer around it where timers names one)."""
+    """Every wrapper of the config 4, material and texture renders swapped
+    for its plain version (a LaunchTimer around it where timers names one)."""
     from rs_pbrt_tpu_torch.ops import fourier_bsdf as fb
     from rs_pbrt_tpu_torch.ops import intersect_kernel as ik
     from rs_pbrt_tpu_torch.ops import medium_kernel as mk
     from rs_pbrt_tpu_torch.ops import sobol_kernel as sk
+    from rs_pbrt_tpu_torch.ops import texture_kernel as tk
 
     fns = dict(sobol_dims=sk.sobol_dims_plain, any_sweep=ik.any_sweep_plain,
                full_sweep=ik.full_sweep_plain, delta_track=mk.delta_track_plain,
                ratio_track=mk.ratio_track_plain, fourier_eval=fb.fourier_eval_plain,
-               fourier_sample=fb.fourier_sample_plain)
+               fourier_sample=fb.fourier_sample_plain, texture_eval=tk.plain)
     return {k: timers.get(k, v) for k, v in fns.items()}
 
 
@@ -3114,6 +3168,347 @@ def phase_statue_disney(card, statue):
                 seconds=seconds)
 
 
+# ---- phases 23-24: textures, bump maps, alpha masks ----
+
+def texture_counts(tag: str, spp: int, n_lights: int, trips: int, depth: int = DEPTH) -> dict:
+    """Phase 23's launch counts of a texture_grid render of one batch at
+    `depth`, its alpha recasts' trips given: K1 and S1 as phase 19's
+    (_env_counts); every cast, closest or shadow, one K5 (with alpha masks a
+    shadow ray takes the closest hit and the recast loop, so K4 never runs)
+    and one T1 for its mask test, each recast trip one K5 and one T1; T1
+    once a BSDF (path's and the direct integrators' depth, volpath's depth
+    + 1 vertices, SPPM's camera and photon vertices) and, in path, once a
+    bounce for the bump map's three evaluations."""
+    c = _env_counts(tag, spp, n_lights, depth)
+    casts = c["full_sweep"] + c["any_sweep"]
+    shading = {"path": depth, "volpath": depth + 1, "sppm": 2 * depth * spp}.get(tag, depth)
+    bump = depth if tag == "path" else 0
+    c.update(full_sweep=casts + trips, any_sweep=0,
+             texture_eval=shading + bump + casts + trips)
+    return c
+
+
+def texture_work(tb, ids, uv, width) -> dict:
+    """The work of one T1 launch on ids (S, N) at uv (N, 2) shared by the
+    rows or (S, N, 2) a row's own, as its plain version does it on each
+    lane's own family: operations (TEX_FLOP per noise, octave, lookup,
+    tap), atlas texels read, lanes, the uv and p read (the points with a
+    texture, or the lanes with one where each row has its own) and the
+    points with a texture."""
+    import torch
+
+    from rs_pbrt_tpu_torch.ops import texture as tx
+
+    f = TEX_FLOP
+    n_tex = tb.type.shape[0]
+    on = ids >= 0
+    tid = torch.clamp(ids, 0, n_tex - 1).long()[on]
+    ttype = tb.type[tid]
+    combo = torch.isin(ttype, torch.tensor([tx.TEX_SCALE, tx.TEX_MIX, tx.TEX_CHECKER,
+                                            tx.TEX_DOTS], device=ids.device))
+    child = torch.clamp(tb.child[tid[combo]], 0, n_tex - 1).long().flatten()
+    leaves = torch.cat([tid[~combo], child])
+    lt = tb.type[leaves]
+    octs = torch.clamp(tb.params[leaves, tx.TP_OCTAVES].to(torch.int64), 1, tx.MAX_OCTAVES)
+    has = lambda t: bool(tb.kind_mask & (1 << t))
+    count = lambda t: int((lt == t).sum()) if has(t) else 0
+    octaves = lambda t: int(octs[lt == t].sum()) if has(t) else 0
+    per_octave = f["noise"] + f["octave"]
+    ops = sum((f["xform"] + 3) * count(t) + per_octave * octaves(t)
+              for t in (tx.TEX_FBM, tx.TEX_WRINKLED))
+    ops += (f["xform"] + f["marble"]) * count(tx.TEX_MARBLE) + per_octave * octaves(tx.TEX_MARBLE)
+    ops += (f["xform"] + 7 + 9 * per_octave) * count(tx.TEX_WINDY)
+    ops += (f["uv"] + 2) * count(tx.TEX_UV)
+    n_img = count(tx.TEX_IMAGEMAP)
+    taps = 8 if width is not None else 4
+    lookups = 2 if width is not None else 1
+    ops += n_img * (f["uv"] + f["value"] + lookups * f["lookup"] + taps * f["tap"]
+                    + (f["trilinear"] if width is not None else 0))
+    ct = ttype[combo]
+    for t, k in ((tx.TEX_SCALE, f["scale"]), (tx.TEX_MIX, f["mix"]),
+                 (tx.TEX_CHECKER, f["uv"] + f["checker"]),
+                 (tx.TEX_DOTS, f["uv"] + f["dots"] + 3 * f["noise"])):
+        ops += k * int((ct == t).sum())
+    return dict(ops=ops, texels=n_img * taps, lanes=int(ids.numel()),
+                points=int(on.sum() if uv.dim() == 3 else on.any(0).sum()),
+                live=int(on.any(0).sum()), width=width is not None)
+
+
+def texture_bound_ms(tb, work: dict) -> tuple:
+    """Least time of one T1 launch, as (bytes_ms, operations_ms).  Bytes:
+    each lane's id in and rgb out; the uv and p of each point with a
+    texture (of each such lane where the rows have their own, as the
+    bump's) and its footprint (width is (N,) always); 12 a texel the lanes
+    fetch, at most the whole atlas; the tables once.  Operations:
+    texture_work's."""
+    tables = sum(t.numel() * t.element_size() for t in (
+        tb.type, tb.params, tb.child, tb.w2t, tb.rect, tb.mip, tb.nlv, tb.perm))
+    points = work["points"] * TEX_POINT_BYTES
+    width = 4 * work["live"] if work["width"] else 0
+    texels = min(work["texels"] * TEXEL_BYTES, tb.atlas.numel() * tb.atlas.element_size())
+    nbytes = work["lanes"] * TEX_LANE_BYTES + points + width + texels + tables
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * work["ops"] / FP32_FLOP_PER_S
+
+
+def check_texture(what: str, got, want) -> tuple:
+    """Fails unless a T1 launch's output equals the plain version's, or is
+    within rtol = atol = 1e-5 (bit_equal False).  (max_abs_err, exact)."""
+    return check_fourier(what, (got,), (want,))
+
+
+def _alpha_recorder(stats: dict):
+    """scene_intersect's alpha_recast_loop, summing each call's trips and
+    the lanes left masked into stats."""
+    from rs_pbrt_tpu_torch.ops import scene_intersect as si
+
+    real = si.alpha_recast_loop
+    return lambda *a, **kw: real(*a, **kw, stats=stats)
+
+
+def t1_part(timer, tag: str) -> dict:
+    """Every recorded T1 launch held to its plain version, replayed queued
+    for its device time, its bound from texture_work."""
+    import torch
+
+    from rs_pbrt_tpu_torch.ops import texture_kernel as tk
+
+    part = dict(ms=timer.times_ms(), device_ms=[], plain_ms=[], bound=[], max_abs_err=0.0,
+                exact=True, lanes=0)
+    for b, (_, a, kw, o) in enumerate(timer.calls):
+        t0 = time.perf_counter()
+        ref = tk.plain(*a, **kw)
+        torch.cuda.synchronize()
+        part["plain_ms"].append(1e3 * (time.perf_counter() - t0))
+        e, exact = check_texture(f"{tag} T1 launch {b}", o, ref)
+        part["max_abs_err"] = max(part["max_abs_err"], e)
+        part["exact"] = part["exact"] and exact
+        part["device_ms"].append(queued_ms(lambda a=a, kw=kw: tk.texture_eval(*a, **kw), 3))
+        ids = a[1] if a[1].dim() == 2 else a[1][None]
+        part["bound"].append(texture_bound_ms(a[0], texture_work(a[0], ids, a[2], kw.get(
+            "width", a[4] if len(a) > 4 else None))))
+        part["lanes"] += ids.numel()
+        del ref
+    return part
+
+
+def print_t1(tag: str, part: dict, card: str):
+    n = len(part["ms"])
+    print(f"[{tag} T1] {n} launches, {part['lanes'] // max(n, 1)} lanes a launch: "
+          f"{'bit-equal to' if part['exact'] else 'within 1e-5 of'} the plain version (max abs "
+          f"err {part['max_abs_err']:.3g}); on the card {sum(part['device_ms']) / n:.4f} ms "
+          f"(queued), events {sum(part['ms']) / n:.4f} ms, bound "
+          f"{sum(max(x) for x in part['bound']) / n:.4f} ms (bytes "
+          f"{sum(x[0] for x in part['bound']) / n:.4f}, operations "
+          f"{sum(x[1] for x in part['bound']) / n:.4f}), plain {sum(part['plain_ms']) / n:.3f} "
+          f"ms ({card})", flush=True)
+
+
+def phase_textures(card):
+    """Phase 23: tools/texture_scenes.texture_grid() at 256x256 through
+    render.render with each integrator (TEX_RUNS), each against its render
+    with every wrapper swapped for its plain version and its launch counts
+    against texture_counts; every T1 launch of the path render against its
+    plain version, timed; one T1 launch at TEX_SWEEP_LANES lanes."""
+    import torch
+
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.ops import bsdf as bx
+    from rs_pbrt_tpu_torch.ops import differentials as rd
+    from rs_pbrt_tpu_torch.ops import scene_intersect as si
+    from rs_pbrt_tpu_torch.ops import sppm_kernel as sd
+    from rs_pbrt_tpu_torch.ops import texture as tx
+    from rs_pbrt_tpu_torch.ops import texture_kernel as tk
+    from rs_pbrt_tpu_torch.scene import arrays as sa
+    from rs_pbrt_tpu_torch.tools import texture_scenes
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    scene, camera = texture_scenes.texture_grid(TEX_RES, device=DEVICE)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    w, h = TEX_RES
+    tb = tx.tables_of(scene)
+    print(f"[23 texture_grid] {scene.n_tris} triangles, {scene.n_spheres} spheres, "
+          f"{tb.type.shape[0]} textures (kinds {scene.tex_kind_mask:#x}, slots "
+          f"{scene.tex_slot_mask:#x}), a {tuple(tb.atlas.shape)} atlas, {scene.n_lights} lights "
+          f"(types {scene.light_type_mask:#x}), alpha masks {scene.has_alpha}, differentials "
+          f"{rd.needs_diffs(scene)}; built in {host_s:.3f} s (host: the 1000x750 image's "
+          f"Lanczos resample and pyramid)", flush=True)
+    plain = dict(plain_fns(), deposit=sd.deposit_plain)
+    out = {}
+    for tag, integrator, spp, extra in TEX_RUNS:
+        cfg = rdr.RenderCfg(integrator, spp, DEPTH, 1.0, extra=extra)
+        scfg = smpl.make_sampler(smpl.SOBOL, 1 if integrator == "sppm" else spp, TEX_RES)
+        go = lambda stats=None: rdr.render(scene, camera, cfg, scfg, stats=stats)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        timers = {}
+        if tag == "path":  # keep T1's launches for their checks
+            timers = {"texture_eval": LaunchTimer(wrapper("texture_eval"), keep=True)}
+        alpha = {}
+        zero_counts()
+        with ExitStack() as es:
+            patched(es, **timers)
+            es.enter_context(mock.patch.object(si, "alpha_recast_loop", _alpha_recorder(alpha)))
+            img = go()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = expect_counts(**texture_counts(tag, spp, scene.n_lights, alpha["alpha_trips"]))
+        if counts != want:
+            fail(f"launch counts of the texture_grid {tag} render {counts}, expected {want}")
+        if tuple(img.shape) != (h, w, 3) or not torch.isfinite(img).all():
+            fail(f"texture_grid {tag} image: shape {tuple(img.shape)}, finite "
+                 f"{bool(torch.isfinite(img).all())}")
+        with ExitStack() as es:
+            patched(es, **plain)
+            img_plain = go()
+        torch.cuda.synchronize()
+        err = compare_plain(f"texture_grid {tag} image", img, img_plain)
+        del img_plain
+        st = best_of_3(go)
+        unit = "SPPM rays/s (w h iterations 2)" if integrator == "sppm" else "camera paths/s"
+        rate = (w * h * spp * 2 / st["wall_s"] if integrator == "sppm" else st["paths_per_s"])
+        print(f"[23 {tag}] {w}x{h}, {spp} {'iterations' if integrator == 'sppm' else 'spp'}, "
+              f"depth {DEPTH}: finite, matches the plain render (max abs err {err:.3g}, mean "
+              f"{float(img.mean()):.5f}); launches {counts}, as expected; alpha recasts "
+              f"{alpha['alpha_trips']} trips, {alpha['alpha_left']} lanes still masked after "
+              f"{si.MAX_ALPHA_RECASTS}; {rate:.6g} {unit} (best of 3 warm renders, "
+              f"{1e3 * st['wall_s']:.3f} ms); peak device memory {peak / 2**30:.2f} GiB "
+              f"({(peak - held) / 2**30:.2f} GiB above the scene) on {card}", flush=True)
+        out[tag] = dict(counts=counts, rate=rate, peak=peak, alpha=alpha)
+        if tag == "path":
+            prof = profile_render(go, "23 profile, path", ranges={
+                "make_bsdf_at": (bx, "make_bsdf_at"), "apply_bump": (bx, "apply_bump"),
+                "alpha_recast_loop": (si, "alpha_recast_loop"),
+                "T1 texture_eval": (tk, "texture_eval")})
+            out[tag]["busy_ms"] = busy = sum(r[0] for r in prof)
+            ms = sum(r[0] for r in prof if "texture_kernel(" in r[2])
+            print(f"[23 profile, path]   T1 (texture_kernel): {ms:.3f} ms of device time, "
+                  f"{100 * ms / max(busy, 1e-9):.1f}% of the busy time", flush=True)
+            out[tag]["timer"] = timers["texture_eval"]
+        del img
+    out["texture_eval"] = t1_part(out["path"].pop("timer"), "23 texture_grid path")
+    print_t1("23", out["texture_eval"], card)
+    # one launch over the grid's texture mix: every bound texture id, seeded
+    # uv, points in the grid's box and footprints
+    g = torch.Generator(DEVICE).manual_seed(23)
+    bound = torch.unique(torch.round(scene.mat_attr[:, sa.MA_TEX:]).to(torch.int32))
+    bound = bound[bound >= 0]
+    n = TEX_SWEEP_LANES
+    ids = bound[torch.randint(0, bound.numel(), (1, n), device=DEVICE, generator=g)]
+    uv = torch.rand((n, 2), device=DEVICE, generator=g)
+    p = (torch.rand((n, 3), device=DEVICE, generator=g) - 0.5) * torch.tensor(
+        [8.0, 4.0, 8.0], device=DEVICE)
+    width = torch.exp(torch.rand(n, device=DEVICE, generator=g) * 12.0 - 12.0)
+    sweep = LaunchTimer(tk.texture_eval, keep=True)
+    sweep(tb, ids, uv, p, width)
+    out["sweep"] = t1_part(sweep, f"23 T1 at {n} lanes")
+    print_t1(f"23 sweep {n} lanes", out["sweep"], card)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[23] {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def phase_statue_marble(card, statue):
+    """Phase 24: tools/texture_scenes.statue_marble() (phase 9's statue and
+    BVH in a plastic with a marble kd and an fbm bump map, no image map)
+    through render's defaults at 1024x1024, 16 spp (regeneration: T1 on
+    its 2^21-lane launches); then 2^18 paths of a crop through the
+    regeneration loop against the fixed-depth loop, per path."""
+    import torch
+
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import path as pathmod
+    from rs_pbrt_tpu_torch.models.integrators import regen
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.ops import bvh
+    from rs_pbrt_tpu_torch.tools import texture_scenes
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    scene, camera = texture_scenes.statue_marble(STATUE_ENV_RES, STATUE_SUBDIV, device=DEVICE)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    if not torch.equal(scene.tri_attr, statue["scene"].tri_attr):
+        fail("statue_marble's triangles differ from phase 9's statue")
+    accel = statue["accel"]
+    print(f"[24 statue_marble] {scene.n_tris} triangles (phase 9's BVH), texture slots "
+          f"{scene.tex_slot_mask:#x}, kinds {scene.tex_kind_mask:#x}; scene built in "
+          f"{host_s:.3f} s (host)", flush=True)
+    spp = STATUE_ENV_SPP
+    cfg = rdr.RenderCfg("path", spp, DEPTH, 1.0)
+    scfg = smpl.make_sampler(smpl.SOBOL, spp, STATUE_ENV_RES)
+    w, h = STATUE_ENV_RES
+    paths = w * h * spp
+    go = lambda c=cfg, stats=None: rdr.render(scene, camera, c, scfg, accel=accel, stats=stats)
+    go(cfg._replace(spp=1))  # warm
+    overflow = bvh.overflow_counter(DEVICE)
+    overflow.zero_()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    st = {}
+    zero_counts()
+    img = go(stats=st)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not st["lane_width"]:
+        fail("the statue_marble render did not take the regeneration loop")
+    # T1 twice an iteration: the BSDF's kd and the bump map
+    want = expect_counts(sobol=2 * st["batches"], bvh12_closest=st["iterations"],
+                         bvh12_any=st["iterations"], texture_eval=2 * st["iterations"])
+    if counts != want:
+        fail(f"launch counts of the statue_marble render {counts}, expected {want}")
+    if int(overflow.item()) or tuple(img.shape) != (h, w, 3) or not torch.isfinite(img).all():
+        fail(f"statue_marble: stack overflows {int(overflow.item())}, image shape "
+             f"{tuple(img.shape)}, finite {bool(torch.isfinite(img).all())}")
+    print(f"[24 statue_marble] {w}x{h}, {spp} spp, depth {DEPTH}, {paths} paths through "
+          f"{st['lane_width']} lanes, {st['iterations']} iterations; launches {counts}; stack "
+          f"overflows 0; mean {float(img.mean()):.5f}; {st['paths_per_s']:.6g} camera paths/s "
+          f"({st['wall_s']:.3f} s, after a warm render of 1 spp); peak device memory "
+          f"{peak / 2**30:.2f} GiB ({(peak - held) / paths:.1f} bytes a path above the scene) "
+          f"on {card}", flush=True)
+    del img
+    prof = profile_render(lambda: go(cfg._replace(spp=STATUE_ENV_PROFILE_SPP)),
+                          f"24 profile, {STATUE_ENV_PROFILE_SPP} spp (regeneration)")
+    cw, ch = STATUE_ENV_CROP
+    rect = ((h - ch) // 2, ch, (w - cw) // 2, cw)
+    ctx, rays = rdr.camera_rays(camera, scfg, 0, spp, rect)
+    pcfg = pathmod.PathCfg(DEPTH, 1.0)
+    n = rays.o.shape[0]
+    rst = {}
+    overflow.zero_()
+    zero_counts()
+    L = regen.radiance_regen(scene, pcfg, scfg, ctx, rays.o, rays.d, accel,
+                             lane_width=REGEN_CHECK_WIDTH, stats=rst)
+    torch.cuda.synchronize()
+    crop_counts = read_counts()
+    n_it = rst["iterations"]
+    if crop_counts != expect_counts(sobol=1, bvh12_closest=n_it, bvh12_any=n_it,
+                                    texture_eval=2 * n_it):
+        fail(f"launch counts of the statue_marble regeneration check {crop_counts}")
+    L_fixed = pathmod.general_radiance(scene, pcfg, scfg, ctx, rays.o, rays.d, accel)
+    torch.cuda.synchronize()
+    fixed_counts = read_counts()
+    path_err = float((L - L_fixed).abs().max())
+    if int(overflow.item()) or not torch.isfinite(L).all():
+        fail("the statue_marble regeneration check overflowed its stack or is not finite")
+    if not torch.allclose(L, L_fixed, rtol=1e-5, atol=1e-6):
+        fail(f"statue_marble: the regeneration loop's radiance differs from the fixed-depth "
+             f"loop's by up to {path_err}")
+    seconds = time.perf_counter() - t_phase
+    print(f"[24 regen] {n} paths of a {cw}x{ch} crop through {REGEN_CHECK_WIDTH} lanes: {n_it} "
+          f"iterations; every path equals the fixed-depth loop's at rtol 1e-5, atol 1e-6 (max "
+          f"abs err {path_err:.3g}, {int(torch.equal(L, L_fixed))} bit-equal); stack overflows 0;"
+          f" phase 24 {seconds:.1f} s", flush=True)
+    return dict(counts={k: counts[k] + fixed_counts[k] for k in counts},
+                paths_per_s=st["paths_per_s"], peak=peak, busy_ms=sum(r[0] for r in prof),
+                seconds=seconds)
+
+
 def kernel_entry(name, source, replaces, launches, parts, max_abs_err, library_ms=None) -> dict:
     """One kernel's line of the `kernels` JSON: per-launch means over
     `parts`, dicts of per-launch lists ms, plain_ms and bound ((bytes_ms,
@@ -3161,6 +3556,11 @@ def main():
     # phase 20 reuses phase 9's statue and BVH, which go before phase 11
     later.append(phase_statue_env(card, statue))
     later.append(phase_statue_disney(card, statue))
+    marble = phase_statue_marble(card, statue)
+    later.append(marble)
+    print(f"[24] paths/s in this call: statue_env {later[1]['paths_per_s']:.6g}, statue_disney "
+          f"{later[2]['paths_per_s']:.6g}, statue_marble {marble['paths_per_s']:.6g} ({card})",
+          flush=True)
     del statue["camera"], statue["scene"], statue["accel"]
     later += list(phase_spatial_crop(card).values())
     later.append(phase_full_statue(card))
@@ -3178,7 +3578,9 @@ def main():
     later += list(phase_env(card).values())
     grid = phase_grid(card)
     later += [grid[tag] for tag, _, _, _ in GRID_RUNS]
-    more = lambda key: sum(p["counts"][key] for p in later)  # phases 10-12 and 14-22's launches
+    textures = phase_textures(card)
+    later += [textures[tag] for tag, _, _, _ in TEX_RUNS]
+    more = lambda key: sum(p["counts"][key] for p in later)  # phases 10-12 and 14-24's launches
 
     k2 = flag["k2"]
     csrc, pallas = "rs_pbrt_tpu_torch/csrc/", "rs_pbrt_tpu/ops/pallas_intersect.py:"
@@ -3257,6 +3659,17 @@ def main():
         kernels.append(dict(kernel_entry(
             key, csrc + "fourier.cu", f"rs_pbrt_tpu/ops/fourier_bsdf.py:{line}", more(key),
             [grid[key]], grid[key]["max_abs_err"]), bit_equal=grid[key]["exact"]))
+    # T1 replaces the JAX package's XLA texture evaluation; F.grid_sample
+    # reads one image, not the atlas's per-lane rects and wrap modes
+    kernels.append(dict(kernel_entry(
+        "texture_eval", csrc + "texture.cu", "rs_pbrt_tpu/ops/texture.py:286",
+        more("texture_eval"), [textures["texture_eval"]],
+        max(textures["texture_eval"]["max_abs_err"], textures["sweep"]["max_abs_err"])),
+        bit_equal=textures["texture_eval"]["exact"] and textures["sweep"]["exact"],
+        sweep={k: (sum(v) / len(v) if isinstance(v, list) else v)
+               for k, v in textures["sweep"].items() if k in ("ms", "device_ms", "plain_ms",
+                                                                "lanes")}
+        | dict(bound_ms=max(textures["sweep"]["bound"][0]))))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

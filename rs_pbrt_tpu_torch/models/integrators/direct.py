@@ -4,8 +4,9 @@ integrators.
 The port of the JAX package's ``models/integrators/direct.py`` (reference
 src/integrators/whitted.rs, directlighting.rs, ao.rs and the estimators of
 src/core/integrator.rs:300-570) for the scenes the port can intersect,
-shade and light: triangles, quadrics and curves, matte, mirror, glass and
-hair materials, area, point, spot, distant and infinite lights.  The
+shade and light: triangles, quadrics and curves, every material and
+light, textures (image maps filtered by the camera rays' differentials at
+the first hit).  The
 specular continuation follows the sampled lobe: a mirror's reflection, or
 smooth glass's reflection or transmission as Fresnel picks it (whitted.rs's
 specular_reflect and specular_transmit).  Each depth intersects through K5
@@ -26,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from ...ops import bsdf as bx
+from ...ops import differentials as rd
 from ...ops import sampling as smp
 from ...ops import scene_intersect as si
 from ...ops import sobol_kernel as sk
@@ -100,17 +102,18 @@ class DirectLightingCfg(NamedTuple):
 
 def check_supported(scene: sa.Scene, accel=None):
     """Raises NotImplementedError for what these integrators cannot render
-    yet: the intersection, material and light checks."""
+    yet: what scene intersection refuses."""
     si.check_supported(scene, accel)
-    bx.check_supported(scene)
-    lt.check_supported(scene)
 
 
-def _direct_radiance(scene, max_depth, sample_all, cfg_s, ctx, ray_o, ray_d, accel=None):
+def _direct_radiance(scene, max_depth, sample_all, cfg_s, ctx, ray_o, ray_d, accel=None,
+                     diffs=None):
     """The loop whitted.rs and directlighting.rs share: at each depth the
     emission of a hit light or of the infinite light where the ray escapes,
     direct light at the hit (every light, or one by power), then the
-    specular continuation only."""
+    specular continuation only.  diffs: the camera rays' differentials
+    (ops/differentials.py), whose footprints filter the image maps at the
+    first hits; later depths read level 0."""
     check_supported(scene, accel)
     n = ray_o.shape[0]
     dev = ray_o.device
@@ -133,7 +136,10 @@ def _direct_radiance(scene, max_depth, sample_all, cfg_s, ctx, ray_o, ray_d, acc
             L = L + torch.where((alive & ~it.valid)[:, None], beta * lt.env_le(scene, d), 0.0)
         alive = alive & it.valid
 
-        b = bx.make_bsdf_at(scene, it)
+        width = None
+        if diffs is not None and depth == 0:
+            width = rd.duv_width_at_hit(scene, it, diffs)
+        b = bx.make_bsdf_at(scene, it, width)
         ss, ts = _shading_frame_du(it.ns, it.dpdu)
         dim0 = DIM_CAMERA + depth * n_dims
         ctx_d = smpl.with_dims(cfg_s, ctx, dim0, n_dims)
@@ -160,17 +166,19 @@ def _direct_radiance(scene, max_depth, sample_all, cfg_s, ctx, ray_o, ray_d, acc
     return L
 
 
-def whitted_radiance(scene, wcfg: WhittedCfg, cfg_s, ctx, ray_o, ray_d, accel=None):
+def whitted_radiance(scene, wcfg: WhittedCfg, cfg_s, ctx, ray_o, ray_d, accel=None,
+                     diffs=None):
     """Whitted (whitted.rs): direct light from every light without MIS and
     the specular recursion (integrator.rs:259-294)."""
-    return _direct_radiance(scene, wcfg.max_depth, True, cfg_s, ctx, ray_o, ray_d, accel)
+    return _direct_radiance(scene, wcfg.max_depth, True, cfg_s, ctx, ray_o, ray_d, accel,
+                            diffs)
 
 
 def directlighting_radiance(scene, dcfg: DirectLightingCfg, cfg_s, ctx, ray_o, ray_d,
-                            accel=None):
+                            accel=None, diffs=None):
     """DirectLighting (directlighting.rs) with the "all" or "one" strategy."""
     return _direct_radiance(scene, dcfg.max_depth, dcfg.sample_all, cfg_s, ctx, ray_o, ray_d,
-                            accel)
+                            accel, diffs)
 
 
 class AOCfg(NamedTuple):

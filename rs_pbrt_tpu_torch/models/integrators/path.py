@@ -20,8 +20,11 @@ JAX package, shared with ``volpath.py``) samples the exit point of the
 BSSRDF by a probe chain of SSS_PROBE_HITS closest hits and continues the
 path from there; a scene with subsurface materials draws 7 + 8 dims a
 bounce.  A ray that escapes collects the infinite light's radiance,
-MIS-weighted against its light sampling.  Bump maps and ray differentials
-are not ported yet.
+MIS-weighted against its light sampling.  Textured parameters read their
+textures through T1 (``ops/bsdf.make_bsdf_at``), the image maps filtered
+by the camera rays' differentials at bounce 0 (``ops/differentials.py``;
+later bounces read level 0), and bump maps perturb the shading frame
+(``bsdf.apply_bump``); only this integrator bumps, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 
 from ...ops import bsdf as bx
 from ...ops import bssrdf as bss
+from ...ops import differentials as rd
 from ...ops import path_kernel as pk
 from ...ops import sampling as smp
 from ...ops import scene_intersect as si
@@ -92,11 +96,8 @@ class PathCfg(NamedTuple):
 
 def check_supported(scene: sa.Scene, sampler_cfg: smpl.SamplerCfg, accel=None):
     """Raises NotImplementedError for what the general bounce cannot render
-    yet.  Bump maps and ray differentials come with textures, which the
-    material check refuses."""
+    yet: what scene intersection refuses, and the samplers not ported."""
     si.check_supported(scene, accel)
-    bx.check_supported(scene)
-    lt.check_supported(scene)
     if sampler_cfg.kind not in smpl.PORTED_SAMPLERS:
         raise NotImplementedError(f"sampler kind {sampler_cfg.kind} is not ported yet")
 
@@ -263,7 +264,7 @@ def _add_emitted(scene, dist_at, it, o, d, L, beta, alive, specular_bounce, prev
 
 
 def _shade_and_extend(scene, cfg: PathCfg, accel, dist_at, dims, bounce, it, state,
-                      light_dist=None):
+                      light_dist=None, width=None):
     """One vertex's shading: the BSDF, NEE with MIS, the BSDF-sampled
     extension, the BSSRDF's transport where the scene has subsurface
     materials (light_dist: the power distribution it selects lights by)
@@ -271,10 +272,15 @@ def _shade_and_extend(scene, cfg: PathCfg, accel, dist_at, dims, bounce, it, sta
     this vertex's samples.  bounce: the fixed-depth loop's int, or (N,) int, each
     lane's own bounce in the regeneration loop.  eta_scale tracks the
     radiance scaling of refraction, which Russian roulette divides out
-    (path.rs:174-187)."""
+    (path.rs:174-187).  width: the hits' texture footprints (the camera
+    rays' differentials' at bounce 0), or None.  A bump map perturbs the
+    shading frame after the BSDF is made (path.py:339-342 of the JAX
+    package), and the rest of the vertex shades with its normal."""
     o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf, eta_scale = state
-    b = bx.make_bsdf_at(scene, it)
+    b = bx.make_bsdf_at(scene, it, width)
     ss, ts = _shading_frame_du(it.ns, it.dpdu)
+    ns_b, ss, ts = bx.apply_bump(scene, it, ss, ts)
+    it = it._replace(ns=ns_b)
     wo_l = _to_local(it.wo, ss, ts, it.ns)
 
     if scene.n_lights > 0:
@@ -333,11 +339,13 @@ def _shade_and_extend(scene, cfg: PathCfg, accel, dist_at, dims, bounce, it, sta
 
 def general_radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
                      ctx: smpl.SampleCtx, ray_o: torch.Tensor, ray_d: torch.Tensor,
-                     accel=None, light_distrib=None) -> torch.Tensor:
+                     accel=None, light_distrib=None, diffs=None) -> torch.Tensor:
     """(N, 3) radiance along N camera rays through the general wavefront
     bounce, max_depth bounces and then a pass that only collects emission
     (path.py:474-592 with regen=False).  light_distrib: a spatial light
-    distribution (lightdistrib.build_spatial), else selection by power."""
+    distribution (lightdistrib.build_spatial), else selection by power.
+    diffs: the camera rays' differentials (ops/differentials.py), or
+    None."""
     check_supported(scene, sampler_cfg, accel)
     n, dev = ray_o.shape[0], ray_o.device
     dist_at = _dist_at(scene, light_distrib)
@@ -366,9 +374,10 @@ def general_radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg
         k0 = bounce * dpb
         dims = (all_dims[:, k0:k0 + dpb] if all_dims is not None else
                 smpl.get_dims(sampler_cfg, ctx, DIM_CAMERA + k0, dpb))
+        width = rd.bounce_width(scene, it, diffs, bounce)
         o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf, eta_scale = _shade_and_extend(
             scene, cfg, accel, dist_at, dims, bounce, it,
-            (o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf, eta_scale), light_dist)
+            (o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf, eta_scale), light_dist, width)
     # the last vertex only collects emission
     it = si.scene_intersect(scene, o, d, torch.where(alive, inf, -1.0), accel)
     return _add_emitted(scene, dist_at, it, o, d, L, beta, alive, specular_bounce,
@@ -378,13 +387,15 @@ def general_radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg
 def radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
              ctx: smpl.SampleCtx, ray_o: torch.Tensor, ray_d: torch.Tensor,
              mega: Optional[pk.MegaCfg] = None, accel=None, light_distrib=None,
-             regen: bool = False, stats: Optional[dict] = None) -> torch.Tensor:
+             regen: bool = False, stats: Optional[dict] = None, diffs=None) -> torch.Tensor:
     """(N, 3) radiance along N camera rays.  mega: the scene's MegaCfg when
     the caller has it already; as in the JAX package, a scene passed with an
     accel or a spatial light distribution never takes the bounce kernel.
     K2 where the scene qualifies; else, with regen, the regeneration loop
     where ``regen.eligible`` takes the call (stats goes to
-    ``regen.radiance_regen``); else the general bounce."""
+    ``regen.radiance_regen``); else the general bounce.  diffs: the camera
+    rays' differentials, where the scene needs them (regeneration is not
+    eligible then)."""
     if mega is None and accel is None:
         mega = pk.mega_cfg(scene, light_distrib)
     if mega is not None and cfg.max_depth > 0 and sampler_cfg.kind == smpl.SOBOL:
@@ -396,4 +407,5 @@ def radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
         if regen_mod.eligible(scene, cfg, sampler_cfg, accel, ray_o.shape[0]):
             return regen_mod.radiance_regen(scene, cfg, sampler_cfg, ctx, ray_o, ray_d, accel,
                                             light_distrib, stats=stats)
-    return general_radiance(scene, cfg, sampler_cfg, ctx, ray_o, ray_d, accel, light_distrib)
+    return general_radiance(scene, cfg, sampler_cfg, ctx, ray_o, ray_d, accel, light_distrib,
+                            diffs)

@@ -16,7 +16,9 @@ and the two agree per path.
 Eligibility (``eligible``): the path integrator through a tree (the
 triangles' BVH or the curves' tree), the Sobol' sampler, every bounce's
 dims in one K1 launch (dims_per_bounce x max_depth <= 128, as the JAX
-regen.py:59-61 counts them), and more paths than one lane width.
+regen.py:59-61 counts them), a scene without ray differentials (no image
+map bound to a material: refilled lanes carry none), and more paths than
+one lane width.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from ...ops import differentials as rd
 from ...ops import scene_intersect as si
 from ...ops import sobol_kernel as sk
 from ...scene import arrays as sa
@@ -50,8 +53,9 @@ def eligible(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg, accel,
     below which nothing is refilled."""
     width = lane_width or REGEN_LANE_WIDTH
     total = dims_per_bounce(scene) * cfg.max_depth
-    return ((si.uses_bvh(scene, accel) or si.uses_curve_bvh(scene, accel)) and cfg.max_depth > 0 and sampler_cfg.kind == smpl.SOBOL
-            and 0 < total <= sk.MAX_DIMS and n_paths > width)
+    return ((si.uses_bvh(scene, accel) or si.uses_curve_bvh(scene, accel))
+            and cfg.max_depth > 0 and sampler_cfg.kind == smpl.SOBOL
+            and 0 < total <= sk.MAX_DIMS and not rd.needs_diffs(scene) and n_paths > width)
 
 
 def _paths_remain(alive: torch.Tensor) -> bool:

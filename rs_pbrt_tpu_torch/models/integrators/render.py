@@ -10,6 +10,11 @@ brute-force limit render with their BVH (``accel``,
 ``ops/scene_intersect.build_accel``); there, by default, the path
 integrator streams each batch's paths through a pool of lanes that it
 refills as paths finish (``regen.py``), as the JAX package's render does.
+Where a scene binds an image map to a material slot (``needs_diffs``), the
+path, volpath, whitted and directlighting integrators take the camera
+rays' differentials, whose footprints filter the image maps at the first
+hit (``ops/differentials.py``, render.py:53-65 and :164-172 of the JAX
+package).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ...ops import differentials as rd
 from ...ops import film as filmmod
 from ...ops import path_kernel as pk
 from ...scene import arrays as sa
@@ -67,37 +73,41 @@ def check_cfg(cfg: RenderCfg):
                                   "(ROADMAP queue A)")
 
 
+# the integrators whose first hits read image maps through ray differentials
+DIFFS_INTEGRATORS = ("path", "volpath", "whitted", "directlighting")
+
+
 def radiance_fn(cfg: RenderCfg, mega: Optional[pk.MegaCfg] = None, accel=None,
                 light_distrib=None, regen: bool = False, stats: Optional[dict] = None):
     """Integrator dispatch (integrator.rs:31): (scene, sampler_cfg, ctx, o,
-    d) -> (N, 3) radiance.  mega: the scene's MegaCfg for "path"; accel:
-    the scene's BVH, passed down to scene intersection.  light_distrib,
-    regen and stats reach the path integrator only: volpath and the direct
-    integrators select lights as they do with every strategy, as in the
-    JAX package."""
+    d, diffs) -> (N, 3) radiance; diffs the camera rays' differentials or
+    None.  mega: the scene's MegaCfg for "path"; accel: the scene's BVH,
+    passed down to scene intersection.  light_distrib, regen and stats
+    reach the path integrator only: volpath and the direct integrators
+    select lights as they do with every strategy, as in the JAX package."""
     if cfg.integrator == "path":
         pcfg = pathmod.PathCfg(cfg.max_depth, cfg.rr_threshold)
-        return lambda scene, scfg, ctx, o, d: pathmod.radiance(
+        return lambda scene, scfg, ctx, o, d, diffs=None: pathmod.radiance(
             scene, pcfg, scfg, ctx, o, d, mega=mega, accel=accel, light_distrib=light_distrib,
-            regen=regen, stats=stats)
+            regen=regen, stats=stats, diffs=diffs)
     if cfg.integrator == "volpath":
         vcfg = pathmod.PathCfg(cfg.max_depth, cfg.rr_threshold)
-        return lambda scene, scfg, ctx, o, d: volpathmod.radiance(scene, vcfg, scfg, ctx, o, d,
-                                                                   accel)
+        return lambda scene, scfg, ctx, o, d, diffs=None: volpathmod.radiance(
+            scene, vcfg, scfg, ctx, o, d, accel, diffs)
     if cfg.integrator == "whitted":
         wcfg = directmod.WhittedCfg(cfg.max_depth)
-        return lambda scene, scfg, ctx, o, d: directmod.whitted_radiance(scene, wcfg, scfg, ctx,
-                                                                          o, d, accel)
+        return lambda scene, scfg, ctx, o, d, diffs=None: directmod.whitted_radiance(
+            scene, wcfg, scfg, ctx, o, d, accel, diffs)
     if cfg.integrator == "directlighting":
         sample_all = (cfg.extra or {}).get("strategy", "all") == "all"
         dcfg = directmod.DirectLightingCfg(cfg.max_depth, sample_all)
-        return lambda scene, scfg, ctx, o, d: directmod.directlighting_radiance(
-            scene, dcfg, scfg, ctx, o, d, accel)
+        return lambda scene, scfg, ctx, o, d, diffs=None: directmod.directlighting_radiance(
+            scene, dcfg, scfg, ctx, o, d, accel, diffs)
     if cfg.integrator == "ao":
         ex = cfg.extra or {}
         acfg = directmod.AOCfg(int(ex.get("n_samples", 8)), bool(ex.get("cos_sample", True)))
-        return lambda scene, scfg, ctx, o, d: directmod.ao_radiance(scene, acfg, scfg, ctx, o, d,
-                                                                     accel)
+        return lambda scene, scfg, ctx, o, d, diffs=None: directmod.ao_radiance(
+            scene, acfg, scfg, ctx, o, d, accel)
     raise ValueError(f"unknown integrator {cfg.integrator!r}")
 
 
@@ -117,11 +127,12 @@ def crop_pixel_rect(resolution, crop):
 
 
 def camera_rays(camera: cam.Camera, sampler_cfg: smpl.SamplerCfg, sample0: int, nb: int,
-                rect=None):
+                rect=None, diffs: bool = False):
     """(SampleCtx, CameraRays) of samples sample0 .. sample0+nb-1 of every
     pixel of rect (y0, h, x0, w), the whole film without one: nb copies of
     the grid, x fastest.  The Sobol' indices are those of the pixels' film
-    coordinates."""
+    coordinates.  diffs: (SampleCtx, CameraRays, RayDiffs), the rays'
+    differentials at sampler_cfg's spp (differentials.camera_differentials)."""
     w, h = camera.resolution
     y0, hh, x0, ww = rect if rect is not None else (0, h, 0, w)
     dev = camera.device
@@ -132,7 +143,12 @@ def camera_rays(camera: cam.Camera, sampler_cfg: smpl.SamplerCfg, sample0: int, 
                               device=dev).repeat_interleave(ww * hh)
     ctx = smpl.make_ctx(sampler_cfg, pixel, sample_num, frame_lt_spp=True)
     u_film, u_time, u_lens = smpl.get_camera_dims(sampler_cfg, ctx, pixel)
-    return ctx, cam.generate_rays(camera, pixel.to(torch.float32) + u_film, u_lens, u_time)
+    p_film = pixel.to(torch.float32) + u_film
+    rays = cam.generate_rays(camera, p_film, u_lens, u_time)
+    if not diffs:
+        return ctx, rays
+    return ctx, rays, rd.camera_differentials(camera, rays, p_film, u_lens, u_time,
+                                              sampler_cfg.spp)
 
 
 def render_batch(scene: sa.Scene, camera: cam.Camera, cfg: RenderCfg,
@@ -142,9 +158,13 @@ def render_batch(scene: sa.Scene, camera: cam.Camera, cfg: RenderCfg,
                  stats: Optional[dict] = None) -> filmmod.Film:
     """Samples sample0 .. sample0+nb-1 of every pixel of rect (the crop
     window (y0, h, x0, w), else the whole film), added to `film`."""
-    ctx, rays = camera_rays(camera, sampler_cfg, sample0, nb, rect)
+    diffs = None
+    if cfg.integrator in DIFFS_INTEGRATORS and rd.needs_diffs(scene):
+        ctx, rays, diffs = camera_rays(camera, sampler_cfg, sample0, nb, rect, diffs=True)
+    else:
+        ctx, rays = camera_rays(camera, sampler_cfg, sample0, nb, rect)
     L = radiance_fn(cfg, mega, accel, light_distrib, regen, stats)(
-        scene, sampler_cfg, ctx, rays.o, rays.d)
+        scene, sampler_cfg, ctx, rays.o, rays.d, diffs)
     L = L * rays.weight[:, None]
     return filmmod.add_samples_grid(film, filter_cfg, L, nb, rect)
 

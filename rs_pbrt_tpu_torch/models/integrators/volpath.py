@@ -35,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from ...ops import bsdf as bx
+from ...ops import differentials as rd
 from ...ops import medium as med
 from ...ops import medium_kernel as mk
 from ...ops import sampling as smp
@@ -59,12 +60,9 @@ def dims_per_bounce(scene: sa.Scene) -> int:
 
 
 def check_supported(scene: sa.Scene, sampler_cfg: smpl.SamplerCfg, accel=None):
-    """Raises NotImplementedError for what volpath cannot render yet:
-    (through the material check) textures, whose mip filtering would need
-    ray differentials."""
+    """Raises NotImplementedError for what volpath cannot render yet: what
+    scene intersection refuses, and the samplers not ported."""
     si.check_supported(scene, accel)
-    bx.check_supported(scene)
-    lt.check_supported(scene)
     if sampler_cfg.kind not in smpl.PORTED_SAMPLERS:
         raise NotImplementedError(f"sampler kind {sampler_cfg.kind} is not ported yet")
 
@@ -112,9 +110,11 @@ def _shadow_tr(scene: sa.Scene, cur_med, p0, d, dist, ok, accel, lane_key):
 
 
 def radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg, ctx: smpl.SampleCtx,
-             ray_o: torch.Tensor, ray_d: torch.Tensor, accel=None) -> torch.Tensor:
+             ray_o: torch.Tensor, ray_d: torch.Tensor, accel=None, diffs=None) -> torch.Tensor:
     """(N, 3) radiance along N camera rays: max_depth + 1 bounces
-    (volpath.py:149-368)."""
+    (volpath.py:149-368).  diffs: the camera rays' differentials, whose
+    footprints filter the image maps at bounce 0 (later bounces read level
+    0)."""
     check_supported(scene, sampler_cfg, accel)
     n, dev = ray_o.shape[0], ray_o.device
     light_dist = _light_select_dist(scene) if scene.n_lights > 0 else None
@@ -160,7 +160,7 @@ def radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg, ctx: s
         alive = alive & (it.valid | med_scatter) & (bounce < cfg.max_depth)
         p_med = o + ms.t[:, None] * d
         g = scene.med_g[mid]
-        b = bx.make_bsdf_at(scene, it)
+        b = bx.make_bsdf_at(scene, it, rd.bounce_width(scene, it, diffs, bounce))
         ss, ts = _shading_frame_du(it.ns, it.dpdu)
         wo_l = _to_local(it.wo, ss, ts, it.ns)
 

@@ -1,18 +1,22 @@
 """Light sampling and emission, photon emission, and the light power for
 light selection.
 
-The port of the JAX package's ``models/lights.py`` for point, spot,
-distant and infinite lights and diffuse area lights on triangle ranges,
-spheres, cylinders and disks (reference src/core/light.rs,
-lights/point.rs, spot.rs, distant.rs, infinite.rs, diffuse.rs,
-shapes/triangle.rs, sphere.rs, cylinder.rs and disk.rs sample).  The
-infinite light is an equirect map, importance-sampled by its luminance x
-sin theta (``ops/sampling.sample_distribution_2d``) and read bilinearly
-(``_env_lookup``).  Table reads are plain indexing where the TPU used
-one-hot matmuls.  Projection and goniometric lights are not ported yet:
-``check_supported`` raises for them.  ``compute_light_power`` is host-side
-numpy that runs once when a scene is finalized.  ``sample_le`` emits
-photons (light.rs sample_le) for SPPM.
+The port of the JAX package's ``models/lights.py`` for every light it
+has: point, spot, projection, goniometric, distant and infinite lights and
+diffuse area lights on triangle ranges, spheres, cylinders and disks
+(reference src/core/light.rs, lights/point.rs, spot.rs, projection.rs,
+goniometric.rs, distant.rs, infinite.rs, diffuse.rs, shapes/triangle.rs,
+sphere.rs, cylinder.rs and disk.rs sample).  The infinite light is an
+equirect map, importance-sampled by its luminance x sin theta
+(``ops/sampling.sample_distribution_2d``) and read bilinearly
+(``_env_lookup``).  The projection and goniometric lights read their
+image in the texture atlas (``_angular_map_factors``, through the plain
+``ops/texture.atlas_lookup``).  Table reads are plain indexing where the
+TPU used one-hot matmuls.  ``compute_light_power`` is host-side numpy that
+runs once when a scene is finalized; as in the JAX package it gives the
+projection and goniometric lights no power of their own (1e-9), so
+selection by power rarely picks them.  ``sample_le`` emits photons
+(light.rs sample_le) for SPPM.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from ..ops import sampling as smp
+from ..ops import texture as tx
 from ..scene import arrays as sa
 from ..utils import transform as tr
 from ..utils import vecmath as vm
@@ -35,20 +40,12 @@ class LiSample(NamedTuple):
     pdf: torch.Tensor  # (N,) solid-angle pdf
     p_target: torch.Tensor  # (N,3) the shadow ray's target point
     n_light: torch.Tensor  # (N,3) normal at the light sample
-    is_delta: torch.Tensor  # (N,) bool: a point, spot or distant light
+    is_delta: torch.Tensor  # (N,) bool: a point, spot, projection, goniometric or distant light
 
-PORTED_LIGHTS = ((1 << sa.LIGHT_POINT) | (1 << sa.LIGHT_SPOT) | (1 << sa.LIGHT_DISTANT)
-                 | (1 << sa.LIGHT_AREA) | (1 << sa.LIGHT_INFINITE))
+
 # the solid-angle pdf of an equirect map's direction is its pdf over the
 # unit square divided by 2 pi^2 sin theta (infinite.rs pdf_li)
 _EQUIRECT_JACOBIAN = 2.0 * math.pi * math.pi
-
-
-def check_supported(scene: sa.Scene):
-    """Raises NotImplementedError for the lights the port cannot sample yet."""
-    if scene.light_type_mask & ~PORTED_LIGHTS:
-        raise NotImplementedError("projection and goniometric lights are not ported yet "
-                                  "(ROADMAP queue A)")
 
 
 class LeSample(NamedTuple):
@@ -225,13 +222,39 @@ def env_le(scene: sa.Scene, d):
     return _env_lookup(scene, _env_uv(scene, d)[0])
 
 
+def _angular_map_factors(scene: sa.Scene, la, spot_dir, dl):
+    """The projection and goniometric factors of directions dl (N, 3) from
+    the light (projection.rs projection, goniometric.rs scale), in the
+    frame about spot_dir: the image on the square window of half-angle
+    tan LP_TAN_FOV, 0 outside it, and the equirect map at (phi / 2 pi,
+    theta / pi).  Returns (proj (N, 3), gonio (N, 3)); sample_li and
+    sample_le share them."""
+    tex_id = torch.clamp(la[:, sa.LP_TEX].to(torch.int32), 0, scene.tex_rect.shape[0] - 1).long()
+    rect = scene.tex_rect[tex_id]
+    w_l = vm.normalize(spot_dir)
+    s1, s2 = vm.coordinate_system(w_l)
+    x_l, y_l, z_l = vm.dot(dl, s1), vm.dot(dl, s2), vm.dot(dl, w_l)
+    tan_fov = torch.clamp(la[:, sa.LP_TAN_FOV], min=1e-6)
+    up = 0.5 * (x_l / torch.clamp(z_l, min=1e-6) / tan_fov + 1.0)
+    vp = 0.5 * (y_l / torch.clamp(z_l, min=1e-6) / tan_fov + 1.0)
+    inside = (z_l > 0) & (up >= 0) & (up < 1) & (vp >= 0) & (vp < 1)
+    proj = torch.where(inside[:, None], tx.atlas_lookup(scene.tex_atlas, rect, up, vp), 0.0)
+    theta_g = torch.arccos(torch.clamp(z_l, -1, 1))
+    phi_g = torch.atan2(y_l, x_l)
+    phi_g = torch.where(phi_g < 0, phi_g + 2 * float(vm.PI), phi_g)
+    gonio = tx.atlas_lookup(scene.tex_atlas, rect, phi_g * float(vm.INV_2_PI),
+                            theta_g * float(vm.INV_PI))
+    return proj, gonio
+
+
 def sample_li(scene: sa.Scene, light_idx, ref_p, u2) -> LiSample:
     """Light light_idx ((N,) int) as seen from ref_p (N,3), from u2 (N,2)
     (light.rs sample_li): a point on an area light; the position of a point
     or spot light, with its falloff; a point 2 world radii away along a
     distant light's direction, or along a direction of the infinite light's
-    map drawn by its importance.  The delta lights' pdf is 1."""
-    check_supported(scene)
+    map drawn by its importance; a projection or goniometric light's
+    position, its image's factor on the point light's radiance.  The delta
+    lights' pdf is 1."""
     la = scene.light_attr[light_idx.long()]
     intensity = la[:, sa.LP_I:sa.LP_I + 3]
     ltype = torch.round(la[:, sa.LA_TYPE])
@@ -285,11 +308,24 @@ def sample_li(scene: sa.Scene, light_idx, ref_p, u2) -> LiSample:
 
     is_point, is_spot = ltype == sa.LIGHT_POINT, ltype == sa.LIGHT_SPOT
     is_dist = ltype == sa.LIGHT_DISTANT
-    positional = (is_point | is_spot)[:, None]
+    is_delta = is_point | is_spot
+    angular = scene.light_type_mask & ((1 << sa.LIGHT_PROJECTION) | (1 << sa.LIGHT_GONIO))
+    if angular:
+        is_proj, is_gonio = ltype == sa.LIGHT_PROJECTION, ltype == sa.LIGHT_GONIO
+        is_delta = is_delta | is_proj | is_gonio
+    positional = is_delta[:, None]
     wi = torch.where(positional, wi_point, torch.where(is_dist[:, None], wi_dist, wi))
     li = torch.where(is_point[:, None], li_point,
                      torch.where(is_spot[:, None], li_point * falloff[:, None],
                                  torch.where(is_dist[:, None], intensity, li)))
+    if angular:
+        # the maps apply only where the atlas holds an image (lights.py:172-179)
+        if scene.tex_atlas.shape[0] > 1:
+            proj, gonio = _angular_map_factors(scene, la, spot_dir, -wi_point)
+            li_proj, li_gonio = li_point * proj, li_point * gonio
+        else:
+            li_proj, li_gonio = li_point * 0.0, li_point
+        li = torch.where(is_proj[:, None], li_proj, torch.where(is_gonio[:, None], li_gonio, li))
     pdf = torch.where(is_area, pdf, 1.0)
     p_target = torch.where(positional, pos, torch.where(is_dist[:, None], p_far, p_area))
     if scene.has_env:
@@ -303,7 +339,7 @@ def sample_li(scene: sa.Scene, light_idx, ref_p, u2) -> LiSample:
         p_far_inf = ref_p + wi_inf * (2.0 * la[:, sa.LP_WORLD_RADIUS])[:, None]
         p_target = torch.where(is_inf[:, None], p_far_inf, p_target)
     n_light = torch.where(is_area[:, None], n_area, 0.0)
-    return LiSample(wi, li, pdf, p_target, n_light, is_point | is_spot | is_dist)
+    return LiSample(wi, li, pdf, p_target, n_light, is_delta | is_dist)
 
 
 def sample_le(scene: sa.Scene, light_idx, u_pos, u_dir) -> LeSample:
@@ -314,8 +350,9 @@ def sample_le(scene: sa.Scene, light_idx, u_pos, u_dir) -> LeSample:
     (a triangle range's CDF, a sphere's uniform sphere, a disk's or
     cylinder's uniform point) and cosine hemisphere about its normal, the
     infinite light's map direction by importance from a disk of the world
-    radius.  Both pdfs are floored at 1e-20."""
-    check_supported(scene)
+    radius, a projection light's uniform cone over its window and a
+    goniometric light's uniform sphere, each with its map's factor.  Both
+    pdfs are floored at 1e-20."""
     la = scene.light_attr[light_idx.long()]
     n = light_idx.shape[0]
     pos = la[:, sa.LP_P:sa.LP_P + 3]
@@ -378,6 +415,26 @@ def sample_le(scene: sa.Scene, light_idx, u_pos, u_dir) -> LeSample:
                           pdf_pos)
     pdf_dir = torch.where(is_pt, smp.UNIFORM_SPHERE_PDF, one)
     pdf_dir = torch.where(is_spot, smp.uniform_cone_pdf(ct_total), pdf_dir)
+    if scene.light_type_mask & ((1 << sa.LIGHT_PROJECTION) | (1 << sa.LIGHT_GONIO)):
+        # projection: a uniform cone over the window, whose corner direction
+        # (tan, tan, 1) sets its cosine (projection.rs:408-435); goniometric:
+        # the point light's uniform sphere (goniometric.rs:290-312)
+        is_proj, is_gonio = ltype == sa.LIGHT_PROJECTION, ltype == sa.LIGHT_GONIO
+        tan_fov = torch.clamp(la[:, sa.LP_TAN_FOV], min=1e-6)
+        ct_proj = 1.0 / torch.sqrt(1.0 + 2.0 * tan_fov * tan_fov)
+        cone_p = smp.uniform_sample_cone(u_dir, ct_proj)
+        d_proj = cone_p[:, 0:1] * s1 + cone_p[:, 1:2] * s2 + cone_p[:, 2:3] * spot_dir
+        if scene.tex_atlas.shape[0] > 1:
+            proj_f = _angular_map_factors(scene, la, world_c, d_proj)[0]
+            gonio_f = _angular_map_factors(scene, la, world_c, d_pt)[1]
+        else:
+            proj_f = gonio_f = torch.ones_like(intensity)
+        d = torch.where(is_proj[:, None], d_proj, d)
+        n_light = torch.where(is_proj[:, None], d_proj, n_light)
+        le = torch.where(is_proj[:, None], intensity * proj_f,
+                         torch.where(is_gonio[:, None], intensity * gonio_f, le))
+        pdf_dir = torch.where(is_gonio, smp.UNIFORM_SPHERE_PDF, pdf_dir)
+        pdf_dir = torch.where(is_proj, smp.uniform_cone_pdf(ct_proj), pdf_dir)
     pdf_dir = torch.where(is_area, smp.cosine_hemisphere_pdf(d_cos[:, 2].abs()), pdf_dir)
     pdf_dir = torch.where(is_dist, one, pdf_dir)
     if scene.has_env:

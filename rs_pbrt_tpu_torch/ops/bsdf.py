@@ -1,5 +1,5 @@
-"""The BSDF of every untextured material of the JAX package as batched
-tag-switched code.
+"""The BSDF of every material of the JAX package as batched tag-switched
+code, with textured parameters and bump maps.
 
 The port of the JAX package's ``ops/bsdf.py`` (reference
 src/core/reflection.rs, microfacet.rs and materials/*.rs): every lane
@@ -18,8 +18,10 @@ material set needs them (uber, translucent, Disney, mix), and each family's
 math runs only in the slots where the scene's set holds it (the lobe
 masks): a scene of the matte, mirror, glass, hair and subsurface
 materials computes what it computed before the other families came.
-Textured parameters raise
-NotImplementedError (``check_supported``).
+A material's textured slots (kd, ks, kr, kt, sigma, the roughnesses and
+the opacity) take their texture's value at the hit, every bound slot of a
+shading step in one launch of T1 (``ops/texture_kernel.py``);
+``apply_bump`` perturbs the shading frame by a bump map's texture.
 
 Convention: the shading-local frame has z = the shading normal and x the
 surface's u tangent (a fibre's direction on curves); wo and wi are unit
@@ -40,6 +42,8 @@ import torch
 from ..scene import arrays as sa
 from ..utils import vecmath as vm
 from . import fourier_kernel
+from . import texture as tx
+from . import texture_kernel as tk
 from .fourier_bsdf import table_of
 from .sampling import concentric_sample_disk, cosine_sample_hemisphere
 
@@ -719,14 +723,6 @@ def disney_clearcoat_f(color, gloss, wo, wi):
 
 # ---- materials to lobes ----
 
-def check_supported(scene: sa.Scene):
-    """Raises NotImplementedError for textured material parameters, which
-    the port cannot shade yet; every material type is shaded."""
-    if scene.tex_slot_mask:
-        raise NotImplementedError("textured material parameters are not ported yet "
-                                  "(ROADMAP queue A)")
-
-
 _MAT_LOBES = {
     sa.MATTE: (LOBE_LAMBERT, LOBE_ORENNAYAR),
     sa.PLASTIC: (LOBE_LAMBERT, LOBE_MICROFACET_REFL),
@@ -1038,14 +1034,45 @@ def _mix(scene: sa.Scene, mat_type, params, mat, uv, flags) -> Bsdf:
         sigma2=pick(ba.sigma2, bb.sigma))
 
 
-def make_bsdf_from_mat(scene: sa.Scene, mat, uv=None) -> Bsdf:
-    """The Bsdf of material ids mat (N,) (and, in a scene with hair, of the
-    hits' uv; without uv a fibre's offset is 0, as the JAX package's
-    make_bsdf_from_mat gives SPPM's visible points)."""
-    check_supported(scene)
+# the texturable slots a material's parameters take (bump excluded):
+# (slot, first parameter column, columns)
+TEXTURE_SLOTS = ((sa.TEX_SLOT_KD, sa.MP_KD, 3), (sa.TEX_SLOT_KS, sa.MP_KS, 3),
+                 (sa.TEX_SLOT_KR, sa.MP_KR, 3), (sa.TEX_SLOT_KT, sa.MP_KT, 3),
+                 (sa.TEX_SLOT_SIGMA, sa.MP_SIGMA, 1), (sa.TEX_SLOT_ROUGH_U, sa.MP_ROUGH_U, 1),
+                 (sa.TEX_SLOT_ROUGH_V, sa.MP_ROUGH_V, 1), (sa.TEX_SLOT_OPACITY, sa.MP_OPACITY, 3))
+
+
+def textured_params(scene: sa.Scene, ma, uv, p, width=None):
+    """The material rows ma's parameters (N, N_MAT_PARAMS) with each bound
+    slot's texture evaluated at the hits (uv, p) (the JAX
+    make_bsdf_from_mat, bsdf.py:698-733): the slots the scene binds go to
+    one T1 launch; a lane whose slot holds -1 keeps its constant.  width:
+    the hits' texture-space footprints, or None."""
+    params = ma[:, sa.MA_PARAMS:sa.MA_PARAMS + sa.N_MAT_PARAMS]
+    slots = [s for s in TEXTURE_SLOTS if scene.tex_slot_mask & (1 << s[0])]
+    if not slots:
+        return params
+    tid = torch.round(ma[:, [sa.MA_TEX + s for s, _, _ in slots]]).to(torch.int32).t()
+    vals = tk.texture_eval(tx.tables_of(scene), tid, uv, p, width)  # (S, N, 3)
+    params = params.clone()
+    for k, (_, col, w) in enumerate(slots):
+        bound = (tid[k] >= 0)[:, None]
+        params[:, col:col + w] = torch.where(bound, vals[k, :, :w], params[:, col:col + w])
+    return params
+
+
+def make_bsdf_from_mat(scene: sa.Scene, mat, uv=None, p=None, width=None) -> Bsdf:
+    """The Bsdf of material ids mat (N,).  uv and p, the hits' (N, 2) and
+    (N, 3), evaluate the bound slots' textures (width: the hits'
+    footprints, or None) and, in a scene with hair, a fibre's offset;
+    without them the slots keep their constants and a fibre's offset is 0,
+    as the JAX package's make_bsdf_from_mat gives SPPM's visible points."""
     ma = scene.mat_attr[mat.long()]
     mat_type = torch.round(ma[:, sa.MA_TYPE]).to(torch.int32)
-    params = ma[:, sa.MA_PARAMS:sa.MA_PARAMS + sa.N_MAT_PARAMS]
+    if uv is not None and p is not None:
+        params = textured_params(scene, ma, uv, p, width)
+    else:
+        params = ma[:, sa.MA_PARAMS:sa.MA_PARAMS + sa.N_MAT_PARAMS]
     mask = scene.mat_kind_mask
     flags = dict(
         enable_hair=scene.has_hair,
@@ -1058,10 +1085,45 @@ def make_bsdf_from_mat(scene: sa.Scene, mat, uv=None) -> Bsdf:
     return make_bsdf(mat_type, params, uv, **flags)
 
 
-def make_bsdf_at(scene: sa.Scene, it) -> Bsdf:
-    """The Bsdf at each hit of an Interaction, from its material id (and,
-    in a scene with hair, its uv)."""
-    return make_bsdf_from_mat(scene, it.mat, it.uv if scene.has_hair else None)
+def make_bsdf_at(scene: sa.Scene, it, width=None) -> Bsdf:
+    """The Bsdf at each hit of an Interaction, from its material id, its
+    textures at its uv and p (width: the hits' footprints from ray
+    differentials, ops/differentials.py, or None) and, with hair, its uv.
+    Without bound slots and hair the hits' uv and p are not read."""
+    textured = bool(scene.tex_slot_mask)
+    return make_bsdf_from_mat(scene, it.mat, it.uv if textured or scene.has_hair else None,
+                              it.p if textured else None, width)
+
+
+BUMP_DU = 0.0005  # apply_bump's finite difference step in u and v (material.rs)
+
+
+def apply_bump(scene: sa.Scene, it, ss, ts):
+    """The shading frame perturbed by each hit's bump map (material.rs:
+    118-220): the displacement's finite differences in u and v (a fixed
+    step, no ray differentials), the displaced tangents, the new normal on
+    the old one's side.  One T1 launch for the three evaluations; lanes
+    without a bump map keep (it.ns, ss, ts).  Returns (ns, ss, ts)."""
+    if not scene.tex_slot_mask & (1 << sa.TEX_SLOT_BUMP):
+        return it.ns, ss, ts
+    tid = torch.round(scene.mat_attr[it.mat.long(), sa.MA_TEX + sa.TEX_SLOT_BUMP]).to(
+        torch.int32)
+    du = BUMP_DU
+    uv = torch.stack([it.uv, it.uv + torch.tensor([du, 0.0], device=it.uv.device),
+                      it.uv + torch.tensor([0.0, du], device=it.uv.device)])
+    p = torch.stack([it.p, it.p + ss * du, it.p + ts * du])
+    disp = tk.texture_eval(tx.tables_of(scene), tid.expand(3, -1), uv, p)[..., 0]
+    dddu = (disp[1] - disp[0]) / du
+    dddv = (disp[2] - disp[0]) / du
+    dpdu_b = ss + dddu[:, None] * it.ns
+    dpdv_b = ts + dddv[:, None] * it.ns
+    ns_b = vm.normalize(vm.cross(dpdu_b, dpdv_b))
+    ns_b = torch.where((vm.dot(ns_b, it.ns) < 0.0)[:, None], -ns_b, ns_b)
+    ss_b = vm.normalize(dpdu_b - ns_b * vm.dot(ns_b, dpdu_b)[:, None])
+    ts_b = vm.cross(ns_b, ss_b)
+    sel = (tid >= 0)[:, None]
+    return (torch.where(sel, ns_b, it.ns), torch.where(sel, ss_b, ss),
+            torch.where(sel, ts_b, ts))
 
 
 def _slots(b: Bsdf):

@@ -15,8 +15,12 @@ the kinds the scene has, as the JAX package tests them in XLA.  Curve
 segments go through the curve kernels of ``ops/curve_kernel.py``: up to
 ``BRUTE_FORCE_MAX_CURVES`` the dense sweeps C3 (closest) and C4 (shadow
 rays), above it the walks C1 and C2 through the curves' binary tree; their
-hit record is ``curves.curve_interaction``.  Instances, animated triangles
-and alpha masks raise.
+hit record is ``curves.curve_interaction``.  Where triangles carry alpha
+masks, a hit whose mask is 0 at its uv is skipped by casting again from
+just past it (``alpha_recast_loop``), the mask tests through T1
+(``ops/texture_kernel.py``); shadow rays then take the closest hit and the
+same loop with the shadow-alpha masks too.  Instances and animated
+triangles raise.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ from . import curve_kernel as ck
 from . import curves as cv
 from . import intersect as isect
 from . import intersect_kernel as ik
+from . import texture as tx
+from . import texture_kernel as tk
 from .record import tri_record
 
 # up to this triangle count the triangles are swept densely; above it they
@@ -119,8 +125,7 @@ class Interaction(NamedTuple):
 def check_supported(scene: sa.Scene, accel: Optional[Accel] = None):
     """Raises NotImplementedError for what the port cannot intersect yet."""
     missing = [name for name, present in (
-        ("instances", scene.n_instances),
-        ("animated triangles", scene.n_anim_tris), ("alpha masks", scene.has_alpha),
+        ("instances", scene.n_instances), ("animated triangles", scene.n_anim_tris),
     ) if present]
     if missing:
         raise NotImplementedError(f"scene intersection of {', '.join(missing)} is not ported "
@@ -248,12 +253,12 @@ def curve_hit(scene: sa.Scene, o, d, t_max, accel: Optional[Accel]) -> cv.CurveH
     return ck.sweep_closest(o, d, t_max, scene.crv_attr)
 
 
-def scene_intersect(scene: sa.Scene, o, d, t_max, accel: Optional[Accel] = None) -> Interaction:
-    """Closest hit of rays o, d (N, 3) within t_max (N,): triangles through
-    K5, or through B1 and the record where the scene has its BVH, then
-    spheres against the triangle hit's distance, then curves against the
-    nearer of the two (scene_intersect.py:626-690 of the JAX package)."""
-    check_supported(scene, accel)
+def _scene_intersect_once(scene: sa.Scene, o, d, t_max, accel: Optional[Accel]) -> Interaction:
+    """Closest hit of rays o, d (N, 3) within t_max (N,), masks aside:
+    triangles through K5, or through B1 and the record where the scene has
+    its BVH, then spheres against the triangle hit's distance, then curves
+    against the nearer of the two (scene_intersect.py:626-690 of the JAX
+    package)."""
     n = o.shape[0]
     dev = o.device
     zero3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
@@ -317,11 +322,79 @@ def scene_intersect(scene: sa.Scene, o, d, t_max, accel: Optional[Accel] = None)
                        torch.where(valid, prim, -1), dpdu)
 
 
+# recasts of a masked hit at most; a lane masked after them is a miss
+MAX_ALPHA_RECASTS = 16
+
+
+def alpha_masked(scene: sa.Scene, it: Interaction, shadow: bool) -> torch.Tensor:
+    """Lanes whose triangle hit has its alpha mask (and, for shadow rays,
+    its shadow-alpha mask) 0 at the hit's uv (triangle.rs:313-327,
+    :593-650): one T1 launch for the masks the test reads."""
+    is_tri = it.valid & (it.prim >= 0) & (it.prim < scene.n_tris)
+    at = scene.tri_attr[torch.clamp(it.prim, 0, max(scene.n_tris - 1, 0)).long()]
+    cols = [sa.TA_ALPHA, sa.TA_SALPHA] if shadow else [sa.TA_ALPHA]
+    tid = torch.round(at[:, cols]).to(torch.int32).t()  # (masks, N)
+    a = tk.texture_eval(tx.tables_of(scene), tid, it.uv, it.p)[..., 0]
+    return is_tri & ((tid >= 0) & (a == 0.0)).any(0)
+
+
+def alpha_recast_loop(scene: sa.Scene, o, d, t_max, accel, it: Interaction, shadow: bool,
+                      stats: Optional[dict] = None) -> Interaction:
+    """Casts the masked lanes again from just past their hit until they
+    find a hit that stays or escape, MAX_ALPHA_RECASTS times at most
+    (the JAX _alpha_recast_loop, scene_intersect.py:334-383; the reference
+    skips a masked hit inside its traversal).  The loop's condition is read
+    on the host; only the masked lanes are cast.  A lane still masked at
+    the end is a miss.  stats, when given, gains the trips (``alpha_trips``)
+    and the lanes still masked (``alpha_left``)."""
+    o_cur, t_rem = o, t_max
+    t_base = torch.zeros_like(t_max)
+    trips = 0
+    masked = alpha_masked(scene, it, shadow)
+    while trips < MAX_ALPHA_RECASTS and bool(masked.any()):
+        idx = torch.nonzero(masked).flatten()
+        d_m = d[idx]
+        # t is the total length; the current segment's is t - t_base
+        t_seg = it.t[idx] - t_base[idx]
+        t_eps = t_seg + torch.clamp(1e-4 * t_seg.abs(), min=1e-5)
+        o_new = o_cur[idx] + d_m * t_eps[:, None]
+        base_new = t_base[idx] + t_eps
+        rem_new = torch.clamp(t_rem[idx] - t_eps, min=0.0)
+        it2 = _scene_intersect_once(scene, o_new, d_m, rem_new, accel)
+        it2 = it2._replace(t=it2.t + base_new)
+        it = Interaction(*(a.index_copy(0, idx, b) for a, b in zip(it, it2)))
+        o_cur = o_cur.index_copy(0, idx, o_new)
+        t_base = t_base.index_copy(0, idx, base_new)
+        t_rem = t_rem.index_copy(0, idx, rem_new)
+        trips += 1
+        masked = alpha_masked(scene, it, shadow)
+    if stats is not None:
+        stats["alpha_trips"] = stats.get("alpha_trips", 0) + trips
+        stats["alpha_left"] = stats.get("alpha_left", 0) + int(masked.sum())
+    return it._replace(valid=it.valid & ~masked)
+
+
+def scene_intersect(scene: sa.Scene, o, d, t_max, accel: Optional[Accel] = None) -> Interaction:
+    """Closest hit of rays o, d (N, 3) within t_max (N,) (the JAX
+    scene_intersect): _scene_intersect_once, then, where triangles carry
+    alpha masks, alpha_recast_loop."""
+    check_supported(scene, accel)
+    it = _scene_intersect_once(scene, o, d, t_max, accel)
+    if scene.has_alpha:
+        it = alpha_recast_loop(scene, o, d, t_max, accel, it, shadow=False)
+    return it
+
+
 def scene_intersect_p(scene: sa.Scene, o, d, t_max, accel: Optional[Accel] = None) -> torch.Tensor:
     """Any hit (shadow ray) within t_max: triangles through K4, or B2 where
     the scene has its BVH, then the spheres, then the curves (C2 through
-    their tree, else C4)."""
+    their tree, else C4).  Where triangles carry alpha masks a masked hit
+    must not occlude: the closest hit and alpha_recast_loop with both
+    masks (the JAX scene_intersect_p)."""
     check_supported(scene, accel)
+    if scene.has_alpha:
+        it = _scene_intersect_once(scene, o, d, t_max, accel)
+        return alpha_recast_loop(scene, o, d, t_max, accel, it, shadow=True).valid
     occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
     if uses_bvh(scene, accel):
         occ = occ | bvh.bvh12_intersect_tris(o, d, t_max, accel.tri, accel.tri_depth,

@@ -6,8 +6,8 @@ paths read: the packed triangle, quadric, material and light tables, the
 light-pick power and the per-light triangle-area CDF, the media (a
 homogeneous table and the density grids) and the subsurface materials'
 folded BSSRDF profiles, the infinite light's map, transforms and
-importance, the Fourier BSDF's table, plus the counts and feature flags
-that decide
+importance, the Fourier BSDF's table, the texture tables and image atlas
+(``ops/texture.py``), plus the counts and feature flags that decide
 which route a scene may take (``ops/path_kernel.mega_cfg``) and which
 parts the port refuses.  A primitive's media are its inside and outside
 medium ids, columns TA_MED_IN/OUT of tri_attr and SP_MED_IN/OUT of
@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..ops import mipmap as mm
 from ..ops import sampling as smp
 
 # material type tags
@@ -64,6 +65,16 @@ MP_HAIR_BETA_N = MP_ROUGH_V
 MP_HAIR_ALPHA = MP_SIGMA
 MP_HAIR_MODE = MP_OPACITY
 
+# texturable slots (mat_attr's MA_TEX columns hold a texture id or -1)
+TEX_SLOT_KD = 0
+TEX_SLOT_KS = 1
+TEX_SLOT_KR = 2
+TEX_SLOT_KT = 3
+TEX_SLOT_SIGMA = 4
+TEX_SLOT_ROUGH_U = 5
+TEX_SLOT_ROUGH_V = 6
+TEX_SLOT_BUMP = 7
+TEX_SLOT_OPACITY = 8
 N_TEX_SLOTS = 9
 
 # light type tags
@@ -189,17 +200,34 @@ class Scene:
     has_quadric_lights: bool = False  # an area light on a disk or cylinder
     crv_attr: torch.Tensor = None  # (C, N_CURVE_ATTR) f32 curve segments; None without
     n_curve_segs: int = 0
+    # a triangle with an alpha or shadow-alpha mask (TA_ALPHA, TA_SALPHA)
+    has_alpha: bool = False
     # features the port does not render yet; the routes that meet them raise
     n_instances: int = 0
     n_anim_tris: int = 0
-    has_alpha: bool = False
     has_subsurface: bool = False
     has_hair: bool = False
     # a glass material with roughness (microfacet lobes); the BSDF skips
     # their math without one
     has_rough_glass: bool = False
-    tex_slot_mask: int = 0
+    tex_slot_mask: int = 0  # bit s set when a material binds a texture to slot s
     mat_kind_mask: int = 1 << MATTE
+    # textures (texture_fields): the type tags (X,) int32, parameters (X,
+    # 16), children (X, 2) int32, world-to-texture transforms (X, 4, 4),
+    # the atlas of every image's pyramid (AH, AW, 3), level 0's rect (y0,
+    # h, w, wrap) (X, 4) int32, every level's (y0, h, w) (X, 12, 3) int32
+    # and the levels (X,) int32; one unused row and a (1, 1, 3) atlas
+    # without textures.  tex_kind_mask: bit t set for each type tag present
+    # (0 where the table has one row and no slot is bound)
+    tex_type: torch.Tensor = None
+    tex_params: torch.Tensor = None
+    tex_child: torch.Tensor = None
+    tex_w2t: torch.Tensor = None
+    tex_atlas: torch.Tensor = None
+    tex_rect: torch.Tensor = None
+    tex_mip: torch.Tensor = None
+    tex_nlv: torch.Tensor = None
+    tex_kind_mask: int = 0
     # participating media (K >= 1 rows; a scene without media holds one
     # unused row, as the JAX package's empty tables do): sigma_a, sigma_s
     # (K, 3), the HG asymmetry g (K,), the density grids (K, D, H, W),
@@ -260,7 +288,11 @@ BRIDGE_FIELDS = (
     "bss_cdf", "bss_rho_eff", "bss_sigma_t", "bss_eta", "med_sigma_a", "med_sigma_s", "med_g",
     "med_grid", "med_w2m", "med_max_density", "camera_medium",
     "fou_mu", "fou_dense", "fou_m", "fou_cdf", "fou_a0", "fou_eta",
+    "tex_type", "tex_params", "tex_child", "tex_w2t", "tex_atlas", "tex_rect", "tex_mip",
+    "tex_nlv", "tex_kind_flag",
 )
+TEXTURE_TABLES = ("tex_type", "tex_params", "tex_child", "tex_w2t", "tex_atlas", "tex_rect",
+                  "tex_mip", "tex_nlv")
 
 
 def type_mask(tags) -> int:
@@ -335,6 +367,43 @@ def fourier_fields(mu, dense, m, cdf, a0, eta, device) -> dict:
                 fou_a0=f32(a0), fou_eta=f32(eta).reshape(()))
 
 
+def empty_texture_tables() -> dict:
+    """The texture tables of a scene without textures (the JAX package's
+    empty defaults, scene/arrays.py:455-463): one unused row."""
+    return dict(tex_type=np.zeros(1, np.int32), tex_params=np.zeros((1, 16), np.float32),
+                tex_child=np.full((1, 2), -1, np.int32),
+                tex_w2t=np.eye(4, dtype=np.float32)[None],
+                tex_atlas=np.zeros((1, 1, 3), np.float32), tex_rect=np.zeros((1, 4), np.int32),
+                tex_mip=np.zeros((1, mm.MAX_LEVELS, 3), np.int32),
+                tex_nlv=np.ones(1, np.int32))
+
+
+def texture_kind_mask(tex_type, mat_attr) -> int:
+    """Bit t set for each texture type tag present, 0 where the table has
+    one row and no material binds a slot (the JAX finalize_scene's rule,
+    scene/arrays.py:670-676)."""
+    tex_type = np.asarray(tex_type)
+    bound = (np.rint(np.asarray(mat_attr)[:, MA_TEX:MA_TEX + N_TEX_SLOTS]) >= 0).any()
+    return 0 if tex_type.shape[0] <= 1 and not bound else type_mask(tex_type)
+
+
+def slot_mask(mat_attr) -> int:
+    """Bit s set for each texture slot s some material binds."""
+    bound = (np.rint(np.asarray(mat_attr)[:, MA_TEX:MA_TEX + N_TEX_SLOTS]) >= 0).any(0)
+    return sum(1 << s for s in np.flatnonzero(bound))
+
+
+def texture_fields(tables: Mapping[str, np.ndarray], kind_mask: int, device) -> dict:
+    """Scene's texture fields from the numpy tables named as TEXTURE_TABLES
+    (laid out as the JAX package's) and the kind mask."""
+    f32 = lambda k: torch.tensor(np.asarray(tables[k], np.float32), device=device)
+    i32 = lambda k: torch.tensor(np.asarray(tables[k], np.int32), device=device)
+    return dict(tex_type=i32("tex_type"), tex_params=f32("tex_params"),
+                tex_child=i32("tex_child"), tex_w2t=f32("tex_w2t"), tex_atlas=f32("tex_atlas"),
+                tex_rect=i32("tex_rect"), tex_mip=i32("tex_mip"), tex_nlv=i32("tex_nlv"),
+                tex_kind_mask=int(kind_mask))
+
+
 def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> Scene:
     """Scene from numpy arrays named as the JAX package's Scene fields
     (``{k: np.asarray(getattr(jax_scene, k)) for k in BRIDGE_FIELDS}``).
@@ -383,4 +452,5 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> Scene:
                      arrays["light_type"], dev),
         **fourier_fields(*(arrays[k] for k in (
             "fou_mu", "fou_dense", "fou_m", "fou_cdf", "fou_a0", "fou_eta")), dev),
+        **texture_fields(arrays, n("tex_kind_flag"), dev),
     )

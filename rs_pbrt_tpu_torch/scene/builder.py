@@ -3,22 +3,25 @@
 The port's reduced copy of the JAX package's ``scene/builder.py`` (reference
 api.rs make_* factories): the matte, plastic, mirror, glass, metal,
 substrate, uber, translucent, Disney, hair, subsurface, Fourier and mix
-materials (the JAX builder's signatures and parameter packing, untextured),
-triangle meshes, spheres, cylinders and disks, each of them
-optionally emissive (diffuse area lights on a triangle range or on a
-quadric) and with a medium interface, cubic Bézier curves (flattened to
-segments at once, ``ops/curves.py``), point, spot, distant and infinite
-lights, and homogeneous and density-grid media, finalized into the packed
-tables of ``scene/arrays.py``.  ``finalize`` also does what the JAX
+materials (the JAX builder's signatures and parameter packing), textures
+bound to their slots (``add_texture``, ``set_material_texture``),
+triangle meshes (with alpha and shadow-alpha masks), spheres, cylinders
+and disks, each of them optionally emissive (diffuse area lights on a
+triangle range or on a quadric) and with a medium interface, cubic Bézier
+curves (flattened to segments at once, ``ops/curves.py``), point, spot,
+distant, projection, goniometric and infinite lights, and homogeneous and
+density-grid media, finalized into the packed tables of
+``scene/arrays.py``.  ``finalize`` also does what the JAX
 ``arrays.finalize_scene`` does for such scenes: the world bound, the light
 parameters that depend on it, the per-light triangle-area CDF and the
 light-selection power (the infinite light's from its map's mean, as the
 JAX builder's finalize takes it); it stacks the media's grids and the
 subsurface materials' folded BSSRDF tables, carries the Fourier
-material's table and makes the environment map's importance as the JAX
-``finalize`` does.  Other shapes, textures and
-lights are not ported yet (ROADMAP); scenes that need them come from the
-JAX front ends through ``arrays.scene_from_numpy``.
+material's table, makes the environment map's importance and packs every
+image's MIP pyramid into the texture atlas as the JAX ``finalize`` does.
+Instances and animated meshes are not ported yet (ROADMAP); scenes that
+need them come from the JAX front ends through
+``arrays.scene_from_numpy``.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from ..models.lights import compute_light_power
 from ..ops import bssrdf as bss
 from ..ops import curves as cv
 from ..ops import fourier_bsdf as fb
+from ..ops import mipmap as mm
+from ..ops import texture as tx
 from ..utils import spectrum
 from ..utils import transform as tr
 from . import arrays as sa
@@ -52,6 +57,7 @@ class SceneBuilder:
         self.camera_medium = -1  # the medium the camera sits in; -1 vacuum
         self.env = None  # the infinite light's (map, light-to-world, inverse)
         self.fourier_table = None  # the Fourier material's dense table (one a scene)
+        self.textures = []  # (type, params (16,), children (2,), w2t (4, 4), image or None)
         self.add_matte(kd=(0.5, 0.5, 0.5))  # default material 0 (api.rs)
 
     def _add_material(self, mtype, kd=(0, 0, 0), kr=(0, 0, 0), kt=(0, 0, 0), sigma=0.0,
@@ -153,6 +159,37 @@ class SceneBuilder:
         self.mats.append((sa.MIXMAT, p, np.full(sa.N_TEX_SLOTS, -1, np.int32)))
         return len(self.mats) - 1
 
+    def add_texture(self, tex_type, params=None, children=(-1, -1), world_to_texture=None,
+                    image=None) -> int:
+        """A texture row (textures/*.rs create functions), as the JAX
+        builder packs it: params a dict of ops/texture TP_* column -> value
+        (a sequence fills the columns from there) or a (16,) array, over the
+        defaults su = sv = 1 and an image scale of 1; children the two child
+        textures of a scale, mix, checker or dots; the transform's inverse
+        maps world points into the 3D textures' space (the JAX builder
+        takes world_to_texture.m_inv); image (H, W, 3) an image map's texels,
+        its pyramid built at finalize.  Returns its id."""
+        pvec = np.zeros(tx.N_TEX_PARAMS, np.float32)
+        pvec[tx.TP_SU] = 1.0
+        pvec[tx.TP_SV] = 1.0
+        pvec[tx.TP_GAMMA_SCALE] = 1.0
+        if isinstance(params, dict):
+            for k, v in params.items():
+                if hasattr(v, "__len__"):
+                    pvec[k:k + len(v)] = v
+                else:
+                    pvec[k] = v
+        elif params is not None:
+            pvec[:len(params)] = params
+        w2t = np.asarray(world_to_texture.m_inv if world_to_texture is not None else np.eye(4),
+                         np.float32)
+        self.textures.append((int(tex_type), pvec, np.asarray(children, np.int32), w2t, image))
+        return len(self.textures) - 1
+
+    def set_material_texture(self, mat_id: int, slot: int, tex_id: int):
+        """Binds texture tex_id to a material's slot (arrays.TEX_SLOT_*)."""
+        self.mats[mat_id][2][slot] = tex_id
+
     def add_mirror(self, kr=(0.9, 0.9, 0.9)) -> int:
         """Perfect mirror (materials/mirror.rs)."""
         return self._add_material(sa.MIRROR, kr=kr)
@@ -223,11 +260,14 @@ class SceneBuilder:
 
     def add_triangle_mesh(self, indices, positions, normals=None, uvs=None, material: int = 0,
                           area_light=None, reverse_orientation: bool = False,
-                          medium_interface=(-1, -1)) -> int:
+                          medium_interface=(-1, -1), alpha_tex: int = -1,
+                          shadow_alpha_tex: int = -1) -> int:
         """World-space triangle mesh.  area_light: dict(L=(r,g,b),
         two_sided=bool, scale=(r,g,b)) makes every triangle emissive.
         medium_interface: the (inside, outside) medium ids, -1 vacuum.
-        Returns the light id, or -1."""
+        alpha_tex, shadow_alpha_tex: textures whose 0 at a hit's uv cuts the
+        hit out of every ray, or of shadow rays (triangle.rs:313-327,
+        :593-650); -1 none.  Returns the light id, or -1."""
         idx = np.asarray(indices, np.int32).reshape(-1, 3)
         P = np.asarray(positions, np.float32).reshape(-1, 3)
         n_tri = len(idx)
@@ -257,7 +297,7 @@ class SceneBuilder:
         rows[:, sa.TA_LIGHT] = light_id
         rows[:, sa.TA_REVERSE] = float(reverse_orientation)
         rows[:, [sa.TA_MED_IN, sa.TA_MED_OUT]] = medium_interface
-        rows[:, [sa.TA_ALPHA, sa.TA_SALPHA]] = -1.0
+        rows[:, [sa.TA_ALPHA, sa.TA_SALPHA]] = (alpha_tex, shadow_alpha_tex)
         self.tri_blocks.append(rows)
         self.n_tri_rows += n_tri
         return light_id
@@ -417,6 +457,34 @@ class SceneBuilder:
         self.lights[li]["spot_dir"] = (d / np.linalg.norm(d)).astype(np.float32)
         return li
 
+    def add_projection_light(self, p=(0, 0, 0), to=(0, 0, 1), I=(1, 1, 1), fov=45.0, image=None,
+                             scale=(1, 1, 1)) -> int:
+        """A projection light (lights/projection.rs) at p aimed at `to`: a
+        point light through the image (H, W, 3) on a square window of fov
+        degrees (a 4x4 white image without one), its own image-map texture.
+        Its direction rides the world-center slot."""
+        if image is None:
+            image = np.ones((4, 4, 3), np.float32)
+        tex = self.add_texture(tx.TEX_IMAGEMAP, image=image)
+        d = np.asarray(to, np.float64) - np.asarray(p, np.float64)
+        li = self._add_delta_light(sa.LIGHT_PROJECTION, I, scale, p, {
+            sa.LP_TEX: tex, sa.LP_TAN_FOV: np.tan(np.deg2rad(fov) / 2)})
+        self.lights[li]["spot_dir"] = (d / np.linalg.norm(d)).astype(np.float32)
+        return li
+
+    def add_gonio_light(self, p=(0, 0, 0), to=(0, 0, 1), I=(1, 1, 1), image=None,
+                        scale=(1, 1, 1)) -> int:
+        """A goniometric light (lights/gonio.rs) at p: a point light scaled
+        by the equirect map image (H, W, 3) of the directions about `to` (a
+        4x8 white map without one), its own image-map texture."""
+        if image is None:
+            image = np.ones((4, 8, 3), np.float32)
+        tex = self.add_texture(tx.TEX_IMAGEMAP, image=image)
+        d = np.asarray(to, np.float64) - np.asarray(p, np.float64)
+        li = self._add_delta_light(sa.LIGHT_GONIO, I, scale, p, {sa.LP_TEX: tex})
+        self.lights[li]["spot_dir"] = (d / np.linalg.norm(d)).astype(np.float32)
+        return li
+
     def add_distant_light(self, from_p=(0, 0, 0), to=(0, 0, 1), L=(1, 1, 1),
                           scale=(1, 1, 1)) -> int:
         """A distant light (lights/distant.rs) of radiance L arriving from
@@ -489,6 +557,43 @@ class SceneBuilder:
                 np.stack([x["rho_eff"] for x in t]), np.stack([x["sigma_t"] for x in t]),
                 np.asarray([x["eta"] for x in t], np.float32))
 
+    def _texture_tables(self) -> dict:
+        """The texture tables as the JAX finalize packs them
+        (builder.py:839-877): every image's pyramid (ops/mipmap.py) stacked
+        into one atlas, one rect per (texture, level), the widest level
+        setting its width."""
+        if not self.textures:
+            return sa.empty_texture_tables()
+        X = len(self.textures)
+        out = dict(tex_type=np.asarray([t[0] for t in self.textures], np.int32),
+                   tex_params=np.stack([t[1] for t in self.textures]),
+                   tex_child=np.stack([t[2] for t in self.textures]),
+                   tex_w2t=np.stack([t[3] for t in self.textures]),
+                   tex_atlas=np.zeros((1, 1, 3), np.float32))
+        imgs = [(i, t[4]) for i, t in enumerate(self.textures) if t[4] is not None]
+        rects = np.zeros((X, 4), np.int32)
+        mips = np.zeros((X, mm.MAX_LEVELS, 3), np.int32)
+        nlv = np.zeros(X, np.int32)
+        if imgs:
+            wrap = lambda i: int(self.textures[i][1][tx.TP_WRAP])
+            pyramids = {i: mm.build_pyramid(np.asarray(im)[..., :3], wrap(i)) for i, im in imgs}
+            aw = max(lv.shape[1] for p in pyramids.values() for lv in p)
+            ah = sum(lv.shape[0] for p in pyramids.values() for lv in p)
+            atlas = np.zeros((ah, aw, 3), np.float32)
+            y = 0
+            for i, _ in imgs:
+                for li, lv in enumerate(pyramids[i]):
+                    h, w = lv.shape[:2]
+                    atlas[y:y + h, :w] = lv
+                    mips[i, li] = (y, h, w)
+                    if li == 0:
+                        rects[i] = (y, h, w, wrap(i))
+                    y += h
+                nlv[i] = len(pyramids[i])
+            out["tex_atlas"] = atlas
+        out.update(tex_rect=rects, tex_mip=mips, tex_nlv=nlv)
+        return out
+
     def finalize(self, device="cuda") -> sa.Scene:
         dev = resolve(device)
         n_tri, n_l, n_sph = self.n_tri_rows, len(self.lights), len(self.sph_rows)
@@ -509,6 +614,7 @@ class SceneBuilder:
         light_attr = np.zeros((max(n_l, 1), sa.N_LIGHT_ATTR), np.float32)
         cdf = np.zeros((n_l, max_range + 1), np.float32)
         flags = {sa.LIGHT_POINT: sa.LF_DELTA_POSITION, sa.LIGHT_SPOT: sa.LF_DELTA_POSITION,
+                 sa.LIGHT_PROJECTION: sa.LF_DELTA_POSITION, sa.LIGHT_GONIO: sa.LF_DELTA_POSITION,
                  sa.LIGHT_DISTANT: sa.LF_DELTA_DIRECTION, sa.LIGHT_AREA: sa.LF_AREA,
                  sa.LIGHT_INFINITE: sa.LF_INFINITE}
         for li, l in enumerate(self.lights):
@@ -541,6 +647,7 @@ class SceneBuilder:
 
         f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
         fou = self.fourier_table
+        tex = self._texture_tables()
         return sa.Scene(
             tri_attr=f32(tri_attr), mat_attr=f32(mat_attr), light_attr=f32(light_attr),
             light_power=f32(power), alight_tri_cdf=f32(cdf), world_center=f32(center),
@@ -553,8 +660,11 @@ class SceneBuilder:
             crv_attr=None if crv_attr is None else f32(crv_attr),
             n_curve_segs=0 if crv_attr is None else crv_attr.shape[0],
             has_hair=any(m[0] == sa.HAIR for m in self.mats),
+            has_alpha=bool((tri_attr[:n_tri, [sa.TA_ALPHA, sa.TA_SALPHA]] >= 0).any()),
             has_rough_glass=sa.rough_glass(mat_attr),
             mat_kind_mask=sa.type_mask([m[0] for m in self.mats]),
+            tex_slot_mask=sa.slot_mask(mat_attr),
+            **sa.texture_fields(tex, sa.texture_kind_mask(tex["tex_type"], mat_attr), dev),
             **sa.media_fields(device=dev, **self._media_tables()),
             **sa.bssrdf_fields(*self._bssrdf_tables(), dev),
             **sa.env_fields(*env, types, dev),

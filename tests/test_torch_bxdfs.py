@@ -211,11 +211,23 @@ def test_matte_scene_has_two_slots():
 
 
 def test_check_supported_refuses_textures():
-    scene, _, _ = scenes("all")
-    bx.check_supported(scene)
-    scene.tex_slot_mask = 1
-    with pytest.raises(NotImplementedError, match="textured"):
-        bx.check_supported(scene)
+    """Textured parameters no longer raise: a plastic whose kd is bound to
+    a constant texture shades with the texture's value at hits (uv and p
+    given), and with its constant without them (SPPM's deposit)."""
+    from rs_pbrt_tpu_torch.ops import texture as tx
+
+    b = SceneBuilder()
+    m = b.add_plastic(kd=(0.1, 0.2, 0.3))
+    b.set_material_texture(m, sa.TEX_SLOT_KD,
+                           b.add_texture(tx.TEX_CONSTANT, {tx.TP_VALUE: (0.7, 0.6, 0.5)}))
+    b.add_triangle_mesh([[0, 1, 2]], [[0, 0, 0], [1, 0, 0], [0, 1, 0]], material=m)
+    scene = b.finalize("cpu")
+    assert scene.tex_slot_mask == 1 << sa.TEX_SLOT_KD
+    mat = torch.full((4,), m, dtype=torch.int32)
+    textured = bx.make_bsdf_from_mat(scene, mat, torch.zeros(4, 2), torch.zeros(4, 3))
+    assert torch.equal(textured.r0, torch.tensor([[0.7, 0.6, 0.5]]).expand(4, 3))
+    assert torch.equal(bx.make_bsdf_from_mat(scene, mat).r0,
+                       torch.tensor([[0.1, 0.2, 0.3]]).expand(4, 3))
 
 
 def _dirs(n, seed, up=True):

@@ -405,8 +405,9 @@ def test_scene_intersect_spheres_direct(kind):
 
 
 def test_unported_geometry_raises():
-    """Cylinders reach the intersection; alpha masks reach scene_from_numpy
-    but not the intersection."""
+    """Cylinders reach the intersection; so does the alpha flag (a scene
+    whose triangles hold no mask gives the same hits through the recast
+    loop); more triangles than the sweeps take need a BVH."""
     b = JaxBuilder()
     b.add_triangle_mesh([[0, 1, 2]], [[0, 0, 0], [1, 0, 0], [0, 1, 0]])
     b.add_cylinder(jtr.translate([0, 0, 2]))
@@ -414,9 +415,11 @@ def test_unported_geometry_raises():
     assert scene.quad_kind_mask == 1 << sa.QK_CYLINDER
     z = torch.zeros(4, 3)
     assert not si.scene_intersect(scene, z, z + 1.0, torch.ones(4)).valid.any()
+    o, d = torch.tensor([[0.2, 0.2, -1.0]] * 4), torch.tensor([[0.0, 0.0, 1.0]] * 4)
+    plain = si.scene_intersect(scene, o, d, torch.full((4,), 10.0))
     scene.has_alpha = True
-    with pytest.raises(NotImplementedError, match="alpha masks"):
-        si.scene_intersect(scene, z, z + 1.0, torch.ones(4))
+    masked = si.scene_intersect(scene, o, d, torch.full((4,), 10.0))
+    assert plain.valid.all() and all(torch.equal(a, b) for a, b in zip(plain, masked))
     scene.has_alpha, scene.n_tris = False, si.BRUTE_FORCE_MAX_TRIS + 1
     with pytest.raises(NotImplementedError, match="BVH"):
         si.scene_intersect_p(scene, z, z + 1.0, torch.ones(4))

@@ -222,8 +222,11 @@ def test_unported_parts_raise():
         rdr.render(scene, camera, rdr.RenderCfg("path", 1, 2, 1.0, accelerator="kdtree"), scfg,
                    accel=si.build_accel(scene, device="cpu"))
     small, camera = presets.spheres_direct((8, 8), device="cpu")
-    for flag in ("has_alpha", "n_instances"):
-        setattr(small, flag, True)
-        with pytest.raises(NotImplementedError):
-            rdr.render(small, camera, rdr.RenderCfg("path", 1, 2, 1.0), scfg)
-        setattr(small, flag, False)
+    before = rdr.render(small, camera, rdr.RenderCfg("path", 1, 2, 1.0), scfg)
+    small.has_alpha = True  # alpha masks render (no triangle holds one here)
+    assert torch.equal(rdr.render(small, camera, rdr.RenderCfg("path", 1, 2, 1.0), scfg), before)
+    small.has_alpha = False
+    small.n_instances = True
+    with pytest.raises(NotImplementedError):
+        rdr.render(small, camera, rdr.RenderCfg("path", 1, 2, 1.0), scfg)
+    small.n_instances = False

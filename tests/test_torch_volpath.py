@@ -162,10 +162,11 @@ def test_grid_render_takes_the_tracking_kernels_wrappers(monkeypatch):
 
 
 def test_textures_raise():
-    """Textured parameters would need ray differentials, which volpath does
-    not carry yet (the material check refuses them)."""
+    """Textured parameters no longer raise in volpath: with the slot mask
+    set but no slot holding a texture the image is the untextured one."""
     scene, camera = sss_scenes.sss_dragonette((4, 4), device="cpu")
+    go = lambda: rdr.render(scene, camera, sss_scenes.CFG._replace(spp=1),
+                            smpl.make_sampler(smpl.SOBOL, 1, (4, 4)))
+    before = go()
     scene.tex_slot_mask = 1
-    with pytest.raises(NotImplementedError, match="textured"):
-        rdr.render(scene, camera, sss_scenes.CFG._replace(spp=1),
-                   smpl.make_sampler(smpl.SOBOL, 1, (4, 4)))
+    assert torch.equal(go(), before)
