@@ -291,6 +291,25 @@ Run from the root of a checkout.  Phases, one line each (or more):
    profiled 4 spp render; then the 128x128 crop's 2^18 paths through the
    regeneration loop at 2^14 lanes against the fixed-depth loop within
    rtol 1e-5, atol 1e-6.  It runs right after phase 22.
+25. The other samplers: H1 (ops/halton_kernel.py, csrc/halton.cu) on
+   seeded 32-bit indices at the main paths' shapes (4M lanes x the camera's
+   5 dims and a path's 35, the clipped route's dims 250-300, one launch's
+   128 dims).  Then the Cornell box at RES, SPP, DEPTH through path with
+   the Sobol' sampler on the general bounce (K2's mega_cfg patched to
+   refuse it) and with halton, zerotwo, stratified and maxmin; the same
+   box with Halton and with Sobol' through volpath, whitted and
+   directlighting; caustic_only with SPPM at SPPM_RES, 4 iterations, with
+   Halton and with Sobol'; phase 9's statue with Halton at STATUE_RES,
+   STATUE_SPP through the fixed-depth loop.  The counters are zeroed just
+   before each render and read just after (H1 once for the camera dims and
+   once a block of integrator dims, K1 likewise for Sobol', the sweeps or
+   the traversal as in the earlier phases).  Each image finite; each
+   Halton image equal to the render with H1 swapped for its plain version;
+   paths/s (SPPM rays/s) of one render after a warm one, and the mean
+   beside the Sobol' render's.  Every H1 launch held bit-equal to its plain
+   version, timed queued and by events beside its bound (the digits each
+   lane's index has in each dim's base) and the plain version's time.  It
+   runs right after phase 24, before phase 9's statue is freed.
 
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
@@ -521,6 +540,19 @@ SMEM_LOADS_PER_CLOCK = 32  # shared-memory loads per clock per SM
 VERT_BYTES = 9 * 4  # the vertex coordinates K3 and K4 read of a table row
 
 
+# phase 25: the other samplers; H1's cases (lanes, dim0, n_dims, clip)
+SAMPLER_KINDS = ("halton", "zerotwo", "stratified", "maxmin")
+H1_CASES = ((1 << 22, 0, 5, False), (1 << 22, 5, 35, False), (1 << 20, 250, 51, True),
+            (1 << 18, 5, 128, False))
+SAMPLER_SPPM_ITERATIONS = 4
+# H1's arithmetic (csrc/halton.cuh): a digit step divides, multiplies and
+# subtracts for the digit, multiplies and adds for the reversed digits and
+# multiplies the f32 scale; a (lane, dim) takes 1/base, the tail's product,
+# difference and quotient, the sum, the product, the conversion and the
+# clamp.  Integer operations are charged at the 32-bit rate, as K1's.
+H1_OPS = dict(digit=6, dim=8)
+
+
 def fail(msg: str):
     print(f"chip_smoke: FAIL: {msg}", flush=True)
     sys.exit(1)
@@ -621,6 +653,7 @@ def _kernel_modules():
     from rs_pbrt_tpu_torch.ops import curve_kernel as ck
     from rs_pbrt_tpu_torch.ops import fourier_kernel as fk
     from rs_pbrt_tpu_torch.ops import gather_probe as gp
+    from rs_pbrt_tpu_torch.ops import halton_kernel as hk
     from rs_pbrt_tpu_torch.ops import intersect_kernel as ik
     from rs_pbrt_tpu_torch.ops import medium_kernel as mk
     from rs_pbrt_tpu_torch.ops import path_kernel as pk
@@ -628,21 +661,21 @@ def _kernel_modules():
     from rs_pbrt_tpu_torch.ops import sppm_kernel as sd
     from rs_pbrt_tpu_torch.ops import texture_kernel as tk
 
-    return sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk
+    return sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk
 
 
 def zero_counts():
     """Every kernel's launch count to 0."""
-    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk = _kernel_modules()
-    sk.launches = pk.launches = 0
+    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk = _kernel_modules()
+    sk.launches = pk.launches = hk.launches = 0
     for d in (ik.launches, bvh.launches, gp.launches, ck.launches, sd.launches, mk.launches,
               fk.launches, tk.launches):
         d.update(dict.fromkeys(d, 0))
 
 
 def read_counts() -> dict:
-    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk = _kernel_modules()
-    return dict(sobol=sk.launches, bounce=pk.launches, **ik.launches,
+    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk = _kernel_modules()
+    return dict(sobol=sk.launches, bounce=pk.launches, halton=hk.launches, **ik.launches,
                 **{f"bvh12_{k}": v for k, v in bvh.launches.items()}, **gp.launches,
                 **ck.launches, **sd.launches, **mk.launches, **fk.launches, **tk.launches)
 
@@ -656,12 +689,13 @@ def _owner(name: str):
     """The module of the kernel wrapper `name` (sobol_dims, bounce,
     closest_sweep, any_sweep, full_sweep, bvh12_intersect_tris, take_rows,
     take_loop, walk_closest, walk_any, sweep_closest, sweep_any, deposit,
-    delta_track, ratio_track, fourier_eval, fourier_sample, texture_eval)."""
-    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk = _kernel_modules()
+    delta_track, ratio_track, fourier_eval, fourier_sample, texture_eval, halton_dims)."""
+    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk = _kernel_modules()
     return dict(sobol_dims=sk, bounce=pk, closest_sweep=ik, any_sweep=ik, full_sweep=ik,
                 bvh12_intersect_tris=bvh, take_rows=gp, take_loop=gp, walk_closest=ck,
                 walk_any=ck, sweep_closest=ck, sweep_any=ck, deposit=sd, delta_track=mk,
-                ratio_track=mk, fourier_eval=fk, fourier_sample=fk, texture_eval=tk)[name]
+                ratio_track=mk, fourier_eval=fk, fourier_sample=fk, texture_eval=tk,
+                halton_dims=hk)[name]
 
 
 def wrapper(name: str):
@@ -1531,7 +1565,7 @@ def phase_statue(card):
           f"traversal {sum(ms['bvh12_intersect_tris']):.3f} ms of the "
           f"{1e3 * best['wall_s']:.3f} ms render", flush=True)
     return dict(
-        counts=counts, scene=scene, camera=camera, accel=accel,
+        counts=counts, scene=scene, camera=camera, accel=accel, paths_per_s=best["paths_per_s"],
         sobol_dims=dict(ms=ms["sobol_dims"], device_ms=k1_dev, plain_ms=plain_ms["sobol_dims"],
                         bound=k1_bounds, max_abs_err=k1_err),
         closest=dict(ms=b_ms["closest"], device_ms=b_dev["closest"], plain_ms=b_plain["closest"],
@@ -3265,42 +3299,56 @@ def _alpha_recorder(stats: dict):
     return lambda *a, **kw: real(*a, **kw, stats=stats)
 
 
-def t1_part(timer, tag: str) -> dict:
-    """Every recorded T1 launch held to its plain version, replayed queued
-    for its device time, its bound from texture_work."""
+def kernel_part(timer, tag: str, kid: str, plain, wrapper, bound, check, lanes) -> dict:
+    """Every launch that timer recorded held to plain (the kernel's plain
+    version) by check(what, got, want) -> (max_abs_err, exact), replayed
+    queued through wrapper for its device time; bound(*args, **kw) its
+    (bytes_ms, operations_ms) and lanes(*args, **kw) its lanes."""
     import torch
-
-    from rs_pbrt_tpu_torch.ops import texture_kernel as tk
 
     part = dict(ms=timer.times_ms(), device_ms=[], plain_ms=[], bound=[], max_abs_err=0.0,
                 exact=True, lanes=0)
     for b, (_, a, kw, o) in enumerate(timer.calls):
         t0 = time.perf_counter()
-        ref = tk.plain(*a, **kw)
+        ref = plain(*a, **kw)
         torch.cuda.synchronize()
         part["plain_ms"].append(1e3 * (time.perf_counter() - t0))
-        e, exact = check_texture(f"{tag} T1 launch {b}", o, ref)
+        e, exact = check(f"{tag} {kid} launch {b}", o, ref)
         part["max_abs_err"] = max(part["max_abs_err"], e)
         part["exact"] = part["exact"] and exact
-        part["device_ms"].append(queued_ms(lambda a=a, kw=kw: tk.texture_eval(*a, **kw), 3))
-        ids = a[1] if a[1].dim() == 2 else a[1][None]
-        part["bound"].append(texture_bound_ms(a[0], texture_work(a[0], ids, a[2], kw.get(
-            "width", a[4] if len(a) > 4 else None))))
-        part["lanes"] += ids.numel()
+        part["device_ms"].append(queued_ms(lambda a=a, kw=kw: wrapper(*a, **kw), 3))
+        part["bound"].append(bound(*a, **kw))
+        part["lanes"] += lanes(*a, **kw)
         del ref
     return part
 
 
-def print_t1(tag: str, part: dict, card: str):
+def print_part(kid: str, tag: str, part: dict, card: str, tol: str = "1e-5"):
     n = len(part["ms"])
-    print(f"[{tag} T1] {n} launches, {part['lanes'] // max(n, 1)} lanes a launch: "
-          f"{'bit-equal to' if part['exact'] else 'within 1e-5 of'} the plain version (max abs "
-          f"err {part['max_abs_err']:.3g}); on the card {sum(part['device_ms']) / n:.4f} ms "
+    print(f"[{tag} {kid}] {n} launches, {part['lanes'] // max(n, 1)} lanes a launch: "
+          f"{'bit-equal to' if part['exact'] else f'within {tol} of'} the plain version (max "
+          f"abs err {part['max_abs_err']:.3g}); on the card {sum(part['device_ms']) / n:.4f} ms "
           f"(queued), events {sum(part['ms']) / n:.4f} ms, bound "
           f"{sum(max(x) for x in part['bound']) / n:.4f} ms (bytes "
           f"{sum(x[0] for x in part['bound']) / n:.4f}, operations "
           f"{sum(x[1] for x in part['bound']) / n:.4f}), plain {sum(part['plain_ms']) / n:.3f} "
           f"ms ({card})", flush=True)
+
+
+def _t1_ids(a):
+    return a[1] if a[1].dim() == 2 else a[1][None]
+
+
+def t1_part(timer, tag: str) -> dict:
+    """Every recorded T1 launch held to its plain version (check_texture),
+    its bound from texture_work."""
+    from rs_pbrt_tpu_torch.ops import texture_kernel as tk
+
+    return kernel_part(
+        timer, tag, "T1", tk.plain, tk.texture_eval,
+        lambda *a, **kw: texture_bound_ms(a[0], texture_work(
+            a[0], _t1_ids(a), a[2], kw.get("width", a[4] if len(a) > 4 else None))),
+        check_texture, lambda *a, **kw: _t1_ids(a).numel())
 
 
 def phase_textures(card):
@@ -3391,7 +3439,7 @@ def phase_textures(card):
             out[tag]["timer"] = timers["texture_eval"]
         del img
     out["texture_eval"] = t1_part(out["path"].pop("timer"), "23 texture_grid path")
-    print_t1("23", out["texture_eval"], card)
+    print_part("T1", "23", out["texture_eval"], card)
     # one launch over the grid's texture mix: every bound texture id, seeded
     # uv, points in the grid's box and footprints
     g = torch.Generator(DEVICE).manual_seed(23)
@@ -3406,7 +3454,7 @@ def phase_textures(card):
     sweep = LaunchTimer(tk.texture_eval, keep=True)
     sweep(tb, ids, uv, p, width)
     out["sweep"] = t1_part(sweep, f"23 T1 at {n} lanes")
-    print_t1(f"23 sweep {n} lanes", out["sweep"], card)
+    print_part("T1", f"23 sweep {n} lanes", out["sweep"], card)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[23] {out['seconds']:.1f} s", flush=True)
     return out
@@ -3509,6 +3557,225 @@ def phase_statue_marble(card, statue):
                 seconds=seconds)
 
 
+def h1_bound_ms(index, dim0: int, n_dims: int, exp_x: int, scale_y: int,
+                clip: bool = False) -> tuple:
+    """Least time of one H1 launch on these inputs, as (bytes_ms,
+    operations_ms).  Bytes: each lane's 32-bit index in and 4 bytes a dim
+    out, the permutations of the block's bases once.  Operations: H1_OPS a
+    (lane, dim) and a digit step, the steps counted from the digits each
+    lane's index has in each dim's base (dim 1: index // scale_y in base
+    3; dim 0 has none)."""
+    import math
+
+    import torch
+
+    from rs_pbrt_tpu_torch.ops import halton_kernel as hk
+    from rs_pbrt_tpu_torch.ops import lowdiscrepancy as ld
+
+    dims = hk._dims(dim0, n_dims, clip)
+    a = (index.to(torch.int64) & ld.U32_MASK).to(torch.float64)
+    digits = 0
+    for d in {int(x) for x in dims if x >= 1}:
+        base = 3 if d == 1 else int(ld.HALTON_PRIMES[d])
+        x = torch.floor(a / scale_y) if d == 1 else a
+        k = torch.where(x > 0, torch.floor(torch.log(torch.clamp(x, min=1.0)) / math.log(base))
+                        + 1.0, 0.0)
+        # exact at the powers of the base, where the logarithm may round
+        k = k + (torch.pow(base, k) <= x).double() - ((k > 0) & (torch.pow(base, k - 1) > x)).double()
+        digits += int(k.sum()) * int((dims == d).sum())
+    scr = dims >= 2
+    table = (2 * int((ld.PRIME_SUMS[dims] + ld.HALTON_PRIMES[dims])[scr].max()
+                     - ld.PRIME_SUMS[dims][scr].min()) if scr.any() else 0)
+    n = index.shape[0]
+    nbytes = n * 4 * (1 + n_dims) + table
+    ops = n * n_dims * H1_OPS["dim"] + digits * H1_OPS["digit"]
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / FP32_FLOP_PER_S
+
+
+def check_halton(what: str, got, want) -> tuple:
+    """Fails unless an H1 launch's output equals the plain version's bit for
+    bit.  (max_abs_err, exact)."""
+    import torch
+
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.equal(got, want):
+        fail(f"{what} differs from its plain version by up to {err}")
+    return err, True
+
+
+def h1_part(timer, tag: str) -> dict:
+    """Every recorded H1 launch held bit-equal to its plain version, its
+    bound from h1_bound_ms."""
+    from rs_pbrt_tpu_torch.ops import halton_kernel as hk
+
+    return kernel_part(timer, tag, "H1", hk.halton_dims_plain, hk.halton_dims, h1_bound_ms,
+                       check_halton, lambda *a, **kw: a[0].shape[0])
+
+
+def merge_parts(parts) -> dict:
+    """One part of the launches of several parts."""
+    keys = ("ms", "device_ms", "plain_ms", "bound")
+    return dict({k: [x for p in parts for x in p[k]] for k in keys},
+                max_abs_err=max(p["max_abs_err"] for p in parts),
+                exact=all(p["exact"] for p in parts), lanes=sum(p["lanes"] for p in parts))
+
+
+def sampler_counts(integrator: str, kind: str, n_lights: int, depth: int = DEPTH,
+                   iterations: int = 0, accel: bool = False) -> dict:
+    """Phase 25's launch counts: the sampler's kernel (K1 for Sobol', H1 for
+    Halton, none for the others) once for the camera dims and once a block
+    of integrator dims; K5 (B1 through the statue's BVH) a closest hit, K4
+    (B2) a shadow ray; S1 once an SPPM iteration."""
+    if integrator == "sppm":
+        blocks = iterations * (1 + depth)
+        sweeps = dict(full_sweep=2 * depth * iterations, any_sweep=depth * iterations,
+                      sppm_deposit=iterations)
+    elif integrator in ("path", "volpath"):  # every bounce's dims in one block
+        blocks = 2
+        sweeps = dict(full_sweep=depth + 1, any_sweep=depth + int(integrator == "volpath"))
+    else:
+        blocks = 1 + depth
+        sweeps = dict(full_sweep=depth, any_sweep=depth * n_lights)
+    if accel:
+        sweeps = dict(bvh12_closest=sweeps.pop("full_sweep"), bvh12_any=sweeps.pop("any_sweep"),
+                      **sweeps)
+    own = {"sobol": dict(sobol=blocks), "halton": dict(halton=blocks)}.get(kind, {})
+    return dict(sweeps, **own)
+
+
+def phase_samplers(card, statue):
+    """Phase 25: H1 on seeded indices; the Cornell box with every sampler
+    through path and with Halton through volpath, whitted and
+    directlighting, each beside the Sobol' render; caustic_only's SPPM with
+    Halton; phase 9's statue with Halton."""
+    import torch
+
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.ops import halton_kernel as hk
+    from rs_pbrt_tpu_torch.ops import lowdiscrepancy as ld
+    from rs_pbrt_tpu_torch.ops import path_kernel as pk
+    from rs_pbrt_tpu_torch.ops import scene_intersect as si
+    from rs_pbrt_tpu_torch.scene import presets
+    from rs_pbrt_tpu_torch.tools import caustic_scenes
+
+    t_phase = time.perf_counter()
+    kinds = dict(sobol=smpl.SOBOL, halton=smpl.HALTON, zerotwo=smpl.ZEROTWO,
+                 stratified=smpl.STRATIFIED, maxmin=smpl.MAXMIN)
+    # H1 at the main paths' shapes: a 256-wide film's pixel digits; the
+    # host's permutation table is built first, outside the events
+    ld.halton_permutations(ld.HALTON_MAX_BASES)
+    g = torch.Generator(DEVICE).manual_seed(25)
+    cases = LaunchTimer(hk.halton_dims, keep=True)
+    for n, dim0, n_dims, clip in H1_CASES:
+        idx = torch.randint(-(1 << 31), 1 << 31, (n,), device=DEVICE, generator=g,
+                            dtype=torch.int32)  # the u32 indices' bits, as make_ctx holds them
+        cases(idx, dim0, n_dims, 7, 243, clip=clip)
+    parts = {"cases": h1_part(cases, "25 cases")}
+    for (n, dim0, n_dims, clip), t, b in zip(H1_CASES, parts["cases"]["device_ms"],
+                                             parts["cases"]["bound"]):
+        print(f"[25 H1] {n} lanes, dims {dim0}..{dim0 + n_dims - 1}{' clipped' if clip else ''}:"
+              f" bit-equal; {t:.4f} ms on the card (queued), bound {max(b):.4f} ms (bytes "
+              f"{b[0]:.4f}, operations {b[1]:.4f}) ({card})", flush=True)
+    del cases
+
+    def run(tag, scene, camera, cfg, kind, want, accel=None, no_k2=False, lanes_unit=None,
+            **kw):
+        """One render with its counts checked, H1's launches recorded; for
+        Halton the render with H1's plain version too.  -> (rate, mean,
+        counts)."""
+        scfg = smpl.make_sampler(kinds[kind], 1 if cfg.integrator == "sppm" else cfg.spp,
+                                 camera.resolution)
+        go = lambda c=cfg, stats=None: rdr.render(scene, camera, c, scfg, accel=accel,
+                                                  stats=stats, **kw)
+        rec = LaunchTimer(hk.halton_dims, keep=True)
+        st = {}
+        with ExitStack() as es:
+            if no_k2:
+                es.enter_context(mock.patch.object(pk, "mega_cfg", lambda *a, **k: None))
+            warm = (cfg._replace(extra=dict(cfg.extra, n_iterations=1))
+                    if cfg.integrator == "sppm" else cfg._replace(spp=4))
+            go(warm)
+            patched(es, halton_dims=rec)
+            torch.cuda.synchronize()
+            zero_counts()
+            img = go(stats=st)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            if counts != expect_counts(**want):
+                fail(f"launch counts of the {tag} render {counts}, expected {want}")
+            w, h = camera.resolution
+            if tuple(img.shape) != (h, w, 3) or not torch.isfinite(img).all():
+                fail(f"{tag} image: shape {tuple(img.shape)}, finite "
+                     f"{bool(torch.isfinite(img).all())}")
+            exact = ""
+            if kind == "halton":
+                patched(es, halton_dims=hk.halton_dims_plain)
+                if not torch.equal(go(), img):
+                    fail(f"the {tag} image differs from the render with H1's plain version")
+                exact = "; equal to the render with H1's plain version"
+        if cfg.integrator == "sppm":
+            rate = w * h * cfg.extra["n_iterations"] * 2 / st["wall_s"]
+        else:
+            rate = st["paths_per_s"]
+        mean = float(img.mean())
+        if rec.calls:
+            parts[tag] = h1_part(rec, f"25 {tag}")
+        shown = {k: v for k, v in counts.items() if v}
+        print(f"[25 {tag}] finite{exact}; mean {mean:.6f}; launches {shown}, as expected; "
+              f"{rate:.6g} {lanes_unit or 'camera paths/s'} (one render after a warm one, "
+              f"{1e3 * st['wall_s']:.3f} ms) on {card}", flush=True)
+        return dict(rate=rate, mean=mean, counts=counts)
+
+    out = {}
+    scene, camera = presets.cornell_box(RES, device=DEVICE)
+    for integrator in ("path", "volpath", "whitted", "directlighting"):
+        cfg = rdr.RenderCfg(integrator, SPP, DEPTH, 1.0)
+        for kind in ("sobol",) + (SAMPLER_KINDS if integrator == "path" else ("halton",)):
+            tag = f"cornell {integrator} {kind}"
+            out[tag] = run(tag, scene, camera, cfg, kind,
+                           sampler_counts(integrator, kind, scene.n_lights),
+                           no_k2=integrator == "path" and kind == "sobol")
+        ref = out[f"cornell {integrator} sobol"]
+        print(f"[25 cornell {integrator}] {RES[0]}x{RES[1]}, {SPP} spp, depth {DEPTH}: "
+              + "; ".join(f"{k} {out[f'cornell {integrator} {k}']['rate']:.6g} paths/s, mean "
+                          f"{out[f'cornell {integrator} {k}']['mean']:.6f}"
+                          for k in ("sobol",) + (SAMPLER_KINDS if integrator == "path"
+                                                 else ("halton",)))
+              + f" (Sobol' on the general bounce, mean {ref['mean']:.6f}; {card})", flush=True)
+    del scene, camera
+    # SPPM with Halton: the camera pass's sample numbers are iteration numbers
+    scene, camera = caustic_scenes.caustic_only(SPPM_RES, device=DEVICE)
+    accel = si.build_accel(scene, device=DEVICE)
+    cfg = caustic_scenes.CFG._replace(
+        extra=dict(caustic_scenes.CFG.extra, n_iterations=SAMPLER_SPPM_ITERATIONS))
+    for kind in ("sobol", "halton"):
+        tag = f"caustic_only sppm {kind}"
+        out[tag] = run(tag, scene, camera, cfg, kind,
+                       sampler_counts("sppm", kind, scene.n_lights, cfg.max_depth,
+                                      SAMPLER_SPPM_ITERATIONS),
+                       accel=accel, lanes_unit="SPPM rays/s (w h iterations 2)")
+    del scene, camera, accel
+    # phase 9's statue with Halton through the fixed-depth loop
+    cfg = rdr.RenderCfg("path", STATUE_SPP, DEPTH, 1.0)
+    tag = "statue path halton"
+    out[tag] = run(tag, statue["scene"], statue["camera"], cfg, "halton",
+                   sampler_counts("path", "halton", statue["scene"].n_lights, accel=True),
+                   accel=statue["accel"], regen=False)
+    print(f"[25 statue] {STATUE_RES[0]}x{STATUE_RES[1]}, {STATUE_SPP} spp, depth {DEPTH}, the "
+          f"fixed-depth loop: Halton {out[tag]['rate']:.6g} camera paths/s beside phase 9's "
+          f"Sobol' {statue['paths_per_s']:.6g} (mean {out[tag]['mean']:.6f}; {card})", flush=True)
+    renders = {k: v for k, v in parts.items() if k != "cases"}
+    h1 = merge_parts(list(renders.values()))
+    print_part("H1", "25 renders", h1, card)
+    print_part("H1", "25 cases", parts["cases"], card)
+    seconds = time.perf_counter() - t_phase
+    print(f"[25] {seconds:.1f} s", flush=True)
+    return dict(renders=out, h1=h1, cases=parts["cases"], seconds=seconds,
+                counts={k: sum(r["counts"][k] for r in out.values())
+                        for k in next(iter(out.values()))["counts"]})
+
+
 def kernel_entry(name, source, replaces, launches, parts, max_abs_err, library_ms=None) -> dict:
     """One kernel's line of the `kernels` JSON: per-launch means over
     `parts`, dicts of per-launch lists ms, plain_ms and bound ((bytes_ms,
@@ -3561,6 +3828,8 @@ def main():
     print(f"[24] paths/s in this call: statue_env {later[1]['paths_per_s']:.6g}, statue_disney "
           f"{later[2]['paths_per_s']:.6g}, statue_marble {marble['paths_per_s']:.6g} ({card})",
           flush=True)
+    samplers = phase_samplers(card, statue)
+    later.append(samplers)
     del statue["camera"], statue["scene"], statue["accel"]
     later += list(phase_spatial_crop(card).values())
     later.append(phase_full_statue(card))
@@ -3670,6 +3939,17 @@ def main():
                for k, v in textures["sweep"].items() if k in ("ms", "device_ms", "plain_ms",
                                                                 "lanes")}
         | dict(bound_ms=max(textures["sweep"]["bound"][0]))))
+    # H1 replaces the JAX package's XLA Halton dims; no PyTorch call
+    # computes a scrambled radical inverse
+    kernels.append(dict(kernel_entry(
+        "halton_dims", csrc + "halton.cu", "rs_pbrt_tpu/ops/lowdiscrepancy.py:259",
+        more("halton"), [samplers["h1"]],
+        max(samplers["h1"]["max_abs_err"], samplers["cases"]["max_abs_err"])),
+        bit_equal=True,
+        cases={k: (sum(v) / len(v) if isinstance(v, list) else v)
+               for k, v in samplers["cases"].items() if k in ("ms", "device_ms", "plain_ms")}
+        | dict(bound_ms=sum(max(b) for b in samplers["cases"]["bound"])
+               / len(samplers["cases"]["bound"]))))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

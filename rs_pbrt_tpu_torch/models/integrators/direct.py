@@ -46,6 +46,14 @@ def dims_per_depth(scene: sa.Scene) -> int:
     return 2 * max(scene.n_lights, 1) + 3
 
 
+def depth_pairs(scene: sa.Scene, sample_all: bool) -> tuple:
+    """The offsets of one depth's 2D draws: each light's sample (or the
+    picked light's, after the pick), then the bsdf sample."""
+    n_l = scene.n_lights
+    lights = tuple(range(0, 2 * n_l, 2)) if sample_all else ((1,) if n_l > 0 else ())
+    return lights + (2 * max(n_l, 1),)
+
+
 def _direct_one_light(scene, light_idx, sel_pdf, it, b, ss, ts, u_light, accel, mis=True):
     """estimate_direct's light-sampling half for a chosen light
     (integrator.rs:406): Li f |cos| / pdf, zero where the shadow ray is
@@ -124,7 +132,7 @@ def _direct_radiance(scene, max_depth, sample_all, cfg_s, ctx, ray_o, ray_d, acc
     t_max = torch.full((n,), float(vm.INFINITY), device=dev)
     n_l = scene.n_lights
     light_dist = _light_select_dist(scene) if n_l > 0 and not sample_all else None
-    n_dims = dims_per_depth(scene)
+    n_dims, pairs = dims_per_depth(scene), depth_pairs(scene, sample_all)
     for depth in range(max_depth):
         it = si.scene_intersect(scene, o, d, t_max, accel)
         if n_l > 0:
@@ -142,7 +150,7 @@ def _direct_radiance(scene, max_depth, sample_all, cfg_s, ctx, ray_o, ray_d, acc
         b = bx.make_bsdf_at(scene, it, width)
         ss, ts = _shading_frame_du(it.ns, it.dpdu)
         dim0 = DIM_CAMERA + depth * n_dims
-        ctx_d = smpl.with_dims(cfg_s, ctx, dim0, n_dims)
+        ctx_d = smpl.with_dims(cfg_s, ctx, dim0, n_dims, pairs)
         if n_l > 0:
             if sample_all:
                 ld = uniform_sample_all_lights(scene, cfg_s, ctx_d, it, b, ss, ts, dim0, accel)
@@ -200,7 +208,8 @@ def ao_radiance(scene, acfg: AOCfg, cfg_s, ctx, ray_o, ray_d, accel=None):
     nf = vm.face_forward(it.ng, -ray_d)
     ss, ts = vm.coordinate_system(nf)
     n_dims = 2 * acfg.n_samples
-    dims = torch.cat([smpl.get_dims(cfg_s, ctx, DIM_CAMERA + k, min(sk.MAX_DIMS, n_dims - k))
+    dims = torch.cat([smpl.get_dims(cfg_s, ctx, DIM_CAMERA + k, min(sk.MAX_DIMS, n_dims - k),
+                                    tuple(range(0, min(sk.MAX_DIMS, n_dims - k), 2)))
                       for k in range(0, n_dims, sk.MAX_DIMS)], 1)
     acc = torch.zeros(n, device=dev)
     for s in range(acfg.n_samples):

@@ -53,6 +53,11 @@ from .. import samplers as smpl
 #   +11,12 sss light u, +13,14 sss continuation direction
 DIMS_PER_BOUNCE = pk.DIMS_PER_BOUNCE
 SSS_EXTRA_DIMS = 8
+# the offsets of a bounce's dims that the JAX package reads as 2D draws
+# (u2d, path.py:118-248, 348-428): light u, bsdf u; and subsurface's probe
+# r/phi, light u and continuation, from the start of its 8 dims
+PAIRS = (1, 3)
+SSS_PAIRS = (1, 4, 6)
 DIM_CAMERA = 5
 # the probe chain's length: the reference walks an unbounded chain of hits
 # (bssrdf.rs:213-246); 4 covers a closed object's entry and exit and two
@@ -63,6 +68,12 @@ SSS_PROBE_HITS = 4
 def dims_per_bounce(scene: sa.Scene) -> int:
     """The path integrator's dims a bounce: 7, or 15 with subsurface."""
     return DIMS_PER_BOUNCE + (SSS_EXTRA_DIMS if scene.has_subsurface else 0)
+
+
+def bounce_pairs(scene: sa.Scene) -> tuple:
+    """The offsets of a bounce's 2D draws."""
+    return PAIRS + (tuple(DIMS_PER_BOUNCE + k for k in SSS_PAIRS) if scene.has_subsurface
+                    else ())
 
 
 def _shading_frame_du(ns, dpdu):
@@ -92,14 +103,6 @@ def _light_select_dist(scene: sa.Scene) -> smp.Distribution1D:
 class PathCfg(NamedTuple):
     max_depth: int  # reference default 5 (api.rs:248)
     rr_threshold: float  # Russian roulette after bounce 3 (path.rs:254)
-
-
-def check_supported(scene: sa.Scene, sampler_cfg: smpl.SamplerCfg, accel=None):
-    """Raises NotImplementedError for what the general bounce cannot render
-    yet: what scene intersection refuses, and the samplers not ported."""
-    si.check_supported(scene, accel)
-    if sampler_cfg.kind not in smpl.PORTED_SAMPLERS:
-        raise NotImplementedError(f"sampler kind {sampler_cfg.kind} is not ported yet")
 
 
 def _dist_at(scene: sa.Scene, light_distrib=None):
@@ -346,16 +349,19 @@ def general_radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg
     distribution (lightdistrib.build_spatial), else selection by power.
     diffs: the camera rays' differentials (ops/differentials.py), or
     None."""
-    check_supported(scene, sampler_cfg, accel)
+    si.check_supported(scene, accel)
     n, dev = ray_o.shape[0], ray_o.device
     dist_at = _dist_at(scene, light_distrib)
     light_dist = _light_select_dist(scene) if scene.n_lights > 0 else None
-    dpb = dims_per_bounce(scene)
-    # every bounce's dims in one K1 launch where K1 takes them all (up to
-    # 128 dims, as the JAX package hoists them: depth 18, or 8 with
-    # subsurface), else one a bounce
+    dpb, pairs = dims_per_bounce(scene), bounce_pairs(scene)
+    # every bounce's dims in one K1 or H1 launch where it takes them all
+    # (up to 128 dims, as the JAX package hoists them: depth 18, or 8 with
+    # subsurface), else one a bounce; the JAX package's traced-dim route
+    # where it takes it
     total_dims = dpb * cfg.max_depth
-    all_dims = (smpl.get_dims(sampler_cfg, ctx, DIM_CAMERA, total_dims)
+    dyn = smpl.traced_route(sampler_cfg, total_dims)
+    all_dims = (smpl.get_dims(sampler_cfg, ctx, DIM_CAMERA, total_dims,
+                              smpl.repeat_pairs(pairs, dpb, cfg.max_depth), dyn)
                 if 0 < total_dims <= sk.MAX_DIMS else None)
     o, d = ray_o.contiguous(), ray_d.contiguous()
     L = torch.zeros((n, 3), device=dev)
@@ -373,7 +379,7 @@ def general_radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg
         alive = alive & it.valid
         k0 = bounce * dpb
         dims = (all_dims[:, k0:k0 + dpb] if all_dims is not None else
-                smpl.get_dims(sampler_cfg, ctx, DIM_CAMERA + k0, dpb))
+                smpl.get_dims(sampler_cfg, ctx, DIM_CAMERA + k0, dpb, pairs, dyn))
         width = rd.bounce_width(scene, it, diffs, bounce)
         o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf, eta_scale = _shade_and_extend(
             scene, cfg, accel, dist_at, dims, bounce, it,

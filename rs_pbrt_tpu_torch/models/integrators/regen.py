@@ -34,7 +34,7 @@ from ...scene import arrays as sa
 from ...utils import vecmath as vm
 from .. import samplers as smpl
 from .path import (DIM_CAMERA, PathCfg, _add_emitted, _dist_at, _light_select_dist,
-                   _shade_and_extend, check_supported, dims_per_bounce)
+                   _shade_and_extend, dims_per_bounce)
 
 # lanes in flight; a batch streams its paths through them.  Chosen on an
 # NVIDIA H100 at 700 W (rs_pbrt_tpu_torch/tools/regen_sweep.py, PERF.md):
@@ -73,7 +73,7 @@ def radiance_regen(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
     ``general_radiance``.  lane_width defaults to REGEN_LANE_WIDTH.  stats,
     when given, gains the iterations run (``iterations``, added to what it
     holds)."""
-    check_supported(scene, sampler_cfg, accel)
+    si.check_supported(scene, accel)
     n, dev = ray_o.shape[0], ray_o.device
     width = min(lane_width or REGEN_LANE_WIDTH, n)
     md = cfg.max_depth

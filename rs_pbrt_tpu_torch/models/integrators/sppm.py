@@ -110,7 +110,7 @@ def camera_pass(scene: sa.Scene, sampler_cfg, ctx, ray_o, ray_d, max_depth: int,
         b = bx.make_bsdf_at(scene, it)
         ss, ts = _shading_frame_du(it.ns, it.dpdu)
         dim0 = 5 + depth * DIMS_PER_DEPTH
-        ctx_d = smpl.with_dims(sampler_cfg, ctx, dim0, 6)
+        ctx_d = smpl.with_dims(sampler_cfg, ctx, dim0, 6, (1, 3))
         if scene.n_lights > 0:
             ld_i = uniform_sample_one_light(scene, sampler_cfg, ctx_d, it, b, ss, ts, dim0,
                                             light_dist, accel)

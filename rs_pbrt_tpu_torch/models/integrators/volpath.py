@@ -45,12 +45,15 @@ from ...scene import arrays as sa
 from ...utils import vecmath as vm
 from .. import lights as lt
 from .. import samplers as smpl
-from .path import (DIM_CAMERA, SSS_EXTRA_DIMS, PathCfg, _add_emitted, _light_select_dist,
-                   _shading_frame_du, _to_local, _to_world, sss_transport)
+from .path import (DIM_CAMERA, SSS_EXTRA_DIMS, SSS_PAIRS, PathCfg, _add_emitted,
+                   _light_select_dist, _shading_frame_du, _to_local, _to_world, sss_transport)
 
 # dims a bounce: the path's 7, then +7 medium channel, +8 medium distance,
 # +9,10 phase direction; subsurface appends its 8 at +11
 DIMS_PER_BOUNCE = 11
+# the offsets the JAX package reads as 2D draws (u2d, volpath.py:196-298):
+# light u, bsdf u, phase direction; subsurface's three at +11
+PAIRS = (1, 3, 9)
 TRACK_SEED = 0x517  # the tracking RNG's seed (volpath.py:211)
 RATIO_SALT = 0x5AD  # ratio tracking's salt (volpath.py:139)
 
@@ -59,12 +62,9 @@ def dims_per_bounce(scene: sa.Scene) -> int:
     return DIMS_PER_BOUNCE + (SSS_EXTRA_DIMS if scene.has_subsurface else 0)
 
 
-def check_supported(scene: sa.Scene, sampler_cfg: smpl.SamplerCfg, accel=None):
-    """Raises NotImplementedError for what volpath cannot render yet: what
-    scene intersection refuses, and the samplers not ported."""
-    si.check_supported(scene, accel)
-    if sampler_cfg.kind not in smpl.PORTED_SAMPLERS:
-        raise NotImplementedError(f"sampler kind {sampler_cfg.kind} is not ported yet")
+def bounce_pairs(scene: sa.Scene) -> tuple:
+    return PAIRS + (tuple(DIMS_PER_BOUNCE + k for k in SSS_PAIRS) if scene.has_subsurface
+                    else ())
 
 
 def _media_tables(scene: sa.Scene) -> tuple:
@@ -115,13 +115,15 @@ def radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg, ctx: s
     (volpath.py:149-368).  diffs: the camera rays' differentials, whose
     footprints filter the image maps at bounce 0 (later bounces read level
     0)."""
-    check_supported(scene, sampler_cfg, accel)
+    si.check_supported(scene, accel)
     n, dev = ray_o.shape[0], ray_o.device
     light_dist = _light_select_dist(scene) if scene.n_lights > 0 else None
     dist_at = lambda p: light_dist
-    dpb = dims_per_bounce(scene)
+    dpb, pairs = dims_per_bounce(scene), bounce_pairs(scene)
     total_dims = dpb * (cfg.max_depth + 1)
-    all_dims = (smpl.get_dims(sampler_cfg, ctx, DIM_CAMERA, total_dims)
+    dyn = smpl.traced_route(sampler_cfg, total_dims)
+    all_dims = (smpl.get_dims(sampler_cfg, ctx, DIM_CAMERA, total_dims,
+                              smpl.repeat_pairs(pairs, dpb, cfg.max_depth + 1), dyn)
                 if total_dims <= sk.MAX_DIMS else None)
     lane_key = torch.arange(n, dtype=torch.int32, device=dev) if scene.has_grid else None
     far = 2.0 * scene.world_radius * 4.0  # a miss's segment (world_radius is an f32)
@@ -137,7 +139,7 @@ def radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg, ctx: s
         # dead lanes cast with t_max = -1, which the traversal ends at once
         it = si.scene_intersect(scene, o, d, torch.where(alive, inf, -1.0), accel)
         dims = (all_dims[:, bounce * dpb:(bounce + 1) * dpb] if all_dims is not None else
-                smpl.get_dims(sampler_cfg, ctx, DIM_CAMERA + bounce * dpb, dpb))
+                smpl.get_dims(sampler_cfg, ctx, DIM_CAMERA + bounce * dpb, dpb, pairs, dyn))
 
         # the medium's distance sample on the segment (volpath.rs:96-105)
         in_med = alive & (cur_med >= 0)

@@ -144,12 +144,16 @@ def check_supported(scene: sa.Scene, accel: Optional[Accel] = None):
 
 def dense_tri_hit(scene: sa.Scene, o, d, t_max) -> isect.TriHit:
     """Closest triangle hit over the whole table (K3)."""
-    return ik.closest_sweep(o, d, t_max, scene.tri_attr, scene.n_tris)
+    return ik.closest_sweep(o.contiguous(), d.contiguous(), t_max.contiguous(), scene.tri_attr,
+                            scene.n_tris)
 
 
 def dense_tri_hit_p(scene: sa.Scene, o, d, t_max) -> torch.Tensor:
-    """Any triangle hit before t_max (K4)."""
-    return ik.any_sweep(o, d, t_max, scene.tri_attr, scene.n_tris)
+    """Any triangle hit before t_max (K4).  The rays may be views of a hit
+    record's rows (a triangle-only scene's hit points), which the kernel
+    takes only contiguous."""
+    return ik.any_sweep(o.contiguous(), d.contiguous(), t_max.contiguous(), scene.tri_attr,
+                        scene.n_tris)
 
 
 def _has_kind(scene: sa.Scene, kind: int) -> bool:
@@ -270,7 +274,8 @@ def _scene_intersect_once(scene: sa.Scene, o, d, t_max, accel: Optional[Accel]) 
             rec.p, rec.p_err, rec.ng, rec.ns, rec.uv, rec.dpdu))
         tmat, tlight = torch.where(tv, rec.mat, 0), torch.where(tv, rec.light, -1)
     elif scene.n_tris > 0:
-        fh = ik.full_sweep(o, d, t_max, scene.tri_attr, scene.n_tris)
+        fh = ik.full_sweep(o.contiguous(), d.contiguous(), t_max.contiguous(), scene.tri_attr,
+                           scene.n_tris)
         tv, tt, tprim = fh.valid, fh.rows[ik.F_T], fh.ids[ik.I_PRIM]
         tp, tperr, tng, tns = (fh.vec(ik.F_P), fh.vec(ik.F_P_ERR), fh.vec(ik.F_NG),
                                fh.vec(ik.F_NS))

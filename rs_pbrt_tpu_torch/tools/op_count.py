@@ -10,6 +10,12 @@ and the image's sum.  Host-bound renders pay for each op, so the count is
 the BSDF layer's metric of PERF.md section 3; the sum shows that two
 versions computed the same image.
 
+``--samplers`` counts instead the ops of each sampler kind's dims: one
+path bounce's 7 (the path integrator's 2D pairs, its route), the camera's
+5, and a whole Cornell box path render with the kind.  Halton's and
+Sobol's dims are one kernel launch each on the card; here they run their
+plain versions, whose ops are counted too.
+
 ``--root DIR`` imports ``rs_pbrt_tpu_torch`` from another checkout, to
 compare two versions.  Run it as a script (not with ``-m``) so that
 ``--root`` decides which package is imported.
@@ -49,12 +55,46 @@ def _rough(scene):
     return scene
 
 
+def sampler_counts():
+    """Prints each sampler kind's ops: a path bounce's dims, the camera's
+    dims and a Cornell box path render (2 spp, depth 5)."""
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import path as pathmod
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.scene import presets
+
+    scene, camera = presets.cornell_box(RES, device="cpu")
+    cfg = rdr.RenderCfg("path", 2, 5, 1.0)
+    names = dict(sobol=smpl.SOBOL, random=smpl.RANDOM, zerotwo=smpl.ZEROTWO,
+                 stratified=smpl.STRATIFIED, halton=smpl.HALTON, maxmin=smpl.MAXMIN)
+    for name, kind in names.items():
+        scfg = smpl.make_sampler(kind, 2, RES)
+        ctx, _ = rdr.camera_rays(camera, scfg, 0, 2)
+        dyn = smpl.traced_route(scfg, pathmod.DIMS_PER_BOUNCE * cfg.max_depth)
+        counts = []
+        for draw in (lambda: smpl.get_dims(scfg, ctx, pathmod.DIM_CAMERA,
+                                           pathmod.DIMS_PER_BOUNCE, pathmod.PAIRS, dyn),
+                     lambda: smpl.get_camera_dims(scfg, ctx, ctx.pixel),
+                     lambda: rdr.render(scene, camera, cfg, scfg)):
+            with _Count() as count:
+                draw()
+            counts.append(sum(count.ops.values()))
+        print(f"sampler {name}: a path bounce's {pathmod.DIMS_PER_BOUNCE} dims {counts[0]} ops, "
+              f"the camera's 5 {counts[1]} ops; cornell_box path {counts[2]} ops", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[2],
                     help="the checkout whose rs_pbrt_tpu_torch is counted")
+    ap.add_argument("--samplers", action="store_true",
+                    help="count each sampler kind's dims instead of the scenes' renders")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(args.root.resolve()))
+    if args.samplers:
+        torch.set_num_threads(2)
+        sampler_counts()
+        return 0
     from rs_pbrt_tpu_torch.models import samplers as smpl
     from rs_pbrt_tpu_torch.models.integrators import render as rdr
     from rs_pbrt_tpu_torch.scene import presets

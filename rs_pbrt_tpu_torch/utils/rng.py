@@ -1,10 +1,11 @@
-"""The stateless hash RNG: uniform numbers as a function of integer keys.
+"""Random numbers: the stateless hash RNG, and the reference's PCG32.
 
-The port of the hash half of the JAX package's ``utils/rng.py`` (a
-lowbias32-style integer hash and a boost-style combine; the reference draws
-from a per-thread Pcg32, src/core/rng.rs, which a counter-based hash
-replaces so that any lane order gives the same numbers).  The random
-sampler and SPPM's photon pass draw from it.
+The port of the JAX package's ``utils/rng.py``: a lowbias32-style integer
+hash and a boost-style combine (the reference draws from a per-thread
+Pcg32, src/core/rng.rs, which a counter-based hash replaces so that any
+lane order gives the same numbers), from which the random, stratified,
+zerotwo and maxmin samplers and SPPM's photon pass draw; and ``Pcg32`` with
+``shuffle`` on the host, which build the Halton sampler's permutations.
 
 torch has no wrapping uint32 arithmetic on every device, so the words are
 held in int64 and masked to 32 bits after each step.  A product of a word
@@ -72,3 +73,55 @@ def to_float(bits: torch.Tensor) -> torch.Tensor:
 def uniform_float(*keys) -> torch.Tensor:
     """A uniform in [0, 1) from integer keys (rng.py uniform_float)."""
     return to_float(uniform_u32(*keys))
+
+
+# ---- the reference's PCG32, on the host ----
+
+PCG32_DEFAULT_STATE = 0x853C49E6748FEA9B
+PCG32_DEFAULT_STREAM = 0xDA3E39CB94B95BDB
+PCG32_MULT = 0x5851F42D4C957F2D
+_M64 = (1 << 64) - 1
+
+
+class Pcg32:
+    """The reference's PCG32 (src/core/rng.rs:21-82) in Python integers:
+    stateful and sequential, for host-side tables (the Halton
+    permutations).  The same stream as the JAX package's ``Pcg32``."""
+
+    def __init__(self, init_state=None, init_seq=None):
+        if init_state is None:
+            self.state = PCG32_DEFAULT_STATE
+            self.inc = PCG32_DEFAULT_STREAM
+        else:
+            self.state = 0
+            self.inc = ((int(init_seq) << 1) | 1) & _M64
+            self.uniform_uint32()
+            self.state = (self.state + int(init_state)) & _M64
+            self.uniform_uint32()
+
+    def uniform_uint32(self) -> int:
+        old = self.state
+        self.state = (old * PCG32_MULT + self.inc) & _M64
+        xorshifted = (((old >> 18) ^ old) >> 27) & M32
+        rot = (old >> 59) & 31
+        return ((xorshifted >> rot) | (xorshifted << ((32 - rot) & 31))) & M32
+
+    def uniform_uint32_bounded(self, b: int) -> int:
+        """Uniform in [0, b) by rejection (rng.rs uniform_uint32_bounded)."""
+        threshold = (~b + 1) % b if b else 0
+        while True:
+            r = self.uniform_uint32()
+            if r >= threshold:
+                return r % b
+
+
+def shuffle(arr, rng: Pcg32, n_dims: int = 1):
+    """In-place Fisher-Yates of arr's groups of n_dims (sampling.rs
+    shuffle); returns arr."""
+    count = len(arr) // n_dims
+    for i in range(count):
+        other = i + rng.uniform_uint32_bounded(count - i)
+        for j in range(n_dims):
+            k1, k2 = n_dims * i + j, n_dims * other + j
+            arr[k1], arr[k2] = arr[k2], arr[k1]
+    return arr

@@ -110,7 +110,7 @@ def test_random_path_render_matches_jax(tmp_path):
 def test_regeneration_stays_sobol_only():
     """The regeneration loop takes the Sobol' sampler only, as the JAX gate
     does (render.py:389-394); a random-sampler render through a tree takes
-    the fixed-depth loop.  Samplers other than Sobol' and random raise."""
+    the fixed-depth loop, and so does every other kind."""
     from rs_pbrt_tpu_torch.models.integrators import regen
     from rs_pbrt_tpu_torch.ops import scene_intersect as si
     from rs_pbrt_tpu_torch.tools import hair_scenes
@@ -122,5 +122,7 @@ def test_regeneration_stays_sobol_only():
                           lane_width=64)
     assert not regen.eligible(scene, pcfg, smpl.make_sampler(smpl.RANDOM, 4, (8, 8)), accel,
                               256, lane_width=64)
-    with pytest.raises(NotImplementedError, match="Sobol' and random"):
-        smpl.make_sampler(jsmpl.HALTON, 4, (8, 8))
+    for kind in (smpl.ZEROTWO, smpl.STRATIFIED, smpl.HALTON, smpl.MAXMIN):
+        assert kind == getattr(jsmpl, ("ZEROTWO", "STRATIFIED", "HALTON", "MAXMIN")[kind - 2])
+        assert not regen.eligible(scene, pcfg, smpl.make_sampler(kind, 4, (8, 8)), accel, 256,
+                                  lane_width=64)

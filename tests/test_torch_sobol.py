@@ -115,8 +115,8 @@ def test_camera_dims_match_jax():
 
 
 def test_sobol_dims_wrapper_checks():
-    with pytest.raises(NotImplementedError):
-        smpl.make_sampler(jsmpl.HALTON, 4, (8, 8))
+    with pytest.raises(ValueError, match="unknown sampler kind"):
+        smpl.make_sampler(jsmpl.MAXMIN + 1, 4, (8, 8))
     assert smpl.index_bits(smpl.make_sampler(smpl.SOBOL, 64, (256, 256))) == 32
     assert smpl.index_bits(smpl.make_sampler(smpl.SOBOL, 1 << 17, (256, 256))) == 52
 
