@@ -236,7 +236,7 @@ Run from the root of a checkout.  Phases, one line each (or more):
    plastic, copper, substrate, a five-lobe uber, translucent, three Disney
    materials, a mix of plastic and copper, and the Fourier lobe on a
    64-node glossy table, on a matte ground under an area light and the
-   1024x2048 sky) through render.render at 256x256, depth 5: path,
+   1024x2048 sky) through render.render at 256x256, depth 3: path,
    directlighting ("all") and whitted at 64 spp, volpath at 16 spp, SPPM
    of 4 iterations.  The counters are zeroed just before each render and
    read just after (the counted render is each integrator's first, the
@@ -266,7 +266,7 @@ Run from the root of a checkout.  Phases, one line each (or more):
    image map and an fbm on the floor, nine spheres binding every texture
    slot and family, a bump map, an alpha-masked and a shadow-alpha quad, a
    projection and a goniometric light) through render.render at 256x256,
-   depth 5: path, whitted and directlighting ("all") and volpath at 16
+   depth 3: path, whitted and directlighting ("all") and volpath at 16
    spp, SPPM of 4 iterations.  The counters are zeroed just before each
    render and read just after; they must equal texture_counts (K1, K5, S1 and T1
    by formula from the integrator and the alpha recasts' trips, read
@@ -311,7 +311,29 @@ Run from the root of a checkout.  Phases, one line each (or more):
    lane's index has in each dim's base) and the plain version's time.  It
    runs right after phase 24, before phase 9's statue is freed.
 
-Then one JSON line with every kernel's numbers, and as the last line
+26. The other cameras and filters: the Cornell box at RES, SPP, DEPTH
+   through path with the Mitchell filter (the flagship's camera), the
+   realistic camera (tests/test_realistic.py's singlet, an 8 mm aperture,
+   focused at 1078, a 35 mm film diagonal) with the Gaussian filter, and the
+   orthographic, environment and moving perspective cameras on the grid
+   film.  The counters are zeroed just before each render and read just
+   after: K1 1, K2 depth + 1, R1 (ops/splat_kernel.py, csrc/splat.cu) once
+   where the filter is not the half-pixel box, L1 (ops/lens_kernel.py,
+   csrc/lens.cu) once for the realistic camera.  Each image finite and
+   within rtol = atol = 2e-3 of the render with every wrapper swapped for
+   its plain version; paths/s (best of 3 warm renders) and the card's busy
+   time over a profiled render.  Every R1 launch held to the plain splat
+   per pixel within 2 n 2^-24 of its n summed |terms| (atomics add in no
+   fixed order), every L1 launch to its plain version (the same vignetted
+   lanes, bit-equal or within 1e-5; the line says which), each timed
+   queued and by events beside its bound and the plain version's time;
+   then R1 with each filter kind at its default radius and L1 on the
+   singlet with a stop behind it (both weightings), on the realistic
+   render's lanes.
+
+After each phase (or group) a "[time]" line gives the seconds since the
+card was found.  Then one JSON line with every kernel's numbers, and as
+the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
 """
 
@@ -497,12 +519,15 @@ STATUE_ENV_PROFILE_SPP = 4  # the profiled render: 4M paths, above one lane widt
 STATUE_ENV_CROP = (128, 128)  # with 16 spp, 2^18 paths against the fixed-depth loop
 # phase 21: tools/material_scenes.material_grid at BASELINE config 2's width
 GRID_RES = (256, 256)
-# (tag, integrator, spp, extra); depth DEPTH; sppm's spp is its iterations
+# (tag, integrator, spp, extra); depth GRID_DEPTH; sppm's spp is its iterations
 GRID_RUNS = (("path", "path", 64, None),
              ("directlighting all", "directlighting", 64, dict(strategy="all")),
              ("whitted", "whitted", 64, None),
              ("volpath", "volpath", 16, None),
              ("sppm", "sppm", 4, dict(n_iterations=4)))
+# phases 21 and 23 render at depth 3, not DEPTH: the cut that keeps the
+# script inside its time limit (each path still takes every bounce kind)
+GRID_DEPTH = TEX_DEPTH = 3
 # F1 and F2's operations (ops/fourier_bsdf.py, counted as the bounds
 # below count): F1's lane: its weights, cos phi, transform and pdf (~120);
 # an order of its sums: 3 channels x 16 taps x 2 and the recurrence
@@ -513,7 +538,7 @@ GRID_RUNS = (("path", "path", 64, None),
 F_FLOP = dict(lane=120, order=100, sample_lane=600, cdf_entry=8, sample_order=192)
 # phases 23-24: tools/texture_scenes.py at BASELINE config 2's width
 TEX_RES = (256, 256)
-# (tag, integrator, spp, extra); depth DEPTH; sppm's spp is its iterations
+# (tag, integrator, spp, extra); depth TEX_DEPTH; sppm's spp is its iterations
 TEX_RUNS = (("path", "path", 16, None),
             ("whitted", "whitted", 16, None),
             ("directlighting all", "directlighting", 16, dict(strategy="all")),
@@ -551,6 +576,33 @@ SAMPLER_SPPM_ITERATIONS = 4
 # difference and quotient, the sum, the product, the conversion and the
 # clamp.  Integer operations are charged at the 32-bit rate, as K1's.
 H1_OPS = dict(digit=6, dim=8)
+# phase 26: the other cameras and filters on the flagship's Cornell box at
+# RES, SPP, DEPTH; (tag, camera, filter kind at its default radius)
+CAMERA_RUNS = (("mitchell", "perspective", 3), ("realistic gaussian", "realistic", 2),
+               ("orthographic", "orthographic", 0), ("environment", "environment", 0),
+               ("motion", "motion", 0))
+# the biconvex singlet of tests/test_realistic.py:16 (mm rows: radius,
+# thickness, eta, aperture diameter), and the same with an aperture stop
+# behind it, cut to the 8 mm aperture (L1's stop branch)
+SINGLET = (50.0, 5.0, 1.5, 20.0, -50.0, 45.0, 1.0, 20.0)
+STOPPED = SINGLET[:4] + (-50.0, 5.0, 1.0, 20.0, 0.0, 40.0, 0.0, 12.0)
+CORNELL_VIEW = ((278, 273, -800), (278, 273, 0), (0, 1, 0))
+# R1's arithmetic (csrc/splat.cuh): a lane's two first-tap offsets (2
+# subtractions each); an axis factor's tap offset (2) and the kind's own
+# ops (box none; triangle 1; Gaussian 2 products, exp and a difference;
+# Mitchell the quotient, 2v, x^2, x^3, both cubics and their sixths; sinc 2
+# quotients, 2 products and sines and quotients, the window's product); a
+# tap in the film with a nonzero weight: the factors' product, w L (3) and
+# the 4 atomic adds
+R1_OPS = dict(lane=4, offset=2, tap=8, kinds=(0, 1, 4, 16, 9))
+R1_LANE_BYTES = 8 + 12  # p_film and L in
+R1_PIXEL_BYTES = 2 * (12 + 4)  # the film's rgb and weight, read and written once
+# L1's arithmetic (csrc/lens.cuh): a lane's film point, pupil bin and lerp,
+# rear point, world transform and normalization, cos^4 weight (96); a
+# spherical element reached (intersection, normal, aperture test,
+# refraction: 81); a stop reached (11)
+L1_OPS = dict(lane=96, sphere=81, stop=11)
+L1_LANE_BYTES = 16 + 28  # p_film, u_lens in; o, d, weight out
 
 
 def fail(msg: str):
@@ -660,22 +712,25 @@ def _kernel_modules():
     from rs_pbrt_tpu_torch.ops import sobol_kernel as sk
     from rs_pbrt_tpu_torch.ops import sppm_kernel as sd
     from rs_pbrt_tpu_torch.ops import texture_kernel as tk
+    from rs_pbrt_tpu_torch.ops import splat_kernel as rk
+    from rs_pbrt_tpu_torch.ops import lens_kernel as lk
 
-    return sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk
+    return sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk
 
 
 def zero_counts():
     """Every kernel's launch count to 0."""
-    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk = _kernel_modules()
-    sk.launches = pk.launches = hk.launches = 0
+    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk = _kernel_modules()
+    sk.launches = pk.launches = hk.launches = rk.launches = lk.launches = 0
     for d in (ik.launches, bvh.launches, gp.launches, ck.launches, sd.launches, mk.launches,
               fk.launches, tk.launches):
         d.update(dict.fromkeys(d, 0))
 
 
 def read_counts() -> dict:
-    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk = _kernel_modules()
-    return dict(sobol=sk.launches, bounce=pk.launches, halton=hk.launches, **ik.launches,
+    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk = _kernel_modules()
+    return dict(sobol=sk.launches, bounce=pk.launches, halton=hk.launches, splat=rk.launches,
+                lens=lk.launches, **ik.launches,
                 **{f"bvh12_{k}": v for k, v in bvh.launches.items()}, **gp.launches,
                 **ck.launches, **sd.launches, **mk.launches, **fk.launches, **tk.launches)
 
@@ -689,13 +744,14 @@ def _owner(name: str):
     """The module of the kernel wrapper `name` (sobol_dims, bounce,
     closest_sweep, any_sweep, full_sweep, bvh12_intersect_tris, take_rows,
     take_loop, walk_closest, walk_any, sweep_closest, sweep_any, deposit,
-    delta_track, ratio_track, fourier_eval, fourier_sample, texture_eval, halton_dims)."""
-    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk = _kernel_modules()
+    delta_track, ratio_track, fourier_eval, fourier_sample, texture_eval, halton_dims, splat,
+    lens_rays)."""
+    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk = _kernel_modules()
     return dict(sobol_dims=sk, bounce=pk, closest_sweep=ik, any_sweep=ik, full_sweep=ik,
                 bvh12_intersect_tris=bvh, take_rows=gp, take_loop=gp, walk_closest=ck,
                 walk_any=ck, sweep_closest=ck, sweep_any=ck, deposit=sd, delta_track=mk,
                 ratio_track=mk, fourier_eval=fk, fourier_sample=fk, texture_eval=tk,
-                halton_dims=hk)[name]
+                halton_dims=hk, splat=rk, lens_rays=lk)[name]
 
 
 def wrapper(name: str):
@@ -797,8 +853,9 @@ def ptxas_resources(log: str) -> list:
             continue
         m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if m and name:
-            # anonymous-namespace kernels: _ZN<n>_GLOBAL__N__<hash>_<n>_<file>_cu_<hash><n><kernel>E..
-            k = re.search(r"_GLOBAL__N__[0-9a-f]+_\d+_(\w+?)_cu_[0-9a-f]{8}(\d+)", name)
+            # anonymous-namespace kernels:
+            # _ZN<n>_GLOBAL__N__<hash>_<n>_<file>_cu_<8 characters><n><kernel>E..
+            k = re.search(r"_GLOBAL__N__[0-9a-f]+_\d+_(\w+?)_cu_\w{8}(\d+)", name)
             src, kernel = (k.group(1) + ".cu", name[k.end():k.end() + int(k.group(2))]) if k \
                 else ("?", name)
             # a template's bool arguments: I Lb0E Lb1E .. E
@@ -3013,7 +3070,7 @@ def phase_grid(card):
     plain = dict(plain_fns(), deposit=sd.deposit_plain)
     out = {}
     for tag, integrator, spp, extra in GRID_RUNS:
-        cfg = rdr.RenderCfg(integrator, spp, DEPTH, 1.0, extra=extra)
+        cfg = rdr.RenderCfg(integrator, spp, GRID_DEPTH, 1.0, extra=extra)
         scfg = smpl.make_sampler(smpl.SOBOL, 1 if integrator == "sppm" else spp, GRID_RES)
         go = lambda stats=None: rdr.render(scene, camera, cfg, scfg, stats=stats)
         torch.cuda.synchronize()
@@ -3030,7 +3087,7 @@ def phase_grid(card):
         torch.cuda.synchronize()
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated()
-        want = expect_counts(**grid_counts(tag, spp, scene.n_lights))
+        want = expect_counts(**grid_counts(tag, spp, scene.n_lights, GRID_DEPTH))
         if counts != want:
             fail(f"launch counts of the material_grid {tag} render {counts}, expected {want}")
         if tuple(img.shape) != (h, w, 3) or not torch.isfinite(img).all():
@@ -3046,7 +3103,7 @@ def phase_grid(card):
         unit = "SPPM rays/s (w h iterations 2)" if integrator == "sppm" else "camera paths/s"
         rate = (w * h * spp * 2 / st["wall_s"] if integrator == "sppm" else st["paths_per_s"])
         print(f"[21 {tag}] {w}x{h}, {spp} {'iterations' if integrator == 'sppm' else 'spp'}, "
-              f"depth {DEPTH}: finite, matches the plain render (max abs err {err:.3g}, mean "
+              f"depth {GRID_DEPTH}: finite, matches the plain render (max abs err {err:.3g}, mean "
               f"{float(img.mean()):.5f}); launches {counts}, as expected; "
               f"{rate:.6g} {unit} (best of 3 warm renders, {1e3 * st['wall_s']:.3f} ms); peak "
               f"device memory {peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} GiB above the "
@@ -3284,9 +3341,10 @@ def texture_bound_ms(tb, work: dict) -> tuple:
     return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * work["ops"] / FP32_FLOP_PER_S
 
 
-def check_texture(what: str, got, want) -> tuple:
+def check_texture(what: str, got, want, args=None) -> tuple:
     """Fails unless a T1 launch's output equals the plain version's, or is
-    within rtol = atol = 1e-5 (bit_equal False).  (max_abs_err, exact)."""
+    within rtol = atol = 1e-5 (bit_equal False).  (max_abs_err, exact);
+    args (the launch's inputs) unread."""
     return check_fourier(what, (got,), (want,))
 
 
@@ -3301,7 +3359,8 @@ def _alpha_recorder(stats: dict):
 
 def kernel_part(timer, tag: str, kid: str, plain, wrapper, bound, check, lanes) -> dict:
     """Every launch that timer recorded held to plain (the kernel's plain
-    version) by check(what, got, want) -> (max_abs_err, exact), replayed
+    version) by check(what, got, want, args) -> (max_abs_err, exact), args
+    the launch's inputs, replayed
     queued through wrapper for its device time; bound(*args, **kw) its
     (bytes_ms, operations_ms) and lanes(*args, **kw) its lanes."""
     import torch
@@ -3313,7 +3372,7 @@ def kernel_part(timer, tag: str, kid: str, plain, wrapper, bound, check, lanes) 
         ref = plain(*a, **kw)
         torch.cuda.synchronize()
         part["plain_ms"].append(1e3 * (time.perf_counter() - t0))
-        e, exact = check(f"{tag} {kid} launch {b}", o, ref)
+        e, exact = check(f"{tag} {kid} launch {b}", o, ref, a)
         part["max_abs_err"] = max(part["max_abs_err"], e)
         part["exact"] = part["exact"] and exact
         part["device_ms"].append(queued_ms(lambda a=a, kw=kw: wrapper(*a, **kw), 3))
@@ -3386,7 +3445,7 @@ def phase_textures(card):
     plain = dict(plain_fns(), deposit=sd.deposit_plain)
     out = {}
     for tag, integrator, spp, extra in TEX_RUNS:
-        cfg = rdr.RenderCfg(integrator, spp, DEPTH, 1.0, extra=extra)
+        cfg = rdr.RenderCfg(integrator, spp, TEX_DEPTH, 1.0, extra=extra)
         scfg = smpl.make_sampler(smpl.SOBOL, 1 if integrator == "sppm" else spp, TEX_RES)
         go = lambda stats=None: rdr.render(scene, camera, cfg, scfg, stats=stats)
         torch.cuda.synchronize()
@@ -3404,7 +3463,7 @@ def phase_textures(card):
         torch.cuda.synchronize()
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated()
-        want = expect_counts(**texture_counts(tag, spp, scene.n_lights, alpha["alpha_trips"]))
+        want = expect_counts(**texture_counts(tag, spp, scene.n_lights, alpha["alpha_trips"], TEX_DEPTH))
         if counts != want:
             fail(f"launch counts of the texture_grid {tag} render {counts}, expected {want}")
         if tuple(img.shape) != (h, w, 3) or not torch.isfinite(img).all():
@@ -3420,7 +3479,7 @@ def phase_textures(card):
         unit = "SPPM rays/s (w h iterations 2)" if integrator == "sppm" else "camera paths/s"
         rate = (w * h * spp * 2 / st["wall_s"] if integrator == "sppm" else st["paths_per_s"])
         print(f"[23 {tag}] {w}x{h}, {spp} {'iterations' if integrator == 'sppm' else 'spp'}, "
-              f"depth {DEPTH}: finite, matches the plain render (max abs err {err:.3g}, mean "
+              f"depth {TEX_DEPTH}: finite, matches the plain render (max abs err {err:.3g}, mean "
               f"{float(img.mean()):.5f}); launches {counts}, as expected; alpha recasts "
               f"{alpha['alpha_trips']} trips, {alpha['alpha_left']} lanes still masked after "
               f"{si.MAX_ALPHA_RECASTS}; {rate:.6g} {unit} (best of 3 warm renders, "
@@ -3592,9 +3651,9 @@ def h1_bound_ms(index, dim0: int, n_dims: int, exp_x: int, scale_y: int,
     return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / FP32_FLOP_PER_S
 
 
-def check_halton(what: str, got, want) -> tuple:
+def check_halton(what: str, got, want, args=None) -> tuple:
     """Fails unless an H1 launch's output equals the plain version's bit for
-    bit.  (max_abs_err, exact)."""
+    bit.  (max_abs_err, exact); args (the launch's inputs) unread."""
     import torch
 
     err = float((got - want).abs().max()) if got.numel() else 0.0
@@ -3776,6 +3835,260 @@ def phase_samplers(card, statue):
                         for k in next(iter(out.values()))["counts"]})
 
 
+def cornell_camera(kind: str, lens=SINGLET):
+    """Phase 26's cameras on the Cornell box at RES: the flagship's
+    perspective view; the realistic camera (an 8 mm aperture, focused at
+    1078, the box's middle, a 35 mm film diagonal); the orthographic camera
+    over a 600 x 600 window; the environment camera in the box's middle;
+    the perspective view moving to another end over the shutter."""
+    from rs_pbrt_tpu_torch.models import cameras as cam
+    from rs_pbrt_tpu_torch.utils import transform as tr
+
+    view = tr.look_at(*CORNELL_VIEW)
+    if kind == "realistic":
+        return cam.make_realistic(view, RES, lens, aperture_diameter=8.0, focus_distance=1078.0,
+                                  film_diag_mm=35.0, device=DEVICE)
+    if kind == "orthographic":
+        return cam.make_orthographic(view, RES, screen_window=(-300.0, 300.0, -300.0, 300.0),
+                                     device=DEVICE)
+    if kind == "environment":
+        return cam.make_environment(tr.look_at((278, 273, 280), (278, 273, 560), (0, 1, 0)), RES,
+                                    device=DEVICE)
+    end = tr.look_at((310, 290, -770), (268, 276, 0), (0.05, 1, 0)) if kind == "motion" else None
+    return cam.make_perspective(view, RES, fov=39.3077, cam_to_world_end=end, device=DEVICE)
+
+
+def splat_sums(rgb, weight, cfg, p_film, L) -> tuple:
+    """Per pixel, the sum of the |terms| a splat adds (with the film's own
+    |value|) and their count, for rgb and for the weight: the plain
+    version's taps (splat_kernel.taps) with |w L| and |w|."""
+    import torch
+
+    from rs_pbrt_tpu_torch.ops import splat_kernel as rk
+
+    h, w = weight.shape
+    abs_rgb, abs_w = rgb.abs().reshape(-1, 3).clone(), weight.abs().reshape(-1).clone()
+    count = torch.ones(h * w, device=rgb.device)
+    L = torch.where(torch.isfinite(L).all(-1)[:, None], L, 0.0).abs()
+    for idx, wgt in rk.taps(cfg, p_film, h, w):
+        wgt = wgt.abs()
+        abs_rgb.index_add_(0, idx, wgt[:, None] * L)
+        abs_w.index_add_(0, idx, wgt)
+        count.index_add_(0, idx, (wgt != 0).float())
+    return abs_rgb.reshape(rgb.shape), abs_w.reshape(weight.shape), count.reshape(weight.shape)
+
+
+def r1_bound_ms(rgb, weight, cfg, p_film, L, work: dict) -> tuple:
+    """Least time of one R1 launch, as (bytes_ms, operations_ms).  Bytes:
+    p_film and L in, a lane; the film's rgb and weight read and written
+    once.  Operations: R1_OPS a lane, 2F axis factors a lane, and a tap in
+    the film with a nonzero weight (counted here; work["atomics"] gains
+    its 4 atomic adds)."""
+    from rs_pbrt_tpu_torch.ops import film as fm
+    from rs_pbrt_tpu_torch.ops import splat_kernel as rk
+
+    h, w = weight.shape
+    taps = sum(int((wgt != 0.0).sum()) for _, wgt in rk.taps(cfg, p_film, h, w))
+    work["atomics"] = work.get("atomics", 0) + 4 * taps
+    n, F = p_film.shape[0], fm.footprint(cfg)
+    nbytes = n * R1_LANE_BYTES + weight.numel() * R1_PIXEL_BYTES
+    ops = (n * (R1_OPS["lane"] + 2 * F * (R1_OPS["offset"] + R1_OPS["kinds"][cfg.kind]))
+           + taps * R1_OPS["tap"])
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / FP32_FLOP_PER_S
+
+
+def check_splat(what: str, got, want, args, worst: dict) -> tuple:
+    """Fails unless an R1 launch's film is within 2 n 2^-24 of each pixel's
+    summed |terms| (splat_sums of args, the launch's inputs; n terms there:
+    two sums of the same terms in any two orders differ by at most that) of
+    the plain splat's.  worst["max_rel"] keeps the largest share of that
+    limit.  (max_abs_err, exact)."""
+    import torch
+
+    abs_rgb, abs_w, count = splat_sums(*args)
+    err, exact = 0.0, True
+    for g, w, tot, cnt in ((got[0], want[0], abs_rgb, count[..., None]),
+                           (got[1], want[1], abs_w, count)):
+        diff = (g - w).abs()
+        lim = 2.0 * cnt * 2.0 ** -24 * tot
+        err = max(err, float(diff.max()))
+        worst["max_rel"] = max(worst.get("max_rel", 0.0),
+                               float((diff / lim.clamp(min=1e-30)).max()))
+        exact = exact and torch.equal(g, w)
+        if not bool((diff <= lim).all()):
+            fail(f"{what}: a pixel differs from the plain splat by {float(diff.max())}, past "
+                 f"2 n 2^-24 of its |terms|")
+    return err, exact
+
+
+def r1_part(timer, tag: str) -> dict:
+    """Every R1 launch that timer (LaunchTimer with keep and copy) recorded
+    held to the plain splat on copies of the same film (check_splat), its
+    bound and atomic adds from r1_bound_ms."""
+    from rs_pbrt_tpu_torch.ops import splat_kernel as rk
+
+    worst = dict(max_rel=0.0, atomics=0)
+    part = kernel_part(timer, tag, "R1",
+                       lambda rgb, w, *a: rk.splat_plain(rgb.clone(), w.clone(), *a), rk.splat,
+                       lambda *a: r1_bound_ms(*a, work=worst),
+                       lambda what, got, want, a: check_splat(what, got, want, a, worst),
+                       lambda *a: a[3].shape[0])
+    return part | worst
+
+
+def l1_bound_ms(camera, p_film, u_lens) -> tuple:
+    """Least time of one L1 launch on these inputs, as (bytes_ms,
+    operations_ms): L1_LANE_BYTES a lane; L1_OPS a lane and a (lane,
+    element) pair the trace reaches (counted by the plain version)."""
+    from rs_pbrt_tpu_torch.ops import lens_kernel as lk
+
+    work = {}
+    lk.lens_rays_plain(camera, p_film, u_lens, work=work)
+    n = p_film.shape[0]
+    ops = (n * L1_OPS["lane"] + work.get("sphere", 0) * L1_OPS["sphere"]
+           + work.get("stop", 0) * L1_OPS["stop"])
+    return 1e3 * n * L1_LANE_BYTES / HBM_BYTES_PER_S, 1e3 * ops / FP32_FLOP_PER_S
+
+
+def check_lens(what: str, got, want, args=None) -> tuple:
+    """Fails unless an L1 launch matches its plain version: the same
+    vignetted lanes, o, d and weight bit-equal or within rtol = atol =
+    1e-5.  (max_abs_err, exact); args (the launch's inputs) unread."""
+    import torch
+
+    if not torch.equal(got[2] > 0, want[2] > 0):
+        fail(f"{what}: {int(((got[2] > 0) != (want[2] > 0)).sum())} lanes vignetted in one "
+             f"and not in the other")
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    if not all(torch.allclose(g, w, rtol=1e-5, atol=1e-5) for g, w in zip(got, want)):
+        fail(f"{what} differs from its plain version by up to {err}")
+    return err, all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def l1_part(timer, tag: str) -> dict:
+    """Every recorded L1 launch held to its plain version (check_lens)."""
+    from rs_pbrt_tpu_torch.ops import lens_kernel as lk
+
+    return kernel_part(timer, tag, "L1", lk.lens_rays_plain, lk.lens_rays, l1_bound_ms,
+                       check_lens, lambda *a, **kw: a[1].shape[0])
+
+
+def phase_cameras(card):
+    """Phase 26: the flagship's Cornell box at RES, SPP, DEPTH through the
+    other cameras and filters (CAMERA_RUNS), each against its plain render;
+    every R1 and L1 launch against its plain version; R1 with every filter
+    kind and L1 on a stopped lens with both weightings, on the flagship's
+    lanes."""
+    import dataclasses
+
+    import torch
+
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.ops import film as fm
+    from rs_pbrt_tpu_torch.ops import lens_kernel as lk
+    from rs_pbrt_tpu_torch.ops import path_kernel as pk
+    from rs_pbrt_tpu_torch.ops import sobol_kernel as sk
+    from rs_pbrt_tpu_torch.ops import splat_kernel as rk
+    from rs_pbrt_tpu_torch.scene import presets
+
+    t_phase = time.perf_counter()
+    scene, flagship = presets.cornell_box(RES, device=DEVICE)
+    cfg = rdr.RenderCfg("path", SPP, DEPTH, 1.0)
+    scfg = smpl.make_sampler(smpl.SOBOL, SPP, RES)
+    w, h = RES
+    out = {}
+    r1t = LaunchTimer(rk.splat, keep=True, copy=True)
+    l1t = LaunchTimer(lk.lens_rays, keep=True)
+    for tag, kind, fkind in CAMERA_RUNS:
+        t0 = time.perf_counter()
+        camera = flagship if kind == "perspective" else cornell_camera(kind)
+        host_s = time.perf_counter() - t0
+        fcfg = fm.make_filter(fkind)
+        go = lambda stats=None: rdr.render(scene, camera, cfg, scfg, fcfg, stats=stats)
+        go()  # warm
+        torch.cuda.synchronize()
+        zero_counts()
+        with ExitStack() as es:
+            patched(es, splat=r1t, lens_rays=l1t)
+            img = go()
+            torch.cuda.synchronize()
+        counts = read_counts()
+        want = dict(sobol=1, bounce=DEPTH + 1)
+        if not fm.grid_filter(fcfg):
+            want["splat"] = 1
+        if kind == "realistic":
+            want["lens"] = 1
+        if counts != expect_counts(**want):
+            fail(f"launch counts of the {tag} render {counts}, expected {want}")
+        if tuple(img.shape) != (h, w, 3) or not torch.isfinite(img).all() or \
+                float(img.mean()) <= 0.0:
+            fail(f"{tag} image: shape {tuple(img.shape)}, finite "
+                 f"{bool(torch.isfinite(img).all())}, mean {float(img.mean())}")
+        with ExitStack() as es:
+            patched(es, sobol_dims=sk.sobol_dims_plain, bounce=pk.bounce_plain,
+                    splat=rk.splat_plain, lens_rays=lk.lens_rays_plain)
+            img_plain = go()
+        torch.cuda.synchronize()
+        err = compare_plain(f"{tag} image", img, img_plain)
+        del img_plain
+        st = best_of_3(go)
+        prof = profile_render(go, f"26 profile, {tag}", top=6)
+        busy = sum(r[0] for r in prof)
+        shown = {k: v for k, v in counts.items() if v}
+        print(f"[26 {tag}] Cornell {w}x{h}, {SPP} spp, depth {DEPTH}, the {kind} camera "
+              f"({host_s:.2f} s to make on the host), filter {fcfg}: finite, matches the plain "
+              f"render (max abs err {err:.3g}, mean {float(img.mean()):.5f}); launches {shown}, "
+              f"as expected; {st['paths_per_s']:.6g} camera paths/s (best of 3 warm renders, "
+              f"{1e3 * st['wall_s']:.3f} ms), device busy {busy:.3f} ms of the profiled "
+              f"render on {card}", flush=True)
+        out[tag] = dict(counts=counts, rate=st["paths_per_s"], wall_ms=1e3 * st["wall_s"],
+                        busy_ms=busy, mean=float(img.mean()))
+        if kind == "realistic":
+            realistic = camera
+        del img
+    # the realistic render's lanes (the flagship's film points and lens
+    # samples) for the cases below
+    (_, (_, p_film, u_lens), _, _), = l1t.calls
+    parts = dict(r1=r1_part(r1t, "26 renders"), l1=l1_part(l1t, "26 renders"))
+    del r1t, l1t
+    print_part("R1", "26 renders", parts["r1"], card, tol="2 n 2^-24 of each pixel's |terms|")
+    print_part("L1", "26 renders", parts["l1"], card)
+    print(f"[26 R1] renders: {parts['r1']['atomics']} atomic adds in {len(parts['r1']['ms'])} "
+          f"launches; the largest pixel error {parts['r1']['max_rel']:.3g} of its limit",
+          flush=True)
+    # R1 with every filter kind and L1 on a stopped lens, on the flagship's
+    # lanes (seeded radiance, a few NaN and infinite lanes)
+    g = torch.Generator(DEVICE).manual_seed(26)
+    n = p_film.shape[0]
+    L = torch.rand((n, 3), device=DEVICE, generator=g) * 2.0
+    L[::100003, 1] = float("nan")
+    L[7::100003, 0] = float("inf")
+    cases = LaunchTimer(rk.splat, keep=True, copy=True)
+    for fkind in range(5):
+        cases(torch.zeros((h, w, 3), device=DEVICE), torch.zeros((h, w), device=DEVICE),
+              fm.make_filter(fkind), p_film, L)
+    parts["r1_cases"] = r1_part(cases, "26 cases")
+    for fkind, t, b in zip(range(5), parts["r1_cases"]["device_ms"], parts["r1_cases"]["bound"]):
+        print(f"[26 R1] {n} lanes, {fm.make_filter(fkind)} ({fm.footprint(fm.make_filter(fkind))}"
+              f" taps a side): {t:.4f} ms on the card (queued), bound {max(b):.4f} ms (bytes "
+              f"{b[0]:.4f}, operations {b[1]:.4f}) ({card})", flush=True)
+    del cases
+    print_part("R1", "26 cases", parts["r1_cases"], card, tol="2 n 2^-24 of each pixel's |terms|")
+    stopped = cornell_camera("realistic", STOPPED)
+    lenses = LaunchTimer(lk.lens_rays, keep=True)
+    for cam_ in (stopped, dataclasses.replace(stopped, simple_weighting=False), realistic):
+        lenses(cam_, p_film, u_lens)
+    parts["l1_cases"] = l1_part(lenses, "26 cases")
+    del lenses
+    print_part("L1", "26 cases (stopped lens, both weightings; the singlet)", parts["l1_cases"],
+               card)
+    seconds = time.perf_counter() - t_phase
+    print(f"[26] " + "; ".join(f"{t} {out[t]['rate']:.6g}" for t, _, _ in CAMERA_RUNS)
+          + f" camera paths/s ({card}); phase 26 {seconds:.1f} s", flush=True)
+    return dict(renders=out, seconds=seconds, **parts)
+
+
 def kernel_entry(name, source, replaces, launches, parts, max_abs_err, library_ms=None) -> dict:
     """One kernel's line of the `kernels` JSON: per-launch means over
     `parts`, dicts of per-launch lists ms, plain_ms and bound ((bytes_ms,
@@ -3804,52 +4117,84 @@ def main():
     import torch
 
     card = phase_device()
+    t_start = time.perf_counter()
+
+    def lap(phases: str):
+        print(f"[time] phase {phases} done {time.perf_counter() - t_start:.1f} s into the "
+              "script", flush=True)
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    lap("2")
     k1_err = phase_k1(card)
+    lap("3")
     from rs_pbrt_tpu_torch.scene import presets
 
     scene, camera = presets.cornell_box(RES, device=DEVICE)
     k2_err = phase_k2(card, scene, camera)
     flag = phase_render(card)
+    lap("4-5")
     flag["k1"]["max_abs_err"] = max(k1_err, flag["k1"]["max_abs_err"])
     flag["k2"]["max_abs_err"] = max(k2_err, flag["k2"]["max_abs_err"])
     sweeps = phase_sweeps(card)
+    lap("6")
     slices = [phase_slice_render(card, integrator) for integrator in ("directlighting", "whitted")]
+    lap("7")
     probe = phase_probe(card)
+    lap("8")
     statue = phase_statue(card)
+    lap("9")
     later = [phase_regen_check(card, statue)]
+    lap("10")
     # phase 20 reuses phase 9's statue and BVH, which go before phase 11
     later.append(phase_statue_env(card, statue))
+    lap("20")
     later.append(phase_statue_disney(card, statue))
+    lap("22")
     marble = phase_statue_marble(card, statue)
     later.append(marble)
+    lap("24")
     print(f"[24] paths/s in this call: statue_env {later[1]['paths_per_s']:.6g}, statue_disney "
           f"{later[2]['paths_per_s']:.6g}, statue_marble {marble['paths_per_s']:.6g} ({card})",
           flush=True)
     samplers = phase_samplers(card, statue)
     later.append(samplers)
+    lap("25")
     del statue["camera"], statue["scene"], statue["accel"]
     later += list(phase_spatial_crop(card).values())
+    lap("11")
     later.append(phase_full_statue(card))
+    lap("12")
     curves = phase_curves(card)
+    lap("13")
     hair = phase_hair_renders(card)
     later += list(hair.values())
+    lap("14")
     glass = phase_glass(card)
     later += list(glass.values())
+    lap("15")
     caustic = phase_sppm(card)
     later += [caustic["caustic_only"], caustic["caustic_hair"]]
+    lap("16")
     sss = phase_sss(card)
     later += [sss["bench"], sss["volpath"], sss["path"]]
+    lap("17")
     smoke = phase_smoke(card)
     later.append(smoke)
+    lap("18")
     later += list(phase_env(card).values())
+    lap("19")
     grid = phase_grid(card)
     later += [grid[tag] for tag, _, _, _ in GRID_RUNS]
+    lap("21")
     textures = phase_textures(card)
     later += [textures[tag] for tag, _, _, _ in TEX_RUNS]
-    more = lambda key: sum(p["counts"][key] for p in later)  # phases 10-12 and 14-24's launches
+    lap("23")
+    cameras = phase_cameras(card)
+    later += list(cameras["renders"].values())
+    lap("26")
+    more = lambda key: sum(p["counts"][key] for p in later)  # phases 10-12 and 14-26's launches
 
     k2 = flag["k2"]
     csrc, pallas = "rs_pbrt_tpu_torch/csrc/", "rs_pbrt_tpu/ops/pallas_intersect.py:"
@@ -3950,6 +4295,27 @@ def main():
                for k, v in samplers["cases"].items() if k in ("ms", "device_ms", "plain_ms")}
         | dict(bound_ms=sum(max(b) for b in samplers["cases"]["bound"])
                / len(samplers["cases"]["bound"]))))
+    # R1 replaces the JAX package's XLA filter splat; no one PyTorch call
+    # computes it (index_put_ adds given weights, it does not filter)
+    r1, r1c = cameras["r1"], cameras["r1_cases"]
+    kernels.append(dict(kernel_entry(
+        "film_splat", csrc + "splat.cu", "rs_pbrt_tpu/ops/film.py:117", more("splat"), [r1],
+        max(r1["max_abs_err"], r1c["max_abs_err"])),
+        bit_equal=False, atomics_a_launch=r1["atomics"] / len(r1["ms"]),
+        tolerance="each pixel within 2 n 2^-24 of its n summed |terms|",
+        cases={k: sum(r1c[k]) / len(r1c[k]) for k in ("ms", "device_ms", "plain_ms")}
+        | dict(bound_ms=sum(max(b) for b in r1c["bound"]) / len(r1c["bound"]),
+               atomics_a_launch=r1c["atomics"] / len(r1c["ms"]))))
+    # L1 replaces the JAX package's XLA lens trace; no PyTorch call traces
+    # a lens
+    l1, l1c = cameras["l1"], cameras["l1_cases"]
+    kernels.append(dict(kernel_entry(
+        "lens_rays", csrc + "lens.cu",
+        "rs_pbrt_tpu/models/realistic.py:231 + rs_pbrt_tpu/models/cameras.py:214", more("lens"),
+        [l1], max(l1["max_abs_err"], l1c["max_abs_err"])),
+        bit_equal=l1["exact"] and l1c["exact"],
+        cases={k: sum(l1c[k]) / len(l1c[k]) for k in ("ms", "device_ms", "plain_ms")}
+        | dict(bound_ms=sum(max(b) for b in l1c["bound"]) / len(l1c["bound"]))))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

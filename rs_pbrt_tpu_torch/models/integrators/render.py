@@ -66,11 +66,12 @@ class RenderCfg(NamedTuple):
 def check_cfg(cfg: RenderCfg):
     """Raises NotImplementedError for a RenderCfg the port cannot render yet."""
     if cfg.integrator not in INTEGRATORS:
+        item = "A16b" if cfg.integrator in ("bdpt", "mlt") else "queue A"
         raise NotImplementedError(f"integrator {cfg.integrator!r} is not ported yet "
-                                  "(ROADMAP queue A)")
+                                  f"(ROADMAP {item})")
     if cfg.accelerator != "bvh":
         raise NotImplementedError(f"accelerator {cfg.accelerator!r} is not ported yet "
-                                  "(ROADMAP queue A)")
+                                  "(ROADMAP A25)")
 
 
 # the integrators whose first hits read image maps through ray differentials
@@ -127,12 +128,14 @@ def crop_pixel_rect(resolution, crop):
 
 
 def camera_rays(camera: cam.Camera, sampler_cfg: smpl.SamplerCfg, sample0: int, nb: int,
-                rect=None, diffs: bool = False):
+                rect=None, diffs: bool = False, p_film: bool = False):
     """(SampleCtx, CameraRays) of samples sample0 .. sample0+nb-1 of every
     pixel of rect (y0, h, x0, w), the whole film without one: nb copies of
     the grid, x fastest.  The Sobol' indices are those of the pixels' film
     coordinates.  diffs: (SampleCtx, CameraRays, RayDiffs), the rays'
-    differentials at sampler_cfg's spp (differentials.camera_differentials)."""
+    differentials at sampler_cfg's spp (differentials.camera_differentials).
+    p_film: the lanes' raster points (N, 2) come last too (the JAX
+    _camera_rays' p_film)."""
     w, h = camera.resolution
     y0, hh, x0, ww = rect if rect is not None else (0, h, 0, w)
     dev = camera.device
@@ -143,12 +146,12 @@ def camera_rays(camera: cam.Camera, sampler_cfg: smpl.SamplerCfg, sample0: int, 
                               device=dev).repeat_interleave(ww * hh)
     ctx = smpl.make_ctx(sampler_cfg, pixel, sample_num, frame_lt_spp=True)
     u_film, u_time, u_lens = smpl.get_camera_dims(sampler_cfg, ctx, pixel)
-    p_film = pixel.to(torch.float32) + u_film
-    rays = cam.generate_rays(camera, p_film, u_lens, u_time)
-    if not diffs:
-        return ctx, rays
-    return ctx, rays, rd.camera_differentials(camera, rays, p_film, u_lens, u_time,
-                                              sampler_cfg.spp)
+    pts = pixel.to(torch.float32) + u_film
+    rays = cam.generate_rays(camera, pts, u_lens, u_time)
+    out = (ctx, rays)
+    if diffs:
+        out += (rd.camera_differentials(camera, rays, pts, u_lens, u_time, sampler_cfg.spp),)
+    return out + (pts,) if p_film else out
 
 
 def render_batch(scene: sa.Scene, camera: cam.Camera, cfg: RenderCfg,
@@ -157,16 +160,20 @@ def render_batch(scene: sa.Scene, camera: cam.Camera, cfg: RenderCfg,
                  rect=None, light_distrib=None, regen: bool = False,
                  stats: Optional[dict] = None) -> filmmod.Film:
     """Samples sample0 .. sample0+nb-1 of every pixel of rect (the crop
-    window (y0, h, x0, w), else the whole film), added to `film`."""
-    diffs = None
-    if cfg.integrator in DIFFS_INTEGRATORS and rd.needs_diffs(scene):
-        ctx, rays, diffs = camera_rays(camera, sampler_cfg, sample0, nb, rect, diffs=True)
-    else:
-        ctx, rays = camera_rays(camera, sampler_cfg, sample0, nb, rect)
+    window (y0, h, x0, w), else the whole film), added to `film`: in place
+    by pixel for a box of radius <= 0.5 (add_samples_grid), else splatted
+    from each lane's raster point through the filter (add_samples: R1 on
+    the card), as the JAX render_batch does (its render.py:176-180)."""
+    want_diffs = cfg.integrator in DIFFS_INTEGRATORS and rd.needs_diffs(scene)
+    ctx, rays, *rest = camera_rays(camera, sampler_cfg, sample0, nb, rect, diffs=want_diffs,
+                                   p_film=True)
+    diffs = rest[0] if want_diffs else None
     L = radiance_fn(cfg, mega, accel, light_distrib, regen, stats)(
         scene, sampler_cfg, ctx, rays.o, rays.d, diffs)
     L = L * rays.weight[:, None]
-    return filmmod.add_samples_grid(film, filter_cfg, L, nb, rect)
+    if filmmod.grid_filter(filter_cfg):
+        return filmmod.add_samples_grid(film, filter_cfg, L, nb, rect)
+    return filmmod.add_samples(film, filter_cfg, rest[-1], L)
 
 
 def render(scene: sa.Scene, camera: cam.Camera, cfg: RenderCfg, sampler_cfg: smpl.SamplerCfg,

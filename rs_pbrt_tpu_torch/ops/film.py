@@ -1,11 +1,13 @@
-"""Film accumulation.
+"""Film accumulation and the pixel filters.
 
-The port of the box-filter parts of the JAX package's ``ops/film.py``
-(reference src/core/film.rs, src/filters/box.rs).  The render driver lays
-its lanes out as ordered copies of the pixel grid, so with a box filter of
-radius <= 0.5 every sample lands in its own pixel and the film update is a
-reshape and a sum (``add_samples_grid``).  The other filters, which need the
-scatter splat, are not ported yet (ROADMAP slice 4).
+The port of the JAX package's ``ops/film.py`` (reference src/core/film.rs,
+src/filters/*.rs), filters evaluated analytically per tap.  The render
+driver lays its lanes out as ordered copies of the pixel grid, so with a
+box filter of radius <= 0.5 every sample lands in its own pixel and the
+film update is a reshape and a sum (``add_samples_grid``); every other
+filter splats each sample over its F x F footprint (``add_samples``: R1,
+``ops/splat_kernel.py``, on the card).  Unfiltered splats (``add_splats``)
+come with BDPT and MLT (ROADMAP A16b).
 """
 
 from __future__ import annotations
@@ -13,24 +15,93 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..device import resolve
+from ..utils import vecmath as vm
 
 # filter tags of the JAX package's ops/film.py
 FILTER_BOX = 0
+FILTER_TRIANGLE = 1
 FILTER_GAUSSIAN = 2
+FILTER_MITCHELL = 3
+FILTER_SINC = 4
+
+DEFAULT_WIDTHS = {FILTER_BOX: 0.5, FILTER_TRIANGLE: 2.0, FILTER_GAUSSIAN: 2.0,
+                  FILTER_MITCHELL: 2.0, FILTER_SINC: 4.0}
 
 
 class FilterCfg(NamedTuple):
+    """The JAX package's FilterCfg, field for field: FilterCfg(*jax_cfg)
+    carries a JAX filter across."""
+
     kind: int
     xwidth: float  # radius in pixels
     ywidth: float
+    alpha: float = 2.0  # gaussian
+    b: float = 1.0 / 3.0  # mitchell
+    c: float = 1.0 / 3.0
+    tau: float = 3.0  # sinc (lanczos windowed)
 
 
-def make_filter(kind=FILTER_BOX, xwidth=0.5, ywidth=0.5) -> FilterCfg:
-    """The box filter's default radius is half a pixel (filters/box.rs)."""
-    return FilterCfg(kind, xwidth, ywidth)
+def make_filter(kind=FILTER_BOX, xwidth=None, ywidth=None, alpha=2.0, b=1.0 / 3.0, c=1.0 / 3.0,
+                tau=3.0) -> FilterCfg:
+    """A filter with the kind's default radius where none (or 0) is given:
+    the box 0.5, the sinc 4, the others 2 (filters/*.rs create)."""
+    w = DEFAULT_WIDTHS[kind]
+    return FilterCfg(kind, xwidth or w, ywidth or w, alpha, b, c, tau)
+
+
+def filter_eval(cfg: FilterCfg, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The filter at offset (x, y) from the sample (filters/*.rs evaluate)."""
+    ax, ay = x.abs(), y.abs()
+    inside = (ax <= cfg.xwidth) & (ay <= cfg.ywidth)
+    if cfg.kind == FILTER_BOX:
+        # half-open support: a sample exactly on a pixel corner (Sobol's
+        # first sample is (0,0)) belongs to its own pixel only, as the
+        # JAX package keeps it (its ops/film.py:57-64)
+        inside = (x > -cfg.xwidth) & (x <= cfg.xwidth) & (y > -cfg.ywidth) & (y <= cfg.ywidth)
+        w = torch.ones_like(x)
+    elif cfg.kind == FILTER_TRIANGLE:
+        w = torch.clamp(cfg.xwidth - ax, min=0.0) * torch.clamp(cfg.ywidth - ay, min=0.0)
+    elif cfg.kind == FILTER_GAUSSIAN:
+        ex = torch.exp(-cfg.alpha * x * x) - np.exp(-cfg.alpha * cfg.xwidth ** 2)
+        ey = torch.exp(-cfg.alpha * y * y) - np.exp(-cfg.alpha * cfg.ywidth ** 2)
+        w = torch.clamp(ex, min=0.0) * torch.clamp(ey, min=0.0)
+    elif cfg.kind == FILTER_MITCHELL:
+        w = (_mitchell_1d(cfg, vm.true_div(x, cfg.xwidth))
+             * _mitchell_1d(cfg, vm.true_div(y, cfg.ywidth)))
+    else:  # FILTER_SINC
+        w = _sinc_1d(cfg, vm.true_div(x, cfg.xwidth)) * _sinc_1d(cfg, vm.true_div(y, cfg.ywidth))
+    return torch.where(inside, w, 0.0)
+
+
+def _mitchell_1d(cfg: FilterCfg, x: torch.Tensor) -> torch.Tensor:
+    x = (2.0 * x).abs()
+    b, c = cfg.b, cfg.c
+    x2 = x * x
+    x3 = x * x2
+    big = ((-b - 6 * c) * x3 + (6 * b + 30 * c) * x2 + (-12 * b - 48 * c) * x
+           + (8 * b + 24 * c)) * (1.0 / 6.0)
+    small = ((12 - 9 * b - 6 * c) * x3 + (-18 + 12 * b + 6 * c) * x2 + (6 - 2 * b)) * (1.0 / 6.0)
+    return torch.where(x > 1.0, torch.where(x < 2.0, big, 0.0), small)
+
+
+def _sinc_1d(cfg: FilterCfg, x: torch.Tensor) -> torch.Tensor:
+    x = x.abs()
+
+    def s(v):
+        pv = v * float(vm.PI)
+        return torch.where(v < 1e-5, 1.0, torch.sin(pv) / pv)
+
+    lanczos = s(x) * s(vm.true_div(x, cfg.tau))
+    return torch.where(x > cfg.tau, 0.0, lanczos)
+
+
+def footprint(cfg: FilterCfg) -> int:
+    """Pixel taps per axis that cover the filter's support."""
+    return int(np.floor(2.0 * max(cfg.xwidth, cfg.ywidth) + 0.9999)) + 1
 
 
 @dataclass
@@ -45,14 +116,34 @@ def make_film(resolution, device="cuda") -> Film:
     return Film(torch.zeros((h, w, 3), device=dev), torch.zeros((h, w), device=dev))
 
 
+def grid_filter(cfg: FilterCfg) -> bool:
+    """Whether add_samples_grid takes the filter: a box of radius <= 0.5."""
+    return cfg.kind == FILTER_BOX and cfg.xwidth <= 0.5 and cfg.ywidth <= 0.5
+
+
+def add_samples(film: Film, cfg: FilterCfg, p_film: torch.Tensor, L: torch.Tensor) -> Film:
+    """Splats N samples into the film in place (FilmTile::add_sample
+    film.rs:94-147): p_film (N, 2) raster points, L (N, 3).  A sample at p
+    adds to pixel px with weight f(px + 0.5 - p); taps outside the film
+    (not the crop window) are dropped; NaN or infinite L counts as black,
+    its weight still added (integrator.rs:165-193).  R1 on the card
+    (``splat_kernel.splat``)."""
+    from . import splat_kernel
+
+    splat_kernel.splat(film.rgb, film.weight, cfg, p_film, L)
+    return film
+
+
 def add_samples_grid(film: Film, cfg: FilterCfg, L: torch.Tensor, nb: int,
                      rect=None) -> Film:
     """Adds L, (nb*h*w, 3) radiance of nb ordered copies of the pixel grid
     (x fastest), to the film in place.  rect: the crop window (y0, h, x0, w)
     the grid covers (film.rs:185,224-262), else the whole film.  NaN or
-    infinite samples count as black (integrator.rs:165-193)."""
-    if not (cfg.kind == FILTER_BOX and cfg.xwidth <= 0.5 and cfg.ywidth <= 0.5):
-        raise NotImplementedError("only the box filter of radius <= 0.5 is ported (ROADMAP slice 4)")
+    infinite samples count as black (integrator.rs:165-193).  Only for a
+    box of radius <= 0.5 (``grid_filter``); ``add_samples`` takes the rest."""
+    if not grid_filter(cfg):
+        raise ValueError("add_samples_grid takes the box filter of radius <= 0.5 only; "
+                         "use add_samples")
     fh, fw = film.weight.shape
     y0, h, x0, w = rect if rect is not None else (0, fh, 0, fw)
     bad = ~torch.isfinite(L).all(-1)

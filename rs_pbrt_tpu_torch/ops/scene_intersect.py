@@ -68,7 +68,7 @@ def build_accel(scene: sa.Scene, kind: str = "bvh", device="cuda") -> Accel:
     BRUTE_FORCE_MAX_TRIS triangles, else none.  kind: "bvh" (the
     reference's default, api.rs:528); the kd-tree is not ported."""
     if kind != "bvh":
-        raise NotImplementedError(f"accelerator {kind!r} is not ported yet (ROADMAP queue A); "
+        raise NotImplementedError(f"accelerator {kind!r} is not ported yet (ROADMAP A25); "
                                   "the port builds 'bvh'")
     dev = resolve(device)
     accel = Accel()
@@ -129,7 +129,7 @@ def check_supported(scene: sa.Scene, accel: Optional[Accel] = None):
     ) if present]
     if missing:
         raise NotImplementedError(f"scene intersection of {', '.join(missing)} is not ported "
-                                  "yet (ROADMAP queue A)")
+                                  "yet (ROADMAP A25)")
     if scene.n_tris > BRUTE_FORCE_MAX_TRIS and not uses_bvh(scene, accel):
         raise NotImplementedError(f"more than {BRUTE_FORCE_MAX_TRIS} triangles need their BVH: "
                                   "pass accel=build_accel(scene)")

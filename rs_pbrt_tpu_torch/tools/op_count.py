@@ -16,6 +16,13 @@ path bounce's 7 (the path integrator's 2D pairs, its route), the camera's
 Sobol's dims are one kernel launch each on the card; here they run their
 plain versions, whose ops are counted too.
 
+``--cameras`` counts the plain versions of this slice's two kernels: the
+filter splat's ops (R1's plain version, ``splat_kernel.splat_plain``) for
+each filter kind at its default radius, and the realistic camera's ray
+generation (L1's, ``lens_kernel.lens_rays_plain``) for element tables of 1
+to 8 spherical elements and with an aperture stop.  Each is one launch on
+the card.
+
 ``--root DIR`` imports ``rs_pbrt_tpu_torch`` from another checkout, to
 compare two versions.  Run it as a script (not with ``-m``) so that
 ``--root`` decides which package is imported.
@@ -83,17 +90,60 @@ def sampler_counts():
               f"the camera's 5 {counts[1]} ops; cornell_box path {counts[2]} ops", flush=True)
 
 
+def camera_counts():
+    """Prints the splat's ops for each filter kind and the lens trace's for
+    element tables of 1, 2, 4 and 8 spheres and 2 spheres with a stop."""
+    import dataclasses
+
+    import numpy as np
+
+    from rs_pbrt_tpu_torch.models import cameras as cam
+    from rs_pbrt_tpu_torch.ops import film as fm
+    from rs_pbrt_tpu_torch.ops import lens_kernel as lk
+    from rs_pbrt_tpu_torch.ops import splat_kernel as rk
+    from rs_pbrt_tpu_torch.utils import transform as tr
+
+    g = torch.Generator().manual_seed(0)
+    n = RES[0] * RES[1] * 2
+    p_film = torch.rand((n, 2), generator=g) * torch.tensor(RES, dtype=torch.float32)
+    L = torch.rand((n, 3), generator=g)
+    for kind in range(5):
+        cfg = fm.make_filter(kind)
+        film = fm.make_film(RES, device="cpu")
+        with _Count() as count:
+            rk.splat_plain(film.rgb, film.weight, cfg, p_film, L)
+        ops, F = sum(count.ops.values()), fm.footprint(cfg)
+        print(f"splat {cfg}: {ops} ops, {F} x {F} taps, {ops / (F * F):.1f} ops a tap",
+              flush=True)
+    singlet = [50.0, 5.0, 1.5, 20.0, -50.0, 45.0, 1.0, 20.0]
+    camera = cam.make_realistic(tr.look_at((0, 0, -5), (0, 0, 0), (0, 1, 0)), RES, singlet,
+                                aperture_diameter=8.0, focus_distance=5.0, device="cpu")
+    u_lens = torch.rand((n, 2), generator=g)
+    sphere, stop = [1.0, 1.0, 1.5, 20.0], [0.0, 1.0, 0.0, 10.0]
+    tables = {f"{e} spheres": [sphere] * e for e in (1, 2, 4, 8)}
+    tables["2 spheres and a stop"] = [sphere, sphere, stop]
+    for name, rows in tables.items():
+        rows = np.asarray(rows, np.float32) * np.asarray([0.05, 0.005, 1.0, 0.001], np.float32)
+        rows[-1, 1] = camera.lens[-1, 1]
+        table = dataclasses.replace(camera, lens=torch.as_tensor(rows))  # builds its constants
+        with _Count() as count:
+            lk.lens_rays_plain(table, p_film, u_lens)
+        print(f"lens trace, {name}: {sum(count.ops.values())} ops", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[2],
                     help="the checkout whose rs_pbrt_tpu_torch is counted")
     ap.add_argument("--samplers", action="store_true",
                     help="count each sampler kind's dims instead of the scenes' renders")
+    ap.add_argument("--cameras", action="store_true",
+                    help="count the filter splat's and the lens trace's ops instead")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(args.root.resolve()))
-    if args.samplers:
+    if args.samplers or args.cameras:
         torch.set_num_threads(2)
-        sampler_counts()
+        sampler_counts() if args.samplers else camera_counts()
         return 0
     from rs_pbrt_tpu_torch.models import samplers as smpl
     from rs_pbrt_tpu_torch.models.integrators import render as rdr

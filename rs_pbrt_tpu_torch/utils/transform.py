@@ -86,6 +86,11 @@ def perspective(fov_deg, znear, zfar) -> Transform:
     return compose(scale(inv_tan, inv_tan, 1.0), from_matrix(persp))
 
 
+def orthographic(znear, zfar) -> Transform:
+    """Orthographic projection (transform.rs orthographic)."""
+    return compose(scale(1.0, 1.0, 1.0 / (zfar - znear)), translate([0.0, 0.0, -znear]))
+
+
 def _rows(m: torch.Tensor, v: torch.Tensor, n_rows: int) -> list:
     """m[..., i, :3] . v for rows i < n_rows, as elementwise sums (no BLAS,
     so the card and the CPU add in the same order).  m: (..., 4, 4),

@@ -103,6 +103,13 @@ def offset_ray_origin(p, p_error, n, w):
     )
 
 
+def true_div(x: torch.Tensor, c) -> torch.Tensor:
+    """x / c, c a Python number, as a division: on the card torch turns a
+    division by a Python scalar into a product by its reciprocal, which
+    rounds otherwise than the JAX package's (and a kernel's) quotient."""
+    return x / x.new_tensor(float(c))
+
+
 def lerp(t, a, b):
     return (1.0 - t) * a + t * b
 

@@ -62,9 +62,24 @@ def test_camera_from_jax_fields():
     np.testing.assert_array_equal(c.raster_to_camera.numpy(), np.asarray(jc.raster_to_camera))
     assert c.resolution == (12, 20)
     ortho = jcam.make_orthographic(jtr.look_at(*VIEWS[1][:3]), (12, 20))
-    with pytest.raises(NotImplementedError):
-        cam.camera_from_numpy({f.name: getattr(ortho, f.name) for f in dataclasses.fields(ortho)},
+    c = cam.camera_from_numpy({f.name: getattr(ortho, f.name) for f in dataclasses.fields(ortho)},
                               device="cpu")
+    assert c.cam_type == cam.ORTHOGRAPHIC and c.resolution == (12, 20)
+    np.testing.assert_array_equal(c.raster_to_camera.numpy(), np.asarray(ortho.raster_to_camera))
+    rng = np.random.default_rng(4)
+    p_film = (rng.uniform(size=(200, 2)) * np.asarray([12, 20])).astype(np.float32)
+    u = rng.uniform(size=(200, 3)).astype(np.float32)
+    got = cam.generate_rays(c, torch.as_tensor(p_film), torch.as_tensor(u[:, :2]),
+                            torch.as_tensor(u[:, 2]))
+    want = jcam.generate_rays(ortho, jnp.asarray(p_film), jnp.asarray(u[:, :2]),
+                              jnp.asarray(u[:, 2]))
+    for k in ("o", "d", "time", "weight"):
+        np.testing.assert_allclose(getattr(got, k).numpy(), np.asarray(getattr(want, k)),
+                                   rtol=1e-5, atol=1e-5 * 7, err_msg=k)
+    clipped = jcam.make_perspective(jtr.look_at(*VIEWS[1][:3]), (12, 20), clipping_start=0.5)
+    with pytest.raises(NotImplementedError):
+        cam.camera_from_numpy({f.name: getattr(clipped, f.name)
+                               for f in dataclasses.fields(clipped)}, device="cpu")
 
 
 def test_transforms():

@@ -63,7 +63,9 @@ def test_import_loads_no_jax():
             "rs_pbrt_tpu_torch.tools.env_scenes, rs_pbrt_tpu_torch.models.integrators.direct, "
             "rs_pbrt_tpu_torch.ops.intersect, rs_pbrt_tpu_torch.ops.sampling, "
             "rs_pbrt_tpu_torch.ops.fourier_kernel, rs_pbrt_tpu_torch.tools.material_scenes, "
-            "rs_pbrt_tpu_torch.utils.spectrum, rs_pbrt_tpu_torch.tools.op_count; "
+            "rs_pbrt_tpu_torch.utils.spectrum, rs_pbrt_tpu_torch.tools.op_count, "
+            "rs_pbrt_tpu_torch.ops.splat_kernel, rs_pbrt_tpu_torch.ops.lens_kernel, "
+            "rs_pbrt_tpu_torch.models.realistic, rs_pbrt_tpu_torch.utils.animated; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'rs_pbrt_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
@@ -76,6 +78,13 @@ ENTRY_POINTS = {
     "scene_from_numpy": lambda: sa.scene_from_numpy({}),
     "make_perspective": lambda: cam.make_perspective(tr.look_at((0, 0, -1), (0, 0, 0), (0, 1, 0)),
                                                      (8, 8)),
+    "make_orthographic": lambda: cam.make_orthographic(
+        tr.look_at((0, 0, -1), (0, 0, 0), (0, 1, 0)), (8, 8)),
+    "make_environment": lambda: cam.make_environment(
+        tr.look_at((0, 0, -1), (0, 0, 0), (0, 1, 0)), (8, 8)),
+    "make_realistic": lambda: cam.make_realistic(
+        tr.look_at((0, 0, -1), (0, 0, 0), (0, 1, 0)), (8, 8),
+        [50.0, 5.0, 1.5, 20.0, -50.0, 45.0, 1.0, 20.0], focus_distance=2.0),
     "make_film": lambda: filmmod.make_film((8, 8)),
     "statue_scene": lambda: bigscene.statue_scene((8, 8), subdivisions=1),
     "build_accel": lambda: si.build_accel(presets.cornell_box((8, 8), device="cpu")[0]),
@@ -140,9 +149,15 @@ def test_chip_smoke_names_template_kernels():
         "_probe_cu_1a2b3c4d16take_loop_kernelILb1EEEvPKfPKiiiNS_4JumpENS_5MagicEPf",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 38 registers, 4096 bytes smem, 456 bytes cmem[0]",
+        # the namespace's hash is any 8 characters: here they spell rs_splat
+        "ptxas info    : Function properties for _ZN40_GLOBAL__N__bcaa1e35_8_splat_cu_rs_splat12"
+        "splat_kernelENS_4ArgsE",
+        "    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 118 registers, used 0 barriers, 32 bytes cumulative stack size",
     ])
     assert chip_smoke.ptxas_resources(log) == [
         ("bvh12.cu", "walk_kernel<true>", 56, 12, 0),
         ("bounce.cu", "bounce_kernel<false, true>", 80, 5696, 136),
         ("gather_probe.cu", "take_rows", 16, 0, 0),
-        ("gather_probe.cu", "take_loop_kernel<true>", 38, 4096, 0)]
+        ("gather_probe.cu", "take_loop_kernel<true>", 38, 4096, 0),
+        ("splat.cu", "splat_kernel", 118, 0, 32)]

@@ -91,10 +91,14 @@ def test_png(tmp_path):
 
 
 def test_unported_options_raise():
+    """bdpt still raises; a Gaussian filter renders (splatted through its
+    footprint, so the film's weights are the filter's, not the spp)."""
     scene, camera = presets.cornell_box((8, 8), device="cpu")
     scfg = smpl.make_sampler(smpl.SOBOL, 1, (8, 8))
     with pytest.raises(NotImplementedError):
         rdr.render(scene, camera, rdr.RenderCfg("bdpt", 1, 5, 1.0), scfg)
-    with pytest.raises(NotImplementedError):
-        rdr.render(scene, camera, rdr.RenderCfg("path", 1, 5, 1.0), scfg,
-                   filmmod.make_filter(filmmod.FILTER_GAUSSIAN, 2.0, 2.0))
+    img = rdr.render(scene, camera, rdr.RenderCfg("path", 1, 5, 1.0), scfg,
+                     filmmod.make_filter(filmmod.FILTER_GAUSSIAN, 2.0, 2.0))
+    box = rdr.render(scene, camera, rdr.RenderCfg("path", 1, 5, 1.0), scfg)
+    assert img.shape == (8, 8, 3) and torch.isfinite(img).all()
+    assert float(img.mean()) > 0.0 and not torch.equal(img, box)
