@@ -150,9 +150,11 @@ Run from the root of a checkout.  Phases, one line each (or more):
    any hits equal; t, u, v, w bit-equal, else within rtol = atol = 2e-3
    (the line says which).  Each kernel's time on the card (queued behind a
    sleeping kernel), by events, its plain time and its bound.
-14. The hair renders through render.render at 200x200, 16 spp, path,
-   depth 5: tools/hair_scenes.hair_patch() (the fixed-depth loop: K1 2,
-   K5 6, K4 5, C3 6, C4 5, nothing else; every launch held to its plain
+14. The hair renders through render.render at 200x200, 8 spp, path,
+   depth 3 (HAIR_SPP, HAIR_DEPTH; the scenes' own CFG has 16 and 5):
+   tools/hair_scenes
+   .hair_patch() (the fixed-depth loop: K1 2, K5 4, K4 3, C3 4, C4 3,
+   nothing else; every launch held to its plain
    version) and fur_patch() (8,192 fibres, regeneration through 2^18
    lanes: K1 2, K4 = K5 = C1 = C2 = the iterations; C1 and C2 of the
    first, middle and last iteration held to the plain walk; no stack
@@ -170,7 +172,8 @@ Run from the root of a checkout.  Phases, one line each (or more):
    each image to the render with every wrapper swapped for its plain
    version at rtol = atol = 2e-3.
 16. SPPM through render.render: caustic_only() and caustic_hair() at
-   their own settings (200x200, 16 iterations, depth 5, one photon a pixel
+   their own settings but 8 iterations (SPPM_ITERATIONS; the files' 16)
+   (200x200, depth 5, one photon a pixel
    an iteration, the random sampler), timed as bench.py:336-341 times
    them (a warm render of 2 iterations, then the timed render; SPPM
    rays/s = w h iterations 2 / wall), the counters zeroed just before the
@@ -331,6 +334,28 @@ Run from the root of a checkout.  Phases, one line each (or more):
    singlet with a stop behind it (both weightings), on the realistic
    render's lanes.
 
+27. Instancing, object motion and the kd-tree
+   (tools/instance_scenes.py): the forest (an 81,920-triangle prototype
+   instanced 64 times on an 8x8 lattice, 5,242,880 triangles in view) at
+   1024x1024, 16 spp, path, depth 5, through the regeneration loop; the
+   Cornell box with a moving icosphere(3) (1,280 triangles, shutter 0-1) at
+   RES, SPP, DEPTH, which takes the general bounce (mega_cfg refuses it);
+   and the statue at subdivisions 4 (5,124 triangles) through its kd-tree
+   at RES, SPP.  The counters are zeroed just before each render and read
+   just after (I1 and I2, ops/instance_kernel.py and csrc/instance.cu, once
+   an iteration; V1, ops/motion_kernel.py and csrc/motion.cu, depth + 1
+   closest and depth any; D1 and D2, ops/kdtree_kernel.py and
+   csrc/kdtree.cu, once an iteration).  I1 and I2 held bit-equal to their
+   plain walks on the first and last launch of each, every V1, D1 and D2
+   launch likewise, each timed queued and by events beside its bound (the
+   nodes, candidates and triangles the plain walk visits) and the plain
+   version's time.  Paths/s, peak memory, the forest's tables beside the
+   bytes of its triangles stored flat, the share of camera rays that enter
+   more instance boxes than the walk keeps (K_CANDIDATES), the card's busy
+   share over a profiled 4 spp forest render, the kd build's host seconds,
+   nodes, leaf cap and stack overflows (0), and the kd image against the
+   same render through the BVH (B1/B2) within 2e-3.
+
 After each phase (or group) a "[time]" line gives the seconds since the
 card was found.  Then one JSON line with every kernel's numbers, and as
 the last line
@@ -372,7 +397,11 @@ BOUND_SAMPLE_RAYS = 1 << 16  # phase 12: the rays of a launch its bound is count
 CURVE_RAYS = 1 << 18  # random rays against the fur tree, the 48 and the 1024 rows
 CURVE_TABLE_ROWS = 1024  # C3/C4's largest table (scene_intersect.BRUTE_FORCE_MAX_CURVES)
 FUR_FIBERS = 8192  # 262,144 segments
-FUR_LANE_WIDTH = 1 << 18  # the fur render's regeneration lanes: its 640,000 paths
+# phases 14 and 16 below the scenes' own settings (16 spp, depth 5; 16 SPPM
+# iterations): their plain checks cost dispatch and plain walks, which grow
+# with the paths, bounces and iterations, and the script keeps to 1200 s
+HAIR_SPP, HAIR_DEPTH, SPPM_ITERATIONS = 8, 3, 8
+FUR_LANE_WIDTH = 1 << 18  # the fur render's regeneration lanes: its 320,000 paths
 #                           are below the default REGEN_LANE_WIDTH
 
 # published peaks of one H100 SXM (NVIDIA's data sheet), for the bounds
@@ -603,6 +632,21 @@ R1_PIXEL_BYTES = 2 * (12 + 4)  # the film's rgb and weight, read and written onc
 # refraction: 81); a stop reached (11)
 L1_OPS = dict(lane=96, sphere=81, stop=11)
 L1_LANE_BYTES = 16 + 28  # p_film, u_lens in; o, d, weight out
+# phase 27: the forest, the moving box and the kd statue
+FOREST_SUBDIV, FOREST_GRID, FOREST_RES, FOREST_SPP = 6, 8, (1024, 1024), 16
+FOREST_PROFILE_SPP = 4  # the profiled forest render
+KD_SUBDIV = 4  # the kd statue: 5,124 triangles
+# I1/I2, D1/D2 and V1's bounds (the plain walks count the work on each
+# launch's rays): a binary node's two boxes (48 B) and child refs (8 B); a
+# candidate's world-to-object rows (48 B); a triangle's vertices (36 B); a
+# kd node's axis, split, above, start and count (20 B) and a leaf entry's
+# prim id (4 B).  Operations: a ray's 1/d (3), a box's slab (13), a
+# candidate's transforms and shear (50), a triangle test (65), a kd node's
+# plane distance (2); V1's set-up a ray and group from tools/op_count.py
+# (motion_ops) and 65 a test
+WALK_NODE_BYTES, W2O_BYTES, TRI_BYTES, KD_NODE_BYTES, PRIM_ID_BYTES = 56, 48, 36, 20, 4
+WALK_FLOP = dict(ray=3, box=13, candidate=50, tri=65, kd_node=2)
+TIME_BYTES = 4
 
 
 def fail(msg: str):
@@ -714,25 +758,31 @@ def _kernel_modules():
     from rs_pbrt_tpu_torch.ops import texture_kernel as tk
     from rs_pbrt_tpu_torch.ops import splat_kernel as rk
     from rs_pbrt_tpu_torch.ops import lens_kernel as lk
+    from rs_pbrt_tpu_torch.ops import instance_kernel as ink
+    from rs_pbrt_tpu_torch.ops import motion_kernel as mok
+    from rs_pbrt_tpu_torch.ops import kdtree_kernel as kdk
 
-    return sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk
+    return sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk, ink, mok, kdk
 
 
 def zero_counts():
     """Every kernel's launch count to 0."""
-    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk = _kernel_modules()
+    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk, ink, mok, kdk = _kernel_modules()
     sk.launches = pk.launches = hk.launches = rk.launches = lk.launches = 0
     for d in (ik.launches, bvh.launches, gp.launches, ck.launches, sd.launches, mk.launches,
-              fk.launches, tk.launches):
+              fk.launches, tk.launches, ink.launches, mok.launches, kdk.launches):
         d.update(dict.fromkeys(d, 0))
 
 
 def read_counts() -> dict:
-    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk = _kernel_modules()
+    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk, ink, mok, kdk = _kernel_modules()
     return dict(sobol=sk.launches, bounce=pk.launches, halton=hk.launches, splat=rk.launches,
                 lens=lk.launches, **ik.launches,
                 **{f"bvh12_{k}": v for k, v in bvh.launches.items()}, **gp.launches,
-                **ck.launches, **sd.launches, **mk.launches, **fk.launches, **tk.launches)
+                **ck.launches, **sd.launches, **mk.launches, **fk.launches, **tk.launches,
+                **{f"instance_{k}": v for k, v in ink.launches.items()},
+                **{f"motion_{k}": v for k, v in mok.launches.items()},
+                **{f"kd_{k}": v for k, v in kdk.launches.items()})
 
 
 def expect_counts(**launched) -> dict:
@@ -745,13 +795,14 @@ def _owner(name: str):
     closest_sweep, any_sweep, full_sweep, bvh12_intersect_tris, take_rows,
     take_loop, walk_closest, walk_any, sweep_closest, sweep_any, deposit,
     delta_track, ratio_track, fourier_eval, fourier_sample, texture_eval, halton_dims, splat,
-    lens_rays)."""
-    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk = _kernel_modules()
+    lens_rays, instance_intersect, anim_hits, kd_intersect)."""
+    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk, ink, mok, kdk = _kernel_modules()
     return dict(sobol_dims=sk, bounce=pk, closest_sweep=ik, any_sweep=ik, full_sweep=ik,
                 bvh12_intersect_tris=bvh, take_rows=gp, take_loop=gp, walk_closest=ck,
                 walk_any=ck, sweep_closest=ck, sweep_any=ck, deposit=sd, delta_track=mk,
                 ratio_track=mk, fourier_eval=fk, fourier_sample=fk, texture_eval=tk,
-                halton_dims=hk, splat=rk, lens_rays=lk)[name]
+                halton_dims=hk, splat=rk, lens_rays=lk, instance_intersect=ink,
+                anim_hits=mok, kd_intersect=kdk)[name]
 
 
 def wrapper(name: str):
@@ -2059,7 +2110,7 @@ def phase_hair_renders(card):
     from rs_pbrt_tpu_torch.ops import sobol_kernel as sk
     from rs_pbrt_tpu_torch.tools import hair_scenes
 
-    cfg = hair_scenes.CFG
+    cfg = hair_scenes.CFG._replace(spp=HAIR_SPP, max_depth=HAIR_DEPTH)
     res = hair_scenes.RESOLUTION
     scfg = smpl.make_sampler(smpl.SOBOL, cfg.spp, res)
     paths = res[0] * res[1] * cfg.spp
@@ -2334,7 +2385,8 @@ def phase_sppm(card):
     from rs_pbrt_tpu_torch.ops import sppm_kernel as sd
     from rs_pbrt_tpu_torch.tools import caustic_scenes
 
-    cfg = caustic_scenes.CFG
+    cfg = caustic_scenes.CFG._replace(extra=dict(caustic_scenes.CFG.extra,
+                                                 n_iterations=SPPM_ITERATIONS))
     n_it, depth = cfg.extra["n_iterations"], cfg.max_depth
     scfg = smpl.make_sampler(smpl.RANDOM, cfg.spp, SPPM_RES)
     w, h = SPPM_RES
@@ -4089,6 +4141,287 @@ def phase_cameras(card):
     return dict(renders=out, seconds=seconds, **parts)
 
 
+def same_bits(what: str, got, want, *_) -> tuple:
+    """Fails unless every field of a walk's output equals the plain
+    version's bit for bit (NaN matching NaN); -> (0.0, True), kernel_part's
+    (max_abs_err, exact)."""
+    import torch
+
+    if torch.is_tensor(got):
+        got, want = {"": got}, {"": want}
+    elif hasattr(got, "_asdict"):
+        got, want = got._asdict(), want._asdict()
+    for k in want:
+        g, w = got[k], want[k].to(got[k].dtype)
+        same = (g == w) | (torch.isnan(g) & torch.isnan(w)) if g.is_floating_point() else g == w
+        if not bool(same.all()):
+            fail(f"{what} {k}: {int((~same).sum())} lanes differ from the plain version")
+    return 0.0, True
+
+
+class EndsTimer(LaunchTimer):
+    """LaunchTimer that keeps the first and the latest call only, so a long
+    render holds two launches' rays, not every one's."""
+
+    def __call__(self, *args, **kw):
+        out = super().__call__(*args, **kw)
+        if len(self.calls) > 2:
+            del self.calls[1]
+        return out
+
+
+def by_kind(closest, any_hit):
+    """A wrapper's stand-in that sends closest-hit calls to one recorder and
+    any-hit calls (any_hit=True) to the other."""
+    return lambda *a, **kw: (any_hit if kw.get("any_hit") else closest)(*a, **kw)
+
+
+def with_work(plain, works: list):
+    """plain(*a, **kw, work=wk) as kernel_part's plain version, each call's
+    work dict appended to works (its bound reads the latest)."""
+    def run(*a, **kw):
+        works.append({})
+        out = plain(*a, **kw, work=works[-1])
+        return out.valid if kw.get("any_hit") and hasattr(out, "valid") else out
+    return run
+
+
+def instance_bound_ms(work, a, kw) -> tuple:
+    """I1/I2's least time on a launch's rays: each ray's 28 B in and 20 B
+    (I1) or 1 B (I2) out, and every distinct top node, instance (its w2o),
+    inner node and triangle that its plain walk visited read once (the
+    tables fit in L2, so a second visit need not reach HBM, as B1's rows);
+    1/d, a slab test a box, transforms a candidate and a test a triangle
+    for each visit."""
+    n = a[0].shape[0]
+    nodes = int(work["top_nodes"].sum()) + int(work["inner_nodes"].sum())
+    cand, tests = int(work["candidates"].sum()), int(work["tests"].sum())
+    out = 1 if kw.get("any_hit") else 20
+    nbytes = (n * (RAY_BYTES + out) + (work["top_rows"] + work["inner_rows"]) * WALK_NODE_BYTES
+              + work["inst_rows"] * W2O_BYTES + work["tri_rows"] * TRI_BYTES)
+    f = WALK_FLOP
+    flop = n * f["ray"] + 2 * nodes * f["box"] + cand * f["candidate"] + tests * f["tri"]
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flop / FP32_FLOP_PER_S
+
+
+def kd_bound_ms(work, a, kw) -> tuple:
+    """D1/D2's least time on a launch's rays: 28 B in and 16 B (D1) or 1 B
+    (D2) out a ray, and every distinct node (20 B), prim id slot (4 B) and
+    triangle (36 B) that its plain walk read, once; 1/d and the world clip
+    a ray, 2 a node popped, 65 a leaf triangle tested."""
+    n = a[0].shape[0]
+    nodes, tests = int(work["nodes"].sum()), int(work["tests"].sum())
+    out = 1 if kw.get("any_hit") else 16
+    nbytes = (n * (RAY_BYTES + out) + work["node_rows"] * KD_NODE_BYTES
+              + work["slot_rows"] * PRIM_ID_BYTES + work["tri_rows"] * TRI_BYTES)
+    f = WALK_FLOP
+    flop = n * (f["ray"] + 12) + nodes * f["kd_node"] + tests * f["tri"]
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flop / FP32_FLOP_PER_S
+
+
+def motion_bound_ms(work, a, kw, set_up: int) -> tuple:
+    """V1's least time on a launch's rays, bound by its operations: the
+    set-up (set_up operations, tools/op_count.motion_ops) for each live ray
+    and group and 65 a ray-triangle test, any hit counted up to each ray's
+    first hit (anim_hits_plain's work); bytes: 28 B in, 4 B of time and 21
+    B (closest) or 1 B (any) out a ray, the triangles once."""
+    o, scene = a[0], a[4]
+    n = o.shape[0]
+    out = 1 if kw.get("any_hit") else 21
+    nbytes = n * (RAY_BYTES + TIME_BYTES + out) + scene.n_anim_tris * TRI_BYTES
+    flop = work["setups"] * set_up + work["tests"] * WALK_FLOP["tri"]
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flop / FP32_FLOP_PER_S
+
+
+def phase_instances(card):
+    """Phase 27: the forest at FOREST_RES, FOREST_SPP through the
+    regeneration loop (I1, I2), the moving Cornell box at RES, SPP through
+    the general bounce (V1), the kd statue at RES, SPP (D1, D2)."""
+    import torch
+
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.ops import instance_kernel as ink
+    from rs_pbrt_tpu_torch.ops import instancing as inst
+    from rs_pbrt_tpu_torch.ops import kdtree as kd
+    from rs_pbrt_tpu_torch.ops import kdtree_kernel as kdk
+    from rs_pbrt_tpu_torch.ops import motion_kernel as mok
+    from rs_pbrt_tpu_torch.ops import path_kernel as pk
+    from rs_pbrt_tpu_torch.ops import scene_intersect as si
+    from rs_pbrt_tpu_torch.scene import arrays as sa
+    from rs_pbrt_tpu_torch.scene import bigscene
+    from rs_pbrt_tpu_torch.tools import instance_scenes as isc
+    from rs_pbrt_tpu_torch.tools import op_count
+
+    t_phase = time.perf_counter()
+    out = {}
+    # the forest
+    t0 = time.perf_counter()
+    scene, camera = isc.forest_scene(FOREST_RES, FOREST_SUBDIV, FOREST_GRID, device=DEVICE)
+    t1 = time.perf_counter()
+    accel = si.build_accel(scene, device=DEVICE)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    tables = sum(t.numel() * t.element_size() for t in accel.inst) + (
+        scene.proto_attr.numel() * scene.proto_attr.element_size())
+    in_view = scene.n_instances * scene.n_proto_tris
+    flat = in_view * sa.N_TRI_ATTR * 4
+    print(f"[27 forest] {scene.n_instances} instances of {scene.n_proto_tris} triangles "
+          f"({in_view} in view): scene {t1 - t0:.2f} s, trees {t2 - t1:.2f} s on the host "
+          f"(top {accel.inst.top_box.shape[0]} nodes, prototypes {accel.inst.inner_box.shape[0]}); "
+          f"its tables {tables / 2**20:.1f} MiB, the same triangles' rows stored flat "
+          f"{flat / 2**20:.1f} MiB before their BVH (phase 12's statue)", flush=True)
+    w, h = FOREST_RES
+    cfg = rdr.RenderCfg("path", FOREST_SPP, DEPTH, 1.0)
+    scfg = smpl.make_sampler(smpl.SOBOL, FOREST_SPP, FOREST_RES)
+    timers = {kid: EndsTimer(ink.instance_intersect, keep=True) for kid in ("I1", "I2")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    st = {}
+    with ExitStack() as es:
+        patched(es, instance_intersect=by_kind(timers["I1"], timers["I2"]))
+        img = rdr.render(scene, camera, cfg, scfg, accel=accel, stats=st)
+        torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    it = st["iterations"]
+    want = dict(sobol=2 * st["batches"], full_sweep=it, any_sweep=it, instance_closest=it,
+                instance_any=it)
+    if counts != expect_counts(**want):
+        fail(f"launch counts of the forest render {counts}, expected {want}")
+    if tuple(img.shape) != (h, w, 3) or not torch.isfinite(img).all() or float(img.mean()) <= 0:
+        fail(f"forest image: shape {tuple(img.shape)}, mean {float(img.mean())}")
+    print(f"[27 forest] {w}x{h}, {FOREST_SPP} spp, depth {DEPTH}, regeneration at "
+          f"{st['lane_width']} lanes ({it} iterations, {st['batches']} batch): "
+          f"{st['paths_per_s']:.6g} camera paths/s ({st['wall_s']:.3f} s, the first and last "
+          f"instance launches' rays kept), peak memory {peak / 2**30:.2f} GiB, mean {float(img.mean()):.5f}; launches "
+          f"{ {k: v for k, v in counts.items() if v} } ({card})", flush=True)
+    out["forest"] = dict(counts=counts, rate=st["paths_per_s"], peak=peak)
+    del img
+    parts = {}
+    for kid in ("I1", "I2"):
+        works = parts.setdefault("works", []) if kid == "I1" else []
+        parts[kid] = kernel_part(
+            timers[kid], "27 forest", kid, with_work(inst.instance_intersect_plain, works),
+            ink.instance_intersect, lambda *a, **kw: instance_bound_ms(works[-1], a, kw),
+            same_bits, lambda *a, **kw: a[0].shape[0])
+        print_part(kid, "27 forest", parts[kid], card)
+    first = parts.pop("works")[0]
+    live = first["top_nodes"] > 0
+    share = float((first["entered"][live] > inst.K_CANDIDATES).float().mean())
+    print(f"[27 forest] the cap: {100 * share:.3f}% of the {int(live.sum())} camera rays of the "
+          f"first launch enter more than K_CANDIDATES = {inst.K_CANDIDATES} instance boxes (at "
+          f"most {int(first['entered'].max())}); the walk keeps the nearest "
+          f"{inst.K_CANDIDATES}, as the JAX package does", flush=True)
+    del timers
+    pcfg = rdr.RenderCfg("path", FOREST_PROFILE_SPP, DEPTH, 1.0)
+    pscfg = smpl.make_sampler(smpl.SOBOL, FOREST_PROFILE_SPP, FOREST_RES)
+    prof = profile_render(lambda: rdr.render(scene, camera, pcfg, pscfg, accel=accel),
+                          f"27 profile, forest at {FOREST_PROFILE_SPP} spp", top=6)
+    out["forest"]["busy_ms"] = sum(r[0] for r in prof)
+    out["forest"].update(cap_share=share, **{k: parts[k] for k in ("I1", "I2")})
+    del scene, camera, accel
+    torch.cuda.empty_cache()
+
+    # the moving Cornell box: the general bounce, V1 at each path's time
+    scene, camera = isc.moving_scene(RES, device=DEVICE)
+    if pk.mega_cfg(scene) is not None:
+        fail("mega_cfg takes the moving box: K2 would drop its moving mesh")
+    cfg = rdr.RenderCfg("path", SPP, DEPTH, 1.0)
+    scfg = smpl.make_sampler(smpl.SOBOL, SPP, RES)
+    go = lambda stats=None: rdr.render(scene, camera, cfg, scfg, stats=stats)
+    go()  # warm
+    vtimer = LaunchTimer(mok.anim_hits, keep=True)  # both kinds, every launch
+    torch.cuda.synchronize()
+    zero_counts()
+    with ExitStack() as es:
+        patched(es, anim_hits=vtimer)
+        img = go()
+        torch.cuda.synchronize()
+    counts = read_counts()
+    want = dict(sobol=2, full_sweep=DEPTH + 1, any_sweep=DEPTH, motion_closest=DEPTH + 1,
+                motion_any=DEPTH)
+    if counts != expect_counts(**want):
+        fail(f"launch counts of the moving render {counts}, expected {want}")
+    if not torch.isfinite(img).all() or float(img.mean()) <= 0:
+        fail(f"moving image: mean {float(img.mean())}")
+    st = best_of_3(go)
+    print(f"[27 moving] Cornell {RES[0]}x{RES[1]}, {SPP} spp, depth {DEPTH}, shutter 0-1, "
+          f"{scene.n_anim_tris} moving triangles: the general bounce (mega_cfg None, K2 launched "
+          f"{counts['bounce']} times); launches { {k: v for k, v in counts.items() if v} }; "
+          f"{st['paths_per_s']:.6g} camera paths/s (best of 3 warm renders, "
+          f"{1e3 * st['wall_s']:.3f} ms), mean {float(img.mean()):.5f} ({card})", flush=True)
+    set_up = op_count.motion_ops()
+    works = []
+    parts = {"V1": kernel_part(
+        vtimer, "27 moving", "V1", with_work(mok.anim_hits_plain, works), mok.anim_hits,
+        lambda *a, **kw: motion_bound_ms(works[-1], a, kw, set_up), same_bits,
+        lambda *a, **kw: a[0].shape[0])}
+    print_part("V1", "27 moving", parts["V1"], card)
+    out["moving"] = dict(counts=counts, rate=st["paths_per_s"], V1=parts["V1"], set_up=set_up)
+    del vtimer, scene, img
+    torch.cuda.empty_cache()
+
+    # the kd statue
+    scene, camera = bigscene.statue_scene(RES, KD_SUBDIV, device=DEVICE)
+    t0 = time.perf_counter()
+    accel = si.build_accel(scene, kind="kdtree", device=DEVICE)
+    torch.cuda.synchronize()
+    kd_s = time.perf_counter() - t0
+    kt = accel.kd
+    n_leaf = int((kt.axis == kd.LEAF).sum())
+    print(f"[27 kd] statue, {scene.n_tris} triangles: kd build {kd_s:.3f} s on the host, "
+          f"{kt.axis.shape[0]} nodes ({n_leaf} leaves), leaf cap {kt.leaf_cap}", flush=True)
+    cfg = rdr.RenderCfg("path", SPP, DEPTH, 1.0, accelerator="kdtree")
+    scfg = smpl.make_sampler(smpl.SOBOL, SPP, RES)
+    timers = {kid: LaunchTimer(kdk.kd_intersect, keep=True) for kid in ("D1", "D2")}
+    ovf = kdk.overflow_counter(DEVICE)
+    ovf.zero_()
+    torch.cuda.synchronize()
+    zero_counts()
+    st = {}
+    with ExitStack() as es:
+        patched(es, kd_intersect=by_kind(timers["D1"], timers["D2"]))
+        img = rdr.render(scene, camera, cfg, scfg, accel=accel, stats=st)
+        torch.cuda.synchronize()
+    counts = read_counts()
+    it = st["iterations"]
+    want = dict(sobol=2 * st["batches"], kd_closest=it, kd_any=it)
+    if counts != expect_counts(**want):
+        fail(f"launch counts of the kd render {counts}, expected {want}")
+    if int(ovf.item()) != 0:
+        fail(f"the kd walk dropped {int(ovf.item())} stack entries")
+    bvh_accel = si.build_accel(scene, device=DEVICE)
+    img_b = rdr.render(scene, camera, rdr.RenderCfg("path", SPP, DEPTH, 1.0), scfg, accel=bvh_accel)
+    err = compare_plain("kd image against the BVH's", img, img_b)
+    print(f"[27 kd] {RES[0]}x{RES[1]}, {SPP} spp, depth {DEPTH} through the kd-tree: "
+          f"{st['paths_per_s']:.6g} camera paths/s ({it} iterations), stack overflows "
+          f"{int(ovf.item())}; the image within {err:.3g} of the render through the BVH (B1/B2); "
+          f"launches { {k: v for k, v in counts.items() if v} } ({card})", flush=True)
+    del img_b, bvh_accel
+
+    for kid in ("D1", "D2"):
+        works = []
+        parts[kid] = kernel_part(
+            timers[kid], "27 kd", kid, with_work(kd.kdtree_intersect_plain, works),
+            kdk.kd_intersect, lambda *a, **kw: kd_bound_ms(works[-1], a, kw), same_bits,
+            lambda *a, **kw: a[0].shape[0])
+        print_part(kid, "27 kd", parts[kid], card)
+        if any(wk["overflow"] for wk in works):
+            fail(f"the plain kd walk overflowed its stack on a {kid} launch")
+    del timers
+    out["kd"] = dict(counts=counts, rate=st["paths_per_s"], build_s=kd_s,
+                     nodes=kt.axis.shape[0], leaf_cap=kt.leaf_cap, D1=parts["D1"],
+                     D2=parts["D2"])
+    seconds = time.perf_counter() - t_phase
+    f, m, k = out["forest"], out["moving"], out["kd"]
+    print(f"[27] forest {f['rate']:.6g}, moving {m['rate']:.6g}, kd statue {k['rate']:.6g} camera "
+          f"paths/s; the cap's share {100 * f['cap_share']:.3f}%; kd build {k['build_s']:.2f} s "
+          f"({card}); phase 27 {seconds:.1f} s", flush=True)
+    return dict(out, seconds=seconds)
+
+
 def kernel_entry(name, source, replaces, launches, parts, max_abs_err, library_ms=None) -> dict:
     """One kernel's line of the `kernels` JSON: per-launch means over
     `parts`, dicts of per-launch lists ms, plain_ms and bound ((bytes_ms,
@@ -4194,7 +4527,10 @@ def main():
     cameras = phase_cameras(card)
     later += list(cameras["renders"].values())
     lap("26")
-    more = lambda key: sum(p["counts"][key] for p in later)  # phases 10-12 and 14-26's launches
+    a25 = phase_instances(card)
+    later += [a25[k] for k in ("forest", "moving", "kd")]
+    lap("27")
+    more = lambda key: sum(p["counts"][key] for p in later)  # phases 10-12 and 14-27's launches
 
     k2 = flag["k2"]
     csrc, pallas = "rs_pbrt_tpu_torch/csrc/", "rs_pbrt_tpu/ops/pallas_intersect.py:"
@@ -4316,6 +4652,22 @@ def main():
         bit_equal=l1["exact"] and l1c["exact"],
         cases={k: sum(l1c[k]) / len(l1c[k]) for k in ("ms", "device_ms", "plain_ms")}
         | dict(bound_ms=sum(max(b) for b in l1c["bound"]) / len(l1c["bound"]))))
+    # I1/I2, V1 and D1/D2 replace the JAX package's XLA walks; no PyTorch
+    # call walks a tree or sweeps a moving mesh
+    for name, part, key, replaces in (
+            ("instance_closest", a25["forest"]["I1"], "instance_closest",
+             "rs_pbrt_tpu/ops/instancing.py:256"),
+            ("instance_any", a25["forest"]["I2"], "instance_any",
+             "rs_pbrt_tpu/ops/instancing.py:256 (.valid, rs_pbrt_tpu/ops/scene_intersect.py:768)"),
+            ("motion_sweep", a25["moving"]["V1"], ("motion_closest", "motion_any"),
+             "rs_pbrt_tpu/ops/scene_intersect.py:467"),
+            ("kd_closest", a25["kd"]["D1"], "kd_closest", "rs_pbrt_tpu/ops/kdtree.py:174"),
+            ("kd_any", a25["kd"]["D2"], "kd_any", "rs_pbrt_tpu/ops/kdtree.py:174 (any_hit)")):
+        keys = key if isinstance(key, tuple) else (key,)
+        source = csrc + {"i": "instance.cu", "m": "motion.cu", "k": "kdtree.cu"}[name[0]]
+        kernels.append(dict(kernel_entry(name, source, replaces, sum(more(k) for k in keys),
+                                         [part], part["max_abs_err"]),
+                            bit_equal=part["exact"], held=len(part["ms"])))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -267,7 +267,7 @@ def _add_emitted(scene, dist_at, it, o, d, L, beta, alive, specular_bounce, prev
 
 
 def _shade_and_extend(scene, cfg: PathCfg, accel, dist_at, dims, bounce, it, state,
-                      light_dist=None, width=None):
+                      light_dist=None, width=None, time=None):
     """One vertex's shading: the BSDF, NEE with MIS, the BSDF-sampled
     extension, the BSSRDF's transport where the scene has subsurface
     materials (light_dist: the power distribution it selects lights by)
@@ -278,7 +278,9 @@ def _shade_and_extend(scene, cfg: PathCfg, accel, dist_at, dims, bounce, it, sta
     (path.rs:174-187).  width: the hits' texture footprints (the camera
     rays' differentials' at bounce 0), or None.  A bump map perturbs the
     shading frame after the BSDF is made (path.py:339-342 of the JAX
-    package), and the rest of the vertex shades with its normal."""
+    package), and the rest of the vertex shades with its normal.  time: the
+    lanes' ray times, at which the shadow rays see moving meshes (None:
+    0); the subsurface probes see them at 0, as in the JAX package."""
     o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf, eta_scale = state
     b = bx.make_bsdf_at(scene, it, width)
     ss, ts = _shading_frame_du(it.ns, it.dpdu)
@@ -302,7 +304,7 @@ def _shade_and_extend(scene, cfg: PathCfg, accel, dist_at, dims, bounce, it, sta
         sh_d = delta_sh / torch.clamp(dist, min=1e-12)[:, None]
         # lanes without a contribution cast nothing: t_max = -1
         sh_t = torch.where(contrib_ok, dist * (1.0 - 1e-3), -1.0)
-        occluded = si.scene_intersect_p(scene, p_shadow, sh_d, sh_t, accel)
+        occluded = si.scene_intersect_p(scene, p_shadow, sh_d, sh_t, accel, time)
         w_light = torch.where(ls.is_delta, 1.0, smp.power_heuristic(ls.pdf, scat_pdf))
         inv_pdf = (w_light / torch.clamp(sel_pdf, min=1e-12)) / torch.clamp(ls.pdf, min=1e-12)
         ld = beta * f * ls.li * inv_pdf[:, None]
@@ -342,13 +344,14 @@ def _shade_and_extend(scene, cfg: PathCfg, accel, dist_at, dims, bounce, it, sta
 
 def general_radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
                      ctx: smpl.SampleCtx, ray_o: torch.Tensor, ray_d: torch.Tensor,
-                     accel=None, light_distrib=None, diffs=None) -> torch.Tensor:
+                     accel=None, light_distrib=None, diffs=None, time=None) -> torch.Tensor:
     """(N, 3) radiance along N camera rays through the general wavefront
     bounce, max_depth bounces and then a pass that only collects emission
     (path.py:474-592 with regen=False).  light_distrib: a spatial light
     distribution (lightdistrib.build_spatial), else selection by power.
     diffs: the camera rays' differentials (ops/differentials.py), or
-    None."""
+    None.  time: the rays' times (N,) in the shutter, at which every cast
+    of a path sees the moving meshes (None: 0)."""
     si.check_supported(scene, accel)
     n, dev = ray_o.shape[0], ray_o.device
     dist_at = _dist_at(scene, light_distrib)
@@ -373,7 +376,7 @@ def general_radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg
     inf = float(vm.INFINITY)
     for bounce in range(cfg.max_depth):
         # dead lanes cast with t_max = -1, which the traversal ends at once
-        it = si.scene_intersect(scene, o, d, torch.where(alive, inf, -1.0), accel)
+        it = si.scene_intersect(scene, o, d, torch.where(alive, inf, -1.0), accel, time)
         L = _add_emitted(scene, dist_at, it, o, d, L, beta, alive, specular_bounce,
                          prev_bsdf_pdf)
         alive = alive & it.valid
@@ -383,9 +386,10 @@ def general_radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg
         width = rd.bounce_width(scene, it, diffs, bounce)
         o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf, eta_scale = _shade_and_extend(
             scene, cfg, accel, dist_at, dims, bounce, it,
-            (o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf, eta_scale), light_dist, width)
+            (o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf, eta_scale), light_dist, width,
+            time)
     # the last vertex only collects emission
-    it = si.scene_intersect(scene, o, d, torch.where(alive, inf, -1.0), accel)
+    it = si.scene_intersect(scene, o, d, torch.where(alive, inf, -1.0), accel, time)
     return _add_emitted(scene, dist_at, it, o, d, L, beta, alive, specular_bounce,
                         prev_bsdf_pdf)
 
@@ -393,7 +397,8 @@ def general_radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg
 def radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
              ctx: smpl.SampleCtx, ray_o: torch.Tensor, ray_d: torch.Tensor,
              mega: Optional[pk.MegaCfg] = None, accel=None, light_distrib=None,
-             regen: bool = False, stats: Optional[dict] = None, diffs=None) -> torch.Tensor:
+             regen: bool = False, stats: Optional[dict] = None, diffs=None,
+             time=None) -> torch.Tensor:
     """(N, 3) radiance along N camera rays.  mega: the scene's MegaCfg when
     the caller has it already; as in the JAX package, a scene passed with an
     accel or a spatial light distribution never takes the bounce kernel.
@@ -401,7 +406,8 @@ def radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
     where ``regen.eligible`` takes the call (stats goes to
     ``regen.radiance_regen``); else the general bounce.  diffs: the camera
     rays' differentials, where the scene needs them (regeneration is not
-    eligible then)."""
+    eligible then).  time: the rays' times in the shutter (None: 0); K2
+    takes no scene that reads them (mega_cfg refuses moving meshes)."""
     if mega is None and accel is None:
         mega = pk.mega_cfg(scene, light_distrib)
     if mega is not None and cfg.max_depth > 0 and sampler_cfg.kind == smpl.SOBOL:
@@ -412,6 +418,6 @@ def radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
 
         if regen_mod.eligible(scene, cfg, sampler_cfg, accel, ray_o.shape[0]):
             return regen_mod.radiance_regen(scene, cfg, sampler_cfg, ctx, ray_o, ray_d, accel,
-                                            light_distrib, stats=stats)
+                                            light_distrib, stats=stats, time=time)
     return general_radiance(scene, cfg, sampler_cfg, ctx, ray_o, ray_d, accel, light_distrib,
-                            diffs)
+                            diffs, time)

@@ -14,11 +14,13 @@ takes the same samples and the same arithmetic as in the fixed-depth loop,
 and the two agree per path.
 
 Eligibility (``eligible``): the path integrator through a tree (the
-triangles' BVH or the curves' tree), the Sobol' sampler, every bounce's
+triangles' BVH or kd-tree, the curves' tree or the instances' trees:
+``scene_intersect.uses_tree``), the Sobol' sampler, every bounce's
 dims in one K1 launch (dims_per_bounce x max_depth <= 128, as the JAX
 regen.py:59-61 counts them), a scene without ray differentials (no image
 map bound to a material: refilled lanes carry none), and more paths than
-one lane width.
+one lane width.  A refilled lane takes its new path's ray time too
+(the JAX regen.py:116-122, 162-163).
 """
 
 from __future__ import annotations
@@ -48,12 +50,13 @@ REGEN_LANE_WIDTH = 1 << 21
 def eligible(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg, accel, n_paths: int,
              lane_width: Optional[int] = None) -> bool:
     """Can radiance_regen serve this call?  Only where the scene is
-    traversed through a tree, its triangles' BVH or its curves' (build_accel
-    gives small scenes none), and with more paths than one lane width,
+    traversed through a tree, its triangles' BVH or kd-tree, its curves' or
+    its instances' (build_accel gives small scenes none; the JAX package
+    asks only for an accel), and with more paths than one lane width,
     below which nothing is refilled."""
     width = lane_width or REGEN_LANE_WIDTH
     total = dims_per_bounce(scene) * cfg.max_depth
-    return ((si.uses_bvh(scene, accel) or si.uses_curve_bvh(scene, accel))
+    return (si.uses_tree(scene, accel)
             and cfg.max_depth > 0 and sampler_cfg.kind == smpl.SOBOL
             and 0 < total <= sk.MAX_DIMS and not rd.needs_diffs(scene) and n_paths > width)
 
@@ -67,12 +70,12 @@ def _paths_remain(alive: torch.Tensor) -> bool:
 def radiance_regen(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
                    ctx: smpl.SampleCtx, ray_o: torch.Tensor, ray_d: torch.Tensor, accel,
                    light_distrib=None, lane_width: Optional[int] = None,
-                   stats: Optional[dict] = None) -> torch.Tensor:
+                   stats: Optional[dict] = None, time=None) -> torch.Tensor:
     """(N, 3) radiance along N camera rays in path order, the regeneration
     loop's estimate: per path the samples and arithmetic of
     ``general_radiance``.  lane_width defaults to REGEN_LANE_WIDTH.  stats,
     when given, gains the iterations run (``iterations``, added to what it
-    holds)."""
+    holds).  time: the rays' times (N,) in the shutter (None: 0)."""
     si.check_supported(scene, accel)
     n, dev = ray_o.shape[0], ray_o.device
     width = min(lane_width or REGEN_LANE_WIDTH, n)
@@ -93,6 +96,7 @@ def radiance_regen(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
 
     pid = torch.arange(width, dtype=torch.int64, device=dev)
     o, d = ray_o[:width], ray_d[:width]
+    t_lane = None if time is None else time[:width]
     L = torch.zeros((width, 3), device=dev)
     beta = torch.ones((width, 3), device=dev)
     alive = torch.ones(width, dtype=torch.bool, device=dev)
@@ -107,7 +111,7 @@ def radiance_regen(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
     while True:
         # one vertex of every lane, each at its own bounce; dead lanes cast
         # with t_max = -1, which the traversal ends at once
-        it = si.scene_intersect(scene, o, d, torch.where(alive, inf, -1.0), accel)
+        it = si.scene_intersect(scene, o, d, torch.where(alive, inf, -1.0), accel, t_lane)
         L = _add_emitted(scene, dist_at, it, o, d, L, beta, alive, specular_bounce,
                          prev_bsdf_pdf)
         alive = alive & it.valid
@@ -119,7 +123,7 @@ def radiance_regen(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
         o, d, L, beta, alive, specular_bounce, prev_bsdf_pdf, eta_scale = _shade_and_extend(
             scene, cfg, accel, dist_at, dims, bounce, it,
             (o, d, L, beta, alive & ~at_limit, specular_bounce, prev_bsdf_pdf, eta_scale),
-            light_dist)
+            light_dist, time=t_lane)
         bounce = torch.where(alive, bounce + 1, bounce)
 
         # finished paths write their radiance; their lanes take the next ids
@@ -131,6 +135,8 @@ def radiance_regen(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
         src = torch.clamp(new_id, max=n - 1)
         o = torch.where(fill[:, None], ray_o[src], o)
         d = torch.where(fill[:, None], ray_d[src], d)
+        if t_lane is not None:
+            t_lane = torch.where(fill, time[src], t_lane)
         L = torch.where(fill[:, None], 0.0, L)
         beta = torch.where(fill[:, None], 1.0, beta)
         specular_bounce = specular_bounce | fill

@@ -6,10 +6,14 @@ directlighting, ao and sppm integrators; sppm runs its own progressive loop
 (``sppm.py``).  The pixel grid (the film's crop window, or the whole film) is
 one flat wavefront of (pixel, sample) lanes, ``nb`` ordered copies of the
 grid with x fastest, batched over samples per pixel.  Scenes above the
-brute-force limit render with their BVH (``accel``,
-``ops/scene_intersect.build_accel``); there, by default, the path
+brute-force limit, and scenes with instances, render with their trees
+(``accel``, ``ops/scene_intersect.build_accel``: a BVH, or a kd-tree where
+``RenderCfg.accelerator`` is "kdtree"); there, by default, the path
 integrator streams each batch's paths through a pool of lanes that it
 refills as paths finish (``regen.py``), as the JAX package's render does.
+The camera rays' times reach the path integrator, whose casts see moving
+meshes at them; the other integrators see them at time 0, as in the JAX
+package.
 Where a scene binds an image map to a material slot (``needs_diffs``), the
 path, volpath, whitted and directlighting integrators take the camera
 rays' differentials, whose footprints filter the image maps at the first
@@ -28,6 +32,7 @@ import torch
 from ...ops import differentials as rd
 from ...ops import film as filmmod
 from ...ops import path_kernel as pk
+from ...ops import scene_intersect as si
 from ...scene import arrays as sa
 from .. import cameras as cam
 from .. import samplers as smpl
@@ -60,18 +65,20 @@ class RenderCfg(NamedTuple):
     # "cos_sample"; sppm: "n_iterations", "photons_per_iteration",
     # "initial_radius")
     extra: Optional[dict] = None
-    accelerator: str = "bvh"  # the accel's kind: "bvh" only ("kdtree" is not ported)
+    # the accel's kind, "bvh" or "kdtree": the caller builds it
+    # (scene_intersect.build_accel(scene, kind=cfg.accelerator)), as in the JAX package
+    accelerator: str = "bvh"
 
 
 def check_cfg(cfg: RenderCfg):
-    """Raises NotImplementedError for a RenderCfg the port cannot render yet."""
+    """Raises NotImplementedError for a RenderCfg the port cannot render
+    yet, ValueError for an accelerator no one builds."""
     if cfg.integrator not in INTEGRATORS:
         item = "A16b" if cfg.integrator in ("bdpt", "mlt") else "queue A"
         raise NotImplementedError(f"integrator {cfg.integrator!r} is not ported yet "
                                   f"(ROADMAP {item})")
-    if cfg.accelerator != "bvh":
-        raise NotImplementedError(f"accelerator {cfg.accelerator!r} is not ported yet "
-                                  "(ROADMAP A25)")
+    if cfg.accelerator not in si.ACCELERATORS:
+        raise ValueError(f"accelerator {cfg.accelerator!r}: the port builds {si.ACCELERATORS}")
 
 
 # the integrators whose first hits read image maps through ray differentials
@@ -81,33 +88,35 @@ DIFFS_INTEGRATORS = ("path", "volpath", "whitted", "directlighting")
 def radiance_fn(cfg: RenderCfg, mega: Optional[pk.MegaCfg] = None, accel=None,
                 light_distrib=None, regen: bool = False, stats: Optional[dict] = None):
     """Integrator dispatch (integrator.rs:31): (scene, sampler_cfg, ctx, o,
-    d, diffs) -> (N, 3) radiance; diffs the camera rays' differentials or
-    None.  mega: the scene's MegaCfg for "path"; accel: the scene's BVH,
-    passed down to scene intersection.  light_distrib, regen and stats
-    reach the path integrator only: volpath and the direct integrators
-    select lights as they do with every strategy, as in the JAX package."""
+    d, diffs, time) -> (N, 3) radiance; diffs the camera rays'
+    differentials or None, time their times in the shutter or None.  mega:
+    the scene's MegaCfg for "path"; accel: the scene's trees, passed down
+    to scene intersection.  light_distrib, regen, stats and time reach the
+    path integrator only: volpath and the direct integrators select lights
+    as they do with every strategy and see moving meshes at time 0, as in
+    the JAX package (its render.py:79-110)."""
     if cfg.integrator == "path":
         pcfg = pathmod.PathCfg(cfg.max_depth, cfg.rr_threshold)
-        return lambda scene, scfg, ctx, o, d, diffs=None: pathmod.radiance(
+        return lambda scene, scfg, ctx, o, d, diffs=None, time=None: pathmod.radiance(
             scene, pcfg, scfg, ctx, o, d, mega=mega, accel=accel, light_distrib=light_distrib,
-            regen=regen, stats=stats, diffs=diffs)
+            regen=regen, stats=stats, diffs=diffs, time=time)
     if cfg.integrator == "volpath":
         vcfg = pathmod.PathCfg(cfg.max_depth, cfg.rr_threshold)
-        return lambda scene, scfg, ctx, o, d, diffs=None: volpathmod.radiance(
+        return lambda scene, scfg, ctx, o, d, diffs=None, time=None: volpathmod.radiance(
             scene, vcfg, scfg, ctx, o, d, accel, diffs)
     if cfg.integrator == "whitted":
         wcfg = directmod.WhittedCfg(cfg.max_depth)
-        return lambda scene, scfg, ctx, o, d, diffs=None: directmod.whitted_radiance(
+        return lambda scene, scfg, ctx, o, d, diffs=None, time=None: directmod.whitted_radiance(
             scene, wcfg, scfg, ctx, o, d, accel, diffs)
     if cfg.integrator == "directlighting":
         sample_all = (cfg.extra or {}).get("strategy", "all") == "all"
         dcfg = directmod.DirectLightingCfg(cfg.max_depth, sample_all)
-        return lambda scene, scfg, ctx, o, d, diffs=None: directmod.directlighting_radiance(
-            scene, dcfg, scfg, ctx, o, d, accel, diffs)
+        return lambda scene, scfg, ctx, o, d, diffs=None, time=None: (
+            directmod.directlighting_radiance(scene, dcfg, scfg, ctx, o, d, accel, diffs))
     if cfg.integrator == "ao":
         ex = cfg.extra or {}
         acfg = directmod.AOCfg(int(ex.get("n_samples", 8)), bool(ex.get("cos_sample", True)))
-        return lambda scene, scfg, ctx, o, d, diffs=None: directmod.ao_radiance(
+        return lambda scene, scfg, ctx, o, d, diffs=None, time=None: directmod.ao_radiance(
             scene, acfg, scfg, ctx, o, d, accel)
     raise ValueError(f"unknown integrator {cfg.integrator!r}")
 
@@ -169,7 +178,7 @@ def render_batch(scene: sa.Scene, camera: cam.Camera, cfg: RenderCfg,
                                    p_film=True)
     diffs = rest[0] if want_diffs else None
     L = radiance_fn(cfg, mega, accel, light_distrib, regen, stats)(
-        scene, sampler_cfg, ctx, rays.o, rays.d, diffs)
+        scene, sampler_cfg, ctx, rays.o, rays.d, diffs, rays.time)
     L = L * rays.weight[:, None]
     if filmmod.grid_filter(filter_cfg):
         return filmmod.add_samples_grid(film, filter_cfg, L, nb, rect)

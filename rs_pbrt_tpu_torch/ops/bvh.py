@@ -79,13 +79,16 @@ def ray_shear(o, d):
     return kx, ky, kz, -comp(kx) * inv_dz, -comp(ky) * inv_dz, inv_dz
 
 
-def tri_test_soa(o, t_max, shear, X0, Y0, Z0, X1, Y1, Z1, X2, Y2, Z2):
+def tri_test_soa(o, t_max, shear, X0, Y0, Z0, X1, Y1, Z1, X2, Y2, Z2, scaled: bool = False):
     """Watertight test of each lane's ray against K triangles given as
     component slices (lanes, K) (ops/bvh.py:_tri_test_soa): the vertices
     relative to the origin, permuted and sheared, the edge functions, det,
     the scaled t and its conservative error bound (triangle.rs:421-449).
     o (lanes, 3), t_max (lanes, 1), shear = ray_shear columns as (lanes, 1).
-    Returns (hit, t, b0, b1), each (lanes, K)."""
+    Returns (hit, t, b0, b1), each (lanes, K); scaled: (hit, t, b0, b1,
+    t_scaled, det), so that a caller that tested with t_max = inf can apply
+    a smaller t_lim's range test, the only term t_max enters
+    (range_hit)."""
     kx, ky, kz, sx, sy, sz = shear
     ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
 
@@ -139,7 +142,13 @@ def tri_test_soa(o, t_max, shear, X0, Y0, Z0, X1, Y1, Z1, X2, Y2, Z2):
     miss_eps = t <= delta_t
 
     hit = ~(miss_sign | miss_det | miss_range | miss_eps)
-    return hit, t, b0, b1
+    return (hit, t, b0, b1, t_scaled, det) if scaled else (hit, t, b0, b1)
+
+
+def range_hit(hit_inf, t_scaled, det, t_lim):
+    """tri_test_soa's hit at t_lim from its hit at t_max = inf: the range
+    test's upper end, t_scaled against t_lim det, term for term."""
+    return hit_inf & ~torch.where(det < 0.0, t_scaled < t_lim * det, t_scaled > t_lim * det)
 
 
 def _round_i32(x):

@@ -78,11 +78,15 @@ def mega_cfg(scene: sa.Scene, light_distrib=None) -> Optional[MegaCfg]:
     """MegaCfg when the bounce kernel can render `scene`, else None.  The
     same limits as the JAX package (pallas_path.py:58-60,83-84,104-147),
     decided on the host copies of the tables; the kernel selects lights by
-    power, so a spatial light distribution (light_distrib) refuses it."""
+    power, so a spatial light distribution (light_distrib) refuses it.
+    The kernel sweeps the static triangles only: a scene with instances or
+    animated meshes is refused (the JAX megakernel would drop them too,
+    but the JAX package takes it only on a TPU)."""
     if light_distrib is not None:
         return None
     if (scene.n_spheres or scene.n_curve_segs or scene.has_env or scene.has_alpha
-            or scene.has_subsurface or scene.has_hair):
+            or scene.has_subsurface or scene.has_hair or scene.n_instances
+            or scene.n_anim_tris):
         return None
     if not (0 < scene.n_tris <= MEGA_MAX_TRIS):
         return None

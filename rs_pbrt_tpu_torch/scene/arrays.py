@@ -7,9 +7,10 @@ light-pick power and the per-light triangle-area CDF, the media (a
 homogeneous table and the density grids) and the subsurface materials'
 folded BSSRDF profiles, the infinite light's map, transforms and
 importance, the Fourier BSDF's table, the texture tables and image atlas
-(``ops/texture.py``), plus the counts and feature flags that decide
-which route a scene may take (``ops/path_kernel.mega_cfg``) and which
-parts the port refuses.  A primitive's media are its inside and outside
+(``ops/texture.py``), the instanced prototypes and their instances, the
+animated meshes, plus the counts and feature flags that decide which
+route a scene may take (``ops/path_kernel.mega_cfg``) and which parts the
+port refuses.  A primitive's media are its inside and outside
 medium ids, columns TA_MED_IN/OUT of tri_attr and SP_MED_IN/OUT of
 sph_attr (-1: vacuum).
 """
@@ -202,9 +203,27 @@ class Scene:
     n_curve_segs: int = 0
     # a triangle with an alpha or shadow-alpha mask (TA_ALPHA, TA_SALPHA)
     has_alpha: bool = False
-    # features the port does not render yet; the routes that meet them raise
+    # two-level instancing (reference primitive.rs:198-265): the prototypes'
+    # object-space triangle rows (max(PT, 1), N_TRI_ATTR), each prototype's
+    # rows [start, end) (P, 2) int32, and per instance its object-to-world
+    # and world-to-object matrices (I, 4, 4), prototype (I,) int32 and
+    # material override (I,) int32 (-1: the prototype's own)
     n_instances: int = 0
+    n_proto_tris: int = 0
+    proto_attr: torch.Tensor = None
+    proto_range: torch.Tensor = None
+    inst_o2w: torch.Tensor = None
+    inst_w2o: torch.Tensor = None
+    inst_proto: torch.Tensor = None
+    inst_mat: torch.Tensor = None
+    # animated triangle meshes (object motion): their object-space rows
+    # (max(A, 1), N_TRI_ATTR), each group's rows [start, end) (G, 2) int32
+    # and its transform at the shutter's ends (G, 32): T0, q0, S0, T1, q1,
+    # S1 (utils/animated.xf_parts)
     n_anim_tris: int = 0
+    anim_attr: torch.Tensor = None
+    anim_range: torch.Tensor = None
+    anim_xf: torch.Tensor = None
     has_subsurface: bool = False
     has_hair: bool = False
     # a glass material with roughness (microfacet lobes); the BSDF skips
@@ -282,7 +301,7 @@ class Scene:
 BRIDGE_FIELDS = (
     "tri_attr", "mat_attr", "light_attr", "light_power", "alight_tri_cdf", "world_center",
     "world_radius", "tri_p0", "light_type", "sph_o2w", "sph_attr", "quad_kind_flag",
-    "sphlight_flag", "qdlight_flag", "crv_attr", "inst_o2w", "anim_p0", "inf_radiance",
+    "sphlight_flag", "qdlight_flag", "crv_attr", "inf_radiance",
     "inf_l2w", "inf_w2l",
     "alpha_flag", "bss_profile", "hair_flag", "tex_slot_flag", "mat_kind_flag",
     "bss_cdf", "bss_rho_eff", "bss_sigma_t", "bss_eta", "med_sigma_a", "med_sigma_s", "med_g",
@@ -290,6 +309,9 @@ BRIDGE_FIELDS = (
     "fou_mu", "fou_dense", "fou_m", "fou_cdf", "fou_a0", "fou_eta",
     "tex_type", "tex_params", "tex_child", "tex_w2t", "tex_atlas", "tex_rect", "tex_mip",
     "tex_nlv", "tex_kind_flag",
+    "proto_p0", "proto_p1", "proto_p2", "proto_attr", "proto_range",
+    "inst_o2w", "inst_w2o", "inst_proto", "inst_mat",
+    "anim_p0", "anim_p1", "anim_p2", "anim_attr", "anim_range", "anim_xf",
 )
 TEXTURE_TABLES = ("tex_type", "tex_params", "tex_child", "tex_w2t", "tex_atlas", "tex_rect",
                   "tex_mip", "tex_nlv")
@@ -393,6 +415,35 @@ def slot_mask(mat_attr) -> int:
     return sum(1 << s for s in np.flatnonzero(bound))
 
 
+def motion_fields(proto_attr, proto_range, inst_o2w, inst_w2o, inst_proto, inst_mat,
+                  anim_attr, anim_range, anim_xf, n_proto_tris: int, n_anim_tris: int,
+                  device) -> dict:
+    """Scene's instancing and animated-mesh fields from numpy tables laid
+    out as the JAX package's (scene/arrays.py:448-460): prototype and
+    animated rows with at least one row, the others with one row an
+    instance or group."""
+    f32 = lambda a, cols: torch.tensor(np.asarray(a, np.float32).reshape(-1, cols), device=device)
+    i32 = lambda a, cols: torch.tensor(np.asarray(a, np.int32).reshape(-1, cols), device=device)
+    return dict(
+        n_instances=int(np.shape(inst_proto)[0]), n_proto_tris=int(n_proto_tris),
+        proto_attr=f32(proto_attr, N_TRI_ATTR), proto_range=i32(proto_range, 2),
+        inst_o2w=f32(inst_o2w, 16).reshape(-1, 4, 4), inst_w2o=f32(inst_w2o, 16).reshape(-1, 4, 4),
+        inst_proto=i32(inst_proto, 1)[:, 0], inst_mat=i32(inst_mat, 1)[:, 0],
+        n_anim_tris=int(n_anim_tris), anim_attr=f32(anim_attr, N_TRI_ATTR),
+        anim_range=i32(anim_range, 2), anim_xf=f32(anim_xf, 32))
+
+
+def empty_motion_tables() -> dict:
+    """motion_fields' tables of a scene without instances or animated
+    meshes (the JAX package's empty defaults)."""
+    return dict(proto_attr=np.zeros((1, N_TRI_ATTR), np.float32),
+                proto_range=np.zeros((0, 2), np.int32), inst_o2w=np.zeros((0, 4, 4), np.float32),
+                inst_w2o=np.zeros((0, 4, 4), np.float32), inst_proto=np.zeros(0, np.int32),
+                inst_mat=np.zeros(0, np.int32), anim_attr=np.zeros((1, N_TRI_ATTR), np.float32),
+                anim_range=np.zeros((0, 2), np.int32), anim_xf=np.zeros((0, 32), np.float32),
+                n_proto_tris=0, n_anim_tris=0)
+
+
 def texture_fields(tables: Mapping[str, np.ndarray], kind_mask: int, device) -> dict:
     """Scene's texture fields from the numpy tables named as TEXTURE_TABLES
     (laid out as the JAX package's) and the kind mask."""
@@ -436,8 +487,9 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> Scene:
         has_quadric_lights=n("qdlight_flag") > 0,
         crv_attr=torch.tensor(crv, device=dev) if crv.shape[0] else None,
         n_curve_segs=crv.shape[0],
-        n_instances=n("inst_o2w"),
-        n_anim_tris=n("anim_p0"),
+        **motion_fields(*(arrays[k] for k in (
+            "proto_attr", "proto_range", "inst_o2w", "inst_w2o", "inst_proto", "inst_mat",
+            "anim_attr", "anim_range", "anim_xf")), n("proto_p0"), n("anim_p0"), dev),
         has_alpha=n("alpha_flag") > 0,
         has_hair=n("hair_flag") > 0,
         has_rough_glass=rough_glass(np.asarray(arrays["mat_attr"], np.float32)),

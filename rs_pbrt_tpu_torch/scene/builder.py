@@ -19,9 +19,12 @@ JAX builder's finalize takes it); it stacks the media's grids and the
 subsurface materials' folded BSSRDF tables, carries the Fourier
 material's table, makes the environment map's importance and packs every
 image's MIP pyramid into the texture atlas as the JAX ``finalize`` does.
-Instances and animated meshes are not ported yet (ROADMAP); scenes that
-need them come from the JAX front ends through
-``arrays.scene_from_numpy``.
+Instanced prototypes (``add_prototype_mesh``, ``add_prototype_tris``,
+``add_instance``) keep one object-space copy of each mesh, and animated
+meshes (``add_animated_triangle_mesh``) keep their object-space rows and
+their transform's two ends decomposed; the world bound takes in each
+instance's transformed box and each animated mesh's motion bound, as the
+JAX ``finalize_scene`` does.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from ..ops import curves as cv
 from ..ops import fourier_bsdf as fb
 from ..ops import mipmap as mm
 from ..ops import texture as tx
+from ..utils import animated as an
 from ..utils import spectrum
 from ..utils import transform as tr
 from . import arrays as sa
@@ -58,6 +62,9 @@ class SceneBuilder:
         self.env = None  # the infinite light's (map, light-to-world, inverse)
         self.fourier_table = None  # the Fourier material's dense table (one a scene)
         self.textures = []  # (type, params (16,), children (2,), w2t (4, 4), image or None)
+        self.protos = []  # (T_i, N_TRI_ATTR) f32 object-space rows per prototype
+        self.instances = []  # (prototype id, object-to-world (4, 4) f32, material or -1)
+        self.anims = []  # ((T_i, N_TRI_ATTR) f32 object-space rows, xf (32,) f32) per mesh
         self.add_matte(kd=(0.5, 0.5, 0.5))  # default material 0 (api.rs)
 
     def _add_material(self, mtype, kd=(0, 0, 0), kr=(0, 0, 0), kt=(0, 0, 0), sigma=0.0,
@@ -302,6 +309,122 @@ class SceneBuilder:
         self.n_tri_rows += n_tri
         return light_id
 
+    def add_animated_triangle_mesh(self, indices, positions, object_to_world: tr.Transform,
+                                   object_to_world_end: tr.Transform, normals=None, uvs=None,
+                                   material: int = 0, reverse_orientation: bool = False):
+        """A mesh moving between object_to_world at the shutter's open and
+        object_to_world_end at its close (primitive.rs:198-265 with an
+        AnimatedTransform): its rows stay in object space, and rays reach
+        them through the inverse of the transform interpolated at each
+        ray's time.  No area light, alpha mask or medium on it, as in the
+        JAX package.  A transform that mirrors flips its orientation."""
+        idx = np.asarray(indices, np.int32).reshape(-1, 3)
+        P = np.asarray(positions, np.float32).reshape(-1, 3)
+        m0 = np.asarray(object_to_world.m, np.float64)
+        m1 = np.asarray(object_to_world_end.m, np.float64)
+        T0, q0, S0 = an.decompose(m0)
+        T1, q1, S1 = an.decompose(m1)
+        if np.linalg.det(m0[:3, :3]) < 0:
+            reverse_orientation = not reverse_orientation
+        n_tri = len(idx)
+        i0, i1, i2 = idx[:, 0], idx[:, 1], idx[:, 2]
+        rows = np.zeros((n_tri, sa.N_TRI_ATTR), np.float32)
+        rows[:, sa.TA_P0:sa.TA_P0 + 3] = P[i0]
+        rows[:, sa.TA_P1:sa.TA_P1 + 3] = P[i1]
+        rows[:, sa.TA_P2:sa.TA_P2 + 3] = P[i2]
+        if normals is not None:
+            N = np.asarray(normals, np.float32)
+            rows[:, sa.TA_N0:sa.TA_N0 + 3] = N[i0]
+            rows[:, sa.TA_N1:sa.TA_N1 + 3] = N[i1]
+            rows[:, sa.TA_N2:sa.TA_N2 + 3] = N[i2]
+            rows[:, sa.TA_HAS_N] = 1.0
+        if uvs is not None:
+            U = np.asarray(uvs, np.float32).reshape(-1, 2)
+            rows[:, sa.TA_UV0:sa.TA_UV0 + 2] = U[i0]
+            rows[:, sa.TA_UV1:sa.TA_UV1 + 2] = U[i1]
+            rows[:, sa.TA_UV2:sa.TA_UV2 + 2] = U[i2]
+        else:
+            rows[:, sa.TA_UV1:sa.TA_UV1 + 2] = (1, 0)
+            rows[:, sa.TA_UV2:sa.TA_UV2 + 2] = (1, 1)
+        rows[:, sa.TA_MAT] = material
+        rows[:, [sa.TA_LIGHT, sa.TA_MED_IN, sa.TA_MED_OUT, sa.TA_ALPHA, sa.TA_SALPHA]] = -1.0
+        rows[:, sa.TA_REVERSE] = float(reverse_orientation)
+        xf = np.concatenate([T0, q0, S0.ravel(), T1, q1, S1.ravel()]).astype(np.float32)
+        self.anims.append((rows, xf))
+
+    def add_prototype_mesh(self, indices, positions, normals=None, uvs=None,
+                           material: int = 0) -> int:
+        """A shared object-space mesh for add_instance (primitive.rs:198-265:
+        one copy however many instances place it).  Returns its id."""
+        F = np.asarray(indices, np.int64).reshape(-1, 3)
+        P = np.asarray(positions, np.float32).reshape(-1, 3)
+        rows = np.zeros((F.shape[0], sa.N_TRI_ATTR), np.float32)
+        for k, col in enumerate((sa.TA_P0, sa.TA_P1, sa.TA_P2)):
+            rows[:, col:col + 3] = P[F[:, k]]
+        if normals is not None:
+            N = np.asarray(normals, np.float32).reshape(-1, 3)
+            for k, col in enumerate((sa.TA_N0, sa.TA_N1, sa.TA_N2)):
+                rows[:, col:col + 3] = N[F[:, k]]
+            rows[:, sa.TA_HAS_N] = 1.0
+        if uvs is not None:
+            U = np.asarray(uvs, np.float32).reshape(-1, 2)
+            for k, col in enumerate((sa.TA_UV0, sa.TA_UV1, sa.TA_UV2)):
+                rows[:, col:col + 2] = U[F[:, k]]
+        else:
+            rows[:, sa.TA_UV1] = 1.0
+            rows[:, sa.TA_UV2:sa.TA_UV2 + 2] = 1.0
+        rows[:, sa.TA_MAT] = material
+        rows[:, [sa.TA_LIGHT, sa.TA_ALPHA, sa.TA_SALPHA]] = -1.0
+        self.protos.append(rows)
+        return len(self.protos) - 1
+
+    def add_prototype_tris(self, tris: dict) -> int:
+        """A prototype from per-triangle lists in object space (the JAX
+        front end's ObjectInstance path: a dict of lists of arrays p0, p1,
+        p2, n0, n1, n2, has_n, uv0, uv1, uv2, mat, reverse).  Returns its
+        id."""
+        cat = lambda k: np.concatenate(tris[k])
+        p0 = cat("p0").astype(np.float32)
+        rows = np.zeros((p0.shape[0], sa.N_TRI_ATTR), np.float32)
+        for key, col, w in (("p0", sa.TA_P0, 3), ("p1", sa.TA_P1, 3), ("p2", sa.TA_P2, 3),
+                            ("n0", sa.TA_N0, 3), ("n1", sa.TA_N1, 3), ("n2", sa.TA_N2, 3),
+                            ("uv0", sa.TA_UV0, 2), ("uv1", sa.TA_UV1, 2), ("uv2", sa.TA_UV2, 2)):
+            rows[:, col:col + w] = cat(key)
+        rows[:, sa.TA_HAS_N] = cat("has_n").astype(np.float32)
+        rows[:, sa.TA_MAT] = cat("mat").astype(np.float32)
+        rows[:, sa.TA_REVERSE] = cat("reverse").astype(np.float32)
+        rows[:, [sa.TA_LIGHT, sa.TA_ALPHA, sa.TA_SALPHA]] = -1.0
+        self.protos.append(rows)
+        return len(self.protos) - 1
+
+    def add_instance(self, proto_id: int, object_to_world: Optional[tr.Transform] = None,
+                     material: int = -1):
+        """Places prototype proto_id by object_to_world; material >= 0
+        overrides the prototype's."""
+        o2w = object_to_world or tr.identity()
+        self.instances.append((proto_id, np.asarray(o2w.m, np.float32), material))
+
+    def _motion_tables(self) -> dict:
+        """arrays.motion_fields' tables, as the JAX finalize packs them: the
+        prototypes only where an instance places one."""
+        out = sa.empty_motion_tables()
+        if self.instances:
+            offs = np.cumsum([0] + [len(r) for r in self.protos])
+            o2w = np.stack([i[1] for i in self.instances])
+            out.update(proto_attr=np.concatenate(self.protos),
+                       proto_range=np.stack([offs[:-1], offs[1:]], -1).astype(np.int32),
+                       inst_o2w=o2w,
+                       inst_w2o=np.linalg.inv(o2w.astype(np.float64)).astype(np.float32),
+                       inst_proto=np.asarray([i[0] for i in self.instances], np.int32),
+                       inst_mat=np.asarray([i[2] for i in self.instances], np.int32),
+                       n_proto_tris=int(offs[-1]))
+        if self.anims:
+            offs = np.cumsum([0] + [len(r) for r, _ in self.anims])
+            out.update(anim_attr=np.concatenate([r for r, _ in self.anims]),
+                       anim_range=np.stack([offs[:-1], offs[1:]], -1).astype(np.int32),
+                       anim_xf=np.stack([xf for _, xf in self.anims]), n_anim_tris=int(offs[-1]))
+        return out
+
     def add_sphere(self, object_to_world: Optional[tr.Transform] = None, radius=1.0, z_min=None,
                    z_max=None, phi_max=360.0, material: int = 0, area_light=None,
                    reverse_orientation: bool = False, medium_interface=(-1, -1)) -> int:
@@ -493,10 +616,12 @@ class SceneBuilder:
         return self._add_delta_light(sa.LIGHT_DISTANT, L, scale,
                                      (w / np.linalg.norm(w)).astype(np.float32))
 
-    def _world_bound(self, tri_attr, sph_attr, crv_attr):
+    def _world_bound(self, tri_attr, sph_attr, crv_attr, motion):
         """Center and radius of the bound over every vertex, every
-        quadric's transformed center +- its scaled bounding radius and every
-        curve segment's box (arrays.finalize_scene)."""
+        quadric's transformed center +- its scaled bounding radius, every
+        instance's transformed prototype box, every curve segment's box and
+        every animated mesh's motion bound (arrays.finalize_scene).
+        motion: _motion_tables()."""
         pts = []
         if self.n_tri_rows:
             pts += [tri_attr[:, c:c + 3] for c in (sa.TA_P0, sa.TA_P1, sa.TA_P2)]
@@ -511,8 +636,33 @@ class SceneBuilder:
                           np.sqrt(prm[:, 0] ** 2 + zmag ** 2)).astype(np.float32)
             r = rb * scale
             pts += [c - r[:, None], c + r[:, None]]
+        if len(motion["inst_o2w"]):
+            pa = motion["proto_attr"]
+            pp = np.stack([pa[:, c:c + 3] for c in (sa.TA_P0, sa.TA_P1, sa.TA_P2)])
+            pr = np.asarray(motion["proto_range"], np.int64)
+            plo = np.stack([pp[:, a:b].min((0, 1)) for a, b in pr])  # (P, 3)
+            phi = np.stack([pp[:, a:b].max((0, 1)) for a, b in pr])
+            ip = np.asarray(motion["inst_proto"], np.int64)
+            lo, hi = plo[ip], phi[ip]
+            corners = np.stack(
+                [np.stack([np.where(m & 1, hi[:, 0], lo[:, 0]),
+                           np.where(m & 2, hi[:, 1], lo[:, 1]),
+                           np.where(m & 4, hi[:, 2], lo[:, 2])], -1)
+                 for m in range(8)], 1)  # (I, 8, 3)
+            R3 = motion["inst_o2w"][:, :3, :3]
+            t3 = motion["inst_o2w"][:, :3, 3]
+            wc = np.einsum("ikj,icj->ick", R3, corners) + t3[:, None, :]
+            pts += [wc.min(1).astype(np.float32), wc.max(1).astype(np.float32)]
         if crv_attr is not None:
             pts += list(cv.segment_boxes(crv_attr))
+        if motion["n_anim_tris"]:
+            # the motion bound over the whole shutter (transform.rs:2207-2281)
+            aa = motion["anim_attr"]
+            for (a, b), xf in zip(motion["anim_range"], motion["anim_xf"]):
+                vv = np.concatenate([aa[a:b, c:c + 3] for c in (sa.TA_P0, sa.TA_P1, sa.TA_P2)])
+                lo, hi = an.motion_bounds(*(np.asarray(x) for x in (
+                    xf[0:3], xf[3:7], xf[7:16], xf[16:19], xf[19:23], xf[23:32])), vv)
+                pts += [lo[None], hi[None]]
         if not pts:
             return np.zeros(3, np.float32), 1.0
         allp = np.concatenate(pts, 0)
@@ -602,7 +752,8 @@ class SceneBuilder:
         sph_attr = (np.stack(self.sph_rows) if n_sph
                     else np.zeros((1, sa.N_SPH_ATTR), np.float32))
         crv_attr = np.concatenate(self.curves) if self.curves else None
-        center, radius = self._world_bound(tri_attr, sph_attr, crv_attr)
+        motion = self._motion_tables()
+        center, radius = self._world_bound(tri_attr, sph_attr, crv_attr, motion)
 
         mat_attr = np.zeros((len(self.mats), sa.N_MAT_ATTR), np.float32)
         for i, (mtype, p, tex) in enumerate(self.mats):
@@ -665,6 +816,7 @@ class SceneBuilder:
             mat_kind_mask=sa.type_mask([m[0] for m in self.mats]),
             tex_slot_mask=sa.slot_mask(mat_attr),
             **sa.texture_fields(tex, sa.texture_kind_mask(tex["tex_type"], mat_attr), dev),
+            **sa.motion_fields(device=dev, **motion),
             **sa.media_fields(device=dev, **self._media_tables()),
             **sa.bssrdf_fields(*self._bssrdf_tables(), dev),
             **sa.env_fields(*env, types, dev),

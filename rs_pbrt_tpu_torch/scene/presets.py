@@ -35,9 +35,9 @@ def _box_quads(top, y0, y1):
     return quads
 
 
-def cornell_box(resolution=(256, 256), light_scale=1.0, boxes=True, device="cuda"):
-    """Returns (scene, camera) on `device`."""
-    b = SceneBuilder()
+def cornell_build(b, light_scale=1.0, boxes=True):
+    """The Cornell box's calls on builder b (this package's SceneBuilder or
+    one with its calls, as the JAX package's).  Returns b."""
     white = b.add_matte(kd=(0.73, 0.73, 0.73))
     red = b.add_matte(kd=(0.65, 0.05, 0.05))
     green = b.add_matte(kd=(0.12, 0.45, 0.15))
@@ -63,13 +63,18 @@ def cornell_box(resolution=(256, 256), light_scale=1.0, boxes=True, device="cuda
     L = np.asarray([50.0, 50.0, 50.0], np.float32) * light_scale
     _quad(b, [343, 548.75, 227], [343, 548.75, 332], [213, 548.75, 332], [213, 548.75, 227],
           light_mat, area_light=dict(L=tuple(L), two_sided=False))
+    return b
 
-    scene = b.finalize(device)
-    camera = cam.make_perspective(
-        tr.look_at([278, 273, -800], [278, 273, 0], [0, 1, 0]), resolution, fov=39.3077,
-        device=device,
-    )
-    return scene, camera
+
+def cornell_camera(resolution=(256, 256), device="cuda"):
+    return cam.make_perspective(tr.look_at([278, 273, -800], [278, 273, 0], [0, 1, 0]),
+                                resolution, fov=39.3077, device=device)
+
+
+def cornell_box(resolution=(256, 256), light_scale=1.0, boxes=True, device="cuda"):
+    """Returns (scene, camera) on `device`."""
+    scene = cornell_build(SceneBuilder(), light_scale, boxes).finalize(device)
+    return scene, cornell_camera(resolution, device)
 
 
 def spheres_direct(resolution=(256, 256), device="cuda"):

@@ -23,6 +23,13 @@ generation (L1's, ``lens_kernel.lens_rays_plain``) for element tables of 1
 to 8 spherical elements and with an aperture stop.  Each is one launch on
 the card.
 
+``--motion`` counts the f32 operations of the moving-mesh sweep's set-up
+for one ray and one group (V1's plain version: the transform interpolated
+at the ray's time, its inverse, the ray's origin and direction carried
+into object space), each element operation of add, sub, mul, div, sqrt,
+sin, acos and neg one, as PERF.md's bounds count them; chip_smoke.py
+reads ``motion_ops`` for V1's operations bound.
+
 ``--root DIR`` imports ``rs_pbrt_tpu_torch`` from another checkout, to
 compare two versions.  Run it as a script (not with ``-m``) so that
 ``--root`` decides which package is imported.
@@ -131,6 +138,38 @@ def camera_counts():
         print(f"lens trace, {name}: {sum(count.ops.values())} ops", flush=True)
 
 
+ARITH = ("add", "sub", "rsub", "mul", "div", "sqrt", "sin", "acos", "neg")
+
+
+def motion_ops() -> int:
+    """The arithmetic element operations of V1's set-up for one ray and one
+    group (interpolate, inverse_affine, xform_point, xform_vector)."""
+    import numpy as np
+
+    from rs_pbrt_tpu_torch.utils import animated as an
+    from rs_pbrt_tpu_torch.utils import transform as tr
+
+    m0, m1 = np.eye(4), np.diag([2.0, 2.0, 2.0, 1.0])
+    m1[:3, 3] = (1.0, 2.0, 3.0)
+    parts = [torch.as_tensor(p) for p in an.decompose(m0) + an.decompose(m1)]
+    t, o, d = torch.tensor([0.3]), torch.ones((1, 3)), torch.ones((1, 3))
+
+    class Arith(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.__name__.split(".")[0].rstrip("_") in ARITH and torch.is_tensor(out):
+                Arith.n += out.numel()
+            return out
+
+    with Arith():
+        mi = an.inverse_affine(an.interpolate(t, *parts))
+        tr.xform_point(mi, o)
+        tr.xform_vector(mi, d)
+    return Arith.n
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[2],
@@ -139,8 +178,13 @@ def main(argv=None) -> int:
                     help="count each sampler kind's dims instead of the scenes' renders")
     ap.add_argument("--cameras", action="store_true",
                     help="count the filter splat's and the lens trace's ops instead")
+    ap.add_argument("--motion", action="store_true",
+                    help="count the moving-mesh sweep's operations a ray and group instead")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(args.root.resolve()))
+    if args.motion:
+        print(f"moving-mesh set-up: {motion_ops()} f32 operations a ray and group", flush=True)
+        return 0
     if args.samplers or args.cameras:
         torch.set_num_threads(2)
         sampler_counts() if args.samplers else camera_counts()

@@ -336,7 +336,8 @@ def test_wrapper_takes_plain_on_cpu(statue):
 
 def test_accel_rules(statue):
     """No tree at or below the brute-force limit; above it, scene
-    intersection needs the tree; kd-trees are not ported."""
+    intersection needs the tree; an unknown accelerator raises (the
+    kd-tree builds, tests/test_torch_kdtree.py)."""
     from rs_pbrt_tpu_torch.scene import presets
 
     small, _ = presets.cornell_box((8, 8), device="cpu")
@@ -345,8 +346,8 @@ def test_accel_rules(statue):
     o, d, t_max = (torch.as_tensor(a[:64]) for a in statue["rays"])
     with pytest.raises(NotImplementedError, match="build_accel"):
         si.scene_intersect(scene, o, d, t_max)
-    with pytest.raises(NotImplementedError, match="kdtree"):
-        si.build_accel(scene, kind="kdtree", device="cpu")
+    with pytest.raises(ValueError, match="'bvh', 'kdtree'"):
+        si.build_accel(scene, kind="octree", device="cpu")
     it = si.scene_intersect(scene, o, d, t_max, si.accel_from_numpy(statue["rows"],
                                                                     statue["depth"], "cpu"))
     assert it.valid.any() and (it.prim[it.valid] < scene.n_tris).all()

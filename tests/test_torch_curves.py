@@ -118,19 +118,27 @@ def test_seg_test_matches_jax(tmp_path):
                             s["w1"], s["u0"], s["u1"], T(r[:, 16:19]), T(r[:, 19:22]),
                             s["norm_angle"], s["inv_sin_na"], T(r[:, 24].astype(np.int32)))
     hit, jhit = got.hit.numpy(), want["hit"]
-    differ = int((hit != jhit).sum())
-    assert jhit.sum() > 2000 and differ <= 0.001 * hit.size, (int(jhit.sum()), differ)
-    both = hit & jhit
-    for k in ("t", "u", "v", "w"):
-        a, b = getattr(got, k).numpy()[both], want[k][both]
-        # an ill-conditioned closest approach (w from a near-degenerate
-        # chord) moves w, and v with it, by a few 1e-6 in both packages;
-        # such pairs, at most 0.1%, hold within 1e-5
-        off = ~np.isclose(a, b, rtol=1e-4, atol=1e-6)
-        assert off.sum() <= 0.001 * both.sum(), (k, int(off.sum()))
-        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5, err_msg=k)
-    # the zero-direction rays hit nothing in either
-    assert not hit[:4].any() and not jhit[:4].any()
+    try:
+        differ = int((hit != jhit).sum())
+        assert jhit.sum() > 2000 and differ <= 0.001 * hit.size, (int(jhit.sum()), differ)
+        both = hit & jhit
+        for k in ("t", "u", "v", "w"):
+            a, b = getattr(got, k).numpy()[both], want[k][both]
+            # an ill-conditioned closest approach (w from a near-degenerate
+            # chord) moves w, and v with it, by a few 1e-6 in both packages;
+            # such pairs, at most 0.1%, hold within 1e-5
+            off = ~np.isclose(a, b, rtol=1e-4, atol=1e-6)
+            assert off.sum() <= 0.001 * both.sum(), (k, int(off.sum()))
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5, err_msg=k)
+        # the zero-direction rays hit nothing in either
+        assert not hit[:4].any() and not jhit[:4].any()
+    except AssertionError as e:
+        # keep the port's side beside the JAX side (out.npz) and the inputs
+        # (in.npz), so a failure shows which side moved
+        np.savez(tmp_path / "port.npz", **{k: getattr(got, k).numpy()
+                                            for k in ("hit", "t", "u", "v", "w")})
+        raise AssertionError(f"{e}\nthe port's side: {tmp_path / 'port.npz'}, the JAX side: "
+                             f"{tmp_path / 'out.npz'}, the inputs: {tmp_path / 'in.npz'}") from e
 
 
 def _curve_scene(builder_cls, n_fibers, rng_seed=0, ctype="cylinder"):

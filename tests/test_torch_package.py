@@ -26,7 +26,7 @@ from rs_pbrt_tpu_torch.scene import bigscene
 from rs_pbrt_tpu_torch.scene import presets
 from rs_pbrt_tpu_torch.scene.builder import SceneBuilder
 from rs_pbrt_tpu_torch.tools import (bvh_ties, caustic_scenes, env_scenes, hair_scenes,
-                                     material_scenes, sss_scenes)
+                                     instance_scenes, material_scenes, sss_scenes)
 from rs_pbrt_tpu_torch.utils import transform as tr
 
 torch.set_num_threads(2)
@@ -65,7 +65,10 @@ def test_import_loads_no_jax():
             "rs_pbrt_tpu_torch.ops.fourier_kernel, rs_pbrt_tpu_torch.tools.material_scenes, "
             "rs_pbrt_tpu_torch.utils.spectrum, rs_pbrt_tpu_torch.tools.op_count, "
             "rs_pbrt_tpu_torch.ops.splat_kernel, rs_pbrt_tpu_torch.ops.lens_kernel, "
-            "rs_pbrt_tpu_torch.models.realistic, rs_pbrt_tpu_torch.utils.animated; "
+            "rs_pbrt_tpu_torch.models.realistic, rs_pbrt_tpu_torch.utils.animated, "
+            "rs_pbrt_tpu_torch.ops.instancing, rs_pbrt_tpu_torch.ops.instance_kernel, "
+            "rs_pbrt_tpu_torch.ops.kdtree, rs_pbrt_tpu_torch.ops.kdtree_kernel, "
+            "rs_pbrt_tpu_torch.ops.motion_kernel, rs_pbrt_tpu_torch.tools.instance_scenes; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'rs_pbrt_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
@@ -108,6 +111,13 @@ ENTRY_POINTS = {
         (8, 8), sky_hw=(8, 16), n_mu=8),
     "material_scenes.statue_disney": lambda: material_scenes.statue_disney((8, 8),
                                                                            subdivisions=1),
+    "instance_scenes.forest_scene": lambda: instance_scenes.forest_scene(
+        (8, 8), subdivisions=0, grid=2),
+    "instance_scenes.moving_scene": lambda: instance_scenes.moving_scene((8, 8), subdivisions=0),
+    "build_instance_accel": lambda: si.build_accel(
+        instance_scenes.forest_scene((8, 8), subdivisions=0, grid=2, device="cpu")[0]),
+    "build_accel kdtree": lambda: si.build_accel(
+        bigscene.statue_scene((8, 8), subdivisions=1, device="cpu")[0], kind="kdtree"),
 }
 
 
@@ -154,10 +164,17 @@ def test_chip_smoke_names_template_kernels():
         "splat_kernelENS_4ArgsE",
         "    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 118 registers, used 0 barriers, 32 bytes cumulative stack size",
+        "ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__efb7b36d_9_kdtree_cu_7326db82"
+        "9kd_kernelILb1EEEvNS_4ArgsE' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN41_GLOBAL__N__efb7b36d_9_kdtree_cu_7326db82"
+        "9kd_kernelILb1EEEvNS_4ArgsE",
+        "    816 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 0 barriers, 816 bytes cumulative stack size",
     ])
     assert chip_smoke.ptxas_resources(log) == [
         ("bvh12.cu", "walk_kernel<true>", 56, 12, 0),
         ("bounce.cu", "bounce_kernel<false, true>", 80, 5696, 136),
         ("gather_probe.cu", "take_rows", 16, 0, 0),
         ("gather_probe.cu", "take_loop_kernel<true>", 38, 4096, 0),
-        ("splat.cu", "splat_kernel", 118, 0, 32)]
+        ("splat.cu", "splat_kernel", 118, 0, 32),
+        ("kdtree.cu", "kd_kernel<true>", 40, 0, 816)]

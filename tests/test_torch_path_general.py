@@ -218,15 +218,15 @@ def test_unported_parts_raise():
     scfg = smpl.make_sampler(smpl.SOBOL, 1, (8, 8))
     with pytest.raises(NotImplementedError, match="build_accel"):
         rdr.render(scene, camera, rdr.RenderCfg("path", 1, 2, 1.0), scfg)
-    with pytest.raises(NotImplementedError, match="kdtree"):
-        rdr.render(scene, camera, rdr.RenderCfg("path", 1, 2, 1.0, accelerator="kdtree"), scfg,
+    with pytest.raises(ValueError, match="'bvh', 'kdtree'"):
+        rdr.render(scene, camera, rdr.RenderCfg("path", 1, 2, 1.0, accelerator="octree"), scfg,
                    accel=si.build_accel(scene, device="cpu"))
     small, camera = presets.spheres_direct((8, 8), device="cpu")
     before = rdr.render(small, camera, rdr.RenderCfg("path", 1, 2, 1.0), scfg)
     small.has_alpha = True  # alpha masks render (no triangle holds one here)
     assert torch.equal(rdr.render(small, camera, rdr.RenderCfg("path", 1, 2, 1.0), scfg), before)
     small.has_alpha = False
-    small.n_instances = True
-    with pytest.raises(NotImplementedError):
+    small.n_instances = True  # instances render through their trees only
+    with pytest.raises(ValueError, match="build_accel"):
         rdr.render(small, camera, rdr.RenderCfg("path", 1, 2, 1.0), scfg)
     small.n_instances = False
