@@ -172,12 +172,12 @@ Run from the root of a checkout.  Phases, one line each (or more):
    each image to the render with every wrapper swapped for its plain
    version at rtol = atol = 2e-3.
 16. SPPM through render.render: caustic_only() and caustic_hair() at
-   their own settings but 8 iterations (SPPM_ITERATIONS; the files' 16)
+   their own settings but 4 iterations (SPPM_ITERATIONS; the files' 16)
    (200x200, depth 5, one photon a pixel
    an iteration, the random sampler), timed as bench.py:336-341 times
    them (a warm render of 2 iterations, then the timed render; SPPM
    rays/s = w h iterations 2 / wall), the counters zeroed just before the
-   timed render and read just after (S1 16, K5 160, K4 80; C3 160 and C4 80
+   timed render and read just after (S1 8, K5 80, K4 40; C3 80 and C4 40
    for the hair).  Every S1 launch of that run held to the plain deposit
    (ops/sppm_kernel.deposit_plain) on the same inputs: m bit-equal, phi
    bit-equal (on hair visible points, if not, within rtol 1e-5, atol 1e-7;
@@ -211,11 +211,11 @@ Run from the root of a checkout.  Phases, one line each (or more):
 19. tools/env_scenes.quadric_env() (a ground disk, a cylinder clipped to
    270 degrees, a mirror sphere and a box, an annulus and a thin cylinder
    area light, a 1024x2048 sky map as the infinite light) through
-   render.render at 256x256, depth 5: path, directlighting ("all" and
-   "one") and whitted at 64 spp, ao (64 samples) and volpath at 16 spp,
-   SPPM of 4 iterations.  The counters are zeroed just before each render
-   and read just after: K1, K4 and K5 as each integrator draws and casts
-   (path: K1 2, K5 6, K4 5; SPPM also S1 once an iteration), K2 never
+   render.render at 256x256, depth 3 (ENV_DEPTH): path, directlighting
+   ("all" and "one") and whitted at 64 spp, ao (64 samples) and volpath at
+   16 spp, SPPM of 4 iterations.  The counters are zeroed just before each
+   render and read just after: K1, K4 and K5 as each integrator draws and
+   casts (path: K1 2, K5 4, K4 3; SPPM also S1 once an iteration), K2 never
    (mega_cfg refuses quadrics and an environment).  Each image finite and
    within rtol = atol = 2e-3 of the render with every wrapper swapped for
    its plain version; paths/s (SPPM rays/s) best of 3 warm renders and
@@ -240,8 +240,7 @@ Run from the root of a checkout.  Phases, one line each (or more):
    materials, a mix of plastic and copper, and the Fourier lobe on a
    64-node glossy table, on a matte ground under an area light and the
    1024x2048 sky) through render.render at 256x256, depth 3: path,
-   directlighting ("all") and whitted at 64 spp, volpath at 16 spp, SPPM
-   of 4 iterations.  The counters are zeroed just before each render and
+   directlighting ("all") and volpath at 16 spp, SPPM of 4 iterations.  The counters are zeroed just before each render and
    read just after (the counted render is each integrator's first, the
    timed ones follow it); they must equal the counts of the same render on the
    CPU at 8x8 (every wrapper swapped for one that counts its calls and
@@ -269,8 +268,8 @@ Run from the root of a checkout.  Phases, one line each (or more):
    image map and an fbm on the floor, nine spheres binding every texture
    slot and family, a bump map, an alpha-masked and a shadow-alpha quad, a
    projection and a goniometric light) through render.render at 256x256,
-   depth 3: path, whitted and directlighting ("all") and volpath at 16
-   spp, SPPM of 4 iterations.  The counters are zeroed just before each
+   depth 3: path, directlighting ("all") and volpath at 16 spp, SPPM of 4
+   iterations.  The counters are zeroed just before each
    render and read just after; they must equal texture_counts (K1, K5, S1 and T1
    by formula from the integrator and the alpha recasts' trips, read
    through a wrapper of scene_intersect.alpha_recast_loop; K4 never: with
@@ -356,6 +355,26 @@ Run from the root of a checkout.  Phases, one line each (or more):
    nodes, leaf cap and stack overflows (0), and the kd image against the
    same render through the BVH (B1/B2) within 2e-3.
 
+28. BDPT and MLT (models/integrators/bdpt.py, mlt.py) through
+   render.render: BDPT on the Cornell box at RES, SPP, DEPTH in one batch,
+   MLT there at MLT_MPP mutations per pixel with MLT_CHAINS chains and
+   MLT_BOOTSTRAP bootstrap samples, and BDPT on phase 18's smoke at
+   SMOKE_BDPT_RES, SMOKE_BDPT_SPP, depth SMOKE_BDPT_DEPTH (M1 in the walks,
+   M2 in the connections).  The counters are zeroed just before each
+   render and read just after: K1 2 a batch (the camera's dims and one
+   block of the rest; MLT none), K5 a walk vertex (2 depth + 1), K4 a
+   strategy with a shadow ray, W1 (ops/mis_kernel.py, csrc/mis.cu) a
+   strategy, M1 and M2 as K5 and K4 in the smoke; MLT's a BDPT evaluation
+   a bootstrap chunk, the chain starts and each mutation.  Each image
+   finite and within rtol = atol = 2e-3 of its render with every wrapper
+   swapped for its plain version (MLT from the same generator seed).
+   Every K1, K4, K5, M1, M2 and W1 launch held to its plain version (W1
+   bit-equal), W1's timed queued and by events beside its bound (the 9
+   bytes of each vertex a lane walks, its overrides and 4 out) and the
+   plain version's time.  BDPT paths/s (best of 3 warm renders), the card's
+   busy share over a profiled render and the bytes a lane holds at the
+   render's peak; MLT mutations/s and paths/s of one timed render.
+
 After each phase (or group) a "[time]" line gives the seconds since the
 card was found.  Then one JSON line with every kernel's numbers, and as
 the last line
@@ -400,7 +419,7 @@ FUR_FIBERS = 8192  # 262,144 segments
 # phases 14 and 16 below the scenes' own settings (16 spp, depth 5; 16 SPPM
 # iterations): their plain checks cost dispatch and plain walks, which grow
 # with the paths, bounces and iterations, and the script keeps to 1200 s
-HAIR_SPP, HAIR_DEPTH, SPPM_ITERATIONS = 8, 3, 8
+HAIR_SPP, HAIR_DEPTH, SPPM_ITERATIONS = 8, 3, 4
 FUR_LANE_WIDTH = 1 << 18  # the fur render's regeneration lanes: its 320,000 paths
 #                           are below the default REGEN_LANE_WIDTH
 
@@ -549,14 +568,15 @@ STATUE_ENV_CROP = (128, 128)  # with 16 spp, 2^18 paths against the fixed-depth 
 # phase 21: tools/material_scenes.material_grid at BASELINE config 2's width
 GRID_RES = (256, 256)
 # (tag, integrator, spp, extra); depth GRID_DEPTH; sppm's spp is its iterations
-GRID_RUNS = (("path", "path", 64, None),
-             ("directlighting all", "directlighting", 64, dict(strategy="all")),
-             ("whitted", "whitted", 64, None),
+GRID_RUNS = (("path", "path", 16, None),
+             ("directlighting all", "directlighting", 16, dict(strategy="all")),
              ("volpath", "volpath", 16, None),
              ("sppm", "sppm", 4, dict(n_iterations=4)))
-# phases 21 and 23 render at depth 3, not DEPTH: the cut that keeps the
-# script inside its time limit (each path still takes every bounce kind)
-GRID_DEPTH = TEX_DEPTH = 3
+# phases 19, 21 and 23 render at depth 3, not DEPTH: the cut that keeps
+# the script inside its time limit (each path still takes every bounce
+# kind); 21 and 23 leave whitted out (on these scenes its image is
+# directlighting's, and phases 7, 15 and 19 hold it), 21 renders 16 spp
+GRID_DEPTH = TEX_DEPTH = ENV_DEPTH = 3
 # F1 and F2's operations (ops/fourier_bsdf.py, counted as the bounds
 # below count): F1's lane: its weights, cos phi, transform and pdf (~120);
 # an order of its sums: 3 channels x 16 taps x 2 and the recurrence
@@ -569,7 +589,6 @@ F_FLOP = dict(lane=120, order=100, sample_lane=600, cdf_entry=8, sample_order=19
 TEX_RES = (256, 256)
 # (tag, integrator, spp, extra); depth TEX_DEPTH; sppm's spp is its iterations
 TEX_RUNS = (("path", "path", 16, None),
-            ("whitted", "whitted", 16, None),
             ("directlighting all", "directlighting", 16, dict(strategy="all")),
             ("volpath", "volpath", 16, None),
             ("sppm", "sppm", 4, dict(n_iterations=4)))
@@ -647,6 +666,15 @@ KD_SUBDIV = 4  # the kd statue: 5,124 triangles
 WALK_NODE_BYTES, W2O_BYTES, TRI_BYTES, KD_NODE_BYTES, PRIM_ID_BYTES = 56, 48, 36, 20, 4
 WALK_FLOP = dict(ray=3, box=13, candidate=50, tri=65, kd_node=2)
 TIME_BYTES = 4
+# phase 28: MLT at the JAX render's defaults for mutations, 2^16 chains
+# and 2^18 bootstrap samples; BDPT on the smoke at a reduced size
+MLT_MPP, MLT_CHAINS, MLT_BOOTSTRAP = 16, 1 << 16, 1 << 18
+SMOKE_BDPT_RES, SMOKE_BDPT_SPP, SMOKE_BDPT_DEPTH = (100, 100), 4, 3
+# W1's bound: pdf_fwd, pdf_rev and delta of each vertex a lane walks, an
+# override value (a delta override's byte), the origin's delta test, the
+# weight out; a ratio's multiply and divide and a sum's add a vertex, the
+# final add and divide
+MIS_VERTEX_BYTES, MIS_OUT_BYTES, MIS_OPS_PER_VERTEX, MIS_OPS_PER_LANE = 9, 4, 3, 2
 
 
 def fail(msg: str):
@@ -761,23 +789,24 @@ def _kernel_modules():
     from rs_pbrt_tpu_torch.ops import instance_kernel as ink
     from rs_pbrt_tpu_torch.ops import motion_kernel as mok
     from rs_pbrt_tpu_torch.ops import kdtree_kernel as kdk
+    from rs_pbrt_tpu_torch.ops import mis_kernel as wk
 
-    return sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk, ink, mok, kdk
+    return sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk, ink, mok, kdk, wk
 
 
 def zero_counts():
     """Every kernel's launch count to 0."""
-    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk, ink, mok, kdk = _kernel_modules()
-    sk.launches = pk.launches = hk.launches = rk.launches = lk.launches = 0
+    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk, ink, mok, kdk, wk = _kernel_modules()
+    sk.launches = pk.launches = hk.launches = rk.launches = lk.launches = wk.launches = 0
     for d in (ik.launches, bvh.launches, gp.launches, ck.launches, sd.launches, mk.launches,
               fk.launches, tk.launches, ink.launches, mok.launches, kdk.launches):
         d.update(dict.fromkeys(d, 0))
 
 
 def read_counts() -> dict:
-    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk, ink, mok, kdk = _kernel_modules()
+    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk, ink, mok, kdk, wk = _kernel_modules()
     return dict(sobol=sk.launches, bounce=pk.launches, halton=hk.launches, splat=rk.launches,
-                lens=lk.launches, **ik.launches,
+                lens=lk.launches, mis=wk.launches, **ik.launches,
                 **{f"bvh12_{k}": v for k, v in bvh.launches.items()}, **gp.launches,
                 **ck.launches, **sd.launches, **mk.launches, **fk.launches, **tk.launches,
                 **{f"instance_{k}": v for k, v in ink.launches.items()},
@@ -795,14 +824,14 @@ def _owner(name: str):
     closest_sweep, any_sweep, full_sweep, bvh12_intersect_tris, take_rows,
     take_loop, walk_closest, walk_any, sweep_closest, sweep_any, deposit,
     delta_track, ratio_track, fourier_eval, fourier_sample, texture_eval, halton_dims, splat,
-    lens_rays, instance_intersect, anim_hits, kd_intersect)."""
-    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk, ink, mok, kdk = _kernel_modules()
+    lens_rays, instance_intersect, anim_hits, kd_intersect, mis_weight)."""
+    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk, ink, mok, kdk, wk = _kernel_modules()
     return dict(sobol_dims=sk, bounce=pk, closest_sweep=ik, any_sweep=ik, full_sweep=ik,
                 bvh12_intersect_tris=bvh, take_rows=gp, take_loop=gp, walk_closest=ck,
                 walk_any=ck, sweep_closest=ck, sweep_any=ck, deposit=sd, delta_track=mk,
                 ratio_track=mk, fourier_eval=fk, fourier_sample=fk, texture_eval=tk,
                 halton_dims=hk, splat=rk, lens_rays=lk, instance_intersect=ink,
-                anim_hits=mok, kd_intersect=kdk)[name]
+                anim_hits=mok, kd_intersect=kdk, mis_weight=wk)[name]
 
 
 def wrapper(name: str):
@@ -2860,7 +2889,7 @@ def phase_env(card):
     plain = dict(plain_fns(), deposit=sd.deposit_plain)
     out = {}
     for tag, integrator, spp, extra in ENV_RUNS:
-        cfg = rdr.RenderCfg(integrator, spp, DEPTH, 1.0, extra=extra)
+        cfg = rdr.RenderCfg(integrator, spp, ENV_DEPTH, 1.0, extra=extra)
         scfg = smpl.make_sampler(smpl.SOBOL, 1 if integrator == "sppm" else spp, ENV_RES)
         go = lambda stats=None: rdr.render(scene, camera, cfg, scfg, stats=stats)
         go()  # warm
@@ -2872,7 +2901,7 @@ def phase_env(card):
         torch.cuda.synchronize()
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated()
-        want = expect_counts(**_env_counts(tag, spp, scene.n_lights))
+        want = expect_counts(**_env_counts(tag, spp, scene.n_lights, ENV_DEPTH))
         if counts != want:
             fail(f"launch counts of the quadric_env {tag} render {counts}, expected {want}")
         if tuple(img.shape) != (h, w, 3) or not torch.isfinite(img).all():
@@ -2888,7 +2917,7 @@ def phase_env(card):
         unit = "SPPM rays/s (w h iterations 2)" if integrator == "sppm" else "camera paths/s"
         rate = (w * h * spp * 2 / st["wall_s"] if integrator == "sppm" else st["paths_per_s"])
         print(f"[19 {tag}] {w}x{h}, {spp} {'iterations' if integrator == 'sppm' else 'spp'}, "
-              f"depth {DEPTH}: finite, matches the plain render (max abs err {err:.3g}, mean "
+              f"depth {ENV_DEPTH}: finite, matches the plain render (max abs err {err:.3g}, mean "
               f"{float(img.mean()):.5f}); launches {counts}; {rate:.6g} {unit} (best of 3 warm "
               f"renders, {1e3 * st['wall_s']:.3f} ms); peak device memory "
               f"{peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} GiB above the scene) on "
@@ -4422,6 +4451,227 @@ def phase_instances(card):
     return dict(out, seconds=seconds)
 
 
+def bdpt_strategies(depth: int) -> list:
+    """The (s, t) strategies a BDPT evaluation connects at depth."""
+    return [(s, t) for t in range(1, depth + 3) for s in range(depth + 2)
+            if 0 <= s + t - 2 <= depth and (s, t) != (1, 1)]
+
+
+def bdpt_counts(depth: int, evaluations: int, sobol_batches: int = 0, grid: bool = False,
+                sky: bool = False) -> dict:
+    """Phase 28's launch counts of `evaluations` BDPT evaluations at depth:
+    K5 a walk vertex (depth + 1 camera, depth light), K4 a strategy with a
+    shadow ray (s > 0), W1 a strategy (and a second for each s = 0 one with
+    a sky); K1 twice a batch (the camera's dims and one block of the rest);
+    with a grid, M1 as K5 and M2 as K4."""
+    strategies = bdpt_strategies(depth)
+    walks, shadow = 2 * depth + 1, sum(1 for s, _ in strategies if s > 0)
+    mis = len(strategies) + (depth + 1 if sky else 0)
+    out = dict(full_sweep=walks * evaluations, any_sweep=shadow * evaluations,
+               mis=mis * evaluations)
+    if sobol_batches:
+        out["sobol"] = 2 * sobol_batches
+    if grid:
+        out.update(delta_track=walks * evaluations, ratio_track=shadow * evaluations)
+    return out
+
+
+def mis_bound_ms(*a, **kw) -> tuple:
+    """W1's least time on a launch's lanes, (bytes_ms, operations_ms): each
+    lane reads the 9 bytes (pdf_fwd, pdf_rev, delta) of each of the t - 1 +
+    s vertices its walk visits, an override in place of its column, the
+    light origin's delta test where s > 0, and writes 4; 3 operations a
+    vertex and 2 a lane (s + t = 2: 4 bytes out, nothing read)."""
+    c_fwd, s, t = a[0], a[6], a[7]
+    l0 = a[9] if len(a) > 9 else kw.get("l0_is_delta")
+    n = c_fwd.shape[1]
+    if s + t == 2:
+        return 1e3 * n * MIS_OUT_BYTES / HBM_BYTES_PER_S, 0.0
+    verts = t - 1 + s
+    per_lane = verts * MIS_VERTEX_BYTES + (1 if l0 is not None and s > 0 else 0) + MIS_OUT_BYTES
+    flop = n * (verts * MIS_OPS_PER_VERTEX + MIS_OPS_PER_LANE)
+    return 1e3 * n * per_lane / HBM_BYTES_PER_S, 1e3 * flop / FP32_FLOP_PER_S
+
+
+def check_mis_launches(tag: str, timer) -> int:
+    """Holds every W1 launch timer recorded bit-equal to its plain version;
+    returns the launches checked."""
+    from rs_pbrt_tpu_torch.ops import mis_kernel as wk
+
+    for b, (_, a, kw, o) in enumerate(timer.calls):
+        same_bits(f"{tag} W1 launch {b}", o, wk.mis_weight_plain(*a, **kw))
+    return len(timer.calls)
+
+
+def check_medium_launches(tag: str, rec: dict):
+    """Holds every recorded M1 and M2 launch to its plain version (as phase
+    18 does); returns {key: (launches, bit-equal)}."""
+    from rs_pbrt_tpu_torch.ops import medium_kernel as mk
+
+    out = {}
+    for key, kid in (("delta_track", "M1"), ("ratio_track", "M2")):
+        exact = True
+        for b, (_, a, kw, o) in enumerate(rec[key].calls):
+            exact &= check_medium(f"{tag} {kid} launch {b}", o,
+                                  getattr(mk, f"{key}_plain")(*a, **kw))[1]
+        out[key] = (len(rec[key].calls), exact)
+    return out
+
+
+def phase_bidirectional(card):
+    """Phase 28: BDPT on the Cornell box at RES, SPP, DEPTH; MLT there at
+    MLT_MPP mutations per pixel of MLT_CHAINS chains from MLT_BOOTSTRAP
+    bootstrap samples; BDPT on phase 18's smoke at SMOKE_BDPT_RES,
+    SMOKE_BDPT_SPP, SMOKE_BDPT_DEPTH; each through render.render, its
+    launches counted and held to their plain versions (the Cornell box's
+    K4 and K5 on their first and last launch, W1 and the smoke's kernels
+    on every one), its image to its plain render."""
+    import torch
+
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import mlt as mltmod
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.ops import mis_kernel as wk
+    from rs_pbrt_tpu_torch.scene import presets
+    from rs_pbrt_tpu_torch.tools import sss_scenes
+
+    t_phase = time.perf_counter()
+    out, laps = {}, {}
+
+    def recorded(go, recorders, expect, tag, stats=None):
+        """go(stats) with the wrappers recorded and the counters zeroed just
+        before and read just after: (image, counts)."""
+        with ExitStack() as es:
+            patched(es, **recorders)
+            torch.cuda.synchronize()
+            zero_counts()
+            img = go(stats)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        if counts != expect_counts(**expect):
+            fail(f"launch counts of the {tag} render {counts}, expected {expect}")
+        if not torch.isfinite(img).all() or float(img.mean()) <= 0.0:
+            fail(f"{tag} image: finite {bool(torch.isfinite(img).all())}, mean "
+                 f"{float(img.mean())}")
+        return img, counts
+
+    def plain_render(go, tag, img):
+        with ExitStack() as es:
+            patched(es, **plain_fns(), mis_weight=wk.mis_weight_plain)
+            img_plain = go()
+        torch.cuda.synchronize()
+        return compare_plain(f"{tag} image", img, img_plain)
+
+    def shown(counts):
+        return {k: v for k, v in counts.items() if v}
+
+    # BDPT on the flagship's Cornell box, one batch
+    scene, camera = presets.cornell_box(RES, device=DEVICE)
+    cfg = rdr.RenderCfg("bdpt", SPP, DEPTH, 1.0)
+    scfg = smpl.make_sampler(smpl.SOBOL, SPP, RES)
+    w, h = RES
+    lanes = w * h * SPP
+    go = lambda stats=None: rdr.render(scene, camera, cfg, scfg, stats=stats)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    go()  # warm, and the peak a lane holds
+    torch.cuda.synchronize()
+    lane_bytes = (torch.cuda.max_memory_allocated() - base) / lanes
+    rec = {k: EndsTimer(wrapper(k), keep=True) for k in SWEEP_NAMES}
+    rec["mis_weight"] = LaunchTimer(wk.mis_weight, keep=True)
+    img, counts = recorded(go, rec, bdpt_counts(DEPTH, 1, sobol_batches=1), "28 bdpt")
+    held = check_sweep_launches("28 bdpt", rec)
+    w1 = kernel_part(rec["mis_weight"], "28 bdpt", "W1", wk.mis_weight_plain, wk.mis_weight,
+                     mis_bound_ms, same_bits, lambda *a, **kw: a[0].shape[1])
+    w1_held = len(rec["mis_weight"].calls)
+    del rec
+    err = plain_render(go, "28 bdpt", img)
+    st = best_of_3(go)
+    prof = profile_render(go, "28 profile, bdpt", top=8)
+    busy = sum(r[0] for r in prof)
+    print(f"[28 bdpt] Cornell {w}x{h}, {SPP} spp, depth {DEPTH}, one batch of {lanes} paths: "
+          f"finite, matches the plain render (max abs err {err:.3g}, mean {float(img.mean()):.5f})"
+          f"; launches {shown(counts)}, as expected; K1 bit-equal, K4 equal and K5 within "
+          f"{TOL} (max abs err {held['full_sweep']['max_abs_err']:.3g}) on their first and last "
+          f"launch, W1 on every one; "
+          f"{st['paths_per_s']:.6g} camera paths/s (best of 3 warm renders, "
+          f"{1e3 * st['wall_s']:.3f} ms), device busy {busy:.3f} ms of the profiled render "
+          f"({100 * busy / (1e3 * st['wall_s']):.1f}% of a best render's wall); "
+          f"{lane_bytes:.1f} bytes a lane at the render's peak ({card})", flush=True)
+    print_part("W1", "28 bdpt", w1, card)
+    out["bdpt"] = dict(counts=counts, paths_per_s=st["paths_per_s"], busy_ms=busy,
+                       wall_ms=1e3 * st["wall_s"], lane_bytes=lane_bytes)
+    del img
+    laps["bdpt"] = time.perf_counter() - t_phase
+
+    # MLT there: the bootstrap, the chains' starts, then the mutations; the
+    # recorded render is the timed one
+    mcfg = rdr.RenderCfg("mlt", 1, DEPTH, 1.0, extra=dict(
+        mutations_per_pixel=MLT_MPP, chains=MLT_CHAINS, bootstrap_samples=MLT_BOOTSTRAP))
+    go_mlt = lambda stats=None: rdr.render(scene, camera, mcfg, scfg, stats=stats)
+    n_mut = max(1, w * h * MLT_MPP // MLT_CHAINS)
+    evals = -(-MLT_BOOTSTRAP // mltmod.BOOTSTRAP_CHUNK) + 1 + n_mut
+    rec = {k: EndsTimer(wrapper(k), keep=True) for k in SWEEP_NAMES}
+    rec["mis_weight"] = LaunchTimer(wk.mis_weight, keep=True)
+    st_m = {}
+    img, counts_m = recorded(go_mlt, rec, bdpt_counts(DEPTH, evals), "28 mlt", st_m)
+    held_m = check_sweep_launches("28 mlt", rec)
+    w1_held += check_mis_launches("28 mlt", rec["mis_weight"])
+    del rec
+    err_m = plain_render(go_mlt, "28 mlt", img)
+    print(f"[28 mlt] Cornell {w}x{h}, depth {DEPTH}, {MLT_MPP} mutations a pixel: {MLT_CHAINS} "
+          f"chains x {n_mut} mutations from {MLT_BOOTSTRAP} bootstrap samples ({evals} BDPT "
+          f"evaluations): finite, matches the plain render from the same generator seed (max "
+          f"abs err {err_m:.3g}, mean {float(img.mean()):.5f}); launches {shown(counts_m)}, as "
+          f"expected; K4 and K5 held on their first and last launch (K5 max abs err "
+          f"{held_m['full_sweep']['max_abs_err']:.3g}), W1 on every one; "
+          f"{st_m['mutations_per_s']:.6g} "
+          f"mutations/s, {st_m['paths_per_s']:.6g} camera paths/s (the recorded render, "
+          f"{st_m['wall_s']:.3f} s) ({card})", flush=True)
+    out["mlt"] = dict(counts=counts_m, mutations_per_s=st_m["mutations_per_s"],
+                      paths_per_s=st_m["paths_per_s"], wall_s=st_m["wall_s"])
+    del img
+    laps["mlt"] = time.perf_counter() - t_phase - laps["bdpt"]
+
+    # BDPT on phase 18's smoke: M1 in the walks, M2 in the connections
+    smoke, smoke_cam = sss_scenes.smoke_dragonette(SMOKE_GRID_RES, resolution=SMOKE_BDPT_RES,
+                                                   device=DEVICE)
+    scfg_s = smpl.make_sampler(smpl.SOBOL, SMOKE_BDPT_SPP, SMOKE_BDPT_RES)
+    cfg_s = rdr.RenderCfg("bdpt", SMOKE_BDPT_SPP, SMOKE_BDPT_DEPTH, 1.0)
+    go_s = lambda stats=None: rdr.render(smoke, smoke_cam, cfg_s, scfg_s, stats=stats)
+    go_s()  # warm
+    keys = SWEEP_NAMES + ("mis_weight", "delta_track", "ratio_track")
+    rec = {k: LaunchTimer(wrapper(k), keep=True) for k in keys}
+    img, counts_s = recorded(go_s, rec, bdpt_counts(
+        SMOKE_BDPT_DEPTH, 1, sobol_batches=1, grid=True, sky=smoke.has_env), "28 smoke")
+    check_sweep_launches("28 smoke", rec)
+    w1_held += check_mis_launches("28 smoke", rec["mis_weight"])
+    med = check_medium_launches("28 smoke", rec)
+    del rec
+    err_s = plain_render(go_s, "28 smoke", img)
+    st_s = best_of_3(go_s)
+    sw, sh = SMOKE_BDPT_RES
+    print(f"[28 smoke] smoke_dragonette {sw}x{sh}, a {SMOKE_GRID_RES}^3 grid, bdpt, "
+          f"{SMOKE_BDPT_SPP} spp, depth {SMOKE_BDPT_DEPTH}: finite, matches the plain render (max "
+          f"abs err {err_s:.3g}, mean {float(img.mean()):.5f}); launches {shown(counts_s)}, as "
+          f"expected; every K1, K4, K5 and W1 launch held; M1 "
+          f"{'bit-equal' if med['delta_track'][1] else 'within 1e-5'} on {med['delta_track'][0]}"
+          f" launches, M2 {'bit-equal' if med['ratio_track'][1] else 'within 1e-5'} on "
+          f"{med['ratio_track'][0]}; {st_s['paths_per_s']:.6g} camera paths/s (best of 3 warm "
+          f"renders) ({card})", flush=True)
+    out["smoke"] = dict(counts=counts_s, paths_per_s=st_s["paths_per_s"])
+    del img
+    seconds = time.perf_counter() - t_phase
+    laps["smoke"] = seconds - laps["bdpt"] - laps["mlt"]
+    print(f"[28 W1] {w1_held} launches held bit-equal to the plain version in the three "
+          f"renders; BDPT {st['paths_per_s']:.6g} paths/s, MLT {st_m['mutations_per_s']:.6g} "
+          f"mutations/s, smoke {st_s['paths_per_s']:.6g} paths/s ({card}); phase 28 "
+          f"{seconds:.1f} s (bdpt {laps['bdpt']:.1f}, mlt {laps['mlt']:.1f}, smoke "
+          f"{laps['smoke']:.1f})", flush=True)
+    return dict(out, w1=w1, w1_held=w1_held, seconds=seconds)
+
+
 def kernel_entry(name, source, replaces, launches, parts, max_abs_err, library_ms=None) -> dict:
     """One kernel's line of the `kernels` JSON: per-launch means over
     `parts`, dicts of per-launch lists ms, plain_ms and bound ((bytes_ms,
@@ -4530,6 +4780,9 @@ def main():
     a25 = phase_instances(card)
     later += [a25[k] for k in ("forest", "moving", "kd")]
     lap("27")
+    bidir = phase_bidirectional(card)
+    later += [bidir[k] for k in ("bdpt", "mlt", "smoke")]
+    lap("28")
     more = lambda key: sum(p["counts"][key] for p in later)  # phases 10-12 and 14-27's launches
 
     k2 = flag["k2"]
@@ -4668,6 +4921,13 @@ def main():
         kernels.append(dict(kernel_entry(name, source, replaces, sum(more(k) for k in keys),
                                          [part], part["max_abs_err"]),
                             bit_equal=part["exact"], held=len(part["ms"])))
+    # W1 replaces the JAX package's XLA MIS weight; no PyTorch call computes
+    # one
+    w1 = bidir["w1"]
+    kernels.append(dict(kernel_entry("mis_weight", csrc + "mis.cu",
+                                     "rs_pbrt_tpu/models/integrators/bdpt.py:465", more("mis"),
+                                     [w1], w1["max_abs_err"]),
+                        bit_equal=w1["exact"], held=bidir["w1_held"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

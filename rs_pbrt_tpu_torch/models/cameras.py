@@ -7,8 +7,11 @@ projective ones and camera motion between two shutter ends
 (AnimatedTransform, ``utils/animated.py``).  The realistic camera's lanes
 go through L1 (``ops/lens_kernel.py``) on the card.  Near clipping
 (``clipping_start``, set only by the .blend importer) comes with the front
-ends (ROADMAP A18); the importance functions ``camera_we``,
-``camera_pdf_we`` and ``camera_sample_wi`` with BDPT and MLT (A16b).
+ends (ROADMAP A18).  BDPT's importance functions ``camera_we``,
+``camera_pdf_we`` and ``camera_sample_wi`` are the pinhole perspective
+camera's formulas from the static ``cam_to_world``, whatever the camera's
+type or motion, as in the JAX package (its cameras.py:330-392); the two
+inverses they read are computed once a camera.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from ..ops import lens_kernel
 from ..ops.sampling import concentric_sample_disk
 from ..utils import animated as anim
 from ..utils import transform as tr
+from ..utils import vecmath as vm
 from ..utils.vecmath import PI, normalize
 
 # the JAX package's camera type tags
@@ -56,10 +60,21 @@ class Camera:
     # a realistic camera's L1 launch constants, built from the fields above
     # when the camera is made (dataclasses.replace builds them anew)
     lens_consts: Optional[lens_kernel.LensConsts] = field(init=False, default=None)
+    # the importance functions' inverses of cam_to_world and
+    # raster_to_camera (f32, inverted in f64 on the host) and the image
+    # plane's area at z = 1, built when the camera is made
+    world_to_cam: torch.Tensor = field(init=False, default=None)
+    camera_to_raster: torch.Tensor = field(init=False, default=None)
+    image_area: float = field(init=False, default=0.0)
 
     def __post_init__(self):
         if self.cam_type == REALISTIC:
             self.lens_consts = lens_kernel.lens_consts(self)
+        inv = lambda m: torch.tensor(np.linalg.inv(m.detach().cpu().double().numpy()),
+                                     dtype=torch.float32, device=m.device)
+        self.world_to_cam = inv(self.cam_to_world)
+        self.camera_to_raster = inv(self.raster_to_camera)
+        self.image_area = _image_plane_area(self)
 
     @property
     def device(self) -> torch.device:
@@ -251,3 +266,57 @@ def generate_rays(cam: Camera, p_film, u_lens, u_time) -> CameraRays:
     o = tr.xform_point(m, o_cam)
     d = normalize(tr.xform_vector(m, d_cam))
     return CameraRays(o, d, time, ones)
+
+
+# ---- the importance interface of light transport (camera.rs:36-76,
+# perspective.rs we / pdf_we / sample_wi), BDPT's and MLT's ----
+
+def _image_plane_area(cam: Camera) -> float:
+    """The image plane's area at z = 1 in camera space (the `a` of
+    perspective.rs:114-133), in f32 as the JAX package computes it."""
+    sx, sy = cam.resolution
+    r2c = cam.raster_to_camera.detach().cpu()
+    p_min = tr.xform_point(r2c, torch.tensor([0.0, 0.0, 0.0]))
+    p_max = tr.xform_point(r2c, torch.tensor([float(sx), float(sy), 0.0]))
+    p_min, p_max = p_min / p_min[2], p_max / p_max[2]
+    return float(((p_max[0] - p_min[0]) * (p_max[1] - p_min[1])).abs())
+
+
+def camera_we(cam: Camera, o, d):
+    """(importance We, raster point (N, 2), inside) of rays (o, d) leaving
+    the camera: 0 outside the frustum (perspective.rs we)."""
+    d_cam = tr.xform_vector(cam.world_to_cam, d)
+    cos_theta = d_cam[..., 2]
+    p_focus = d_cam / torch.clamp(cos_theta[..., None], min=1e-9)
+    p_raster = tr.xform_point(cam.camera_to_raster, p_focus)
+    sx, sy = cam.resolution
+    inside = ((cos_theta > 0) & (p_raster[..., 0] >= 0) & (p_raster[..., 0] < sx)
+              & (p_raster[..., 1] >= 0) & (p_raster[..., 1] < sy))
+    cos2 = cos_theta * cos_theta
+    we = torch.where(inside, 1.0 / torch.clamp(cam.image_area * cos2 * cos2, min=1e-12), 0.0)
+    return we, p_raster[..., :2], inside
+
+
+def camera_pdf_we(cam: Camera, o, d):
+    """(pdf_pos, pdf_dir) with which generate_rays makes the ray (o, d)
+    (perspective.rs pdf_we)."""
+    _, _, inside = camera_we(cam, o, d)
+    cos_theta = tr.xform_vector(cam.world_to_cam, d)[..., 2]
+    # cos^3 as x * (x * x), XLA's integer power
+    cos3 = cos_theta * (cos_theta * cos_theta)
+    pdf_dir = torch.where(inside, 1.0 / torch.clamp(cam.image_area * cos3, min=1e-12), 0.0)
+    return torch.ones_like(pdf_dir), pdf_dir
+
+
+def camera_sample_wi(cam: Camera, ref_p):
+    """A direction from ref_p (N, 3) to the pinhole (perspective.rs
+    sample_wi, lens area 1): (wi, We, pdf, raster point, the camera's
+    position (N, 3))."""
+    cam_p = cam.cam_to_world[:3, 3].expand_as(ref_p)
+    to_cam = cam_p - ref_p
+    dist = torch.sqrt(torch.clamp(vm.length_squared(to_cam), min=1e-20))
+    wi = to_cam / dist[..., None]
+    cos_theta = tr.xform_vector(cam.world_to_cam, -wi)[..., 2]
+    pdf = torch.where(cos_theta > 1e-6, (dist * dist) / torch.clamp(cos_theta, min=1e-6), 0.0)
+    we, p_raster, inside = camera_we(cam, cam_p, -wi)
+    return wi, torch.where(inside, we, 0.0), pdf, p_raster, cam_p

@@ -76,6 +76,12 @@ def bounce_pairs(scene: sa.Scene) -> tuple:
                     else ())
 
 
+def _shading_frame(ns):
+    """An arbitrary BSDF frame about ns (vm.coordinate_system): BDPT's
+    connection vertices, which keep no u-tangent (the JAX path.py:54-55)."""
+    return vm.coordinate_system(ns)
+
+
 def _shading_frame_du(ns, dpdu):
     """BSDF frame with its x axis along the surface u-tangent
     (reflection.rs Bsdf::new: ss = normalize(dpdu)), orthogonalized against

@@ -1,10 +1,12 @@
 """Render driver: samples -> camera rays -> integrator -> film.
 
 The port of the JAX package's ``models/integrators/render.py`` (reference
-src/core/integrator.rs:70-220) for the path, volpath, whitted,
-directlighting, ao and sppm integrators; sppm runs its own progressive loop
-(``sppm.py``).  The pixel grid (the film's crop window, or the whole film) is
-one flat wavefront of (pixel, sample) lanes, ``nb`` ordered copies of the
+src/core/integrator.rs:70-220) for every integrator of the JAX package:
+path, volpath, whitted, directlighting and ao through the batches here;
+sppm, bdpt and mlt through their own loops (``sppm.py``, ``bdpt.py``,
+``mlt.py``), as the JAX render dispatches them (its render.py:278-323).
+The pixel grid (the film's crop window, or the whole film) is one flat
+wavefront of (pixel, sample) lanes, ``nb`` ordered copies of the
 grid with x fastest, batched over samples per pixel.  Scenes above the
 brute-force limit, and scenes with instances, render with their trees
 (``accel``, ``ops/scene_intersect.build_accel``: a BVH, or a kd-tree where
@@ -36,13 +38,15 @@ from ...ops import scene_intersect as si
 from ...scene import arrays as sa
 from .. import cameras as cam
 from .. import samplers as smpl
+from . import bdpt as bdptmod
 from . import direct as directmod
+from . import mlt as mltmod
 from . import path as pathmod
 from . import regen as regenmod
 from . import sppm as sppmmod
 from . import volpath as volpathmod
 
-INTEGRATORS = ("path", "volpath", "whitted", "directlighting", "ao", "sppm")
+INTEGRATORS = ("path", "volpath", "whitted", "directlighting", "ao", "sppm", "bdpt", "mlt")
 # paths a batch at most, by default; sized by memory on an NVIDIA H100
 # 80GB (chip_smoke.py phase 12, PERF.md).  At depth 5 the regeneration loop
 # holds ~243 bytes a path (140 of hoisted dims, 24 of camera ray, 12 of
@@ -63,7 +67,8 @@ class RenderCfg(NamedTuple):
     crop: Optional[tuple] = None  # the film's crop window (x0, x1, y0, y1)
     # integrator parameters (directlighting: "strategy"; ao: "n_samples",
     # "cos_sample"; sppm: "n_iterations", "photons_per_iteration",
-    # "initial_radius")
+    # "initial_radius"; mlt: "mutations_per_pixel", "chains",
+    # "bootstrap_samples")
     extra: Optional[dict] = None
     # the accel's kind, "bvh" or "kdtree": the caller builds it
     # (scene_intersect.build_accel(scene, kind=cfg.accelerator)), as in the JAX package
@@ -71,12 +76,14 @@ class RenderCfg(NamedTuple):
 
 
 def check_cfg(cfg: RenderCfg):
-    """Raises NotImplementedError for a RenderCfg the port cannot render
-    yet, ValueError for an accelerator no one builds."""
+    """Raises ValueError for an integrator or an accelerator that neither
+    package has: the port renders every integrator of the JAX package.
+    What it still lacks are render's multi-device and checkpoint options
+    (ROADMAP A17) and the front ends (A18)."""
     if cfg.integrator not in INTEGRATORS:
-        item = "A16b" if cfg.integrator in ("bdpt", "mlt") else "queue A"
-        raise NotImplementedError(f"integrator {cfg.integrator!r} is not ported yet "
-                                  f"(ROADMAP {item})")
+        raise ValueError(f"unknown integrator {cfg.integrator!r}: the port renders "
+                         f"{INTEGRATORS} (sharded renders, checkpoints and gradients come "
+                         "with ROADMAP A17, the scene-file front ends with A18)")
     if cfg.accelerator not in si.ACCELERATORS:
         raise ValueError(f"accelerator {cfg.accelerator!r}: the port builds {si.ACCELERATORS}")
 
@@ -207,7 +214,14 @@ def render(scene: sa.Scene, camera: cam.Camera, cfg: RenderCfg, sampler_cfg: smp
     photons_per_iteration (0: one a pixel) and initial_radius (0: from the
     world radius); its stats are camera_rays (pixels x iterations),
     resolution, wall_s, paths_per_s, iterations, grid_bucket_overflow,
-    grid_res_last and max_ev_last."""
+    grid_res_last and max_ev_last.  "bdpt" renders through
+    ``bdpt.render_bdpt`` (the box filter, sampler_cfg's samples, at most
+    min(max_lanes, bdpt.MAX_LANES) paths a batch) and "mlt" through
+    ``mlt.render_mlt`` with cfg.extra's mutations_per_pixel (16), chains
+    (4096) and bootstrap_samples (16384); their stats are camera_rays
+    (pixels x spp, or x mutations_per_pixel), resolution, wall_s and
+    paths_per_s, with bdpt's batches and mlt's mutations (a chain's) and
+    mutations_per_s."""
     check_cfg(cfg)
     dev = scene.device
     if camera.device != dev:
@@ -215,6 +229,9 @@ def render(scene: sa.Scene, camera: cam.Camera, cfg: RenderCfg, sampler_cfg: smp
     if cfg.integrator == "sppm":
         return _render_sppm(scene, camera, cfg, sampler_cfg, accel, stats,
                             crop if crop is not None else cfg.crop)
+    if cfg.integrator in ("bdpt", "mlt"):
+        return _render_bidirectional(scene, camera, cfg, sampler_cfg, accel, max_lanes, stats,
+                                     crop if crop is not None else cfg.crop)
     if filter_cfg is None:
         filter_cfg = filmmod.make_filter(filmmod.FILTER_BOX)
     w, h = camera.resolution
@@ -276,4 +293,35 @@ def _render_sppm(scene, camera, cfg: RenderCfg, sampler_cfg, accel, stats, crop)
         rays = (px1 - px0) * (py1 - py0) * n_it
         stats.update(camera_rays=rays, resolution=(w, h), wall_s=dt, paths_per_s=rays / dt,
                      iterations=n_it, **run)
+    return img
+
+
+def _render_bidirectional(scene, camera, cfg: RenderCfg, sampler_cfg, accel, max_lanes, stats,
+                          crop):
+    """render's bdpt and mlt branches (the JAX render.py:278-305)."""
+    ex = cfg.extra or {}
+    w, h = camera.resolution
+    px0, px1, py0, py1 = crop_pixel_rect((w, h), crop)
+    crop_rect = (px0, px1, py0, py1) if crop is not None else None
+    run = {}
+    t0 = time.perf_counter()
+    if cfg.integrator == "bdpt":
+        img = bdptmod.render_bdpt(scene, camera, cfg.spp, cfg.max_depth, sampler_cfg=sampler_cfg,
+                                  accel=accel, max_lanes=min(max_lanes, bdptmod.MAX_LANES),
+                                  crop_rect=crop_rect, stats=run)
+        per_pixel = cfg.spp
+    else:
+        per_pixel = int(ex.get("mutations_per_pixel", 16))
+        img = mltmod.render_mlt(scene, camera, mutations_per_pixel=per_pixel,
+                                max_depth=cfg.max_depth, n_chains=int(ex.get("chains", 4096)),
+                                n_bootstrap=int(ex.get("bootstrap_samples", 16384)),
+                                accel=accel, crop_rect=crop_rect, stats=run)
+    if stats is not None:
+        if scene.device.type == "cuda":
+            torch.cuda.synchronize(scene.device)
+        dt = max(time.perf_counter() - t0, 1e-9)
+        rays = (px1 - px0) * (py1 - py0) * per_pixel
+        stats.update(camera_rays=rays, resolution=(w, h), wall_s=dt, paths_per_s=rays / dt, **run)
+        if cfg.integrator == "mlt":
+            stats["mutations_per_s"] = run["mutations"] * int(ex.get("chains", 4096)) / dt
     return img

@@ -18,6 +18,11 @@ offsets that start a pair (``pairs``), and ``dyn`` picks the JAX package's
 traced-dim route (``get_1d_dyn``/``get_2d_dyn``: stratified pairs as two 1D
 draws, Halton dims clipped to [2, 255]), which its path and volpath
 integrators take.
+
+MLT's primary-sample-space vectors ride the context (``SampleCtx.pss``, the
+JAX package's samplers.py:86-97): where a context holds one, every draw of
+dim d reads column d mod U of it, whatever the sampler's kind, and no
+kernel is launched.
 """
 
 from __future__ import annotations
@@ -115,6 +120,9 @@ class SampleCtx(NamedTuple):
     block_pairs: tuple = ()
     # the caller's promise that sample_num < spp on every lane (make_ctx)
     frame_lt_spp: bool = False
+    # MLT's primary-sample-space vectors (N, U): every dim d reads column
+    # d mod U (mlt.rs:28-279 as data), no remap and no kernel
+    pss: Optional[torch.Tensor] = None
 
 
 def make_ctx(cfg: SamplerCfg, pixel, sample_num, frame_lt_spp: bool = False) -> SampleCtx:
@@ -241,7 +249,10 @@ def get_dims(cfg: SamplerCfg, ctx: SampleCtx, dim0: int, n_dims: int, pairs: tup
     draw, or at an offset k of pairs the 2D draw of dims dim0+k and dim0+k+1
     (see the module's docstring).  dyn: the JAX package's traced-dim route.
     Sobol' in one K1 launch, Halton in one H1 launch, random from the hash,
-    the other kinds in plain PyTorch."""
+    the other kinds in plain PyTorch; with ctx.pss, its columns."""
+    if ctx.pss is not None:
+        u = ctx.pss.shape[1]
+        return ctx.pss[:, [(dim0 + k) % u for k in range(n_dims)]]
     if cfg.kind == SOBOL:
         return sk.sobol_dims(ctx.global_index, dim0, n_dims, dims_bits(cfg, ctx))
     if cfg.kind == RANDOM:
@@ -273,6 +284,8 @@ def with_dims(cfg: SamplerCfg, ctx: SampleCtx, dim0: int, n_dims: int,
     for get_1d / get_2d to read."""
     if dim0 < 2:
         raise ValueError("with_dims holds integrator dims only (the film dims are remapped)")
+    if ctx.pss is not None:  # every draw reads the pss columns
+        return ctx
     return ctx._replace(block0=dim0, block=get_dims(cfg, ctx, dim0, n_dims, pairs),
                         block_pairs=tuple(pairs))
 
@@ -303,7 +316,9 @@ def _film_remap(cfg: SamplerCfg, ctx: SampleCtx, s: torch.Tensor, dim: int) -> t
 def get_1d(cfg: SamplerCfg, ctx: SampleCtx, dim: int) -> torch.Tensor:
     """(N,) samples of dimension `dim` (samplers.py get_1d): read from the
     block of with_dims when it holds dim, else drawn; Sobol's dims 0 and 1
-    are remapped into the pixel."""
+    are remapped into the pixel; with ctx.pss, column dim mod U."""
+    if ctx.pss is not None:
+        return ctx.pss[:, dim % ctx.pss.shape[1]]
     if _in_block(cfg, ctx, dim, 1):
         return ctx.block[:, dim - ctx.block0]
     return _film_remap(cfg, ctx, get_dims(cfg, ctx, dim, 1)[:, 0], dim)
@@ -312,7 +327,9 @@ def get_1d(cfg: SamplerCfg, ctx: SampleCtx, dim: int) -> torch.Tensor:
 def get_2d(cfg: SamplerCfg, ctx: SampleCtx, dim: int) -> torch.Tensor:
     """(N, 2) samples of dimensions dim and dim+1 (samplers.py get_2d): two
     get_1d draws, or the kinds' own 2D draw (from the block where it drew
-    the pair)."""
+    the pair); with ctx.pss, columns dim and dim+1 mod U."""
+    if ctx.pss is not None:
+        return get_dims(cfg, ctx, dim, 2)
     if cfg.kind not in PAIRED:
         return torch.stack([get_1d(cfg, ctx, dim), get_1d(cfg, ctx, dim + 1)], -1)
     if _in_block(cfg, ctx, dim, 2):
@@ -333,9 +350,9 @@ def get_2d_dyn(cfg: SamplerCfg, ctx: SampleCtx, dim: int) -> torch.Tensor:
 def get_camera_dims(cfg: SamplerCfg, ctx: SampleCtx, pixel):
     """(u_film, u_time, u_lens) from dims 0-4 in one draw (one K1 or H1
     launch); Sobol's film dims are remapped from the Sobol' domain into the
-    pixel (samplers.py get_1d)."""
+    pixel (samplers.py get_1d); with ctx.pss, its columns 0-4."""
     dims5 = get_dims(cfg, ctx, 0, 5, (0, 3))
-    if cfg.kind != SOBOL:
+    if cfg.kind != SOBOL or ctx.pss is not None:
         return dims5[:, 0:2], dims5[:, 2], dims5[:, 3:5]
     res = float(1 << cfg.log2_resolution)
     u_film = torch.clamp(dims5[:, 0:2] * res - pixel.to(torch.float32), 0.0,

@@ -6,8 +6,9 @@ driver lays its lanes out as ordered copies of the pixel grid, so with a
 box filter of radius <= 0.5 every sample lands in its own pixel and the
 film update is a reshape and a sum (``add_samples_grid``); every other
 filter splats each sample over its F x F footprint (``add_samples``: R1,
-``ops/splat_kernel.py``, on the card).  Unfiltered splats (``add_splats``)
-come with BDPT and MLT (ROADMAP A16b).
+``ops/splat_kernel.py``, on the card).  BDPT's light-tracing strategies and
+MLT add unfiltered splats to a layer of their own (``add_splats``), which
+``to_rgb`` adds to the resolved image scaled by ``splat_scale``.
 """
 
 from __future__ import annotations
@@ -108,12 +109,17 @@ def footprint(cfg: FilterCfg) -> int:
 class Film:
     rgb: torch.Tensor  # (H, W, 3) weighted sums
     weight: torch.Tensor  # (H, W)
+    splat: torch.Tensor = None  # (H, W, 3) unfiltered splats (Film::add_splat film.rs:388)
+    # whether add_splats wrote the splat layer; to_rgb adds it only then, so
+    # a film without splats resolves to the same bits as before the layer
+    splatted: bool = False
 
 
 def make_film(resolution, device="cuda") -> Film:
     w, h = resolution
     dev = resolve(device)
-    return Film(torch.zeros((h, w, 3), device=dev), torch.zeros((h, w), device=dev))
+    return Film(torch.zeros((h, w, 3), device=dev), torch.zeros((h, w), device=dev),
+                torch.zeros((h, w, 3), device=dev))
 
 
 def grid_filter(cfg: FilterCfg) -> bool:
@@ -153,7 +159,29 @@ def add_samples_grid(film: Film, cfg: FilterCfg, L: torch.Tensor, nb: int,
     return film
 
 
-def to_rgb(film: Film) -> torch.Tensor:
-    """Resolve to linear RGB (film.rs:438-528)."""
+def add_splats(film: Film, p_film: torch.Tensor, L: torch.Tensor) -> Film:
+    """Adds N unfiltered splats to the film's splat layer in place
+    (Film::add_splat film.rs:388; the JAX ops/film.py:165-173): L (N, 3) to
+    the pixel holding raster point p_film (N, 2).  A point outside the film
+    (the crop window does not bound it), or an L with a NaN or infinite
+    channel, adds nothing."""
+    h, w = film.weight.shape
+    px = torch.clamp(p_film[:, 0].to(torch.int32), 0, w - 1).long()
+    py = torch.clamp(p_film[:, 1].to(torch.int32), 0, h - 1).long()
+    inb = (p_film[:, 0] >= 0) & (p_film[:, 0] < w) & (p_film[:, 1] >= 0) & (p_film[:, 1] < h)
+    good = torch.isfinite(L).all(-1) & inb
+    # index_add_ adds with atomics on the card; index_put_'s accumulate
+    # sorts the indices first, ~2.3 s for BDPT's 21M splats at 256x256
+    # (chip_smoke.py phase 28, NVIDIA H100 80GB HBM3)
+    film.splat.view(h * w, 3).index_add_(0, py * w + px, torch.where(good[:, None], L, 0.0))
+    film.splatted = True
+    return film
+
+
+def to_rgb(film: Film, splat_scale: float = 1.0) -> torch.Tensor:
+    """Resolve to linear RGB (film.rs:438-528): the filtered samples'
+    weighted mean, plus splat_scale times the splat layer where add_splats
+    wrote it."""
     w = torch.clamp(film.weight[..., None], min=0.0)
-    return torch.where(w > 0.0, film.rgb / torch.clamp(w, min=1e-12), 0.0)
+    img = torch.where(w > 0.0, film.rgb / torch.clamp(w, min=1e-12), 0.0)
+    return img + splat_scale * film.splat if film.splatted else img

@@ -260,6 +260,10 @@ class Scene:
     med_w2m: torch.Tensor = None
     med_max_density: torch.Tensor = None
     camera_medium: int = -1  # the medium the camera sits in, -1 vacuum
+    # a triangle or quadric with an inside or outside medium, or a camera in
+    # one (the JAX Scene's has_media, its med_flag): BDPT's walks then
+    # sample media and draw 5 dims a vertex
+    has_media: bool = False
     has_grid: bool = False  # a grid wider than one voxel (the JAX volpath's _has_grid)
     # subsurface materials' folded BSSRDF tables (ops/bssrdf.py), B rows
     # indexed by the material's MP_BSSRDF: profile and cdf (B, 3, K),
@@ -341,6 +345,16 @@ def media_fields(med_sigma_a, med_sigma_s, med_g, med_grid, med_w2m, med_max_den
     return dict(med_sigma_a=f32(med_sigma_a), med_sigma_s=f32(med_sigma_s), med_g=f32(med_g),
                 med_grid=f32(grid), med_w2m=f32(med_w2m), med_max_density=f32(med_max_density),
                 camera_medium=int(camera_medium), has_grid=grid.shape[1:] != (1, 1, 1))
+
+
+def media_present(tri_attr, n_tris: int, sph_attr, n_spheres: int, camera_medium) -> bool:
+    """The JAX finalize_scene's media flag (scene/arrays.py:664-671): a
+    triangle or quadric row with an inside or outside medium, or the camera
+    in one.  tri_attr, sph_attr: numpy rows."""
+    tri = np.asarray(tri_attr, np.float32)[:n_tris][:, [TA_MED_IN, TA_MED_OUT]]
+    sph = np.asarray(sph_attr, np.float32)[:n_spheres][:, [SP_MED_IN, SP_MED_OUT]]
+    return bool((np.rint(tri) >= 0).any() or (np.rint(sph) >= 0).any()
+                or int(camera_medium) >= 0)
 
 
 def bssrdf_fields(profile, cdf, rho_eff, sigma_t, eta, device) -> dict:
@@ -498,6 +512,8 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> Scene:
         **media_fields(*(arrays[k] for k in (
             "med_sigma_a", "med_sigma_s", "med_g", "med_grid", "med_w2m", "med_max_density",
             "camera_medium")), dev),
+        has_media=media_present(arrays["tri_attr"], n("tri_p0"), arrays["sph_attr"],
+                                n("sph_o2w"), arrays["camera_medium"]),
         **bssrdf_fields(*(arrays[k] for k in (
             "bss_profile", "bss_cdf", "bss_rho_eff", "bss_sigma_t", "bss_eta")), dev),
         **env_fields(arrays["inf_radiance"], arrays["inf_l2w"], arrays["inf_w2l"],

@@ -818,6 +818,7 @@ class SceneBuilder:
             **sa.texture_fields(tex, sa.texture_kind_mask(tex["tex_type"], mat_attr), dev),
             **sa.motion_fields(device=dev, **motion),
             **sa.media_fields(device=dev, **self._media_tables()),
+            has_media=sa.media_present(tri_attr, n_tri, sph_attr, n_sph, self.camera_medium),
             **sa.bssrdf_fields(*self._bssrdf_tables(), dev),
             **sa.env_fields(*env, types, dev),
             **(sa.fourier_fields(*(fou[k] for k in ("mu", "dense", "m", "cdf", "a0", "eta")), dev)

@@ -30,6 +30,13 @@ into object space), each element operation of add, sub, mul, div, sqrt,
 sin, acos and neg one, as PERF.md's bounds count them; chip_smoke.py
 reads ``motion_ops`` for V1's operations bound.
 
+``--bdpt`` counts one BDPT evaluation's ops (``bdpt.radiance_and_splats``
+on the Cornell box's 8x8 pixels, one Sobol' sample each, depth 3 and 5)
+and one MLT mutation's (``mlt._mutation_step``, 64 chains): all of them
+with the MIS weights in plain PyTorch (``mis_kernel.mis_weight_plain``, as
+the CPU runs them), the plain MIS weights' share, and the count with W1,
+where each strategy's weight is one launch.
+
 ``--root DIR`` imports ``rs_pbrt_tpu_torch`` from another checkout, to
 compare two versions.  Run it as a script (not with ``-m``) so that
 ``--root`` decides which package is imported.
@@ -138,6 +145,84 @@ def camera_counts():
         print(f"lens trace, {name}: {sum(count.ops.values())} ops", flush=True)
 
 
+def bdpt_counts():
+    """Prints the ops of a BDPT evaluation and of an MLT mutation as the
+    card dispatches them: every op outside the kernels' wrappers, and a
+    launch for each wrapper call (K1, K4, K5, W1), with the plain MIS
+    weights' ops in place of W1's launches beside it."""
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import bdpt, mlt
+    from rs_pbrt_tpu_torch.models.integrators import path as pathmod
+    from rs_pbrt_tpu_torch.ops import film as fm
+    from rs_pbrt_tpu_torch.ops import intersect_kernel as ik
+    from rs_pbrt_tpu_torch.ops import mis_kernel as misk
+    from rs_pbrt_tpu_torch.ops import sobol_kernel as sk
+    from rs_pbrt_tpu_torch.scene import presets
+
+    wrappers = ((sk, "sobol_dims"), (ik, "any_sweep"), (ik, "full_sweep"),
+                (ik, "closest_sweep"), (misk, "mis_weight"))
+
+    class Split(TorchDispatchMode):
+        """Counts ops by the kernel wrapper they run in ("host" outside)."""
+
+        def __init__(self):
+            super().__init__()
+            self.ops, self.calls, self.part = Counter(), Counter(), "host"
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[self.part] += 1
+            return func(*args, **(kwargs or {}))
+
+    def counted(go):
+        with Split() as mode:
+            real = {}
+            for mod, name in wrappers:
+                real[name] = fn = getattr(mod, name)
+
+                def traced(*a, fn=fn, name=name, **kw):
+                    mode.part = name
+                    mode.calls[name] += 1
+                    try:
+                        return fn(*a, **kw)
+                    finally:
+                        mode.part = "host"
+                setattr(mod, name, traced)
+            try:
+                go()
+            finally:
+                for mod, name in wrappers:
+                    setattr(mod, name, real[name])
+        launches = sum(mode.calls.values())
+        card = mode.ops["host"] + launches
+        return (f"{card} host ops on the card ({mode.ops['host']} plain ops and {launches} "
+                f"launches: {dict(mode.calls)}); with the MIS weights in plain PyTorch "
+                f"{card - mode.calls['mis_weight'] + mode.ops['mis_weight']} ("
+                f"{mode.ops['mis_weight']} ops, "
+                f"{mode.ops['mis_weight'] / max(mode.calls['mis_weight'], 1):.1f} a weight)")
+
+    scene, camera = presets.cornell_box(RES, device="cpu")
+    cfg = smpl.make_sampler(smpl.SOBOL, 1, RES)
+    n = RES[0] * RES[1]
+    xs = torch.arange(RES[0]).repeat(RES[1])
+    pix = torch.stack([xs, torch.arange(RES[1]).repeat_interleave(RES[0])], -1)
+    ctx = smpl.make_ctx(cfg, pix, torch.zeros(n, dtype=torch.int64), frame_lt_spp=True)
+    p_film = pix.to(torch.float32) + 0.5
+    for depth in (3, 5):
+        pcfg = pathmod.PathCfg(depth, 1.0)
+        print(f"bdpt evaluation, depth {depth}: " + counted(
+            lambda: bdpt.radiance_and_splats(scene, camera, pcfg, cfg, ctx, p_film)), flush=True)
+        n_pss = mlt.n_pss_for_depth(depth)
+        g = torch.Generator().manual_seed(0)
+        pss = torch.rand((64, n_pss), generator=g)
+        scfg = smpl.make_sampler(smpl.RANDOM, 1, RES)
+        ev = mlt._eval_target(scene, camera, pcfg, scfg, pss, None)
+        film = fm.make_film(RES, device="cpu")
+        u = mlt.mutation_uniforms(g, 64, n_pss, "cpu")
+        print(f"mlt mutation, depth {depth}: " + counted(
+            lambda: mlt._mutation_step(scene, camera, pcfg, scfg, None, False, None, pss, ev,
+                                       film, u)), flush=True)
+
+
 ARITH = ("add", "sub", "rsub", "mul", "div", "sqrt", "sin", "acos", "neg")
 
 
@@ -180,8 +265,14 @@ def main(argv=None) -> int:
                     help="count the filter splat's and the lens trace's ops instead")
     ap.add_argument("--motion", action="store_true",
                     help="count the moving-mesh sweep's operations a ray and group instead")
+    ap.add_argument("--bdpt", action="store_true",
+                    help="count a BDPT evaluation's and an MLT mutation's ops instead")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(args.root.resolve()))
+    if args.bdpt:
+        torch.set_num_threads(2)
+        bdpt_counts()
+        return 0
     if args.motion:
         print(f"moving-mesh set-up: {motion_ops()} f32 operations a ray and group", flush=True)
         return 0

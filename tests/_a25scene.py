@@ -195,10 +195,13 @@ class JaxJobs:
     """A test file's JAX jobs: each ``start(jobs, inputs)`` runs its jobs
     in a subprocess of its own, without FMA contraction; ``results(*tags)``
     waits for those jobs (every one without tags) and returns every result
-    read so far."""
+    read so far.  script: the subprocess's program (this module's by
+    default), run as ``python -c script jobs.json inputs.npz out_dir``; it
+    writes each job's results as out_dir/<tag>.npz."""
 
-    def __init__(self, tmp_path: Path):
+    def __init__(self, tmp_path: Path, script: str = None):
         self.tmp = Path(tmp_path)
+        self.script = _JAX if script is None else script
         self.procs, self.owner = [], {}
         self.res, self.read = {}, set()
 
@@ -210,7 +213,7 @@ class JaxJobs:
                    PYTHONPATH=os.pathsep.join([str(ROOT), str(HERE)]))
         with open(self.tmp / f"log{k}.txt", "w") as log:
             self.procs.append(subprocess.Popen(
-                [sys.executable, "-c", _JAX, str(self.tmp / f"jobs{k}.json"),
+                [sys.executable, "-c", self.script, str(self.tmp / f"jobs{k}.json"),
                  str(self.tmp / f"in{k}.npz"), str(self.tmp)], env=env, cwd=ROOT,
                 stdout=log, stderr=subprocess.STDOUT))
         self.owner.update({tag: k for tag in jobs})

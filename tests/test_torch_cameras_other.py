@@ -311,17 +311,31 @@ def test_lens_consts_follow_the_camera(realistic_cams):
 
 def test_what_still_raises_names_its_item():
     """What the port still refuses raises NotImplementedError naming its
-    ROADMAP item: near clipping (A18, above), bdpt and mlt (A16b),
-    measured subsurface presets (A18).  The kd-tree (A25) builds and its
-    RenderCfg passes."""
+    ROADMAP item: near clipping (A18, above), measured subsurface presets
+    (A18).  bdpt and mlt (A16b) pass check_cfg and render with every
+    camera type through the pinhole importance, as the JAX package does:
+    the orthographic raster plane lies at z = 0, so its image area is
+    infinite, the camera's pdf 0 ends every camera walk and the image is
+    black; the environment camera's raster_to_camera is the identity, its
+    area NaN.  The kd-tree (A25) builds and its RenderCfg passes."""
+    from rs_pbrt_tpu_torch.models import samplers as smpl
     from rs_pbrt_tpu_torch.models.integrators import render as rdr
     from rs_pbrt_tpu_torch.ops import scene_intersect as si
     from rs_pbrt_tpu_torch.scene import presets
     from rs_pbrt_tpu_torch.scene.builder import SceneBuilder
 
+    scene, _ = presets.cornell_box((8, 8), device="cpu")
+    scfg = smpl.make_sampler(smpl.RANDOM, 1, (8, 8))
     for integrator in ("bdpt", "mlt"):
-        with pytest.raises(NotImplementedError, match="A16b"):
-            rdr.check_cfg(rdr.RenderCfg(integrator, 1, 5, 1.0))
+        cfg = rdr.RenderCfg(integrator, 1, 2, 1.0,
+                            extra=dict(mutations_per_pixel=1, chains=16, bootstrap_samples=32))
+        rdr.check_cfg(cfg)
+        ortho = cam.make_orthographic(tr.look_at(*CORNELL), (8, 8), device="cpu")
+        env = cam.make_environment(tr.look_at(*CORNELL), (8, 8), device="cpu")
+        assert ortho.image_area == float("inf") and np.isnan(env.image_area)
+        img = rdr.render(scene, ortho, cfg, scfg)
+        assert img.shape == (8, 8, 3) and torch.equal(img, torch.zeros_like(img))
+        assert rdr.render(scene, env, cfg, scfg).shape == (8, 8, 3)
     rdr.check_cfg(rdr.RenderCfg("path", 1, 5, 1.0, accelerator="kdtree"))
     scene, _ = presets.cornell_box((8, 8), device="cpu")
     assert si.build_accel(scene, kind="kdtree", device="cpu") == si.Accel()

@@ -68,7 +68,9 @@ def test_import_loads_no_jax():
             "rs_pbrt_tpu_torch.models.realistic, rs_pbrt_tpu_torch.utils.animated, "
             "rs_pbrt_tpu_torch.ops.instancing, rs_pbrt_tpu_torch.ops.instance_kernel, "
             "rs_pbrt_tpu_torch.ops.kdtree, rs_pbrt_tpu_torch.ops.kdtree_kernel, "
-            "rs_pbrt_tpu_torch.ops.motion_kernel, rs_pbrt_tpu_torch.tools.instance_scenes; "
+            "rs_pbrt_tpu_torch.ops.motion_kernel, rs_pbrt_tpu_torch.tools.instance_scenes, "
+            "rs_pbrt_tpu_torch.models.integrators.bdpt, rs_pbrt_tpu_torch.models.integrators.mlt, "
+            "rs_pbrt_tpu_torch.ops.mis_kernel; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'rs_pbrt_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
