@@ -172,12 +172,12 @@ Run from the root of a checkout.  Phases, one line each (or more):
    each image to the render with every wrapper swapped for its plain
    version at rtol = atol = 2e-3.
 16. SPPM through render.render: caustic_only() and caustic_hair() at
-   their own settings but 4 iterations (SPPM_ITERATIONS; the files' 16)
+   their own settings but 2 iterations (SPPM_ITERATIONS; the files' 16)
    (200x200, depth 5, one photon a pixel
    an iteration, the random sampler), timed as bench.py:336-341 times
    them (a warm render of 2 iterations, then the timed render; SPPM
    rays/s = w h iterations 2 / wall), the counters zeroed just before the
-   timed render and read just after (S1 8, K5 80, K4 40; C3 80 and C4 40
+   timed render and read just after (S1 2, K5 20, K4 10; C3 20 and C4 10
    for the hair).  Every S1 launch of that run held to the plain deposit
    (ops/sppm_kernel.deposit_plain) on the same inputs: m bit-equal, phi
    bit-equal (on hair visible points, if not, within rtol 1e-5, atol 1e-7;
@@ -375,6 +375,40 @@ Run from the root of a checkout.  Phases, one line each (or more):
    busy share over a profiled render and the bytes a lane holds at the
    render's peak; MLT mutations/s and paths/s of one timed render.
 
+29. Gradients and checkpoints (diff/grad.py, diff/geometry.py, render's
+   checkpoints).  The counters are zeroed just before each gradient render
+   and read just after.  The main gradient render: the Cornell box at
+   GRAD_RES, GRAD_SPP spp, depth GRAD_DEPTH, grad_loss(mean) over
+   DiffParams: K1 2, K5 depth + 1, K4 depth, K2 0 (refused under a
+   gradient); its gradient within rtol = atol = 2e-3 x max|g| of the same
+   gradient with every wrapper swapped for its plain version; the white
+   walls' kd red within 5e-2 of a central difference (renders through K2);
+   forward-and-backward paths/s (best of 3), the peak memory and bytes a
+   lane, the busy share of a profiled gradient render.  The camera
+   gradient at depth GRAD_CAM_DEPTH: K3 on detached rays a cast and G1
+   (ops/hit_grad_kernel.py, csrc/hit_grad.cu) a bounce's hit (the last
+   cast only collects emission, whose MIS weight is detached); the
+   translation's y and z within 0.08 of central differences over the
+   pixels none of whose samples changes a hit triangle or a shadow ray's
+   occlusion between the base and the stepped renders (the samples that
+   do are counted: they carry the boundary term detached sampling leaves
+   out).  A quad
+   textured by a 1024x1024 image map (its pyramid read through the rays'
+   footprints): T1 and T2 (ops/texture_kernel.py, csrc/texture_grad.cu)
+   once each.  The Cornell box with the Mitchell filter: R1 and R2
+   (ops/splat_kernel.py, csrc/splat_grad.cu) once each.  Every G1 launch
+   held to its plain twin (per lane bit-equal or within 1e-5, the vertex
+   gradients within 2 n 2^-24 of their summed |terms|), every T2 launch
+   (each entry within 1e-3 + 1e-5 x max), every R2 launch (per lane
+   bit-equal or within 1e-5), each timed queued and by events beside its
+   bound and the twin's time.  grad_loss_wrt_translation of the tall box
+   (TRANS_RES, TRANS_SPP spp, depth 1, the loss on the rows above the
+   floor's, as tests/test_grad.py:178-237 does for the short box):
+   interior plus the mean boundary of TRANS_SEEDS seeds, with the sign of
+   the central difference and within rtol 0.5 of it.  A render
+   checkpointed after half its batches and resumed, bit-equal to the
+   uninterrupted render over the same batches.
+
 After each phase (or group) a "[time]" line gives the seconds since the
 card was found.  Then one JSON line with every kernel's numbers, and as
 the last line
@@ -419,7 +453,7 @@ FUR_FIBERS = 8192  # 262,144 segments
 # phases 14 and 16 below the scenes' own settings (16 spp, depth 5; 16 SPPM
 # iterations): their plain checks cost dispatch and plain walks, which grow
 # with the paths, bounces and iterations, and the script keeps to 1200 s
-HAIR_SPP, HAIR_DEPTH, SPPM_ITERATIONS = 8, 3, 4
+HAIR_SPP, HAIR_DEPTH, SPPM_ITERATIONS = 8, 3, 2
 FUR_LANE_WIDTH = 1 << 18  # the fur render's regeneration lanes: its 320,000 paths
 #                           are below the default REGEN_LANE_WIDTH
 
@@ -666,15 +700,39 @@ KD_SUBDIV = 4  # the kd statue: 5,124 triangles
 WALK_NODE_BYTES, W2O_BYTES, TRI_BYTES, KD_NODE_BYTES, PRIM_ID_BYTES = 56, 48, 36, 20, 4
 WALK_FLOP = dict(ray=3, box=13, candidate=50, tri=65, kd_node=2)
 TIME_BYTES = 4
-# phase 28: MLT at the JAX render's defaults for mutations, 2^16 chains
-# and 2^18 bootstrap samples; BDPT on the smoke at a reduced size
-MLT_MPP, MLT_CHAINS, MLT_BOOTSTRAP = 16, 1 << 16, 1 << 18
+# phase 28: MLT at half the JAX render's default mutations a pixel (16:
+# its plain render's sweeps grow with the mutations, and the script keeps
+# to 1200 s), 2^16 chains and 2^18 bootstrap samples; BDPT on the smoke at
+# a reduced size
+MLT_MPP, MLT_CHAINS, MLT_BOOTSTRAP = 8, 1 << 16, 1 << 18
 SMOKE_BDPT_RES, SMOKE_BDPT_SPP, SMOKE_BDPT_DEPTH = (100, 100), 4, 3
 # W1's bound: pdf_fwd, pdf_rev and delta of each vertex a lane walks, an
 # override value (a delta override's byte), the origin's delta test, the
 # weight out; a ratio's multiply and divide and a sum's add a vertex, the
 # final add and divide
 MIS_VERTEX_BYTES, MIS_OUT_BYTES, MIS_OPS_PER_VERTEX, MIS_OPS_PER_LANE = 9, 4, 3, 2
+# phase 29: gradients and checkpoints.  The main gradient render: the
+# Cornell box at the flagship's size, 16 spp, depth 3 (1,048,576 paths);
+# the camera gradient at depth 2 (tests/test_grad.py's); the textured quad
+# at 256x256, depth 1, on a 1024x1024 image map; the translation gradient
+# of the tall box at tests/test_grad.py:178-237's size and samples
+GRAD_RES, GRAD_SPP, GRAD_DEPTH, GRAD_CAM_DEPTH = (256, 256), 16, 3, 2
+QUAD_RES, QUAD_SPP, QUAD_IMAGE = (256, 256), 16, (1024, 1024)
+TRANS_RES, TRANS_SPP, TRANS_EDGE_SAMPLES, TRANS_SEEDS, TRANS_STEPS = 48, 64, 384, 6, (3.0, 6.0)
+TALL_BOX = slice(20, 30)  # presets.cornell_build's tall box (walls 0-9, short box 10-19)
+CK_BATCH_SPP = 4  # the checkpointed render's batches
+FD_RTOL, CAM_FD_RTOL, TRANS_RTOL = 5e-2, 0.08, 0.5  # tests/test_grad.py's limits
+CAM_FD_STEP = 0.05  # tests/test_grad.py:81-120's camera step
+# G1's arithmetic (csrc/hit_grad.cu) a lane with a triangle: the forward
+# test again (1/dz, the shear 2, a vertex's q 3 + x, y 4 + zs 1, the edges
+# 9, det 2, t 5, 1/det: ~44) and its reverse sweep (g_inv 5, g_det 3, the
+# edges' 11, gx and gy 18, a vertex's 15, gd 11: ~93)
+G1_OPS = 137
+G1_LANE_BYTES = 12 + 12 + 4 + 12 + 24  # o, d, tri, the 3 upstream gradients in; g_o, g_d out
+# R2's arithmetic: R1's lane and factor work (R1_OPS) and a tap in the film
+# with a nonzero weight: the factors' product and 3 products and sums
+R2_TAP_OPS = 7
+R2_LANE_BYTES = 8 + 12 + 12  # p_film and L in, g_L out
 
 
 def fail(msg: str):
@@ -790,23 +848,26 @@ def _kernel_modules():
     from rs_pbrt_tpu_torch.ops import motion_kernel as mok
     from rs_pbrt_tpu_torch.ops import kdtree_kernel as kdk
     from rs_pbrt_tpu_torch.ops import mis_kernel as wk
+    from rs_pbrt_tpu_torch.ops import hit_grad_kernel as hg
 
-    return sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk, ink, mok, kdk, wk
+    return sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk, ink, mok, kdk, wk, hg
 
 
 def zero_counts():
     """Every kernel's launch count to 0."""
-    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk, ink, mok, kdk, wk = _kernel_modules()
+    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk, ink, mok, kdk, wk, hg = _kernel_modules()
     sk.launches = pk.launches = hk.launches = rk.launches = lk.launches = wk.launches = 0
+    hg.launches = rk.grad_launches = 0
     for d in (ik.launches, bvh.launches, gp.launches, ck.launches, sd.launches, mk.launches,
               fk.launches, tk.launches, ink.launches, mok.launches, kdk.launches):
         d.update(dict.fromkeys(d, 0))
 
 
 def read_counts() -> dict:
-    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk, ink, mok, kdk, wk = _kernel_modules()
+    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk, ink, mok, kdk, wk, hg = _kernel_modules()
     return dict(sobol=sk.launches, bounce=pk.launches, halton=hk.launches, splat=rk.launches,
-                lens=lk.launches, mis=wk.launches, **ik.launches,
+                lens=lk.launches, mis=wk.launches, hit_grad=hg.launches,
+                splat_grad=rk.grad_launches, **ik.launches,
                 **{f"bvh12_{k}": v for k, v in bvh.launches.items()}, **gp.launches,
                 **ck.launches, **sd.launches, **mk.launches, **fk.launches, **tk.launches,
                 **{f"instance_{k}": v for k, v in ink.launches.items()},
@@ -824,14 +885,16 @@ def _owner(name: str):
     closest_sweep, any_sweep, full_sweep, bvh12_intersect_tris, take_rows,
     take_loop, walk_closest, walk_any, sweep_closest, sweep_any, deposit,
     delta_track, ratio_track, fourier_eval, fourier_sample, texture_eval, halton_dims, splat,
-    lens_rays, instance_intersect, anim_hits, kd_intersect, mis_weight)."""
-    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk, ink, mok, kdk, wk = _kernel_modules()
+    lens_rays, instance_intersect, anim_hits, kd_intersect, mis_weight, hit_vjp,
+    texture_grad, splat_grad)."""
+    sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk, ink, mok, kdk, wk, hg = _kernel_modules()
     return dict(sobol_dims=sk, bounce=pk, closest_sweep=ik, any_sweep=ik, full_sweep=ik,
                 bvh12_intersect_tris=bvh, take_rows=gp, take_loop=gp, walk_closest=ck,
                 walk_any=ck, sweep_closest=ck, sweep_any=ck, deposit=sd, delta_track=mk,
                 ratio_track=mk, fourier_eval=fk, fourier_sample=fk, texture_eval=tk,
                 halton_dims=hk, splat=rk, lens_rays=lk, instance_intersect=ink,
-                anim_hits=mok, kd_intersect=kdk, mis_weight=wk)[name]
+                anim_hits=mok, kd_intersect=kdk, mis_weight=wk, hit_vjp=hg, texture_grad=tk,
+                splat_grad=rk)[name]
 
 
 def wrapper(name: str):
@@ -1238,7 +1301,8 @@ def phase_render(card):
 def phase_sweeps(card):
     """Phase 6: K3, K4, K5 against their plain versions, timed (events
     around calls as the host makes them, and on the card alone: device_ms,
-    queued), with their bounds, on tools/sweep_replay.sweep_inputs.
+    queued; the plain version by events around the call its check makes),
+    with their bounds, on tools/sweep_replay.sweep_inputs.
     Returns, per kind, the camera rays' numbers and the worst error."""
     import torch
 
@@ -1248,10 +1312,11 @@ def phase_sweeps(card):
     for name, args in sweep_replay.sweep_inputs(DEVICE).items():
         for kind, kid, fn, plain in sweep_replay.sweep_kernels():
             got = fn(*args)
-            err = check_isect(f"{kid} {name}", kind, got, plain(*args))
+            want, plain_ms = timed_ms(lambda: plain(*args))
+            err = check_isect(f"{kid} {name}", kind, got, want)
+            del want
             ms = cuda_ms(lambda: fn(*args), 20)
             dev_ms = queued_ms(lambda: fn(*args), 20)
-            plain_ms = cuda_ms(lambda: plain(*args), 2)
             bms, fms = isect_bound_ms(kind, args, got)
             hits = float((got if kind == "any" else got.valid).float().mean())
             prev = dict(K3=PREV_K3_DEVICE_MS, K4=PREV_K4_DEVICE_MS).get(kid, {}).get(name)
@@ -4672,6 +4737,482 @@ def phase_bidirectional(card):
     return dict(out, w1=w1, w1_held=w1_held, seconds=seconds)
 
 
+def g1_bound_ms(o, d, tri, g_t, g_b0, g_b1, tris, want_verts=False) -> tuple:
+    """Least time of one G1 launch, as (bytes_ms, operations_ms).  Bytes:
+    each lane's o, d, tri and three upstream gradients in and g_o, g_d out;
+    the vertices of each distinct hit triangle read once, and with
+    want_verts the vertex gradients (T, 9) written once.  Operations:
+    G1_OPS a lane with a triangle."""
+    import torch
+
+    valid = tri >= 0
+    distinct = int(torch.unique(tri[valid]).numel())
+    nbytes = (o.shape[0] * G1_LANE_BYTES + distinct * VERT_BYTES
+              + (tris.shape[0] * VERT_BYTES if want_verts else 0))
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * int(valid.sum()) * G1_OPS / FP32_FLOP_PER_S
+
+
+def check_g1(what: str, got, want, args) -> tuple:
+    """Fails unless a G1 launch's per-lane g_o and g_d equal its plain
+    version's or lie within rtol = atol = 1e-5 (exact says which), and,
+    with the vertices' gradient, each atomically summed entry lies within
+    2 n 2^-24 of its n summed |terms| (the plain version counts them on the
+    same inputs).  (max_abs_err of g_o and g_d, exact)."""
+    from rs_pbrt_tpu_torch.ops import hit_grad_kernel as hg
+
+    err, exact = check_fourier(what, got[:2], want[:2])
+    if got[2] is not None:
+        work = {}
+        hg.hit_vjp_plain(*args, want_verts=True, work=work)
+        diff = (got[2] - want[2]).abs()
+        lim = 2.0 * work["n_verts"][:, None] * 2.0 ** -24 * work["abs_verts"]
+        if not bool((diff <= lim).all()):
+            fail(f"{what}: a vertex gradient differs from the plain version's by "
+                 f"{float(diff.max())}, past 2 n 2^-24 of its |terms|")
+    return err, exact
+
+
+def t2_bound_ms(tb, ids, uv, p, width, g_out) -> tuple:
+    """Least time of one T2 launch, as (bytes_ms, operations_ms): T1's
+    bound on the same lanes (texture_bound_ms: an upstream gradient in for
+    the rgb out, the points, texels and tables read) with the gradient
+    tables (tex_params, tex_atlas) written once; twice T1's operations,
+    the lookup again and its reverse sweep."""
+    b, o = texture_bound_ms(tb, texture_work(tb, ids if ids.dim() == 2 else ids[None], uv,
+                                             width))
+    out = (tb.params.numel() + tb.atlas.numel()) * 4
+    return b + 1e3 * out / HBM_BYTES_PER_S, 2.0 * o
+
+
+def check_t2(what: str, got, want, args=None, worst: dict = None) -> tuple:
+    """Fails unless each entry of a T2 launch's tex_params and tex_atlas
+    gradients lies within 1e-3 of the plain version's plus 1e-5 of the
+    table's largest |entry| (the sums hold up to a launch's lanes' terms an
+    entry at the pyramid's top levels, added by atomics in no fixed order).
+    worst["t2_rel"] keeps the largest share of that limit.  (max_abs_err,
+    exact)."""
+    import torch
+
+    err, exact = 0.0, True
+    for g, w in zip(got, want):
+        diff = (g - w).abs()
+        lim = 1e-3 * w.abs() + 1e-5 * float(w.abs().max())
+        err = max(err, float(diff.max()))
+        exact = exact and torch.equal(g, w)
+        if worst is not None:
+            worst["t2_rel"] = max(worst.get("t2_rel", 0.0),
+                                  float((diff / lim.clamp(min=1e-30)).max()))
+        if not bool((diff <= lim).all()):
+            fail(f"{what} differs from its plain version by up to {float(diff.max())}")
+    return err, exact
+
+
+def r2_bound_ms(cfg, p_film, L, g_rgb) -> tuple:
+    """Least time of one R2 launch, as (bytes_ms, operations_ms).  Bytes:
+    each lane's p_film and L in and g_L out; the film's gradient read once.
+    Operations: R1's lane and factor work and R2_TAP_OPS a tap in the film
+    with a nonzero weight (counted here)."""
+    from rs_pbrt_tpu_torch.ops import film as fm
+    from rs_pbrt_tpu_torch.ops import splat_kernel as rk
+
+    h, w = g_rgb.shape[:2]
+    taps = sum(int((wgt != 0.0).sum()) for _, wgt in rk.taps(cfg, p_film, h, w))
+    n, F = p_film.shape[0], fm.footprint(cfg)
+    nbytes = n * R2_LANE_BYTES + g_rgb.numel() * 4
+    ops = (n * (R1_OPS["lane"] + 2 * F * (R1_OPS["offset"] + R1_OPS["kinds"][cfg.kind]))
+           + taps * R2_TAP_OPS)
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / FP32_FLOP_PER_S
+
+
+def phase_gradients(card):
+    """Phase 29: gradients and checkpoints (diff/grad.py, diff/geometry.py,
+    render's checkpoints) on the card.  Each gradient render's counters
+    are zeroed just before it and read just after; each gradient is held to
+    the same gradient with every wrapper swapped for its plain version at
+    rtol = atol = TOL x its largest |entry|, and every G1, T2 and R2 launch
+    to its plain twin."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from rs_pbrt_tpu_torch.diff import geometry as geo
+    from rs_pbrt_tpu_torch.diff import grad as dg
+    from rs_pbrt_tpu_torch.models import cameras as cam
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.ops import film as fm
+    from rs_pbrt_tpu_torch.ops import hit_grad_kernel as hg
+    from rs_pbrt_tpu_torch.ops import intersect_kernel as ik
+    from rs_pbrt_tpu_torch.ops import scene_intersect as si
+    from rs_pbrt_tpu_torch.ops import splat_kernel as rk
+    from rs_pbrt_tpu_torch.ops import texture as tx
+    from rs_pbrt_tpu_torch.ops import texture_kernel as tk
+    from rs_pbrt_tpu_torch.scene import arrays as sa
+    from rs_pbrt_tpu_torch.scene import presets
+    from rs_pbrt_tpu_torch.scene.builder import SceneBuilder
+    from rs_pbrt_tpu_torch.tools import texture_scenes as ts
+    from rs_pbrt_tpu_torch.utils import transform as tr
+
+    t_phase = time.perf_counter()
+    mean = lambda img: img.mean()
+    out, laps = {}, {}
+    w, h = GRAD_RES
+    lanes = w * h * GRAD_SPP
+    scene, camera = presets.cornell_box(GRAD_RES, device=DEVICE)
+    scfg = smpl.make_sampler(smpl.SOBOL, GRAD_SPP, GRAD_RES)
+    cfg = rdr.RenderCfg("path", GRAD_SPP, GRAD_DEPTH, 1.0)
+
+    def counted(go, recorders, expect, tag):
+        """go() with the wrappers recorded, the counters zeroed just before
+        and read just after: (go's result, counts)."""
+        with ExitStack() as es:
+            patched(es, **recorders)
+            torch.cuda.synchronize()
+            zero_counts()
+            res = go()
+            torch.cuda.synchronize()
+            counts = read_counts()
+        if counts != expect_counts(**expect):
+            fail(f"launch counts of the {tag} gradient render {counts}, expected {expect}")
+        return res, counts
+
+    def plain_grad(go):
+        with ExitStack() as es:
+            patched(es, **plain_fns(), closest_sweep=ik.closest_sweep_plain,
+                    hit_vjp=hg.hit_vjp_plain, texture_grad=tk.texture_grad_plain,
+                    splat=rk.splat_plain, splat_grad=rk.splat_grad_plain)
+            res = go()
+        torch.cuda.synchronize()
+        return res
+
+    def grads_close(what, got, want) -> float:
+        err = 0.0
+        for name, a, b in zip(got._fields, got, want):
+            tol = TOL * float(b.abs().max())
+            err = max(err, float((a - b).abs().max()) if a.numel() else 0.0)
+            if not bool(torch.isfinite(a).all()) or not torch.allclose(a, b, rtol=TOL, atol=tol):
+                fail(f"{what}: d loss / d {name} differs from the plain gradient by up to "
+                     f"{float((a - b).abs().max())} (tolerance {TOL} x {float(b.abs().max())})")
+        return err
+
+    def shown(counts):
+        return {k: v for k, v in counts.items() if v}
+
+    def timed_best(go, reps=3):
+        best = float("inf")
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            go()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    # 29.1 the main gradient render: grad_loss(mean) over DiffParams
+    go_g = lambda: dg.grad_loss(scene, camera, cfg, scfg, mean)
+    go_g()  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rec = {k: EndsTimer(wrapper(k), keep=True) for k in SWEEP_NAMES}
+    (loss, g), counts = counted(go_g, rec, dict(sobol=2, full_sweep=GRAD_DEPTH + 1,
+                                                any_sweep=GRAD_DEPTH), "29 grad")
+    peak = torch.cuda.max_memory_allocated() - base
+    with torch.no_grad():
+        held = check_sweep_launches("29 grad", rec)
+    del rec
+    err = grads_close("29 grad", g, plain_grad(go_g)[1])
+    p0 = dg.get_params(scene)
+
+    def fd(render, leaf, index, step):
+        vals = []
+        for sgn in (1.0, -1.0):
+            arr = getattr(p0, leaf).clone()
+            arr[index] += sgn * step
+            with torch.no_grad():
+                vals.append(float(mean(render(p0._replace(**{leaf: arr})))))
+        return (vals[0] - vals[1]) / (2 * step)
+
+    kd_idx = (1, sa.MP_KD)  # the white walls' kd red
+    ad_kd = float(g.mat_params[kd_idx])
+    fd_kd = fd(lambda p: dg.render_image(scene, camera, cfg, scfg, p), "mat_params", kd_idx, 5e-3)
+    if not (ad_kd > 0.0 and abs(ad_kd - fd_kd) <= FD_RTOL * abs(fd_kd)):
+        fail(f"29 grad: d loss / d kd red {ad_kd} against its central difference {fd_kd}")
+    best = timed_best(go_g)
+    prof = profile_render(go_g, "29 profile, grad", top=8)
+    busy = sum(r[0] for r in prof)
+    print(f"[29 grad] Cornell {w}x{h}, {GRAD_SPP} spp, depth {GRAD_DEPTH} ({lanes} paths), "
+          f"grad_loss(mean) over DiffParams: loss {float(loss):.6f}; launches {shown(counts)} "
+          f"(K2 0: refused under a gradient); K1 bit-equal, K4 equal, K5 within {TOL} on their "
+          f"first and last launch; the gradient within rtol = atol = {TOL} x max|g| of the "
+          f"plain gradient (max abs err {err:.3g}); white kd red {ad_kd:.6g} against its "
+          f"central difference {fd_kd:.6g} (rtol {FD_RTOL}); forward and backward "
+          f"{lanes / best:.6g} paths/s (best of 3, {1e3 * best:.3f} ms), peak {peak / 2**20:.1f} "
+          f"MiB ({peak / lanes:.1f} bytes a lane), device busy {busy:.3f} ms of the profiled "
+          f"gradient render ({card})", flush=True)
+    out["grad"] = dict(counts=counts, paths_per_s=lanes / best, wall_ms=1e3 * best,
+                       busy_ms=busy, peak_bytes=peak, lane_bytes=peak / lanes, ad=ad_kd,
+                       fd=fd_kd)
+    del g
+    laps["grad"] = time.perf_counter() - t_phase
+
+    # 29.2 the camera gradient: K3 on detached rays, G1 its backward
+    ccfg = cfg._replace(max_depth=GRAD_CAM_DEPTH)
+    go_c = lambda: dg.grad_loss_wrt_camera(scene, camera, ccfg, scfg, mean)
+    go_c()  # warm
+    g1t = LaunchTimer(hg.hit_vjp, keep=True)
+    k3t = EndsTimer(ik.closest_sweep, keep=True)
+    (loss_c, gc), counts_c = counted(
+        go_c, dict(hit_vjp=g1t, closest_sweep=k3t),
+        dict(sobol=2, closest_sweep=GRAD_CAM_DEPTH + 1, any_sweep=GRAD_CAM_DEPTH,
+             hit_grad=GRAD_CAM_DEPTH), "29 camera")
+    with torch.no_grad():
+        for b, (_, a, kw, o) in enumerate(k3t.calls):
+            check_isect(f"29 camera K3 launch {b}", "closest", o,
+                        ik.closest_sweep_plain(*a, **kw))
+    del k3t
+    err_c = grads_close("29 camera", gc, plain_grad(go_c)[1])
+    # the central differences over the pixels whose samples keep their
+    # visibility: each closest hit's triangle (the camera ray's and every
+    # bounce's, so every light hit) and each shadow ray's occlusion the same
+    # in the base render and in the four stepped ones.  A sample whose
+    # visibility changes carries a boundary term (a silhouette crossing
+    # it), which detached sampling leaves out: its pixel is left out of the
+    # loss on both sides
+    def seen(cm):
+        """The image of a camera gradient render through cm and its
+        visibility: each K3 launch's triangles and each K4 launch's bits."""
+        sig, img = [], []
+
+        def keep(fn, pick):
+            def run(*a, **kw):
+                res = fn(*a, **kw)
+                sig.append(pick(res).clone())
+                return res
+            return run
+
+        with ExitStack() as es:
+            patched(es, closest_sweep=keep(ik.closest_sweep, lambda r: r.tri),
+                    any_sweep=keep(ik.any_sweep, lambda r: r))
+            dg.grad_loss_wrt_camera(scene, cm, ccfg, scfg,
+                                    lambda im: img.append(im.detach()) or im.mean())
+        return img[0].double(), sig
+
+    def stepped(k, sgn):
+        m = camera.cam_to_world.clone()
+        m[k, 3] += sgn * CAM_FD_STEP
+        return dataclasses.replace(camera, cam_to_world=m)
+
+    _, sig0 = seen(camera)
+    unstable = torch.zeros(w * h, dtype=torch.bool, device=DEVICE)
+    imgs, moved = {}, {}
+    for k in (1, 2):
+        for sgn in (1.0, -1.0):
+            imgs[k, sgn], sig = seen(stepped(k, sgn))
+            if any(x.shape != (lanes,) for x in sig0 + sig) or len(sig) != len(sig0):
+                fail("29 camera: a stepped render's sweeps are not the base render's, a lane "
+                     "a path each")
+            lane = torch.zeros(lanes, dtype=torch.bool, device=DEVICE)
+            for a, b in zip(sig0, sig):
+                lane |= a != b
+            moved[k, sgn] = int(lane.sum())
+            unstable[torch.nonzero(lane).flatten() % (w * h)] = True  # x fastest, then y
+    keep_px = (~unstable).reshape(h, w)
+    n_px = int(keep_px.sum())
+    weights = keep_px.to(torch.float32)[..., None] / (w * h * 3)
+    masked = lambda img: (img * weights).sum()
+    _, gm = dg.grad_loss_wrt_camera(scene, camera, ccfg, scfg, masked)
+    fdv, fd_full = [0.0] * 3, [0.0] * 3
+    for k in (1, 2):
+        dif = (imgs[k, 1.0] - imgs[k, -1.0]) / (2 * CAM_FD_STEP)
+        fdv[k] = float((dif * weights.double()).sum())
+        fd_full[k] = float(dif.mean())
+        ad = float(gm.cam_to_world[k, 3])
+        if abs(ad - fdv[k]) > CAM_FD_RTOL * max(abs(fdv[k]), 1e-9):
+            fail(f"29 camera: d loss / d translation {k} {ad} over the {n_px} pixels whose "
+                 f"samples keep their visibility, against its central difference {fdv[k]}")
+    with torch.no_grad():
+        g1 = kernel_part(g1t, "29 camera", "G1", hg.hit_vjp_plain, hg.hit_vjp, g1_bound_ms,
+                         check_g1, lambda *a, **kw: a[0].shape[0])
+    del g1t
+    best_c = timed_best(go_c, 1)
+    print(f"[29 camera] the same Cornell box, depth {GRAD_CAM_DEPTH}, grad_loss_wrt_camera: "
+          f"launches {shown(counts_c)}; every K3 launch within {TOL} of its plain version; the "
+          f"gradient within {TOL} x max|g| of the plain gradient (max abs err {err_c:.3g}); "
+          f"samples whose visibility changes under steps of {CAM_FD_STEP} in y, z: "
+          f"{moved[1, 1.0]}, {moved[1, -1.0]}, {moved[2, 1.0]}, {moved[2, -1.0]} of {lanes}; "
+          f"over the {n_px} of {w * h} pixels none of whose samples changes, d/d translation "
+          f"y, z {float(gm.cam_to_world[1, 3]):.6g}, {float(gm.cam_to_world[2, 3]):.6g} against "
+          f"central differences {fdv[1]:.6g}, {fdv[2]:.6g} (rtol {CAM_FD_RTOL}); over every "
+          f"pixel {float(gc.cam_to_world[1, 3]):.6g}, {float(gc.cam_to_world[2, 3]):.6g} "
+          f"against {fd_full[1]:.6g}, {fd_full[2]:.6g} (not held: the boundary term); "
+          f"{lanes / best_c:.6g} paths/s forward and backward ({card})", flush=True)
+    print_part("G1", "29 camera", g1, card)
+    out["camera"] = dict(counts=counts_c, paths_per_s=lanes / best_c, moved=list(moved.values()),
+                         pixels_held=n_px, ad=[float(gm.cam_to_world[k, 3]) for k in (1, 2)],
+                         fd=fdv[1:])
+    del gc
+    laps["camera"] = time.perf_counter() - t_phase - sum(laps.values())
+
+    # 29.3 the textured quad: T1 on detached tables, T2 its backward
+    b = SceneBuilder()
+    tid = b.add_texture(tx.TEX_IMAGEMAP, {tx.TP_GAMMA_SCALE: 1.0},
+                        image=ts.seeded_image(QUAD_IMAGE, 29))
+    mat = b.add_matte()
+    b.set_material_texture(mat, 0, tid)
+    b.add_triangle_mesh([[0, 1, 2], [0, 2, 3]], [[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]],
+                        uvs=[[0, 0], [1, 0], [1, 1], [0, 1]], material=mat)
+    b.add_distant_light(from_p=(0, 0, 1), to=(0, 0, 0), L=(2.0,) * 3)
+    qscene = b.finalize(DEVICE)
+    qcam = cam.make_perspective(tr.look_at([0, 0, 4], [0, 0, 0], [0, 1, 0]), QUAD_RES, fov=45.0,
+                                device=DEVICE)
+    qcfg = rdr.RenderCfg("path", QUAD_SPP, 1, 1.0)
+    qscfg = smpl.make_sampler(smpl.SOBOL, QUAD_SPP, QUAD_RES)
+    qlanes = QUAD_RES[0] * QUAD_RES[1] * QUAD_SPP
+    go_q = lambda: dg.grad_loss(qscene, qcam, qcfg, qscfg, mean)
+    go_q()  # warm
+    t1t = LaunchTimer(tk.texture_eval, keep=True)
+    t2t = LaunchTimer(tk.texture_grad, keep=True)
+    (_, gq), counts_q = counted(go_q, dict(texture_eval=t1t, texture_grad=t2t),
+                                dict(sobol=2, full_sweep=2, any_sweep=1, texture_eval=1,
+                                     texture_grad=1), "29 quad")
+    err_q = grads_close("29 quad", gq, plain_grad(go_q)[1])
+    worst = {}
+    with torch.no_grad():
+        t1 = t1_part(t1t, "29 quad")
+        t2 = kernel_part(t2t, "29 quad", "T2", tk.texture_grad_plain, tk.texture_grad,
+                         t2_bound_ms, lambda *a: check_t2(*a, worst=worst),
+                         lambda tb, ids, *a: ids.numel())
+    del t1t, t2t
+    best_q = timed_best(go_q, 1)
+    print(f"[29 quad] a quad textured by a {QUAD_IMAGE[1]}x{QUAD_IMAGE[0]} image map (its MIP "
+          f"pyramid read through the camera rays' footprints) at {QUAD_RES[0]}x{QUAD_RES[1]}, "
+          f"{QUAD_SPP} spp, depth 1, grad_loss(mean): launches {shown(counts_q)}; the gradient "
+          f"(tex_atlas, tex_params) within {TOL} x max|g| of the plain gradient (max abs err "
+          f"{err_q:.3g}); T2 within 1e-3 + 1e-5 x max of its twin, the largest entry error "
+          f"{worst.get('t2_rel', 0.0):.3g} of its limit; {qlanes / best_q:.6g} paths/s forward "
+          f"and backward ({card})", flush=True)
+    print_part("T1", "29 quad", t1, card)
+    print_part("T2", "29 quad", t2, card, tol="1e-3 + 1e-5 x max")
+    out["quad"] = dict(counts=counts_q, paths_per_s=qlanes / best_q)
+    del gq
+    laps["quad"] = time.perf_counter() - t_phase - sum(laps.values())
+
+    # 29.4 the Mitchell filter: R1 splats the batch, R2 its backward
+    mitchell = fm.make_filter(fm.FILTER_MITCHELL)
+    go_m = lambda: dg.grad_loss(scene, camera, cfg, scfg, mean, filter_cfg=mitchell)
+    go_m()  # warm
+    r1t = LaunchTimer(rk.splat, keep=True, copy=True)
+    r2t = LaunchTimer(rk.splat_grad, keep=True)
+    (_, gm), counts_m = counted(go_m, dict(splat=r1t, splat_grad=r2t),
+                                dict(sobol=2, full_sweep=GRAD_DEPTH + 1, any_sweep=GRAD_DEPTH,
+                                     splat=1, splat_grad=1), "29 mitchell")
+    err_m = grads_close("29 mitchell", gm, plain_grad(go_m)[1])
+    with torch.no_grad():
+        r1 = r1_part(r1t, "29 mitchell")
+        r2 = kernel_part(r2t, "29 mitchell", "R2", rk.splat_grad_plain, rk.splat_grad,
+                         r2_bound_ms, lambda what, got, want, a: check_fourier(what, (got,),
+                                                                               (want,)),
+                         lambda cfg_, p_film, *a: p_film.shape[0])
+    del r1t, r2t
+    best_m = timed_best(go_m, 1)
+    print(f"[29 mitchell] the Cornell box's gradient render with {mitchell}: launches "
+          f"{shown(counts_m)}; the gradient within {TOL} x max|g| of the plain gradient (max "
+          f"abs err {err_m:.3g}); {lanes / best_m:.6g} paths/s forward and backward ({card})",
+          flush=True)
+    print_part("R1", "29 mitchell", r1, card, tol="2 n 2^-24 of each pixel's |terms|")
+    print_part("R2", "29 mitchell", r2, card)
+    out["mitchell"] = dict(counts=counts_m, paths_per_s=lanes / best_m)
+    del gm
+    laps["mitchell"] = time.perf_counter() - t_phase - sum(laps.values())
+
+    # 29.5 the tall box's translation: interior by autograd (G1 with the
+    # vertices' gradient) plus the silhouettes' boundary, against a central
+    # difference, as tests/test_grad.py:178-237 holds the short box
+    res = TRANS_RES
+    tscene, tcam = presets.cornell_box((res, res), device=DEVICE)
+    mask = torch.zeros(tscene.n_tris, dtype=torch.bool, device=DEVICE)
+    mask[TALL_BOX] = True
+    # raised 2 units: the box's bottom face is coplanar with the floor
+    tscene = geo.translate_tris(tscene, mask, torch.tensor([0.0, 2.0, 0.0], device=DEVICE))
+    tcfg = rdr.RenderCfg("path", TRANS_SPP, 1, 1.0)
+    tscfg = smpl.make_sampler(smpl.SOBOL, TRANS_SPP, (res, res))
+    ys, xs = torch.meshgrid(torch.arange(res, device=DEVICE), torch.arange(res, device=DEVICE),
+                            indexing="ij")
+    pf = torch.stack([xs.flatten() + 0.5, ys.flatten() + 0.5], -1).float()
+    rays = cam.generate_rays(tcam, pf, torch.zeros((res * res, 2), device=DEVICE),
+                             torch.zeros(res * res, device=DEVICE))
+    it = si.scene_intersect(tscene, rays.o, rays.d, torch.full((res * res,), 1e30, device=DEVICE))
+    floor_rows = ((it.p[:, 1] < 1.0) & it.valid).reshape(res, res).any(1)
+    r0 = int(torch.nonzero(floor_rows)[0]) - 4  # the loss on the rows above the floor's
+    wimg = torch.zeros((res, res), device=DEVICE)
+    wimg[:r0] = 1.0 / (res * res)
+    direction = (1.0, 0.0, 0.0)
+    g1v = LaunchTimer(hg.hit_vjp, keep=True)
+    with ExitStack() as es:
+        patched(es, hit_vjp=g1v)
+        zero_counts()
+        interior, _, _ = geo.grad_loss_wrt_translation(tscene, tcam, tcfg, tscfg, mask,
+                                                       direction, wimg, samples_per_edge=1)
+        torch.cuda.synchronize()
+        counts_t = read_counts()
+    if counts_t["hit_grad"] < 1 or counts_t["bounce"] != 0:
+        fail(f"29 translation launches {counts_t}: G1 never launched, or K2 did")
+    bs = [float(geo.edge_boundary_grad(tscene, tcam, tcfg, tscfg, mask, direction, wimg,
+                                       samples_per_edge=TRANS_EDGE_SAMPLES, seed=sd))
+          for sd in range(TRANS_SEEDS)]
+    total = float(interior) + sum(bs) / len(bs)
+
+    def loss_at(theta):
+        s2 = geo.translate_tris(tscene, mask, torch.tensor([theta, 0.0, 0.0], device=DEVICE))
+        with torch.no_grad():
+            return float((rdr.render(s2, tcam, tcfg, tscfg) * wimg[..., None]).sum())
+
+    fdt = sum((loss_at(s) - loss_at(-s)) / (2 * s) for s in TRANS_STEPS) / len(TRANS_STEPS)
+    if not (fdt != 0.0 and (total > 0) == (fdt > 0) and abs(total - fdt) <= TRANS_RTOL * abs(fdt)):
+        fail(f"29 translation: interior {float(interior)} + boundary {bs} = {total} against the "
+             f"central difference {fdt}")
+    with torch.no_grad():
+        g1_verts = kernel_part(g1v, "29 translation", "G1", hg.hit_vjp_plain, hg.hit_vjp,
+                               g1_bound_ms, check_g1, lambda *a, **kw: a[0].shape[0])
+    del g1v
+    print(f"[29 translation] the tall box moving along x, {res}x{res}, {TRANS_SPP} spp, depth 1, "
+          f"the loss on the {r0} rows above the floor's: interior {float(interior):.6g} + "
+          f"boundary {sum(bs) / len(bs):.6g} ({TRANS_SEEDS} seeds of {TRANS_EDGE_SAMPLES} "
+          f"samples an edge: {', '.join(f'{x:.4g}' for x in bs)}) = {total:.6g} against the "
+          f"central difference {fdt:.6g} (steps {TRANS_STEPS}; rtol {TRANS_RTOL}, same sign); "
+          f"launches of the interior term {shown(counts_t)} ({card})", flush=True)
+    print_part("G1", "29 translation (g_o and g_d; the vertices' gradients each within 2 n "
+               "2^-24 of their summed |terms|)", g1_verts, card)
+    out["translation"] = dict(interior=float(interior), boundary=bs, fd=fdt, counts=counts_t)
+    laps["translation"] = time.perf_counter() - t_phase - sum(laps.values())
+
+    # 29.6 checkpoints: half the batches, checkpointed, resumed; bit-equal
+    # to the uninterrupted render over the same batches
+    batch = w * h * CK_BATCH_SPP
+    with tempfile.TemporaryDirectory() as tmp, torch.no_grad():
+        path = str(Path(tmp) / "ck.npz")
+        rdr.render(scene, camera, cfg._replace(spp=GRAD_SPP // 2), scfg, max_lanes=batch,
+                   checkpoint_path=path, checkpoint_every=CK_BATCH_SPP)
+        nxt = rdr.load_checkpoint(path, DEVICE)[1]
+        resumed = rdr.render(scene, camera, cfg, scfg, max_lanes=batch, checkpoint_path=path,
+                             checkpoint_every=GRAD_SPP)
+        direct = rdr.render(scene, camera, cfg, scfg, max_lanes=batch)
+    if nxt != GRAD_SPP // 2 or not torch.equal(resumed, direct):
+        fail(f"29 checkpoint: next sample {nxt}; the resumed image differs from the "
+             f"uninterrupted one in {int((resumed != direct).sum())} values")
+    print(f"[29 checkpoint] Cornell {w}x{h}, {GRAD_SPP} spp in batches of {CK_BATCH_SPP}: "
+          f"checkpointed after {nxt} samples a pixel and resumed, bit-equal to the "
+          f"uninterrupted render ({card})", flush=True)
+    seconds = time.perf_counter() - t_phase
+    laps["checkpoint"] = seconds - sum(laps.values())
+    print(f"[29] phase 29 {seconds:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in laps.items())
+          + ")", flush=True)
+    return dict(out, g1=g1, g1_verts=g1_verts, t2=t2, r2=r2, seconds=seconds,
+                held=dict(k5=held["full_sweep"]["max_abs_err"]))
+
+
 def kernel_entry(name, source, replaces, launches, parts, max_abs_err, library_ms=None) -> dict:
     """One kernel's line of the `kernels` JSON: per-launch means over
     `parts`, dicts of per-launch lists ms, plain_ms and bound ((bytes_ms,
@@ -4783,6 +5324,9 @@ def main():
     bidir = phase_bidirectional(card)
     later += [bidir[k] for k in ("bdpt", "mlt", "smoke")]
     lap("28")
+    grads = phase_gradients(card)
+    later += [grads[k] for k in ("grad", "camera", "quad", "mitchell", "translation")]
+    lap("29")
     more = lambda key: sum(p["counts"][key] for p in later)  # phases 10-12 and 14-27's launches
 
     k2 = flag["k2"]
@@ -4928,6 +5472,25 @@ def main():
                                      "rs_pbrt_tpu/models/integrators/bdpt.py:465", more("mis"),
                                      [w1], w1["max_abs_err"]),
                         bit_equal=w1["exact"], held=bidir["w1_held"]))
+    # G1, T2 and R2 replace the JAX package's reverse-mode AD through its
+    # XLA hit test, texture lookup and film update; no one PyTorch call
+    # computes these vector-Jacobian products
+    g1s = [grads["g1"], grads["g1_verts"]]
+    kernels.append(dict(kernel_entry(
+        "hit_vjp", csrc + "hit_grad.cu", "rs_pbrt_tpu/ops/intersect.py:61 (jax.vjp of "
+        "intersect_tri)", more("hit_grad"), g1s, max(p["max_abs_err"] for p in g1s)),
+        bit_equal=all(p["exact"] for p in g1s), held=sum(len(p["ms"]) for p in g1s)))
+    t2 = grads["t2"]
+    kernels.append(dict(kernel_entry(
+        "texture_vjp", csrc + "texture_grad.cu", "rs_pbrt_tpu/ops/texture.py:286 (jax.vjp of "
+        "eval_texture)", more("texture_grad"), [t2], t2["max_abs_err"]),
+        bit_equal=t2["exact"], held=len(t2["ms"]),
+        tolerance="each entry within 1e-3 of the plain version's + 1e-5 of the largest"))
+    r2 = grads["r2"]
+    kernels.append(dict(kernel_entry(
+        "splat_vjp", csrc + "splat_grad.cu", "rs_pbrt_tpu/ops/film.py:117 (jax.vjp of "
+        "add_samples)", more("splat_grad"), [r2], r2["max_abs_err"]),
+        bit_equal=r2["exact"], held=len(r2["ms"])))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

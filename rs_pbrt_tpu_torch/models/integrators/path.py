@@ -39,6 +39,7 @@ from ...ops import bssrdf as bss
 from ...ops import differentials as rd
 from ...ops import path_kernel as pk
 from ...ops import sampling as smp
+from ...ops.autodiff import tracks
 from ...ops import scene_intersect as si
 from ...ops import sobol_kernel as sk
 from ...scene import arrays as sa
@@ -206,7 +207,10 @@ def sss_transport(scene: sa.Scene, accel, it, bs, ss, ts, beta, L, alive, o, d, 
                                * n_local[:, axis].abs() * (1.0 / 3.0) * axis_prob)
     pdf_sp = pdf_sp / torch.clamp(n_found.to(torch.float32), min=1.0)
     ok_sss = found & (pdf_sp > 0.0) & (sp > 0.0).any(-1)
-    beta_sss = beta * sp / torch.clamp(pdf_sp, min=1e-12)[:, None]
+    # detached sampling (the JAX path.py:211, :240, :295, :382, :394-398,
+    # :426): the sampling pdfs, MIS weights and Russian roulette's beta are
+    # constants under autograd
+    beta_sss = beta * sp / torch.clamp(pdf_sp, min=1e-12).detach()[:, None]
 
     # the exit point's adapter BxDF (SeparableBssrdfAdapter,
     # bssrdf.rs:489-514): f = Sw(wi) eta^2, cosine-sampled
@@ -226,7 +230,7 @@ def sss_transport(scene: sa.Scene, accel, it, bs, ss, ts, beta, L, alive, o, d, 
                                     torch.where(cast2, dist2 * (1.0 - 1e-3), -1.0), accel)
         w_l2 = torch.where(ls2.is_delta, 1.0, smp.power_heuristic(ls2.pdf, pdf_cos2))
         contrib2 = (beta_sss * (f2 * cos2)[:, None] * ls2.li
-                    * ((w_l2 / torch.clamp(selp2, min=1e-12))
+                    * ((w_l2 / torch.clamp(selp2, min=1e-12)).detach()
                        / torch.clamp(ls2.pdf, min=1e-12))[:, None])
         L = L + torch.where((cast2 & ~occ2)[:, None], contrib2, 0.0)
 
@@ -260,7 +264,8 @@ def _add_emitted(scene, dist_at, it, o, d, L, beta, alive, specular_bounce, prev
         le = torch.where((hit_light >= 0)[:, None], le, 0.0)
         light_pdf = (smp.distribution_1d_discrete_pdf(dist_at(o), light)
                      * lt.pdf_li_area(scene, light, o, it.p, it.ns))
-        w_bsdf = torch.where(specular_bounce, 1.0, smp.power_heuristic(prev_bsdf_pdf, light_pdf))
+        w_bsdf = torch.where(specular_bounce, 1.0,
+                             smp.power_heuristic(prev_bsdf_pdf, light_pdf)).detach()
         L = L + beta * le * w_bsdf[:, None]
     if scene.has_env:
         escaped = alive & ~it.valid
@@ -312,15 +317,20 @@ def _shade_and_extend(scene, cfg: PathCfg, accel, dist_at, dims, bounce, it, sta
         sh_t = torch.where(contrib_ok, dist * (1.0 - 1e-3), -1.0)
         occluded = si.scene_intersect_p(scene, p_shadow, sh_d, sh_t, accel, time)
         w_light = torch.where(ls.is_delta, 1.0, smp.power_heuristic(ls.pdf, scat_pdf))
-        inv_pdf = (w_light / torch.clamp(sel_pdf, min=1e-12)) / torch.clamp(ls.pdf, min=1e-12)
+        # the area pdf's measure conversion stays differentiable: it carries
+        # camera and geometry gradients (the JAX path.py:375-383)
+        inv_pdf = ((w_light / torch.clamp(sel_pdf, min=1e-12)).detach()
+                   / torch.clamp(ls.pdf, min=1e-12))
         ld = beta * f * ls.li * inv_pdf[:, None]
         L = L + torch.where((contrib_ok & ~occluded)[:, None], ld, 0.0)
 
     bs = bx.bsdf_sample(b, wo_l, dims[:, 3:5], dims[:, 5])
-    wi_w = _to_world(bs.wi, ss, ts, it.ns)
-    cos_wi = vm.absdot(wi_w, it.ns)
+    # the sampled direction, its cosine and its pdf are sampling decisions;
+    # f stays differentiable in the material's parameters
+    wi_w = _to_world(bs.wi, ss, ts, it.ns).detach()
+    cos_wi = vm.absdot(wi_w, it.ns).detach()
     ok = (bs.pdf > 0.0) & (bs.f > 0.0).any(-1)
-    beta_next = beta * bs.f * (cos_wi / torch.clamp(bs.pdf, min=1e-12))[:, None]
+    beta_next = beta * bs.f * (cos_wi / torch.clamp(bs.pdf.detach(), min=1e-12))[:, None]
     beta = torch.where((alive & ok)[:, None], beta_next, beta)
     alive = alive & ok
     specular_bounce = torch.where(alive, bs.is_specular, specular_bounce)
@@ -338,7 +348,7 @@ def _shade_and_extend(scene, cfg: PathCfg, accel, dist_at, dims, bounce, it, sta
     # Russian roulette after bounce 3 (path.rs:253-262); the fixed-depth
     # loop skips it before then
     if not isinstance(bounce, int) or bounce > 2:
-        rr_beta_max = (beta * eta_scale[:, None]).max(-1).values
+        rr_beta_max = (beta * eta_scale[:, None]).max(-1).values.detach()
         q = torch.clamp(1.0 - rr_beta_max, min=0.05)
         consider = (bounce > 2) & (rr_beta_max < cfg.rr_threshold) & alive
         kill = consider & (dims[:, 6] < q)
@@ -413,9 +423,12 @@ def radiance(scene: sa.Scene, cfg: PathCfg, sampler_cfg: smpl.SamplerCfg,
     ``regen.radiance_regen``); else the general bounce.  diffs: the camera
     rays' differentials, where the scene needs them (regeneration is not
     eligible then).  time: the rays' times in the shutter (None: 0); K2
-    takes no scene that reads them (mega_cfg refuses moving meshes)."""
+    takes no scene that reads them (mega_cfg refuses moving meshes), nor
+    rays or scene tables that autograd records through."""
     if mega is None and accel is None:
         mega = pk.mega_cfg(scene, light_distrib)
+    if tracks(ray_o, ray_d):
+        mega = None  # K2 has no backward: the JAX gate refuses tracers too
     if mega is not None and cfg.max_depth > 0 and sampler_cfg.kind == smpl.SOBOL:
         return pk.mega_radiance(scene, mega, cfg.max_depth, cfg.rr_threshold, ctx.global_index,
                                 smpl.index_bits(sampler_cfg), DIM_CAMERA, ray_o, ray_d)

@@ -21,10 +21,19 @@ path, volpath, whitted and directlighting integrators take the camera
 rays' differentials, whose footprints filter the image maps at the first
 hit (``ops/differentials.py``, render.py:53-65 and :164-172 of the JAX
 package).
+A render saves its film and the next sample to a ``.npz`` checkpoint every
+``checkpoint_every`` samples per pixel and resumes from it (the JAX
+render.py:187-210, :348-423): the same keys, so a checkpoint written by
+either package resumes in the other.  Autograd records through a render
+whose scene or camera tensors require grad (``diff/grad.py``): the path
+integrator's sampling is detached as in the JAX package, K2 is refused,
+and the hits, textures and filter splat take their backward passes (G1,
+T2, R2).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import NamedTuple, Optional
 
@@ -78,14 +87,37 @@ class RenderCfg(NamedTuple):
 def check_cfg(cfg: RenderCfg):
     """Raises ValueError for an integrator or an accelerator that neither
     package has: the port renders every integrator of the JAX package.
-    What it still lacks are render's multi-device and checkpoint options
-    (ROADMAP A17) and the front ends (A18)."""
+    What it still lacks are render's multi-device option (ROADMAP A17b)
+    and the front ends (A18)."""
     if cfg.integrator not in INTEGRATORS:
         raise ValueError(f"unknown integrator {cfg.integrator!r}: the port renders "
-                         f"{INTEGRATORS} (sharded renders, checkpoints and gradients come "
-                         "with ROADMAP A17, the scene-file front ends with A18)")
+                         f"{INTEGRATORS} (sharded renders come with ROADMAP A17b, the "
+                         "scene-file front ends with A18)")
     if cfg.accelerator not in si.ACCELERATORS:
         raise ValueError(f"accelerator {cfg.accelerator!r}: the port builds {si.ACCELERATORS}")
+
+
+def save_checkpoint(path, film: filmmod.Film, next_sample: int):
+    """Writes the progressive render's state (the film's sums and the next
+    sample per pixel) to the .npz at path, with the JAX package's keys
+    (its render.py:187-197): rgb, weight, splat, next_sample."""
+    np.savez(path, rgb=film.rgb.detach().cpu().numpy(), weight=film.weight.detach().cpu().numpy(),
+             splat=film.splat.detach().cpu().numpy(), next_sample=np.int64(next_sample))
+
+
+def load_checkpoint(path, device="cuda"):
+    """(Film on device, next_sample) of the checkpoint at path, or None
+    where there is none (the JAX render.py:200-210)."""
+    if not os.path.exists(path):
+        return None
+    from ...device import resolve
+
+    dev = resolve(device)
+    z = np.load(path)
+    t = lambda k: torch.as_tensor(np.asarray(z[k], np.float32), device=dev)
+    splat = t("splat")
+    return (filmmod.Film(t("rgb"), t("weight"), splat, splatted=bool(splat.any())),
+            int(z["next_sample"]))
 
 
 # the integrators whose first hits read image maps through ray differentials
@@ -195,7 +227,8 @@ def render_batch(scene: sa.Scene, camera: cam.Camera, cfg: RenderCfg,
 def render(scene: sa.Scene, camera: cam.Camera, cfg: RenderCfg, sampler_cfg: smpl.SamplerCfg,
            filter_cfg: Optional[filmmod.FilterCfg] = None, accel=None,
            max_lanes: int = MAX_LANES, stats: Optional[dict] = None, crop=None,
-           regen: bool = True) -> torch.Tensor:
+           regen: bool = True, checkpoint_path: Optional[str] = None,
+           checkpoint_every: int = 0) -> torch.Tensor:
     """Renders the whole image; returns linear RGB (H, W, 3) on the scene's
     device.  accel: the scene's ``build_accel``, needed above
     BRUTE_FORCE_MAX_TRIS triangles.  max_lanes: a batch's paths at most,
@@ -221,7 +254,12 @@ def render(scene: sa.Scene, camera: cam.Camera, cfg: RenderCfg, sampler_cfg: smp
     (4096) and bootstrap_samples (16384); their stats are camera_rays
     (pixels x spp, or x mutations_per_pixel), resolution, wall_s and
     paths_per_s, with bdpt's batches and mlt's mutations (a chain's) and
-    mutations_per_s."""
+    mutations_per_s.  checkpoint_path: the film starts from the checkpoint
+    there where one exists, and, with checkpoint_every > 0, is saved there
+    whenever checkpoint_every more samples per pixel have been added and
+    after the last batch (the path-family integrators; sppm, bdpt and mlt
+    ignore it, as in the JAX package).  A resumed render equals the
+    uninterrupted one bit for bit where both take the same batches."""
     check_cfg(cfg)
     dev = scene.device
     if camera.device != dev:
@@ -250,15 +288,24 @@ def render(scene: sa.Scene, camera: cam.Camera, cfg: RenderCfg, sampler_cfg: smp
         scene, pathmod.PathCfg(cfg.max_depth, cfg.rr_threshold), sampler_cfg, accel,
         spp_per_batch * n_pix)
     film = filmmod.make_film((w, h), dev)
+    sample = batches = since_ck = 0
+    if checkpoint_path is not None:
+        ck = load_checkpoint(checkpoint_path, dev)
+        if ck is not None:
+            film, sample = ck
     run = {}
     t0 = time.perf_counter()
-    sample = batches = 0
     while sample < cfg.spp:
         nb = min(spp_per_batch, cfg.spp - sample)
         film = render_batch(scene, camera, cfg, sampler_cfg, film, filter_cfg, sample, nb, mega,
                             accel, rect, light_distrib, use_regen, run)
         sample += nb
         batches += 1
+        since_ck += nb
+        if checkpoint_path is not None and checkpoint_every and (
+                since_ck >= checkpoint_every or sample >= cfg.spp):
+            save_checkpoint(checkpoint_path, film, sample)
+            since_ck = 0
     img = filmmod.to_rgb(film)
     if stats is not None:
         if dev.type == "cuda":

@@ -29,6 +29,7 @@ import torch
 
 from ..ops import sampling as smp
 from ..ops import texture as tx
+from ..ops.autodiff import rows
 from ..scene import arrays as sa
 from ..utils import transform as tr
 from ..utils import vecmath as vm
@@ -67,7 +68,7 @@ def _area_sample_tri(scene: sa.Scene, la, light_idx, u2):
     o, c0, c1 = smp.bracket_cdf(cdf, u2[:, 0])
     u_remap = torch.clamp((u2[:, 0] - c0) / torch.clamp(c1 - c0, min=1e-12), 0.0, 1.0 - 1e-7)
     tri = torch.round(la[:, sa.LA_TRI_START]).to(torch.int64) + o
-    at = scene.tri_attr[torch.clamp(tri, 0, scene.n_tris - 1)]
+    at = rows(scene.tri_attr, torch.clamp(tri, 0, scene.n_tris - 1))
     b = smp.uniform_sample_triangle(torch.stack([u_remap, u2[:, 1]], -1))
     b0, b1 = b[:, 0:1], b[:, 1:2]
     b2 = 1.0 - b0 - b1
@@ -255,7 +256,7 @@ def sample_li(scene: sa.Scene, light_idx, ref_p, u2) -> LiSample:
     map drawn by its importance; a projection or goniometric light's
     position, its image's factor on the point light's radiance.  The delta
     lights' pdf is 1."""
-    la = scene.light_attr[light_idx.long()]
+    la = rows(scene.light_attr, light_idx)
     intensity = la[:, sa.LP_I:sa.LP_I + 3]
     ltype = torch.round(la[:, sa.LA_TYPE])
     if scene.n_tris > 0:
@@ -353,7 +354,7 @@ def sample_le(scene: sa.Scene, light_idx, u_pos, u_dir) -> LeSample:
     radius, a projection light's uniform cone over its window and a
     goniometric light's uniform sphere, each with its map's factor.  Both
     pdfs are floored at 1e-20."""
-    la = scene.light_attr[light_idx.long()]
+    la = rows(scene.light_attr, light_idx)
     n = light_idx.shape[0]
     pos = la[:, sa.LP_P:sa.LP_P + 3]
     intensity = la[:, sa.LP_I:sa.LP_I + 3]
@@ -461,7 +462,7 @@ def pdf_li_area(scene: sa.Scene, light_idx, ref_p, p_hit, n_hit):
     """The solid-angle pdf with which sample_li on area light light_idx
     would have picked the direction from ref_p toward p_hit (with normal
     n_hit there), for BSDF-sampling MIS (shape.rs pdf_with_ref_point)."""
-    la = scene.light_attr[light_idx.long()]
+    la = rows(scene.light_attr, light_idx)
     d = p_hit - ref_p
     d2 = torch.clamp(vm.length_squared(d), min=1e-12)
     wi = d / torch.sqrt(d2)[:, None]
@@ -484,7 +485,7 @@ def pdf_li_area(scene: sa.Scene, light_idx, ref_p, p_hit, n_hit):
 def area_light_emitted(scene: sa.Scene, light_idx, n_hit, wo):
     """L() of a hit area light (lights/diffuse.rs l()): its radiance where
     wo leaves the emitting side, for light_idx >= 0."""
-    lp = scene.light_attr[light_idx.long()]
+    lp = rows(scene.light_attr, light_idx)
     emits = (lp[:, sa.LP_TWO_SIDED] > 0.5) | (vm.dot(n_hit, wo) > 0.0)
     return torch.where((emits & (light_idx >= 0))[:, None], lp[:, sa.LP_I:sa.LP_I + 3], 0.0)
 

@@ -42,6 +42,7 @@ import torch
 from ..scene import arrays as sa
 from ..utils import vecmath as vm
 from . import fourier_kernel
+from .autodiff import rows
 from . import texture as tx
 from . import texture_kernel as tk
 from .fourier_bsdf import table_of
@@ -1067,7 +1068,7 @@ def make_bsdf_from_mat(scene: sa.Scene, mat, uv=None, p=None, width=None) -> Bsd
     footprints, or None) and, in a scene with hair, a fibre's offset;
     without them the slots keep their constants and a fibre's offset is 0,
     as the JAX package's make_bsdf_from_mat gives SPPM's visible points."""
-    ma = scene.mat_attr[mat.long()]
+    ma = rows(scene.mat_attr, mat)
     mat_type = torch.round(ma[:, sa.MA_TYPE]).to(torch.int32)
     if uv is not None and p is not None:
         params = textured_params(scene, ma, uv, p, width)

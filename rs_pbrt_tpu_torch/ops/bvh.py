@@ -36,6 +36,7 @@ import torch
 from ..device import resolve
 from ..utils import vecmath as vm
 from . import _build
+from .autodiff import refuse_grad
 from .intersect import TriHit
 
 W12 = 12
@@ -349,6 +350,9 @@ def _check(name, t, dtype, shape):
 def bvh12_intersect_tris(o, d, t_max, rows, depth: int, any_hit: bool = False):
     """B1 (closest hit -> TriHit) or B2 (any_hit -> (N,) bool occlusion)
     for CUDA tensors; bvh12_intersect_plain for CPU ones."""
+    if not any_hit:
+        refuse_grad("bvh12_intersect_tris (B1; the differentiable hit is "
+                    "scene_intersect.tri_hit)", o, d, t_max)
     if o.device.type == "cpu":
         hit = bvh12_intersect_plain(o, d, t_max, rows, depth, any_hit)
         return hit.valid if any_hit else hit

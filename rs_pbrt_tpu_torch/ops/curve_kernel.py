@@ -28,6 +28,7 @@ import torch
 from ..device import resolve
 from ..scene.arrays import N_CURVE_ATTR
 from . import _build
+from .autodiff import refuse_grad
 from . import curves as cv
 
 # kernel launches of each wrapper; the plain versions do not count
@@ -138,6 +139,7 @@ def _sweep(o, d, t_max, rows, any_hit: bool):
 def walk_closest(o, d, t_max, tree: cv.CurveBVH, rows) -> cv.CurveHit:
     """C1: the closest hit of rays o, d (N, 3) within t_max (N,) over
     segment rows (S, 26) through their tree."""
+    refuse_grad("walk_closest (C1)", o, d, t_max, rows)
     if o.device.type == "cpu":
         return cv.bvh_intersect_curves_plain(o, d, t_max, tree, rows)
     return _walk(o, d, t_max, tree, rows, False)
@@ -153,6 +155,7 @@ def walk_any(o, d, t_max, tree: cv.CurveBVH, rows) -> torch.Tensor:
 
 def sweep_closest(o, d, t_max, rows) -> cv.CurveHit:
     """C3: the closest hit over every segment row."""
+    refuse_grad("sweep_closest (C3)", o, d, t_max, rows)
     if o.device.type == "cpu":
         return cv.intersect_curves_plain(o, d, t_max, rows)
     return _sweep(o, d, t_max, rows, False)

@@ -21,6 +21,7 @@ import torch
 
 from ..device import resolve
 from ..utils import vecmath as vm
+from .autodiff import refuse_grad, tracks
 
 # filter tags of the JAX package's ops/film.py
 FILTER_BOX = 0
@@ -133,9 +134,17 @@ def add_samples(film: Film, cfg: FilterCfg, p_film: torch.Tensor, L: torch.Tenso
     adds to pixel px with weight f(px + 0.5 - p); taps outside the film
     (not the crop window) are dropped; NaN or infinite L counts as black,
     its weight still added (integrator.rs:165-193).  R1 on the card
-    (``splat_kernel.splat``)."""
+    (``splat_kernel.splat``).  Where autograd records through L, the batch
+    is splatted into a zero film through ``splat_kernel.SplatFn`` (R1, and
+    R2 for its backward) and added to the film out of place."""
     from . import splat_kernel
 
+    refuse_grad("add_samples in p_film (the filter's weights)", p_film)
+    if tracks(L):
+        h, w = film.weight.shape
+        rgb, weight = splat_kernel.SplatFn.apply(L, p_film, cfg, h, w)
+        film.rgb, film.weight = film.rgb + rgb, film.weight + weight
+        return film
     splat_kernel.splat(film.rgb, film.weight, cfg, p_film, L)
     return film
 

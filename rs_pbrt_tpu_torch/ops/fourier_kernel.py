@@ -24,6 +24,7 @@ from functools import lru_cache
 import torch
 
 from . import _build
+from .autodiff import refuse_grad
 from .fourier_bsdf import M_CAP, FourierTable, fourier_eval_plain, fourier_sample_plain
 
 launches = {"fourier_eval": 0, "fourier_sample": 0}  # kernel launches; the plain versions count none
@@ -73,6 +74,7 @@ def _table_args(ft: FourierTable):
 def fourier_eval(ft: FourierTable, wo, wi, on):
     """F1: (f (N, 3), pdf (N,)) on the lanes of on; the plain version on the
     CPU."""
+    refuse_grad("fourier_eval (F1)", wo, wi)
     if wo.device.type == "cpu":
         return fourier_eval_plain(ft, wo, wi, on)
     wo, wi, on = wo.contiguous(), wi.contiguous(), on.contiguous()
@@ -91,6 +93,7 @@ def fourier_eval(ft: FourierTable, wo, wi, on):
 
 def fourier_sample(ft: FourierTable, wo, u2, on):
     """F2: wi (N, 3) on the lanes of on; the plain version on the CPU."""
+    refuse_grad("fourier_sample (F2)", wo, u2)
     if wo.device.type == "cpu":
         return fourier_sample_plain(ft, wo, u2, on)
     wo, u2, on = wo.contiguous(), u2.contiguous(), on.contiguous()

@@ -16,6 +16,7 @@ from functools import lru_cache
 import torch
 
 from . import _build
+from .autodiff import refuse_grad
 from .instancing import InstanceAccel, InstanceHit, instance_intersect_plain
 
 launches = {"closest": 0, "any": 0}  # kernel launches; the plain version does not count
@@ -64,6 +65,8 @@ def instance_intersect(o, d, t_max, acc: InstanceAccel, any_hit: bool = False):
     """I1 (closest hit -> InstanceHit) or I2 (any_hit -> (N,) bool
     occlusion) of rays o, d (N, 3) within t_max (N,) for CUDA tensors;
     instance_intersect_plain for CPU ones."""
+    if not any_hit:
+        refuse_grad("instance_intersect (I1)", o, d, t_max)
     if o.device.type == "cpu":
         return instance_intersect_plain(o, d, t_max, acc, any_hit)
     n = o.shape[0]

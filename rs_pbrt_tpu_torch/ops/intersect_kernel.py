@@ -26,6 +26,7 @@ import torch
 
 from ..scene import arrays as sa
 from . import _build
+from .autodiff import refuse_grad
 from .intersect import TriHit
 from .record import tri_record
 from .watertight import any_sweep as _any_sweep_tuples
@@ -135,6 +136,8 @@ def _stream():
 
 def closest_sweep(o, d, t_max, tris, n_tri: int) -> TriHit:
     """K3: the kernel for CUDA tensors, closest_sweep_plain for CPU ones."""
+    refuse_grad("closest_sweep (K3; the differentiable hit is scene_intersect.tri_hit)", o,
+                d, t_max, tris)
     if o.device.type == "cpu":
         return closest_sweep_plain(o, d, t_max, tris, n_tri)
     n = _check_inputs("closest_sweep", o, d, t_max, tris, n_tri)
@@ -171,6 +174,8 @@ def any_sweep(o, d, t_max, tris, n_tri: int) -> torch.Tensor:
 def full_sweep(o, d, t_max, tris, n_tri: int) -> FullHit:
     """K5: the kernel for CUDA tensors, full_sweep_plain for CPU ones.
     tris is the scene's (T, N_TRI_ATTR) tri_attr."""
+    refuse_grad("full_sweep (K5, whose record has no backward: scene_intersect takes "
+                "tri_hit and tri_record)", o, d, t_max, tris)
     if o.device.type == "cpu":
         return full_sweep_plain(o, d, t_max, tris, n_tri)
     n = _check_inputs("full_sweep", o, d, t_max, tris, n_tri, cols=sa.N_TRI_ATTR)

@@ -19,6 +19,7 @@ import torch
 
 from ..device import resolve
 from . import _build
+from .autodiff import refuse_grad
 from .intersect import TriHit
 from .kdtree import KdTree, kdtree_intersect_plain
 
@@ -63,6 +64,9 @@ def kd_intersect(o, d, t_max, kt: KdTree, tris, any_hit: bool = False):
     """D1 (closest hit -> TriHit) or D2 (any_hit -> (N,) bool occlusion)
     of rays o, d (N, 3) within t_max (N,) over triangles tris (T, 9) f32
     for CUDA tensors; kdtree_intersect_plain for CPU ones."""
+    if not any_hit:
+        refuse_grad("kd_intersect (D1; the differentiable hit is scene_intersect.tri_hit)",
+                    o, d, t_max, tris)
     if o.device.type == "cpu":
         hit = kdtree_intersect_plain(o, d, t_max, kt, tris, any_hit)
         return hit.valid if any_hit else hit

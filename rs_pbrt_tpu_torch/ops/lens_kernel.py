@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .autodiff import refuse_grad
 from ..utils import transform as tr
 from ..utils.vecmath import true_div
 
@@ -81,7 +82,9 @@ def lane_consts(camera, lens: np.ndarray, pupil: np.ndarray) -> np.ndarray:
     y_ext = aspect * x_ext
     rear_z = float(lens[-1, 1])
     area0 = float(max((pupil[0, 2] - pupil[0, 0]) * (pupil[0, 3] - pupil[0, 1]), 1e-20))
-    wscale = float(np.float32(camera.shutter_close) - np.float32(camera.shutter_open))
+    # the shutter may be 0-d tensors (a camera gradient's leaves)
+    host = lambda v: np.float32(v.detach().cpu() if torch.is_tensor(v) else v)
+    wscale = float(host(camera.shutter_close) - host(camera.shutter_open))
     return np.asarray([sx, sy, x_ext, -x_ext / 2.0, y_ext, -y_ext / 2.0, camera.film_diag / 2.0,
                        rear_z, area0, wscale, rear_z * rear_z, float(camera.simple_weighting)],
                       np.float64).astype(np.float32)
@@ -223,6 +226,8 @@ def _check_args(camera, p_film: torch.Tensor, u_lens: torch.Tensor):
 def lens_rays(camera, p_film: torch.Tensor, u_lens: torch.Tensor):
     """(o, d, weight) of a realistic camera's lanes: the kernel for CUDA
     tensors, the plain version for CPU ones."""
+    refuse_grad("lens_rays (L1)", camera.cam_to_world, camera.raster_to_camera, p_film, u_lens,
+                *(v for v in (camera.lens_radius, camera.focal_distance) if torch.is_tensor(v)))
     _check_args(camera, p_film, u_lens)
     if p_film.device.type == "cpu":
         return lens_rays_plain(camera, p_film, u_lens)

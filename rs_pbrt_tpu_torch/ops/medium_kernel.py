@@ -36,6 +36,7 @@ import torch
 from ..utils import rng
 from ..utils import transform as tr
 from . import _build
+from .autodiff import refuse_grad
 from .medium import grid_density
 
 TRACK_STEPS = 16  # the JAX volpath's bounded steps (volpath.py:41)
@@ -183,6 +184,7 @@ def delta_track(grid, w2m, sigma_a, sigma_s, max_density, mid, in_med, o, d, t_m
                 bounce: int, seed: int):
     """M1: (sampled, t, weight), see the module's docstring; the plain
     version on the CPU."""
+    refuse_grad("delta_track (M1)", grid, sigma_a, sigma_s, o, d, t_max)
     if o.device.type == "cpu":
         return delta_track_plain(grid, w2m, sigma_a, sigma_s, max_density, mid, in_med, o, d,
                                  t_max, lane_key, bounce, seed)
@@ -208,6 +210,7 @@ def ratio_track(grid, w2m, sigma_a, sigma_s, max_density, mid, in_med, o, d, dis
                 salt: int, seed: int):
     """M2: tr (N,), see the module's docstring; the plain version on the
     CPU."""
+    refuse_grad("ratio_track (M2)", grid, sigma_a, sigma_s, o, d, dist)
     if o.device.type == "cpu":
         return ratio_track_plain(grid, w2m, sigma_a, sigma_s, max_density, mid, in_med, o, d,
                                  dist, lane_key, salt, seed)

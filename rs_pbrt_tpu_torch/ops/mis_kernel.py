@@ -29,6 +29,7 @@ from functools import lru_cache
 import torch
 
 from . import _build
+from .autodiff import refuse_grad
 
 # the override slots: c[t-1].pdf_rev, c[t-2].pdf_rev, l[s-1].pdf_rev,
 # l[s-2].pdf_rev, l[0].pdf_fwd, l[0].pdf_rev, l[0].delta
@@ -138,6 +139,7 @@ def mis_weight(c_fwd, c_rev, c_delta, l_fwd, l_rev, l_delta, s: int, t: int, ov:
     """(N,) f32 MIS weights of strategy (s, t) (see the module's
     docstring): the kernel for CUDA tensors, the plain version for CPU
     ones."""
+    refuse_grad("mis_weight (W1)", c_fwd, c_rev, l_fwd, l_rev, *ov)
     _check_args(c_fwd, c_rev, c_delta, l_fwd, l_rev, l_delta, s, t, ov, l0_is_delta)
     if c_fwd.device.type == "cpu":
         return mis_weight_plain(c_fwd, c_rev, c_delta, l_fwd, l_rev, l_delta, s, t, ov,

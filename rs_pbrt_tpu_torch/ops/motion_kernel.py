@@ -32,6 +32,7 @@ from ..scene import arrays as sa
 from ..utils import animated as an
 from ..utils import transform as tr
 from . import _build
+from .autodiff import refuse_grad
 from .bvh import ray_shear, tri_test_soa
 
 launches = {"closest": 0, "any": 0}  # kernel launches; the plain version does not count
@@ -134,6 +135,8 @@ def _check(name, t, dtype, shape):
 def anim_hits(o, d, t_max, time, scene: sa.Scene, any_hit: bool = False):
     """V1 for CUDA tensors (closest hit -> dict as anim_hits_plain's, or
     any_hit -> (N,) bool); anim_hits_plain for CPU ones."""
+    if not any_hit:
+        refuse_grad("anim_hits (V1)", o, d, t_max, time, scene.anim_attr, scene.anim_xf)
     if o.device.type == "cpu":
         return anim_hits_plain(o, d, t_max, time, scene, any_hit)
     n, g = o.shape[0], scene.anim_xf.shape[0]

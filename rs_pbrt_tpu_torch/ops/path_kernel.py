@@ -25,6 +25,7 @@ are read by direct indexing where the TPU needed select-accumulate loops.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -35,6 +36,7 @@ from ..utils import vecmath as vm
 from . import _build
 from . import lowdiscrepancy as ld
 from . import sampling as smp
+from .autodiff import tracks
 from .record import coordinate_system as _coordinate_system
 from .record import cross as _cross
 from .record import dot as _dot
@@ -81,9 +83,12 @@ def mega_cfg(scene: sa.Scene, light_distrib=None) -> Optional[MegaCfg]:
     power, so a spatial light distribution (light_distrib) refuses it.
     The kernel sweeps the static triangles only: a scene with instances or
     animated meshes is refused (the JAX megakernel would drop them too,
-    but the JAX package takes it only on a TPU)."""
+    but the JAX package takes it only on a TPU).  None too where autograd
+    records through a scene table: K2 has no backward."""
     if light_distrib is not None:
         return None
+    if tracks(*(getattr(scene, f.name) for f in dataclasses.fields(scene))):
+        return None  # K2 has no backward (the JAX gate refuses tracers, pallas_path.py:105-110)
     if (scene.n_spheres or scene.n_curve_segs or scene.has_env or scene.has_alpha
             or scene.has_subsurface or scene.has_hair or scene.n_instances
             or scene.n_anim_tris):

@@ -98,7 +98,9 @@ def tri_record(tris, bi, b0, b1) -> TriRecord:
     e12 = sub(p1, p2)
     ng = normalize(cross(e02, e12), 1e-30)
     ns = tuple(b0 * n0[k] + b1 * n1[k] + b2 * n2[k] for k in range(3))
-    ns_len = torch.sqrt(dot(ns, ns))
+    # guarded: a mesh without vertex normals interpolates ns = 0, whose
+    # sqrt's backward is inf (the JAX _tri_interaction's guard)
+    ns_len = torch.sqrt(torch.clamp(dot(ns, ns), min=1e-20))
     has_n = (has_n_f > 0.5) & (ns_len > 1e-8)
     inv_nsl = 1.0 / torch.clamp(ns_len, min=1e-8)
     ns = where3(has_n, scale(ns, inv_nsl), ng)

@@ -30,6 +30,14 @@ scene_intersect.py:689-730 and :768-773); their records are
 ``instance_interaction`` and ``anim_interaction``, and neither carries an
 area light.  ``time`` (N,) is each ray's time in the shutter; None is
 time 0, as every integrator but path passes it.
+
+Where autograd records through the rays or the triangle table (a camera
+or geometry gradient), the closest triangle hit is differentiable: the
+walk the scene uses (K3 for the dense table, B1, D1) runs on detached
+rays inside ``hit_grad_kernel.TriHitFn``, whose backward is G1, and the
+record is ``tri_record``'s, differentiable in the table, as the JAX
+package rebuilds its record from the hit (``_tri_interaction``).  Shadow
+rays' any hits are discrete, so their kernels take the rays detached.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from . import bvh
 from . import bvh_native
 from . import curve_kernel as ck
 from . import curves as cv
+from . import hit_grad_kernel as hg
 from . import instance_kernel as ink
 from . import instancing as inst
 from . import intersect as isect
@@ -57,6 +66,7 @@ from . import kdtree_kernel as kdk
 from . import motion_kernel as mok
 from . import texture as tx
 from . import texture_kernel as tk
+from .autodiff import tracks
 from .record import tri_record
 
 # up to this triangle count the triangles are swept densely; above it they
@@ -201,6 +211,23 @@ def check_supported(scene: sa.Scene, accel: Optional[Accel] = None):
                   None if accel.kd is None else accel.kd.axis):
             if t is not None and t.device != scene.device:
                 raise ValueError(f"the accel lies on {t.device}, the scene on {scene.device}")
+
+
+def tri_hit(scene: sa.Scene, o, d, t_max, accel: Optional[Accel] = None) -> isect.TriHit:
+    """Closest triangle hit: B1 through the BVH, D1 through the kd-tree,
+    else K3 over the whole table; differentiable in o, d and the table's
+    vertices through G1 (hit_grad_kernel.diff_tri_hit) where autograd
+    records through any of them."""
+    if uses_bvh(scene, accel):
+        walk = lambda o_, d_, t_: bvh.bvh12_intersect_tris(o_, d_, t_, accel.tri, accel.tri_depth)
+    elif uses_kd(scene, accel):
+        walk = lambda o_, d_, t_: kdk.kd_intersect(o_.contiguous(), d_.contiguous(),
+                                                   t_.contiguous(), accel.kd, accel.kd_tris)
+    else:
+        walk = lambda o_, d_, t_: dense_tri_hit(scene, o_, d_, t_)
+    if tracks(o, d, scene.tri_attr):
+        return hg.diff_tri_hit(o, d, t_max, scene.tri_attr, walk)
+    return walk(o, d, t_max)
 
 
 def dense_tri_hit(scene: sa.Scene, o, d, t_max) -> isect.TriHit:
@@ -414,11 +441,9 @@ def _scene_intersect_once(scene: sa.Scene, o, d, t_max, accel: Optional[Accel],
     n = o.shape[0]
     dev = o.device
     zero3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    if uses_bvh(scene, accel) or uses_kd(scene, accel):
-        th = (bvh.bvh12_intersect_tris(o, d, t_max, accel.tri, accel.tri_depth)
-              if uses_bvh(scene, accel) else
-              kdk.kd_intersect(o.contiguous(), d.contiguous(), t_max.contiguous(), accel.kd,
-                               accel.kd_tris))
+    tree = uses_bvh(scene, accel) or uses_kd(scene, accel)
+    if tree or (scene.n_tris > 0 and tracks(o, d, scene.tri_attr)):
+        th = tri_hit(scene, o, d, t_max, accel)
         rec = tri_record(scene.tri_attr, th.tri, th.b0, th.b1)
         tv, tt, tprim = th.valid, th.t, th.tri
         tp, tperr, tng, tns, tuv, tdpdu = (torch.stack(v, -1) for v in (
@@ -492,7 +517,8 @@ def alpha_masked(scene: sa.Scene, it: Interaction, shadow: bool) -> torch.Tensor
     at = scene.tri_attr[torch.clamp(it.prim, 0, max(scene.n_tris - 1, 0)).long()]
     cols = [sa.TA_ALPHA, sa.TA_SALPHA] if shadow else [sa.TA_ALPHA]
     tid = torch.round(at[:, cols]).to(torch.int32).t()  # (masks, N)
-    a = tk.texture_eval(tx.tables_of(scene), tid, it.uv, it.p)[..., 0]
+    with torch.no_grad():  # the test is discrete
+        a = tk.texture_eval(tx.tables_of(scene), tid, it.uv, it.p)[..., 0]
     return is_tri & ((tid >= 0) & (a == 0.0)).any(0)
 
 
@@ -546,6 +572,7 @@ def scene_intersect(scene: sa.Scene, o, d, t_max, accel: Optional[Accel] = None,
     return it
 
 
+@torch.no_grad()  # the occlusion bit is discrete: no gradient reaches the rays
 def scene_intersect_p(scene: sa.Scene, o, d, t_max, accel: Optional[Accel] = None,
                       time=None) -> torch.Tensor:
     """Any hit (shadow ray) within t_max: triangles through K4, or B2 (D2)

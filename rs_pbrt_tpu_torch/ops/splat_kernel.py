@@ -10,6 +10,15 @@ film's rgb and weight in place and return them.  The kernel adds with
 atomics, in no fixed order, so its film is not bit-equal to the plain
 version's; on the CPU the plain version adds in lane order, tap by tap, as
 the JAX scatter does.
+
+Where autograd records through L, the film update is ``SplatFn``: its
+forward splats into a zero film with R1, its backward is ``splat_grad``
+(R2, ``csrc/splat_grad.cu``, on CUDA tensors; ``splat_grad_plain`` on CPU
+ones), the vector-Jacobian product in L: each lane gathers the upstream
+gradient of its taps' pixels times their weights, the transpose of the
+JAX scatter-add, deterministic and bit-equal to the plain version.  The
+weights depend on p_film, which carries no gradient: a p_film that does
+raises (ROADMAP A17c).
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from . import film as fm
 
 MAX_TAPS = 16  # csrc/splat.cuh kMaxTaps: a footprint of at most 16 (radius <= 7.5)
 launches = 0  # kernel launches of `splat`; the plain path does not count
+grad_launches = 0  # kernel launches of `splat_grad` (R2)
 
 
 @lru_cache(maxsize=None)
@@ -32,6 +42,16 @@ def _kernel():
     fn = _build.load("splat").rs_splat
     P, I = ctypes.c_void_p, ctypes.c_int
     # p_film, L, rgb, weight, n, w, h, taps, kind, consts, stream
+    fn.argtypes = [P, P, P, P, I, I, I, I, I, P, P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@lru_cache(maxsize=None)
+def _grad_kernel():
+    fn = _build.load("splat_grad").rs_splat_grad
+    P, I = ctypes.c_void_p, ctypes.c_int
+    # p_film, L, g_rgb, g_L, n, w, h, taps, kind, consts, stream
     fn.argtypes = [P, P, P, P, I, I, I, I, I, P, P]
     fn.restype = ctypes.c_int
     return fn
@@ -136,3 +156,60 @@ def splat(rgb: torch.Tensor, weight: torch.Tensor, cfg: fm.FilterCfg, p_film: to
     _build.check(err, "splat kernel launch")
     launches += 1
     return rgb, weight
+
+
+def splat_grad_plain(cfg: fm.FilterCfg, p_film: torch.Tensor, L: torch.Tensor,
+                     g_rgb: torch.Tensor) -> torch.Tensor:
+    """R2's plain version: grad_L (N, 3) = each lane's taps' weights times
+    g_rgb (H, W, 3) at their pixels, summed tap by tap in ``taps``' order;
+    0 where L is NaN or infinite (counted as black)."""
+    h, w = g_rgb.shape[:2]
+    g_flat = g_rgb.reshape(-1, 3)
+    acc = torch.zeros_like(L)
+    for idx, wgt in taps(cfg, p_film, h, w):
+        acc = acc + wgt[:, None] * g_flat[idx]
+    return torch.where(torch.isfinite(L).all(-1)[:, None], acc, 0.0)
+
+
+def splat_grad(cfg: fm.FilterCfg, p_film: torch.Tensor, L: torch.Tensor,
+               g_rgb: torch.Tensor) -> torch.Tensor:
+    """R2 for CUDA tensors, splat_grad_plain for CPU ones: the gradient in
+    L (N, 3) of a splat of (p_film, L) through cfg, given the film rgb's
+    upstream gradient g_rgb (H, W, 3)."""
+    h, w = g_rgb.shape[:2]
+    g_rgb = g_rgb.contiguous()
+    _check_args(g_rgb, g_rgb[..., 0].contiguous(), cfg, p_film, L)
+    if p_film.device.type == "cpu":
+        return splat_grad_plain(cfg, p_film, L, g_rgb)
+    global grad_launches
+    g_L = torch.empty_like(L)
+    consts = filter_consts(cfg)
+    with torch.cuda.device(p_film.device):
+        err = _grad_kernel()(p_film.data_ptr(), L.data_ptr(), g_rgb.data_ptr(), g_L.data_ptr(),
+                             p_film.shape[0], w, h, fm.footprint(cfg), int(cfg.kind),
+                             consts.ctypes.data, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "splat_grad kernel launch")
+    grad_launches += 1
+    return g_L
+
+
+class SplatFn(torch.autograd.Function):
+    """(rgb (H, W, 3), weight (H, W)) of N samples splatted into a zero film
+    of size (h, w) through cfg, differentiable in L: forward R1 (splat),
+    backward R2 (splat_grad)."""
+
+    @staticmethod
+    def forward(ctx, L, p_film, cfg, h, w):
+        L = L.detach().contiguous()
+        rgb = torch.zeros((h, w, 3), dtype=torch.float32, device=L.device)
+        weight = torch.zeros((h, w), dtype=torch.float32, device=L.device)
+        splat(rgb, weight, cfg, p_film, L)
+        ctx.cfg = cfg
+        ctx.save_for_backward(p_film, L)
+        ctx.mark_non_differentiable(weight)
+        return rgb, weight
+
+    @staticmethod
+    def backward(ctx, g_rgb, _g_weight):
+        p_film, L = ctx.saved_tensors
+        return splat_grad(ctx.cfg, p_film, L, g_rgb), None, None, None, None

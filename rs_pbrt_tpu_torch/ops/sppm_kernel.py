@@ -31,6 +31,7 @@ from functools import lru_cache
 import torch
 
 from . import _build
+from .autodiff import refuse_grad
 from . import bsdf as bx
 
 launches = {"sppm_deposit": 0}  # kernel launches; the plain version does not count
@@ -213,6 +214,7 @@ def _check(name, t, dtype, shape):
 def deposit(rows, start27, okc27, nbf27, vp_p, ss, ts, ns, wo_l, r2, b: bx.Bsdf, max_ev: int):
     """S1: (phi (P, 3), m (P,)), the deposit of the sorted events on the VPs
     (see the module's docstring); the plain version on the CPU."""
+    refuse_grad("deposit (S1)", rows, vp_p, ss, ts, ns, wo_l, r2, *b)
     if rows.device.type == "cpu":
         return deposit_plain(rows, start27, okc27, nbf27, vp_p, ss, ts, ns, wo_l, r2, b, max_ev)
     check_lobes(okc27, b)
