@@ -409,6 +409,26 @@ Run from the root of a checkout.  Phases, one line each (or more):
    checkpointed after half its batches and resumed, bit-equal to the
    uninterrupted render over the same batches.
 
+30. Sharding (parallel/mesh.py, parallel/distributed.py).  A world of one
+   over NCCL in this process (make_mesh() starts it): the flagship of phase
+   5 through render(mesh=), the counters zeroed just before it and read
+   just after (K1 once, K2 depth + 1 times), K1 held bit-equal and every
+   K2 launch within TOL of its plain version, the image bit-equal to phase
+   5's; its paths/s beside render's without the mesh, best of 3 in turns,
+   and the film's all-reduce timed alone.  geometry_sharded_intersect on
+   phase 6's 262,144 random rays and 2,048 triangles (one shard: K3 once)
+   equal to K3 on the whole table, with K3's time.  BDPT, SPPM and MLT on
+   a 64x64 Cornell box with the mesh: the same launches as without it and
+   the image within rtol 1e-4, atol 1e-5 (splats and deposits add with
+   atomics).  grad_loss(mesh=) of phase 29's main gradient: K1 2, K5
+   depth + 1, K4 depth, within rtol 1e-5 of phase 29's.  Then a world of
+   two processes on the one card over gloo (NCCL takes no two ranks on one
+   card; gloo moves CUDA tensors itself, through host memory): each renders
+   its band of the flagship at 16 spp (K1 1, K2 depth + 1 a rank) and sweeps
+   its half of the triangles; the image within rtol 1e-4 of render's, the
+   hits equal to K3 on the whole table.  The ranks are joined against a
+   deadline and killed on a failure.
+
 After each phase (or group) a "[time]" line gives the seconds since the
 card was found.  Then one JSON line with every kernel's numbers, and as
 the last line
@@ -700,11 +720,11 @@ KD_SUBDIV = 4  # the kd statue: 5,124 triangles
 WALK_NODE_BYTES, W2O_BYTES, TRI_BYTES, KD_NODE_BYTES, PRIM_ID_BYTES = 56, 48, 36, 20, 4
 WALK_FLOP = dict(ray=3, box=13, candidate=50, tri=65, kd_node=2)
 TIME_BYTES = 4
-# phase 28: MLT at half the JAX render's default mutations a pixel (16:
-# its plain render's sweeps grow with the mutations, and the script keeps
-# to 1200 s), 2^16 chains and 2^18 bootstrap samples; BDPT on the smoke at
-# a reduced size
-MLT_MPP, MLT_CHAINS, MLT_BOOTSTRAP = 8, 1 << 16, 1 << 18
+# phase 28: MLT at a quarter of the JAX render's default mutations a pixel
+# (16: its plain render's sweeps grow with the mutations, and the script
+# keeps to 1200 s with phase 30), 2^16 chains and 2^18 bootstrap samples;
+# BDPT on the smoke at a reduced size
+MLT_MPP, MLT_CHAINS, MLT_BOOTSTRAP = 4, 1 << 16, 1 << 18
 SMOKE_BDPT_RES, SMOKE_BDPT_SPP, SMOKE_BDPT_DEPTH = (100, 100), 4, 3
 # W1's bound: pdf_fwd, pdf_rev and delta of each vertex a lane walks, an
 # override value (a delta override's byte), the origin's delta test, the
@@ -733,6 +753,12 @@ G1_LANE_BYTES = 12 + 12 + 4 + 12 + 24  # o, d, tri, the 3 upstream gradients in;
 # with a nonzero weight: the factors' product and 3 products and sums
 R2_TAP_OPS = 7
 R2_LANE_BYTES = 8 + 12 + 12  # p_film and L in, g_L out
+# phase 30: sharding.  The world of two renders the flagship at 16 spp; the
+# world of one's BDPT, SPPM and MLT checks run on a 64x64 Cornell box
+SHARD_SPP, SHARD_WORLD, SHARD_DEADLINE = 16, 2, 300
+SHARD_SMALL_RES, SHARD_SMALL_SPP, SHARD_SMALL_DEPTH = (64, 64), 4, 3
+SHARD_MLT = dict(mutations_per_pixel=2, chains=1 << 12, bootstrap_samples=1 << 14)
+SHARD_TOL = 1e-4  # atomics' sums (splats, deposits, gradients) against one device's
 
 
 def fail(msg: str):
@@ -1290,7 +1316,7 @@ def phase_render(card):
     print(f"[5 K2] all launches {sum(k2_ms):.4f} ms, bounds {sum(k2_bounds):.4f} ms ({card}); "
           f"recorded: the one-thread-a-lane kernel {sum(PREV_K2_MS):.3f} ms", flush=True)
     return dict(
-        counts=counts, err=err,
+        counts=counts, err=err, img=img, paths_per_s=best["paths_per_s"],
         k1=dict(ms=[k1_ms], device_ms=[k1_dev], plain_ms=p1t.times_ms(), bound=[k1_bound],
                 max_abs_err=k1_err),
         k2=dict(ms=sum(k2_ms) / len(k2_ms), plain_ms=sum(p2_ms) / len(p2_ms),
@@ -4953,7 +4979,7 @@ def phase_gradients(card):
           f"gradient render ({card})", flush=True)
     out["grad"] = dict(counts=counts, paths_per_s=lanes / best, wall_ms=1e3 * best,
                        busy_ms=busy, peak_bytes=peak, lane_bytes=peak / lanes, ad=ad_kd,
-                       fd=fd_kd)
+                       fd=fd_kd, ref=(loss, g))
     del g
     laps["grad"] = time.perf_counter() - t_phase
 
@@ -5213,6 +5239,318 @@ def phase_gradients(card):
                 held=dict(k5=held["full_sweep"]["max_abs_err"]))
 
 
+def _counted(go, **recorders):
+    """(go(), the launch counts of that run alone), the wrappers named in
+    recorders swapped for them during the run."""
+    import torch
+
+    with ExitStack() as es:
+        patched(es, **recorders)
+        torch.cuda.synchronize()
+        zero_counts()
+        out = go()
+        torch.cuda.synchronize()
+        return out, read_counts()
+
+
+def _hits_equal(what: str, got, want):
+    """Fails unless two closest hits agree: valid and tri equal, t, b0 and b1
+    bit-equal where valid."""
+    import torch
+
+    v = want.valid
+    if not (torch.equal(got.valid, v) and torch.equal(got.tri[v], want.tri[v])):
+        fail(f"{what}: valid or tri differs from K3 on the whole table")
+    for k in ("t", "b0", "b1"):
+        if not torch.equal(getattr(got, k)[v], getattr(want, k)[v]):
+            err = float((getattr(got, k)[v] - getattr(want, k)[v]).abs().max())
+            fail(f"{what}: {k} differs from K3 on the whole table by up to {err}")
+
+
+def _geom_inputs():
+    """Phase 6's random input: 262,144 rays and 2,048 triangles, and the
+    triangles' vertices on the host."""
+    from rs_pbrt_tpu_torch.scene import arrays as sa
+    from rs_pbrt_tpu_torch.tools import sweep_replay as sr
+
+    o, d, t_max = sr.random_rays(sr.SWEEP_RAYS, 6, DEVICE)
+    table = sr.random_table(sr.SWEEP_TRIS, 6, DEVICE)
+    verts = table[:, sa.TA_P0:sa.TA_P0 + 9].cpu().numpy()
+    return o, d, t_max, table, (verts[:, 0:3], verts[:, 3:6], verts[:, 6:9])
+
+
+def shard_rank(rank: int, world: int, out: Path):
+    """One rank of phase 30's world on the one card (python3 chip_smoke.py
+    --shard-rank RANK WORLD DIR): joins a gloo group through a file in DIR
+    (NCCL takes no two ranks on one card), renders the flagship at
+    SHARD_SPP through render(mesh=) and sweeps phase 6's random input with
+    geometry_sharded_intersect, the counters zeroed just before each and
+    read just after; writes DIR/rank<r>.json (counts, times) and, rank 0,
+    DIR/rank0.pt (the image and the hit)."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{out / 'store'}", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=120))
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.parallel import distributed as pd
+    from rs_pbrt_tpu_torch.parallel import mesh as pm
+    from rs_pbrt_tpu_torch.scene import presets
+
+    mesh = pm.make_mesh(DEVICE)
+    scene, camera = presets.cornell_box(RES, device=DEVICE)
+    cfg = rdr.RenderCfg("path", SHARD_SPP, DEPTH, 1.0)
+    scfg = smpl.make_sampler(smpl.SOBOL, SHARD_SPP, RES)
+    lanes = RES[0] * RES[1] * SHARD_SPP
+    img, c_render = _counted(lambda: rdr.render(scene, camera, cfg, scfg, max_lanes=lanes,
+                                                mesh=mesh))
+    walls = []
+    for _ in range(3):
+        st = {}
+        rdr.render(scene, camera, cfg, scfg, max_lanes=lanes, mesh=mesh, stats=st)
+        walls.append(st["wall_s"])
+    o, d, t_max, _, verts = _geom_inputs()
+    shards = pd.build_geom_shards(*verts, mesh.size())
+    hit, c_geom = _counted(lambda: pd.geometry_sharded_intersect(shards, mesh, "d", o, d, t_max))
+    geom_ms = cuda_ms(lambda: pd.geometry_sharded_intersect(shards, mesh, "d", o, d, t_max), 5)
+    (out / f"rank{rank}.json").write_text(json.dumps(dict(
+        render=c_render, geom=c_geom, wall_s=walls, geom_ms=geom_ms,
+        rows=list(pm.band(RES[1], world, rank)), shard_rows=int(shards.n_valid[rank]))))
+    if rank == 0:
+        torch.save(dict(img=img.cpu(), hit={k: v.cpu() for k, v in hit._asdict().items()}),
+                   out / "rank0.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _spawn_world(out: Path) -> list:
+    """Runs SHARD_WORLD ranks of shard_rank and joins them against
+    SHARD_DEADLINE, killing them all where one fails or time runs out.
+    Returns each rank's json."""
+    procs = []
+    for r in range(SHARD_WORLD):
+        with open(out / f"log{r}.txt", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--shard-rank", str(r),
+                 str(SHARD_WORLD), str(out)], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT))
+    t0 = time.monotonic()
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if bad or time.monotonic() - t0 > SHARD_DEADLINE:
+                r = bad[0] if bad else 0
+                why = f"rank {r} exited {procs[r].poll()}" if bad else f"over {SHARD_DEADLINE} s"
+                fail(f"30 world of {SHARD_WORLD}: {why}:\n"
+                     f"{(out / f'log{r}.txt').read_text()[-3000:]}")
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            fail(f"30 world of {SHARD_WORLD}: rank {r} exited {p.returncode}:\n"
+                 f"{(out / f'log{r}.txt').read_text()[-3000:]}")
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(SHARD_WORLD)]
+
+
+def phase_sharding(card, flag_img, flag_paths_per_s, grad_ref) -> dict:
+    """Phase 30: parallel/mesh.py and parallel/distributed.py on the card,
+    a world of one over NCCL in this process, then a world of two ranks on
+    the same card over gloo.  flag_img, flag_paths_per_s: phase 5's image
+    and paths/s; grad_ref: phase 29's (loss, gradient)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from rs_pbrt_tpu_torch.diff import grad as dg
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.ops import intersect_kernel as ik
+    from rs_pbrt_tpu_torch.ops import path_kernel as pk
+    from rs_pbrt_tpu_torch.ops import sobol_kernel as sk
+    from rs_pbrt_tpu_torch.parallel import distributed as pd
+    from rs_pbrt_tpu_torch.parallel import mesh as pm
+    from rs_pbrt_tpu_torch.scene import presets
+
+    t_phase = time.perf_counter()
+    mesh = pm.make_mesh(DEVICE)
+    backend = dist.get_backend()
+    if mesh.size() != 1 or (DEVICE == "cuda" and backend != "nccl"):
+        fail(f"30: make_mesh() gave {mesh.size()} ranks over {backend}, expected one over NCCL")
+    total = dict.fromkeys(read_counts(), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    # 30.1 the flagship through render(mesh=), every launch held as in phase 5
+    scene, camera = presets.cornell_box(RES, device=DEVICE)
+    cfg = rdr.RenderCfg("path", SPP, DEPTH, 1.0)
+    scfg = smpl.make_sampler(smpl.SOBOL, SPP, RES)
+    lanes = RES[0] * RES[1] * SPP
+    go = lambda m, stats=None: rdr.render(scene, camera, cfg, scfg, max_lanes=lanes, stats=stats,
+                                          mesh=m)
+    k1r = LaunchTimer(sk.sobol_dims, keep=True)
+    k2r = LaunchTimer(pk.bounce, keep=True, copy=True)
+    img, counts = _counted(lambda: go(mesh), sobol_dims=k1r, bounce=k2r)
+    if counts != expect_counts(sobol=1, bounce=DEPTH + 1):
+        fail(f"30 flagship: launch counts {counts}, expected K1 1, K2 {DEPTH + 1}")
+    add(counts)
+    if not torch.equal(img, flag_img):
+        fail(f"30 flagship: render(mesh=) differs from phase 5's render by up to "
+             f"{float((img - flag_img).abs().max())}")
+    (_, a1, kw1, out1), = k1r.calls
+    if not torch.equal(out1, sk.sobol_dims_plain(*a1, **kw1)):
+        fail("30 flagship: K1 differs from its plain version")
+    k2_err = max(check_k2_launch(f"30 flagship K2 launch {b}", out, pk.bounce_plain(*a, **kw))
+                 for b, (_, a, kw, out) in enumerate(k2r.calls))
+    del k1r, k2r, a1, out1
+    best = {}
+    for _ in range(3):  # in turns: with the mesh, without
+        for tag, m in (("mesh", mesh), ("render", None)):
+            st = {}
+            go(m, st)
+            if tag not in best or st["wall_s"] < best[tag]["wall_s"]:
+                best[tag] = st
+    w, h = RES
+    packed = torch.zeros((h, w, 7), device=DEVICE)
+    ar_ms = cuda_ms(lambda: pm.all_reduce(packed, mesh), 20)
+    print(f"[30 flagship] world of one over {backend}: render(mesh=make_mesh()) of the Cornell "
+          f"box {w}x{h}, {SPP} spp, depth {DEPTH}: bit-equal to phase 5's render; launches K1 "
+          f"{counts['sobol']}, K2 {counts['bounce']}, K1 bit-equal to its plain version, every "
+          f"K2 launch within {TOL} (max abs err {k2_err:.3g}), alive equal; "
+          f"{best['mesh']['paths_per_s']:.6g} camera paths/s with the mesh "
+          f"({1e3 * best['mesh']['wall_s']:.3f} ms), {best['render']['paths_per_s']:.6g} "
+          f"without ({1e3 * best['render']['wall_s']:.3f} ms), best of 3 in turns (phase 5: "
+          f"{flag_paths_per_s:.6g}); the film's "
+          f"all-reduce ({h}x{w}x7 floats) {ar_ms:.4f} ms ({card})", flush=True)
+
+    # 30.2 geometry sharding: K3 on the rank's triangle range
+    o, d, t_max, table, verts = _geom_inputs()
+    shards = pd.build_geom_shards(*verts, mesh.size())
+    k3r = LaunchTimer(ik.closest_sweep)
+    geo = lambda: pd.geometry_sharded_intersect(shards, mesh, "d", o, d, t_max)
+    hit, counts = _counted(geo, closest_sweep=k3r)
+    if counts != expect_counts(closest_sweep=1):
+        fail(f"30 geometry: launch counts {counts}, expected K3 once")
+    add(counts)
+    whole = ik.closest_sweep(o, d, t_max, table, table.shape[0])
+    _hits_equal("30 geometry (world of one)", hit, whole)
+    k3_ms = k3r.times_ms()[0]
+    geo_ms = cuda_ms(geo, 10)
+    whole_ms = cuda_ms(lambda: ik.closest_sweep(o, d, t_max, table, table.shape[0]), 10)
+    bms, fms = isect_bound_ms("closest", (o, d, t_max, table, table.shape[0]), None)
+    print(f"[30 geometry] geometry_sharded_intersect of {o.shape[0]} rays over "
+          f"{table.shape[0]} triangles in {mesh.size()} shard: valid, tri, t, b0, b1 equal to K3 "
+          f"on the whole table; K3 launched once, {k3_ms:.4f} ms by events; the call "
+          f"{geo_ms:.4f} ms, K3 on the whole table {whole_ms:.4f} ms, bound {max(bms, fms):.4f} "
+          f"ms ({card})", flush=True)
+
+    # 30.3 BDPT, SPPM and MLT: the world of one against one device's render,
+    # the same launches
+    sres = SHARD_SMALL_RES
+    sscene, scamera = presets.cornell_box(sres, device=DEVICE)
+    sscfg = smpl.make_sampler(smpl.SOBOL, SHARD_SMALL_SPP, sres)
+    small = {}
+    for integ, extra in (("bdpt", None), ("sppm", dict(n_iterations=SPPM_ITERATIONS)),
+                         ("mlt", SHARD_MLT)):
+        c = rdr.RenderCfg(integ, SHARD_SMALL_SPP, SHARD_SMALL_DEPTH, 1.0, extra=extra)
+        want, c_want = _counted(lambda: rdr.render(sscene, scamera, c, sscfg))
+        got, c_got = _counted(lambda: rdr.render(sscene, scamera, c, sscfg, mesh=mesh))
+        if c_got != c_want:
+            fail(f"30 {integ}: launches {c_got} with the mesh, {c_want} without")
+        add(c_got)
+        err = float((got - want).abs().max())
+        if not (torch.isfinite(got).all() and torch.allclose(got, want, rtol=SHARD_TOL,
+                                                               atol=SHARD_TOL * 0.1)):
+            fail(f"30 {integ}: render(mesh=) differs from render by up to {err}")
+        small[integ] = dict(exact=bool(torch.equal(got, want)), err=err,
+                            counts={k: v for k, v in c_got.items() if v})
+    said = [f"{k} {'bit-equal' if v['exact'] else 'max abs err %.3g' % v['err']} {v['counts']}"
+            for k, v in small.items()]
+    print(f"[30 small] the Cornell box {sres[0]}x{sres[1]}, depth {SHARD_SMALL_DEPTH}: BDPT "
+          f"{SHARD_SMALL_SPP} spp, SPPM {SPPM_ITERATIONS} iterations, MLT {SHARD_MLT}; with "
+          f"the mesh the same launches as without and the image within rtol {SHARD_TOL}, atol "
+          f"{0.1 * SHARD_TOL:g}: {'; '.join(said)}", flush=True)
+
+    # 30.4 grad_loss(mesh=) against phase 29's gradient
+    gscene, gcamera = presets.cornell_box(GRAD_RES, device=DEVICE)
+    gcfg = rdr.RenderCfg("path", GRAD_SPP, GRAD_DEPTH, 1.0)
+    gscfg = smpl.make_sampler(smpl.SOBOL, GRAD_SPP, GRAD_RES)
+    (loss, g), counts = _counted(lambda: dg.grad_loss(gscene, gcamera, gcfg, gscfg,
+                                                      lambda i: i.mean(), mesh=mesh))
+    if counts != expect_counts(sobol=2, full_sweep=GRAD_DEPTH + 1, any_sweep=GRAD_DEPTH):
+        fail(f"30 grad: launch counts {counts}")
+    add(counts)
+    loss0, g0 = grad_ref
+    g_err, g_exact = 0.0, bool(torch.equal(loss, loss0))
+    for name, a, b in zip(g._fields, g, g0):
+        tol = SHARD_TOL * 0.1 * float(b.abs().max())
+        g_exact &= bool(torch.equal(a, b))
+        g_err = max(g_err, float((a - b).abs().max()) if a.numel() else 0.0)
+        if not torch.allclose(a, b, rtol=SHARD_TOL * 0.1, atol=tol):
+            fail(f"30 grad: d loss / d {name} differs from phase 29's by up to "
+                 f"{float((a - b).abs().max())}")
+    how = "bit-equal to" if g_exact else "within rtol 1e-5 (max abs err %.3g) of" % g_err
+    print(f"[30 grad] grad_loss(mean, mesh=make_mesh()) of phase 29's Cornell box: loss "
+          f"{float(loss):.6f}, launches {({k: v for k, v in counts.items() if v})}; the "
+          f"gradient {how} phase 29's ({card})", flush=True)
+    dist.destroy_process_group()
+    del mesh
+
+    # 30.5 a world of two ranks on the one card, over gloo
+    t_two = time.perf_counter()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    out = Path(tempfile.mkdtemp(prefix="shard_world_"))
+    ranks = _spawn_world(out)
+    for r, res in enumerate(ranks):
+        if res["render"] != expect_counts(sobol=1, bounce=DEPTH + 1):
+            fail(f"30 world of {SHARD_WORLD}: rank {r}'s render launched {res['render']}")
+        if res["geom"] != expect_counts(closest_sweep=1):
+            fail(f"30 world of {SHARD_WORLD}: rank {r}'s geometry launched {res['geom']}")
+        add(res["render"])
+        add(res["geom"])
+    two = torch.load(out / "rank0.pt")
+    cfg16 = rdr.RenderCfg("path", SHARD_SPP, DEPTH, 1.0)
+    want = rdr.render(scene, camera, cfg16, smpl.make_sampler(smpl.SOBOL, SHARD_SPP, RES),
+                      max_lanes=RES[0] * RES[1] * SHARD_SPP).cpu()
+    err2 = float((two["img"] - want).abs().max())
+    if not torch.allclose(two["img"], want, rtol=SHARD_TOL, atol=0.0):
+        fail(f"30 world of {SHARD_WORLD}: the flagship at {SHARD_SPP} spp differs from render "
+             f"by up to {err2}")
+    hit2 = type(whole)(**two["hit"])
+    _hits_equal(f"30 geometry (world of {SHARD_WORLD})", hit2,
+                type(whole)(*(x.cpu() for x in whole)))
+    paths = RES[0] * RES[1] * SHARD_SPP
+    walls = [min(res["wall_s"]) for res in ranks]
+    how = "bit-equal to" if err2 == 0 else "within rtol %g (max abs err %.3g) of" % (SHARD_TOL,
+                                                                                     err2)
+    print(f"[30 world of {SHARD_WORLD}] {SHARD_WORLD} processes on the one card over gloo, "
+          f"which moves the CUDA tensors of the film's all-reduce and the hits' all_gather "
+          f"itself, through host memory: the flagship at {SHARD_SPP} spp ({how} render), "
+          f"rows {[res['rows'] for res in ranks]}, K1 1 and K2 {DEPTH + 1} a rank, "
+          f"{paths / max(walls):.6g} camera paths/s (the slower rank's best of 3, "
+          f"{1e3 * max(walls):.3f} ms; two ranks share one card: not a speed-up); "
+          f"geometry_sharded_intersect over {SHARD_WORLD} shards of "
+          f"{[res['shard_rows'] for res in ranks]} triangles equal to K3 on the whole table, "
+          f"K3 once a rank, {max(res['geom_ms'] for res in ranks):.4f} ms a call; the world "
+          f"{time.perf_counter() - t_two:.1f} s from spawn to join ({card})", flush=True)
+    print(f"[30] phase 30 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(counts=total, paths_per_s=best["mesh"]["paths_per_s"],
+                render_paths_per_s=best["render"]["paths_per_s"], all_reduce_ms=ar_ms,
+                k3_ms=k3_ms, geo_ms=geo_ms, whole_ms=whole_ms, two_err=err2)
+
+
 def kernel_entry(name, source, replaces, launches, parts, max_abs_err, library_ms=None) -> dict:
     """One kernel's line of the `kernels` JSON: per-launch means over
     `parts`, dicts of per-launch lists ms, plain_ms and bound ((bytes_ms,
@@ -5327,6 +5665,10 @@ def main():
     grads = phase_gradients(card)
     later += [grads[k] for k in ("grad", "camera", "quad", "mitchell", "translation")]
     lap("29")
+    sharding = phase_sharding(card, flag.pop("img"), flag["paths_per_s"],
+                              grads["grad"].pop("ref"))
+    later.append(sharding)
+    lap("30")
     more = lambda key: sum(p["counts"][key] for p in later)  # phases 10-12 and 14-27's launches
 
     k2 = flag["k2"]
@@ -5344,9 +5686,11 @@ def main():
              replaces="rs_pbrt_tpu/ops/pallas_path.py:410",
              launches=flag["counts"]["bounce"] + more("bounce"),
              library_ms=None, **k2, redesigned=True),
-        # K3 is on no render path: its numbers are phase 6's at the camera rays
-        dict(kernel_entry("closest_sweep", csrc + "intersect.cu", pallas + "133", 0,
-                          [sweeps["closest"]], sweeps["closest"]["max_abs_err"]),
+        # K3's numbers are phase 6's at the camera rays; its launches those of
+        # the camera gradients (phase 29) and of the triangle shards (phase 30)
+        dict(kernel_entry("closest_sweep", csrc + "intersect.cu", pallas + "133",
+                          more("closest_sweep"), [sweeps["closest"]],
+                          sweeps["closest"]["max_abs_err"]),
              redesigned=True),
         dict(kernel_entry("any_sweep", csrc + "intersect.cu", pallas + "285",
                           sum(r["counts"]["any_sweep"] for r in slices) + more("any_sweep"),
@@ -5498,4 +5842,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--shard-rank"]:
+        shard_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
+    else:
+        main()

@@ -92,6 +92,8 @@ def _leaves(tensors):
 
 
 def _grads(loss, leaves):
+    if not loss.requires_grad:  # a rank of a mesh that renders no pixel
+        return [torch.zeros_like(x) for x in leaves]
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
 
@@ -99,16 +101,26 @@ def _grads(loss, leaves):
 def grad_loss(scene, camera, cfg, sampler_cfg, loss_fn, params: Optional[DiffParams] = None,
               accel=None, mesh=None, filter_cfg=None):
     """(loss, DiffParams of d loss / d params): loss_fn maps the image (H,
-    W, 3) to a scalar tensor.  mesh (the JAX package's sharded render)
-    raises: sharding comes with ROADMAP A17b."""
-    if mesh is not None:
-        raise NotImplementedError("grad_loss(mesh=): sharded renders come with ROADMAP A17b")
+    W, 3) to a scalar tensor.  mesh: a DeviceMesh whose every rank calls
+    this alike (``parallel/mesh.py``): the forward render is
+    ``render_sharded`` (the fixed-depth loop), whose film sum passes the
+    image's gradient to each rank's own pixels, and the parameter gradients
+    are summed over the mesh, so every rank returns the whole gradient (the
+    JAX grad.py:107-113, where the film psum's transpose does that sum)."""
     leaves = _leaves(get_params(scene) if params is None else params)
     with torch.enable_grad():
-        img = render_image(scene, camera, cfg, sampler_cfg, DiffParams(*leaves), accel=accel,
-                           filter_cfg=filter_cfg)
+        if mesh is None:
+            img = render_image(scene, camera, cfg, sampler_cfg, DiffParams(*leaves), accel=accel,
+                               filter_cfg=filter_cfg)
+        else:
+            from ..parallel import mesh as pmesh
+
+            img = pmesh.render_sharded(apply_params(scene, DiffParams(*leaves)), camera, cfg,
+                                       sampler_cfg, filter_cfg, mesh, accel)
         loss = loss_fn(img)
         grads = _grads(loss, leaves)
+    if mesh is not None:
+        grads = [pmesh.all_reduce(g.contiguous(), mesh) for g in grads]
     return loss.detach(), DiffParams(*grads)
 
 

@@ -635,29 +635,19 @@ def radiance_and_splats(scene: sa.Scene, camera: cam.Camera, cfg: PathCfg, cfg_s
     return L, torch.full((1, 2), -10.0, device=dev), torch.zeros((1, 3), device=dev)
 
 
-def render_bdpt(scene: sa.Scene, camera: cam.Camera, spp: int, max_depth: int = 5,
-                sampler_cfg: Optional[smpl.SamplerCfg] = None, accel=None,
-                max_lanes: int = MAX_LANES, crop_rect=None, stats: Optional[dict] = None):
-    """The BDPT image (H, W, 3) (BDPTIntegrator::render bdpt.rs:849): spp
-    samples of every pixel of the crop rect (px0, px1, py0, py1), the whole
-    film without one, in batches of at most max_lanes paths; the box
-    filter's samples added by pixel, the splats scaled by 1/spp at resolve
-    (bdpt.rs:1071), pixels outside the crop black.  stats, where given,
-    gets the batches."""
-    if sampler_cfg is None:
-        sampler_cfg = smpl.make_sampler(smpl.RANDOM, spp, camera.resolution)
+def add_rect(scene: sa.Scene, camera: cam.Camera, spp: int, max_depth: int, sampler_cfg, accel,
+             film: filmmod.Film, rect, spp_per_batch: int) -> int:
+    """Adds spp samples of every pixel of rect (y0, h, x0, w) to film in
+    place, spp_per_batch samples a pixel a batch: the box filter's samples
+    by pixel, the t = 1 splats to the splat layer.  Returns the batches."""
     dev = scene.device
-    w, h = camera.resolution
-    px0, px1, py0, py1 = crop_rect if crop_rect is not None else (0, w, 0, h)
-    rect = (py0, py1 - py0, px0, px1 - px0)
-    n_pix = rect[1] * rect[3]
-    xs = torch.arange(px0, px1, dtype=torch.int64, device=dev)
-    ys = torch.arange(py0, py1, dtype=torch.int64, device=dev)
-    pixels = torch.stack([xs.repeat(py1 - py0), ys.repeat_interleave(px1 - px0)], -1)
-    film = filmmod.make_film((w, h), dev)
+    y0, hh, x0, ww = rect
+    n_pix = hh * ww
+    xs = torch.arange(x0, x0 + ww, dtype=torch.int64, device=dev)
+    ys = torch.arange(y0, y0 + hh, dtype=torch.int64, device=dev)
+    pixels = torch.stack([xs.repeat(hh), ys.repeat_interleave(ww)], -1)
     fcfg = filmmod.make_filter(filmmod.FILTER_BOX)
     pcfg = PathCfg(max_depth, 1.0)
-    spp_per_batch = max(1, min(spp, max_lanes // n_pix))
     sample = batches = 0
     while sample < spp:
         nb = min(spp_per_batch, spp - sample)
@@ -669,15 +659,42 @@ def render_bdpt(scene: sa.Scene, camera: cam.Camera, spp: int, max_depth: int = 
         L, sp, sl = radiance_and_splats(scene, camera, pcfg, sampler_cfg, ctx,
                                         pix.to(torch.float32) + u_film, accel)
         # a half-pixel box adds each sample to its own pixel
-        film = filmmod.add_samples_grid(film, fcfg, L, nb, rect)
-        film = filmmod.add_splats(film, sp, sl)
+        filmmod.add_samples_grid(film, fcfg, L, nb, rect)
+        filmmod.add_splats(film, sp, sl)
         sample += nb
         batches += 1
+    return batches
+
+
+def resolve(film: filmmod.Film, spp: int, crop_rect=None) -> torch.Tensor:
+    """The image of a BDPT film: the splats scaled by 1/spp (bdpt.rs:1071),
+    pixels outside the crop rect (px0, px1, py0, py1) black."""
     img = filmmod.to_rgb(film, splat_scale=1.0 / spp)
     if crop_rect is not None:
+        px0, px1, py0, py1 = crop_rect
         out = torch.zeros_like(img)
         out[py0:py1, px0:px1] = img[py0:py1, px0:px1]
         img = out
+    return img
+
+
+def render_bdpt(scene: sa.Scene, camera: cam.Camera, spp: int, max_depth: int = 5,
+                sampler_cfg: Optional[smpl.SamplerCfg] = None, accel=None,
+                max_lanes: int = MAX_LANES, crop_rect=None, stats: Optional[dict] = None):
+    """The BDPT image (H, W, 3) (BDPTIntegrator::render bdpt.rs:849): spp
+    samples of every pixel of the crop rect (px0, px1, py0, py1), the whole
+    film without one, in batches of at most max_lanes paths; the box
+    filter's samples added by pixel, the splats scaled by 1/spp at resolve
+    (bdpt.rs:1071), pixels outside the crop black.  stats, where given,
+    gets the batches."""
+    if sampler_cfg is None:
+        sampler_cfg = smpl.make_sampler(smpl.RANDOM, spp, camera.resolution)
+    w, h = camera.resolution
+    px0, px1, py0, py1 = crop_rect if crop_rect is not None else (0, w, 0, h)
+    rect = (py0, py1 - py0, px0, px1 - px0)
+    film = filmmod.make_film((w, h), scene.device)
+    batches = add_rect(scene, camera, spp, max_depth, sampler_cfg, accel, film, rect,
+                       max(1, min(spp, max_lanes // (rect[1] * rect[3]))))
     if stats is not None:
         stats["batches"] = batches
-    return img
+    return resolve(film, spp, crop_rect)

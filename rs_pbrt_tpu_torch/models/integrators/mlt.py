@@ -125,13 +125,13 @@ def _mutation_step(scene: sa.Scene, camera: cam.Camera, pcfg: PathCfg, cfg_s, ac
     return torch.where(acc1, pss_prop, pss_cur), new_eval, film
 
 
-def bootstrap_from(scene: sa.Scene, camera: cam.Camera, pcfg: PathCfg, cfg_s, accel,
+def bootstrap_pick(scene: sa.Scene, camera: cam.Camera, pcfg: PathCfg, cfg_s, accel,
                    depth_stratified: bool, crop_rect, boot, u_pick):
     """The bootstrap (mlt.rs:418-476) on the uniform PSS vectors boot
     (n_bootstrap, U) and the pick uniforms u_pick (n_chains,): their
-    targets in BOOTSTRAP_CHUNK batches, b their mean, the chains' starts
-    picked by target, and the starts' evaluation.  depth_stratified
-    stratifies dim 6 over the depths first.  -> (b, pss, evaluation)."""
+    targets in BOOTSTRAP_CHUNK batches, b their mean, and the chains'
+    starts picked by target.  depth_stratified stratifies dim 6 over the
+    depths first.  -> (b, pss (n_chains, U))."""
     md = pcfg.max_depth
     if depth_stratified:
         strata = (torch.arange(boot.shape[0], device=boot.device) % (md + 1)).to(torch.float32)
@@ -147,7 +147,14 @@ def bootstrap_from(scene: sa.Scene, camera: cam.Camera, pcfg: PathCfg, cfg_s, ac
     # that moves moves its whole chain (chip_smoke.py phase 28)
     pick, _, _ = smp.sample_distribution_1d_discrete(smp.make_distribution_1d(lum_b.cpu()),
                                                      u_pick.cpu())
-    pss_cur = boot[pick.to(boot.device)]
+    return b, boot[pick.to(boot.device)]
+
+
+def bootstrap_from(scene: sa.Scene, camera: cam.Camera, pcfg: PathCfg, cfg_s, accel,
+                   depth_stratified: bool, crop_rect, boot, u_pick):
+    """bootstrap_pick and the starts' evaluation.  -> (b, pss, evaluation)."""
+    b, pss_cur = bootstrap_pick(scene, camera, pcfg, cfg_s, accel, depth_stratified, crop_rect,
+                                boot, u_pick)
     return b, pss_cur, _eval_target(scene, camera, pcfg, cfg_s, pss_cur, accel,
                                     depth_stratified, crop_rect)
 
@@ -189,11 +196,20 @@ def render_mlt(scene: sa.Scene, camera: cam.Camera, mutations_per_pixel: int = 1
             scene, camera, pcfg, cfg_s, accel, depth_stratified, crop_rect, pss_cur, cur_eval,
             film, mutation_uniforms(gen, n_chains, n_pss, dev))
     b = float(b)
-    img = film.splat * (b * crop_area / (n_mut * n_chains))
-    if crop_rect is not None:  # t = 1 splats outside the crop are dropped
+    if stats is not None:
+        stats.update(mutations=n_mut, b=b)
+    return resolve(film.splat, b, crop_area, n_mut, n_chains, crop_rect)
+
+
+def resolve(splat: torch.Tensor, b: float, crop_area: int, n_mut: int, n_chains: int,
+            crop_rect=None) -> torch.Tensor:
+    """The image of MLT's splat layer: scaled by b x crop area / splats
+    (mlt.rs:559), pixels outside the crop rect (px0, px1, py0, py1) black
+    (t = 1 splats outside the crop are dropped)."""
+    img = splat * (b * crop_area / (n_mut * n_chains))
+    if crop_rect is not None:
+        px0, px1, py0, py1 = crop_rect
         out = torch.zeros_like(img)
         out[py0:py1, px0:px1] = img[py0:py1, px0:px1]
         img = out
-    if stats is not None:
-        stats.update(mutations=n_mut, b=b)
     return img

@@ -86,13 +86,12 @@ class RenderCfg(NamedTuple):
 
 def check_cfg(cfg: RenderCfg):
     """Raises ValueError for an integrator or an accelerator that neither
-    package has: the port renders every integrator of the JAX package.
-    What it still lacks are render's multi-device option (ROADMAP A17b)
-    and the front ends (A18)."""
+    package has: the port renders every integrator of the JAX package, on
+    one device or sharded over a mesh.  What it still lacks are the front
+    ends (ROADMAP A18)."""
     if cfg.integrator not in INTEGRATORS:
         raise ValueError(f"unknown integrator {cfg.integrator!r}: the port renders "
-                         f"{INTEGRATORS} (sharded renders come with ROADMAP A17b, the "
-                         "scene-file front ends with A18)")
+                         f"{INTEGRATORS} (the scene-file front ends come with ROADMAP A18)")
     if cfg.accelerator not in si.ACCELERATORS:
         raise ValueError(f"accelerator {cfg.accelerator!r}: the port builds {si.ACCELERATORS}")
 
@@ -224,11 +223,25 @@ def render_batch(scene: sa.Scene, camera: cam.Camera, cfg: RenderCfg,
     return filmmod.add_samples(film, filter_cfg, rest[-1], L)
 
 
+def path_setup(scene: sa.Scene, cfg: RenderCfg, accel=None) -> tuple:
+    """(light_distrib, mega) of a path-family render: the spatial light
+    distribution where the path integrator asks for it, and K2's MegaCfg
+    where the scene takes it (no accel)."""
+    light_distrib = None
+    if cfg.integrator == "path" and cfg.light_strategy == "spatial" and scene.n_lights > 0:
+        from .. import lightdistrib as ldist
+
+        light_distrib = ldist.build_spatial(scene)
+    mega = (pk.mega_cfg(scene, light_distrib) if cfg.integrator == "path" and accel is None
+            else None)
+    return light_distrib, mega
+
+
 def render(scene: sa.Scene, camera: cam.Camera, cfg: RenderCfg, sampler_cfg: smpl.SamplerCfg,
            filter_cfg: Optional[filmmod.FilterCfg] = None, accel=None,
            max_lanes: int = MAX_LANES, stats: Optional[dict] = None, crop=None,
            regen: bool = True, checkpoint_path: Optional[str] = None,
-           checkpoint_every: int = 0) -> torch.Tensor:
+           checkpoint_every: int = 0, mesh=None) -> torch.Tensor:
     """Renders the whole image; returns linear RGB (H, W, 3) on the scene's
     device.  accel: the scene's ``build_accel``, needed above
     BRUTE_FORCE_MAX_TRIS triangles.  max_lanes: a batch's paths at most,
@@ -259,41 +272,69 @@ def render(scene: sa.Scene, camera: cam.Camera, cfg: RenderCfg, sampler_cfg: smp
     whenever checkpoint_every more samples per pixel have been added and
     after the last batch (the path-family integrators; sppm, bdpt and mlt
     ignore it, as in the JAX package).  A resumed render equals the
-    uninterrupted one bit for bit where both take the same batches."""
+    uninterrupted one bit for bit where both take the same batches.
+    mesh: a DeviceMesh (``parallel/mesh.make_mesh``, ``parallel/distributed
+    .make_host_mesh``) that every rank of it renders with, each getting the
+    whole image: sppm, bdpt and mlt through their sharded renders, the path
+    family through ``render_sharded`` in the fixed-depth loop (no regen, as
+    in the JAX package), checkpoints ignored; stats are filled as without
+    one, batches and iterations this rank's."""
     check_cfg(cfg)
     dev = scene.device
     if camera.device != dev:
         raise ValueError(f"camera lies on {camera.device}, scene on {dev}")
     if cfg.integrator == "sppm":
         return _render_sppm(scene, camera, cfg, sampler_cfg, accel, stats,
-                            crop if crop is not None else cfg.crop)
+                            crop if crop is not None else cfg.crop, mesh)
     if cfg.integrator in ("bdpt", "mlt"):
         return _render_bidirectional(scene, camera, cfg, sampler_cfg, accel, max_lanes, stats,
-                                     crop if crop is not None else cfg.crop)
-    if filter_cfg is None:
-        filter_cfg = filmmod.make_filter(filmmod.FILTER_BOX)
+                                     crop if crop is not None else cfg.crop, mesh)
     w, h = camera.resolution
     px0, px1, py0, py1 = crop_pixel_rect((w, h), crop if crop is not None else cfg.crop)
-    rect = (py0, py1 - py0, px0, px1 - px0)
-    n_pix = rect[1] * rect[3]
-    light_distrib = None
-    if cfg.integrator == "path" and cfg.light_strategy == "spatial" and scene.n_lights > 0:
-        from .. import lightdistrib as ldist
+    run = None if stats is None else {}
+    if mesh is not None:
+        img = _sharded("render_sharded")(scene, camera, cfg, sampler_cfg, filter_cfg, mesh,
+                                         accel, crop=crop, max_lanes=max_lanes, stats=run)
+    else:
+        img = _render_path_family(scene, camera, cfg, sampler_cfg, filter_cfg, accel, max_lanes,
+                                  (py0, py1 - py0, px0, px1 - px0), regen, checkpoint_path,
+                                  checkpoint_every, run)
+    if stats is not None:
+        paths = (py1 - py0) * (px1 - px0) * cfg.spp
+        stats.update(camera_rays=paths, spp=cfg.spp, resolution=(w, h), wall_s=run["wall_s"],
+                     paths_per_s=paths / run["wall_s"],
+                     max_ray_casts=paths * (cfg.max_depth + 1) * 2, batches=run["batches"],
+                     lane_width=run["lane_width"], iterations=run.get("iterations", 0))
+    return img
 
-        light_distrib = ldist.build_spatial(scene)
-    mega = (pk.mega_cfg(scene, light_distrib) if cfg.integrator == "path" and accel is None
-            else None)
+
+def wall_since(t0: float, dev: torch.device) -> float:
+    """Seconds on the host clock since t0, synchronized with the card."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return max(time.perf_counter() - t0, 1e-9)
+
+
+def _render_path_family(scene, camera, cfg: RenderCfg, sampler_cfg, filter_cfg, accel,
+                        max_lanes: int, rect, regen: bool, checkpoint_path, checkpoint_every,
+                        run: Optional[dict]) -> torch.Tensor:
+    """render's batches on one device over the pixel rect (y0, h, x0, w);
+    run, where given, gains batches, lane_width, iterations and wall_s (from
+    the first batch to the image)."""
+    if filter_cfg is None:
+        filter_cfg = filmmod.make_filter(filmmod.FILTER_BOX)
+    n_pix = rect[1] * rect[3]
+    light_distrib, mega = path_setup(scene, cfg, accel)
     spp_per_batch = max(1, min(cfg.spp, max_lanes // n_pix))
     use_regen = regen and cfg.integrator == "path" and regenmod.eligible(
         scene, pathmod.PathCfg(cfg.max_depth, cfg.rr_threshold), sampler_cfg, accel,
         spp_per_batch * n_pix)
-    film = filmmod.make_film((w, h), dev)
+    film = filmmod.make_film(camera.resolution, scene.device)
     sample = batches = since_ck = 0
     if checkpoint_path is not None:
-        ck = load_checkpoint(checkpoint_path, dev)
+        ck = load_checkpoint(checkpoint_path, scene.device)
         if ck is not None:
             film, sample = ck
-    run = {}
     t0 = time.perf_counter()
     while sample < cfg.spp:
         nb = min(spp_per_batch, cfg.spp - sample)
@@ -307,20 +348,19 @@ def render(scene: sa.Scene, camera: cam.Camera, cfg: RenderCfg, sampler_cfg: smp
             save_checkpoint(checkpoint_path, film, sample)
             since_ck = 0
     img = filmmod.to_rgb(film)
-    if stats is not None:
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        dt = max(time.perf_counter() - t0, 1e-9)
-        paths = n_pix * cfg.spp
-        stats.update(camera_rays=paths, spp=cfg.spp, resolution=(w, h), wall_s=dt,
-                     paths_per_s=paths / dt, max_ray_casts=paths * (cfg.max_depth + 1) * 2,
-                     batches=batches,
-                     lane_width=regenmod.REGEN_LANE_WIDTH if use_regen else 0,
-                     iterations=run.get("iterations", 0))
+    if run is not None:
+        run.update(batches=batches, lane_width=regenmod.REGEN_LANE_WIDTH if use_regen else 0,
+                   wall_s=wall_since(t0, scene.device))
     return img
 
 
-def _render_sppm(scene, camera, cfg: RenderCfg, sampler_cfg, accel, stats, crop):
+def _sharded(name: str):
+    from ...parallel import mesh as pmesh
+
+    return getattr(pmesh, name)
+
+
+def _render_sppm(scene, camera, cfg: RenderCfg, sampler_cfg, accel, stats, crop, mesh=None):
     """render's sppm branch (the JAX render.py:306-320)."""
     ex = cfg.extra or {}
     w, h = camera.resolution
@@ -328,11 +368,12 @@ def _render_sppm(scene, camera, cfg: RenderCfg, sampler_cfg, accel, stats, crop)
     n_it = int(ex.get("n_iterations", 16))
     run = {}
     t0 = time.perf_counter()
-    img = sppmmod.render_sppm(
-        scene, camera, sampler_cfg, n_iterations=n_it,
-        photons_per_iter=int(ex.get("photons_per_iteration", 0)), max_depth=cfg.max_depth,
-        initial_radius=float(ex.get("initial_radius", 0.0)), accel=accel, stats=run,
-        crop_rect=(px0, px1, py0, py1) if crop is not None else None)
+    kw = {} if mesh is None else dict(mesh=mesh)
+    fn = sppmmod.render_sppm if mesh is None else _sharded("render_sppm_sharded")
+    img = fn(scene, camera, sampler_cfg, n_iterations=n_it,
+             photons_per_iter=int(ex.get("photons_per_iteration", 0)), max_depth=cfg.max_depth,
+             initial_radius=float(ex.get("initial_radius", 0.0)), accel=accel, stats=run,
+             crop_rect=(px0, px1, py0, py1) if crop is not None else None, **kw)
     if stats is not None:
         if scene.device.type == "cuda":
             torch.cuda.synchronize(scene.device)
@@ -344,25 +385,28 @@ def _render_sppm(scene, camera, cfg: RenderCfg, sampler_cfg, accel, stats, crop)
 
 
 def _render_bidirectional(scene, camera, cfg: RenderCfg, sampler_cfg, accel, max_lanes, stats,
-                          crop):
+                          crop, mesh=None):
     """render's bdpt and mlt branches (the JAX render.py:278-305)."""
     ex = cfg.extra or {}
     w, h = camera.resolution
     px0, px1, py0, py1 = crop_pixel_rect((w, h), crop)
     crop_rect = (px0, px1, py0, py1) if crop is not None else None
+    kw = {} if mesh is None else dict(mesh=mesh)
     run = {}
     t0 = time.perf_counter()
     if cfg.integrator == "bdpt":
-        img = bdptmod.render_bdpt(scene, camera, cfg.spp, cfg.max_depth, sampler_cfg=sampler_cfg,
-                                  accel=accel, max_lanes=min(max_lanes, bdptmod.MAX_LANES),
-                                  crop_rect=crop_rect, stats=run)
+        fn = bdptmod.render_bdpt if mesh is None else _sharded("render_bdpt_sharded")
+        img = fn(scene, camera, cfg.spp, cfg.max_depth, sampler_cfg=sampler_cfg, accel=accel,
+                 max_lanes=min(max_lanes, bdptmod.MAX_LANES), crop_rect=crop_rect, stats=run,
+                 **kw)
         per_pixel = cfg.spp
     else:
         per_pixel = int(ex.get("mutations_per_pixel", 16))
-        img = mltmod.render_mlt(scene, camera, mutations_per_pixel=per_pixel,
-                                max_depth=cfg.max_depth, n_chains=int(ex.get("chains", 4096)),
-                                n_bootstrap=int(ex.get("bootstrap_samples", 16384)),
-                                accel=accel, crop_rect=crop_rect, stats=run)
+        fn = mltmod.render_mlt if mesh is None else _sharded("render_mlt_sharded")
+        img = fn(scene, camera, mutations_per_pixel=per_pixel, max_depth=cfg.max_depth,
+                 n_chains=int(ex.get("chains", 4096)),
+                 n_bootstrap=int(ex.get("bootstrap_samples", 16384)), accel=accel,
+                 crop_rect=crop_rect, stats=run, **kw)
     if stats is not None:
         if scene.device.type == "cuda":
             torch.cuda.synchronize(scene.device)

@@ -16,6 +16,7 @@ JAX package's, the cases of tests/test_grad.py at a smaller size.
 - K2 is never launched under a gradient; a gradient render through a
   kernel without a backward (a curve scene's C3, the realistic camera's
   L1) raises NotImplementedError naming ROADMAP A17c.
+- grad_loss(mesh=) over a world of one equals grad_loss bit for bit.
 - The camera gradient of a 5,124-triangle statue through its BVH and
   through its kd-tree (the walks' plain versions forward, G1's twin
   backward), each against the JAX package's gradient through its dense
@@ -211,9 +212,22 @@ def test_raising_wrappers_name_a17c():
 
 
 def test_sharded_grad_names_a17b():
-    scene, camera, cfg, scfg = cornell(dict(CORNELL, res=2, spp=1, depth=1))
-    with pytest.raises(NotImplementedError, match="A17b"):
-        dg.grad_loss(scene, camera, cfg, scfg, MEAN, mesh=object())
+    """grad_loss(mesh=) (ROADMAP A17b) over a world of one started in this
+    process equals grad_loss bit for bit (tests/test_torch_parallel.py
+    holds 4 ranks)."""
+    from rs_pbrt_tpu_torch.parallel import mesh as pm
+
+    scene, camera, cfg, scfg = cornell(dict(CORNELL, res=4, spp=1, depth=2))
+    want_loss, want = dg.grad_loss(scene, camera, cfg, scfg, MEAN)
+    mesh = pm.make_mesh("cpu")
+    try:
+        loss, got = dg.grad_loss(scene, camera, cfg, scfg, MEAN, mesh=mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert torch.equal(loss, want_loss)
+    assert float(want.mat_params.abs().max()) > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_tree_walks_take_g1(jax_side):

@@ -21,6 +21,8 @@ from rs_pbrt_tpu_torch.ops import bvh
 from rs_pbrt_tpu_torch.ops import film as filmmod
 from rs_pbrt_tpu_torch.ops import gather_probe as gp
 from rs_pbrt_tpu_torch.ops import scene_intersect as si
+from rs_pbrt_tpu_torch.parallel import distributed as pd
+from rs_pbrt_tpu_torch.parallel import mesh as pm
 from rs_pbrt_tpu_torch.scene import arrays as sa
 from rs_pbrt_tpu_torch.scene import bigscene
 from rs_pbrt_tpu_torch.scene import presets
@@ -71,7 +73,8 @@ def test_import_loads_no_jax():
             "rs_pbrt_tpu_torch.ops.motion_kernel, rs_pbrt_tpu_torch.tools.instance_scenes, "
             "rs_pbrt_tpu_torch.models.integrators.bdpt, rs_pbrt_tpu_torch.models.integrators.mlt, "
             "rs_pbrt_tpu_torch.ops.mis_kernel, rs_pbrt_tpu_torch.diff.grad, "
-            "rs_pbrt_tpu_torch.diff.geometry, rs_pbrt_tpu_torch.ops.hit_grad_kernel; "
+            "rs_pbrt_tpu_torch.diff.geometry, rs_pbrt_tpu_torch.ops.hit_grad_kernel, "
+            "rs_pbrt_tpu_torch.parallel.mesh, rs_pbrt_tpu_torch.parallel.distributed; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'rs_pbrt_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
@@ -121,6 +124,9 @@ ENTRY_POINTS = {
         instance_scenes.forest_scene((8, 8), subdivisions=0, grid=2, device="cpu")[0]),
     "build_accel kdtree": lambda: si.build_accel(
         bigscene.statue_scene((8, 8), subdivisions=1, device="cpu")[0], kind="kdtree"),
+    # a mesh of the card starts no process group without one
+    "make_mesh": lambda: pm.make_mesh(),
+    "make_host_mesh": lambda: pd.make_host_mesh(),
 }
 
 
@@ -129,6 +135,16 @@ def test_default_device_without_card_raises(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ENTRY_POINTS[name]()
+
+
+def test_cuda_mesh_needs_nccl(monkeypatch):
+    """A mesh of CUDA devices takes NCCL, never gloo or the CPU instead."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.distributed, "is_nccl_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no NCCL"):
+        pd.backend_for("cuda:0")
+    assert pd.backend_for("cpu") == "gloo"
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("preset", ["cornell_box", "spheres_direct"])

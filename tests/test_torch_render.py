@@ -93,7 +93,7 @@ def test_png(tmp_path):
 def test_unported_options_raise():
     """bdpt and mlt render (held to the JAX package by test_torch_bdpt.py
     and test_torch_mlt.py); an integrator neither package has raises
-    ValueError naming the items still to come (A17, A18); a Gaussian
+    ValueError naming the item still to come (A18); a Gaussian
     filter renders (splatted through its footprint, so the film's weights
     are the filter's, not the spp)."""
     scene, camera = presets.cornell_box((8, 8), device="cpu")
@@ -103,7 +103,7 @@ def test_unported_options_raise():
                                            bootstrap_samples=64))):
         img = rdr.render(scene, camera, rdr.RenderCfg(integrator, 1, 3, 1.0, extra=extra), scfg)
         assert img.shape == (8, 8, 3) and torch.isfinite(img).all() and float(img.sum()) > 0.0
-    with pytest.raises(ValueError, match="A17.*A18"):
+    with pytest.raises(ValueError, match="A18"):
         rdr.render(scene, camera, rdr.RenderCfg("photonmap", 1, 5, 1.0), scfg)
     img = rdr.render(scene, camera, rdr.RenderCfg("path", 1, 5, 1.0), scfg,
                      filmmod.make_filter(filmmod.FILTER_GAUSSIAN, 2.0, 2.0))
