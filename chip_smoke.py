@@ -429,6 +429,22 @@ Run from the root of a checkout.  Phases, one line each (or more):
    hits equal to K3 on the whole table.  The ranks are joined against a
    deadline and killed on a failure.
 
+31. The .pbrt front end (scene/parser.py, scene/api.py, main.py): main()
+   called in this process on three versions of assets/scenes/cornell_box.pbrt
+   (500x500, 8 spp, Sobol', path to depth 5, box filter): (a) as written,
+   whose default spatial light selection takes the general bounce (K1 2,
+   K5 depth + 1, K4 depth); (b) with "string lightsamplestrategy" "power"
+   on its Integrator line (K1 once, K2 depth + 1 times, as phase 5); (c)
+   without its Sampler line, so Halton (H1 2, K5, K4, no K2).  For each, the
+   counters zeroed just before main and read just after must equal those
+   of a direct render.render of the same load_pbrt result, main's PNG must
+   equal write_png of that render byte for byte, and the render must be
+   within rtol = atol = 2e-3 of the render with every wrapper swapped for
+   its plain version; the parse-and-build seconds and the direct (warm)
+   render's camera paths/s are printed.  Then the other four assets are
+   loaded on the card through load_pbrt, without a render, and their sizes
+   printed.
+
 After each phase (or group) a "[time]" line gives the seconds since the
 card was found.  Then one JSON line with every kernel's numbers, and as
 the last line
@@ -5551,6 +5567,110 @@ def phase_sharding(card, flag_img, flag_paths_per_s, grad_ref) -> dict:
                 k3_ms=k3_ms, geo_ms=geo_ms, whole_ms=whole_ms, two_err=err2)
 
 
+FRONT_END_SCENE = "assets/scenes/cornell_box.pbrt"  # phase 31
+FRONT_END_INTEGRATOR = 'Integrator "path" "integer maxdepth" [5]'
+
+
+def front_end_variants(tmp: Path) -> dict:
+    """Phase 31's three versions of the Cornell file: tag -> (path, the
+    launch counts expected of its render)."""
+    text = (ROOT / FRONT_END_SCENE).read_text()
+    sampler = next(line for line in text.splitlines() if line.startswith("Sampler "))
+    if FRONT_END_INTEGRATOR not in text:
+        fail(f"{FRONT_END_SCENE} has no line {FRONT_END_INTEGRATOR!r}")
+    (tmp / "power.pbrt").write_text(text.replace(
+        FRONT_END_INTEGRATOR, FRONT_END_INTEGRATOR + ' "string lightsamplestrategy" "power"'))
+    (tmp / "no_sampler.pbrt").write_text(text.replace(sampler + "\n", ""))
+    sweeps = dict(full_sweep=DEPTH + 1, any_sweep=DEPTH)
+    return {"as_written": (ROOT / FRONT_END_SCENE, dict(sobol=2, **sweeps)),
+            "power": (tmp / "power.pbrt", dict(sobol=1, bounce=DEPTH + 1)),
+            "no_sampler": (tmp / "no_sampler.pbrt", dict(halton=2, **sweeps))}
+
+
+def phase_front_end(card) -> dict:
+    """Phase 31: main() on the three Cornell files against direct renders
+    of their load_pbrt results, those against their plain renders; the
+    other assets loaded on the card."""
+    import tempfile
+
+    import torch
+
+    from rs_pbrt_tpu_torch import main as port_main
+    from rs_pbrt_tpu_torch.io.image import write_png
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.ops import halton_kernel as hk
+    from rs_pbrt_tpu_torch.ops import intersect_kernel as ik
+    from rs_pbrt_tpu_torch.ops import path_kernel as pk
+    from rs_pbrt_tpu_torch.ops import scene_intersect as si
+    from rs_pbrt_tpu_torch.ops import sobol_kernel as sk
+    from rs_pbrt_tpu_torch.scene.api import load_pbrt
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, (path, launched) in front_end_variants(Path(tmp)).items():
+            png = Path(tmp) / f"{tag}.png"
+            printed = io.StringIO()
+            zero_counts()
+            with redirect_stdout(printed):
+                rc = port_main.main(["--path", str(path), "--out", str(png), "--device", DEVICE])
+            torch.cuda.synchronize()
+            counts = read_counts()
+            if rc != 0 or not png.is_file():
+                fail(f"[31 {tag}] main returned {rc}: {printed.getvalue()}")
+            for line in printed.getvalue().splitlines()[2:]:
+                print(f"[31 {tag} main] {line}")
+            t0 = time.perf_counter()
+            scene, camera, cfg, scfg, fcfg, _ = load_pbrt(path, device=DEVICE)
+            accel = si.build_accel(scene, kind=cfg.accelerator, device=DEVICE)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            if accel != si.Accel():
+                fail(f"[31 {tag}] {path.name} built a tree; main renders it without one")
+            accel = None  # as main passes it
+            st = {}
+            zero_counts()
+            img = rdr.render(scene, camera, cfg, scfg, fcfg, accel=accel, stats=st)
+            direct = read_counts()
+            if counts != direct or direct != expect_counts(**launched):
+                fail(f"[31 {tag}] launches through main {counts}, direct {direct}, expected "
+                     f"{launched}")
+            w, h = camera.resolution
+            if tuple(img.shape) != (h, w, 3) or not torch.isfinite(img).all():
+                fail(f"[31 {tag}] image: shape {tuple(img.shape)}, finite "
+                     f"{bool(torch.isfinite(img).all())}")
+            want_png = Path(tmp) / f"{tag}_direct.png"
+            write_png(want_png, img)
+            if png.read_bytes() != want_png.read_bytes():
+                fail(f"[31 {tag}] main's PNG differs from write_png of the direct render")
+            with ExitStack() as es:
+                patched(es, sobol_dims=sk.sobol_dims_plain, bounce=pk.bounce_plain,
+                        halton_dims=hk.halton_dims_plain, closest_sweep=ik.closest_sweep_plain,
+                        any_sweep=ik.any_sweep_plain, full_sweep=ik.full_sweep_plain)
+                img_plain = rdr.render(scene, camera, cfg, scfg, fcfg, accel=accel)
+            err = compare_plain(f"[31 {tag}] render", img, img_plain)
+            print(f"[31 {tag}] {path.name}: {w}x{h}, {scfg.spp} spp, {cfg.integrator} depth "
+                  f"{cfg.max_depth}, light selection {cfg.light_strategy}, sampler kind "
+                  f"{scfg.kind}; main's launches {counts} = the direct render's; main's PNG = "
+                  f"write_png of it ({png.stat().st_size} bytes); within {err:.3g} of the plain "
+                  f"render (mean {float(img.mean()):.5f}); parse and build {build_s:.4f} s; "
+                  f"{st['paths_per_s']:.6g} camera paths/s (the direct render, warm, "
+                  f"{1e3 * st['wall_s']:.3f} ms) on {card}", flush=True)
+            out[tag] = dict(counts=counts, paths_per_s=st["paths_per_s"], build_s=build_s)
+    for path in sorted((ROOT / "assets" / "scenes").glob("*.pbrt")):
+        if path.name == Path(FRONT_END_SCENE).name:
+            continue
+        t0 = time.perf_counter()
+        scene, camera, cfg, scfg, _, _ = load_pbrt(path, device=DEVICE)
+        torch.cuda.synchronize()
+        print(f"[31 load] {path.name}: {scene.n_tris} triangles, {scene.n_spheres} quadrics, "
+              f"{scene.n_curve_segs} curve segments, {scene.n_lights} lights, "
+              f"{len(scene.bss_eta) if scene.has_subsurface else 0} subsurface materials; "
+              f"{camera.resolution[0]}x{camera.resolution[1]}, {scfg.spp} spp, "
+              f"{cfg.integrator}; on {scene.device} in {time.perf_counter() - t0:.4f} s",
+              flush=True)
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, parts, max_abs_err, library_ms=None) -> dict:
     """One kernel's line of the `kernels` JSON: per-launch means over
     `parts`, dicts of per-launch lists ms, plain_ms and bound ((bytes_ms,
@@ -5669,7 +5789,9 @@ def main():
                               grads["grad"].pop("ref"))
     later.append(sharding)
     lap("30")
-    more = lambda key: sum(p["counts"][key] for p in later)  # phases 10-12 and 14-27's launches
+    later += list(phase_front_end(card).values())
+    lap("31")
+    more = lambda key: sum(p["counts"][key] for p in later)  # phases 10-12 and 14-31's launches
 
     k2 = flag["k2"]
     csrc, pallas = "rs_pbrt_tpu_torch/csrc/", "rs_pbrt_tpu/ops/pallas_intersect.py:"

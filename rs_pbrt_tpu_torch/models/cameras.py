@@ -6,8 +6,8 @@ environment and realistic (lens-system) cameras, depth of field for the two
 projective ones and camera motion between two shutter ends
 (AnimatedTransform, ``utils/animated.py``).  The realistic camera's lanes
 go through L1 (``ops/lens_kernel.py``) on the card.  Near clipping
-(``clipping_start``, set only by the .blend importer) comes with the front
-ends (ROADMAP A18).  BDPT's importance functions ``camera_we``,
+(``clipping_start``, set only by the .blend importer) comes with that
+importer (ROADMAP A18b).  BDPT's importance functions ``camera_we``,
 ``camera_pdf_we`` and ``camera_sample_wi`` are the pinhole perspective
 camera's formulas from the static ``cam_to_world``, whatever the camera's
 type or motion, as in the JAX package (its cameras.py:330-392); the two
@@ -189,7 +189,7 @@ def camera_from_numpy(fields: Mapping, device="cuda") -> Camera:
     (clipping_start > 0) raises."""
     if float(fields.get("clipping_start", 0.0)) > 0.0:
         raise NotImplementedError("near clipping (clipping_start) comes with the .blend "
-                                  "importer (ROADMAP A18)")
+                                  "importer (ROADMAP A18b)")
     cam_type = int(fields.get("cam_type", PERSPECTIVE))
     if cam_type not in (PERSPECTIVE, ORTHOGRAPHIC, ENVIRONMENT, REALISTIC):
         raise ValueError(f"unknown camera type {cam_type}")

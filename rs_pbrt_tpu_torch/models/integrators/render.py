@@ -87,11 +87,10 @@ class RenderCfg(NamedTuple):
 def check_cfg(cfg: RenderCfg):
     """Raises ValueError for an integrator or an accelerator that neither
     package has: the port renders every integrator of the JAX package, on
-    one device or sharded over a mesh.  What it still lacks are the front
-    ends (ROADMAP A18)."""
+    one device or sharded over a mesh."""
     if cfg.integrator not in INTEGRATORS:
         raise ValueError(f"unknown integrator {cfg.integrator!r}: the port renders "
-                         f"{INTEGRATORS} (the scene-file front ends come with ROADMAP A18)")
+                         f"{INTEGRATORS}, as the JAX package does")
     if cfg.accelerator not in si.ACCELERATORS:
         raise ValueError(f"accelerator {cfg.accelerator!r}: the port builds {si.ACCELERATORS}")
 

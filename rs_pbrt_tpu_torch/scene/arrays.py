@@ -426,7 +426,7 @@ def texture_kind_mask(tex_type, mat_attr) -> int:
 def slot_mask(mat_attr) -> int:
     """Bit s set for each texture slot s some material binds."""
     bound = (np.rint(np.asarray(mat_attr)[:, MA_TEX:MA_TEX + N_TEX_SLOTS]) >= 0).any(0)
-    return sum(1 << s for s in np.flatnonzero(bound))
+    return sum(1 << int(s) for s in np.flatnonzero(bound))
 
 
 def motion_fields(proto_attr, proto_range, inst_o2w, inst_w2o, inst_proto, inst_mat,
@@ -472,8 +472,8 @@ def texture_fields(tables: Mapping[str, np.ndarray], kind_mask: int, device) -> 
 def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> Scene:
     """Scene from numpy arrays named as the JAX package's Scene fields
     (``{k: np.asarray(getattr(jax_scene, k)) for k in BRIDGE_FIELDS}``).
-    This is how scenes built by the JAX front ends (``load_pbrt``) reach the
-    port until its own parser exists."""
+    This is how the tests carry scenes built by the JAX package's front ends
+    across; the port's own ``scene/api.load_pbrt`` builds the same tables."""
     dev = resolve(device)
     crv = np.asarray(arrays["crv_attr"], np.float32).reshape(-1, N_CURVE_ATTR)
 

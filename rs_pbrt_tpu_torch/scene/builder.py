@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..io.measured_ss import get_medium_scattering_properties
 from ..models.lights import compute_light_power
 from ..ops import bssrdf as bss
 from ..ops import curves as cv
@@ -233,12 +234,14 @@ class SceneBuilder:
         """Subsurface material (materials/subsurface.rs): glass's surface
         lobes and a tabulated BSSRDF from the photon-beam-diffusion table
         (core/bssrdf.rs:569-682), folded along rho into per-channel radius
-        profiles here (ops/bssrdf.make_material_tables).  sigma_a and
-        sigma_s default to the reference's (whole milk's coefficients); the
-        measured presets (``name``) are not ported yet."""
+        profiles here (ops/bssrdf.make_material_tables).  A measured
+        preset's ``name`` (io/measured_ss.py) sets sigma_a and sigma_s; an
+        unknown name leaves them.  They default to the reference's (whole
+        milk's coefficients)."""
         if name is not None:
-            raise NotImplementedError("measured subsurface presets are not ported yet "
-                                      "(ROADMAP A18)")
+            props = get_medium_scattering_properties(name)
+            if props is not None:
+                sigma_a, sigma_s = props
         sigma_a = np.asarray((0.0011, 0.0024, 0.014) if sigma_a is None else sigma_a,
                              np.float32) * scale
         sigma_s = np.asarray((2.55, 3.21, 3.77) if sigma_s is None else sigma_s,
@@ -268,15 +271,26 @@ class SceneBuilder:
     def add_triangle_mesh(self, indices, positions, normals=None, uvs=None, material: int = 0,
                           area_light=None, reverse_orientation: bool = False,
                           medium_interface=(-1, -1), alpha_tex: int = -1,
-                          shadow_alpha_tex: int = -1) -> int:
-        """World-space triangle mesh.  area_light: dict(L=(r,g,b),
-        two_sided=bool, scale=(r,g,b)) makes every triangle emissive.
+                          shadow_alpha_tex: int = -1,
+                          object_to_world: Optional[tr.Transform] = None) -> int:
+        """Triangle mesh, in world space or placed by object_to_world (its
+        positions and normals transformed here, the orientation flipped by a
+        mirroring transform, as the JAX builder does).  area_light:
+        dict(L=(r,g,b), two_sided=bool, scale=(r,g,b)) makes every triangle
+        emissive.
         medium_interface: the (inside, outside) medium ids, -1 vacuum.
         alpha_tex, shadow_alpha_tex: textures whose 0 at a hit's uv cuts the
         hit out of every ray, or of shadow rays (triangle.rs:313-327,
         :593-650); -1 none.  Returns the light id, or -1."""
         idx = np.asarray(indices, np.int32).reshape(-1, 3)
         P = np.asarray(positions, np.float32).reshape(-1, 3)
+        if object_to_world is not None:
+            m = np.asarray(object_to_world.m)
+            P = P @ m[:3, :3].T + m[:3, 3]
+            if normals is not None:
+                normals = np.asarray(normals, np.float32) @ np.asarray(object_to_world.m_inv)[:3, :3]
+            if np.linalg.det(m[:3, :3]) < 0:
+                reverse_orientation = not reverse_orientation
         n_tri = len(idx)
         i0, i1, i2 = idx[:, 0], idx[:, 1], idx[:, 2]
         light_id = -1
@@ -379,10 +393,10 @@ class SceneBuilder:
         return len(self.protos) - 1
 
     def add_prototype_tris(self, tris: dict) -> int:
-        """A prototype from per-triangle lists in object space (the JAX
-        front end's ObjectInstance path: a dict of lists of arrays p0, p1,
-        p2, n0, n1, n2, has_n, uv0, uv1, uv2, mat, reverse).  Returns its
-        id."""
+        """A prototype from per-triangle lists in object space (the front
+        end's ObjectInstance path, scene/api.py: a dict of lists of arrays
+        p0, p1, p2, n0, n1, n2, has_n, uv0, uv1, uv2, mat, reverse).  Returns
+        its id."""
         cat = lambda k: np.concatenate(tris[k])
         p0 = cat("p0").astype(np.float32)
         rows = np.zeros((p0.shape[0], sa.N_TRI_ATTR), np.float32)

@@ -1,9 +1,11 @@
-"""Sampled spectra to RGB: the part of the JAX package's
-``utils/spectrum.py`` that the metal material needs (reference
-src/core/spectrum.rs from_sampled and materials/metal.rs's copper).
+"""RGB spectra and colorimetry: the port of the JAX package's
+``utils/spectrum.py`` (reference src/core/spectrum.rs; its Spectrum is
+RGBSpectrum, so a spectrum is an ``(..., 3)`` array).
 
-``spd_to_rgb`` and ``copper_rgb`` are host numpy code, run when a scene is
-built.  The CIE 1931 curves (471 samples) and the measured copper spectra
+Everything here is host numpy code, run when a scene is built or parsed:
+the luminance and the XYZ conversions, the sRGB curves, Planck's law, and
+sampled spectra resampled to RGB (``spd_to_rgb``, measured copper for the
+metal material).  The CIE 1931 curves (471 samples) and the measured copper spectra
 come from ``data/spectrum_tables.npz``, the port's copy of those arrays of
 the JAX package's data file.
 """
@@ -26,6 +28,70 @@ CIE_Y_INTEGRAL = 106.856895  # spectrum.rs:1481
 XYZ_TO_RGB = np.array([[3.240479, -1.537150, -0.498535],
                        [-0.969256, 1.875991, 0.041556],
                        [0.055648, -0.204043, 1.057311]])
+RGB_TO_XYZ = np.array([[0.412453, 0.357580, 0.180423],
+                       [0.212671, 0.715160, 0.072169],
+                       [0.019334, 0.119193, 0.950227]])
+LUMINANCE = np.array([0.212671, 0.715160, 0.072169])
+
+
+def _floats(x) -> np.ndarray:
+    """x as f32, the JAX package's width for these functions."""
+    return np.asarray(x, np.float32)
+
+
+def luminance(rgb) -> np.ndarray:
+    """y() luminance over the last axis (spectrum.rs:1581)."""
+    rgb = _floats(rgb)
+    return np.sum(rgb * LUMINANCE.astype(np.float32), axis=-1)
+
+
+def rgb_to_xyz(rgb) -> np.ndarray:
+    """spectrum.rs:1822-1836."""
+    rgb = _floats(rgb)
+    return np.einsum("ij,...j->...i", RGB_TO_XYZ.astype(np.float32), rgb)
+
+
+def xyz_to_rgb(xyz) -> np.ndarray:
+    xyz = _floats(xyz)
+    return np.einsum("ij,...j->...i", XYZ_TO_RGB.astype(np.float32), xyz)
+
+
+def gamma_correct(v) -> np.ndarray:
+    """sRGB OETF (spectrum.rs:1865)."""
+    v = _floats(v)
+    return np.where(v <= 0.0031308, 12.92 * v,
+                    1.055 * np.power(np.maximum(v, 1e-8), 1.0 / 2.4) - 0.055)
+
+
+def inverse_gamma_correct(v) -> np.ndarray:
+    v = _floats(v)
+    with np.errstate(invalid="ignore"):
+        return np.where(v <= 0.04045, v / 12.92, np.power((v + 0.055) / 1.055, 2.4))
+
+
+def is_black(rgb) -> np.ndarray:
+    return np.all(np.asarray(rgb) == 0.0, axis=-1)
+
+
+def blackbody(lambda_nm, temperature) -> np.ndarray:
+    """Planck's law, W/(m^2 sr m), at wavelengths in nm (spectrum.rs:1483);
+    f32, zeros for a temperature at or below 0."""
+    lam = np.asarray(lambda_nm, np.float64) * 1e-9
+    t = float(temperature)
+    if t <= 0.0:
+        return np.zeros_like(lam, dtype=np.float32)
+    c = 299792458.0
+    h = 6.62606957e-34
+    kb = 1.3806488e-23
+    le = (2.0 * h * c * c) / (lam ** 5 * (np.exp((h * c) / (lam * kb * t)) - 1.0))
+    return le.astype(np.float32)
+
+
+def blackbody_normalized(lambda_nm, temperature) -> np.ndarray:
+    """blackbody over its peak (Wien's displacement law)."""
+    le = blackbody(lambda_nm, temperature)
+    lambda_max = 2.8977721e-3 / temperature * 1e9
+    return le / blackbody(np.array([lambda_max]), temperature)[0]
 
 
 def spd_to_rgb(lambdas, values) -> np.ndarray:

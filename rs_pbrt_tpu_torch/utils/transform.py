@@ -53,6 +53,47 @@ def scale(sx, sy, sz) -> Transform:
     return Transform(m, mi)
 
 
+def rotate_x(deg) -> Transform:
+    s, c = np.sin(np.deg2rad(deg)), np.cos(np.deg2rad(deg))
+    m = np.eye(4, dtype=np.float32)
+    m[1, 1], m[1, 2], m[2, 1], m[2, 2] = c, -s, s, c
+    return Transform(m, m.T.copy())
+
+
+def rotate_y(deg) -> Transform:
+    s, c = np.sin(np.deg2rad(deg)), np.cos(np.deg2rad(deg))
+    m = np.eye(4, dtype=np.float32)
+    m[0, 0], m[0, 2], m[2, 0], m[2, 2] = c, s, -s, c
+    return Transform(m, m.T.copy())
+
+
+def rotate_z(deg) -> Transform:
+    s, c = np.sin(np.deg2rad(deg)), np.cos(np.deg2rad(deg))
+    m = np.eye(4, dtype=np.float32)
+    m[0, 0], m[0, 1], m[1, 0], m[1, 1] = c, -s, s, c
+    return Transform(m, m.T.copy())
+
+
+def rotate(deg, axis) -> Transform:
+    """Rotation by deg degrees about an arbitrary axis (transform.rs rotate),
+    built in f64 and rounded to f32."""
+    a = np.asarray(axis, np.float64)
+    a = a / np.linalg.norm(a)
+    s, c = np.sin(np.deg2rad(deg)), np.cos(np.deg2rad(deg))
+    m = np.eye(4, dtype=np.float64)
+    m[0, 0] = a[0] * a[0] + (1 - a[0] * a[0]) * c
+    m[0, 1] = a[0] * a[1] * (1 - c) - a[2] * s
+    m[0, 2] = a[0] * a[2] * (1 - c) + a[1] * s
+    m[1, 0] = a[0] * a[1] * (1 - c) + a[2] * s
+    m[1, 1] = a[1] * a[1] + (1 - a[1] * a[1]) * c
+    m[1, 2] = a[1] * a[2] * (1 - c) - a[0] * s
+    m[2, 0] = a[0] * a[2] * (1 - c) - a[1] * s
+    m[2, 1] = a[1] * a[2] * (1 - c) + a[0] * s
+    m[2, 2] = a[2] * a[2] + (1 - a[2] * a[2]) * c
+    m = m.astype(np.float32)
+    return Transform(m, m.T.copy())
+
+
 def look_at(eye, look, up) -> Transform:
     """Camera-to-world (transform.rs look_at)."""
     eye = np.asarray(eye, np.float64)

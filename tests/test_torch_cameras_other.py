@@ -311,8 +311,8 @@ def test_lens_consts_follow_the_camera(realistic_cams):
 
 def test_what_still_raises_names_its_item():
     """What the port still refuses raises NotImplementedError naming its
-    ROADMAP item: near clipping (A18, above), measured subsurface presets
-    (A18).  bdpt and mlt (A16b) pass check_cfg and render with every
+    ROADMAP item: near clipping (A18b, above); measured subsurface presets
+    build since A18a.  bdpt and mlt (A16b) pass check_cfg and render with every
     camera type through the pinhole importance, as the JAX package does:
     the orthographic raster plane lies at z = 0, so its image area is
     infinite, the camera's pdf 0 ends every camera walk and the image is
@@ -339,5 +339,6 @@ def test_what_still_raises_names_its_item():
     rdr.check_cfg(rdr.RenderCfg("path", 1, 5, 1.0, accelerator="kdtree"))
     scene, _ = presets.cornell_box((8, 8), device="cpu")
     assert si.build_accel(scene, kind="kdtree", device="cpu") == si.Accel()
-    with pytest.raises(NotImplementedError, match="A18"):
-        SceneBuilder().add_subsurface(name="Skin1")
+    b = SceneBuilder()
+    b.add_subsurface(name="Skin1")
+    assert b.finalize("cpu").has_subsurface

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from rs_pbrt_tpu_torch import device as devmod
+from rs_pbrt_tpu_torch import main as port_main
 from rs_pbrt_tpu_torch.models import cameras as cam
 from rs_pbrt_tpu_torch.ops import bvh
 from rs_pbrt_tpu_torch.ops import film as filmmod
@@ -26,6 +27,7 @@ from rs_pbrt_tpu_torch.parallel import mesh as pm
 from rs_pbrt_tpu_torch.scene import arrays as sa
 from rs_pbrt_tpu_torch.scene import bigscene
 from rs_pbrt_tpu_torch.scene import presets
+from rs_pbrt_tpu_torch.scene.api import load_pbrt
 from rs_pbrt_tpu_torch.scene.builder import SceneBuilder
 from rs_pbrt_tpu_torch.tools import (bvh_ties, caustic_scenes, env_scenes, hair_scenes,
                                      instance_scenes, material_scenes, sss_scenes)
@@ -34,7 +36,11 @@ from rs_pbrt_tpu_torch.utils import transform as tr
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|rs_pbrt_tpu)(?!\w)", re.M)
+# an import statement of JAX or the JAX package, or the same module named
+# to __import__ or importlib.import_module
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|rs_pbrt_tpu)(?!\w)"
+                       r"|\b(__import__|import_module)\(\s*[\"'](jax|jaxlib|flax|rs_pbrt_tpu)(?!\w)",
+                       re.M)
 
 
 def test_no_jax_imports():
@@ -50,6 +56,19 @@ def test_no_jax_imports():
     assert not bad, bad
     assert FORBIDDEN.search("from rs_pbrt_tpu.ops import film") is not None
     assert FORBIDDEN.search("from rs_pbrt_tpu_torch.ops import film") is None
+
+
+@pytest.mark.parametrize("line,forbidden", [
+    ('__import__("jax.numpy", fromlist=["asarray"]).asarray(m)', True),
+    ("x = __import__( 'rs_pbrt_tpu.utils.spectrum')", True),
+    ('importlib.import_module("jax")', True),
+    ("import_module('rs_pbrt_tpu.scene.api')", True),
+    ('importlib.import_module("rs_pbrt_tpu_torch.scene.api")', False),
+    ('__import__("jaxtyping")', False),
+    ("import jax.numpy as jnp", True),
+])
+def test_forbidden_catches_dynamic_imports(line, forbidden):
+    assert (FORBIDDEN.search(line) is not None) == forbidden
 
 
 def test_import_loads_no_jax():
@@ -74,7 +93,11 @@ def test_import_loads_no_jax():
             "rs_pbrt_tpu_torch.models.integrators.bdpt, rs_pbrt_tpu_torch.models.integrators.mlt, "
             "rs_pbrt_tpu_torch.ops.mis_kernel, rs_pbrt_tpu_torch.diff.grad, "
             "rs_pbrt_tpu_torch.diff.geometry, rs_pbrt_tpu_torch.ops.hit_grad_kernel, "
-            "rs_pbrt_tpu_torch.parallel.mesh, rs_pbrt_tpu_torch.parallel.distributed; "
+            "rs_pbrt_tpu_torch.parallel.mesh, rs_pbrt_tpu_torch.parallel.distributed, "
+            "rs_pbrt_tpu_torch.main, rs_pbrt_tpu_torch.scene.api, rs_pbrt_tpu_torch.scene.parser, "
+            "rs_pbrt_tpu_torch.io.floatfile, rs_pbrt_tpu_torch.io.measured_ss, "
+            "rs_pbrt_tpu_torch.io.plyloader, rs_pbrt_tpu_torch.io.subdiv, "
+            "rs_pbrt_tpu_torch.io.nurbs, rs_pbrt_tpu_torch.utils.transform; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'rs_pbrt_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
@@ -124,6 +147,8 @@ ENTRY_POINTS = {
         instance_scenes.forest_scene((8, 8), subdivisions=0, grid=2, device="cpu")[0]),
     "build_accel kdtree": lambda: si.build_accel(
         bigscene.statue_scene((8, 8), subdivisions=1, device="cpu")[0], kind="kdtree"),
+    "load_pbrt": lambda: load_pbrt(ROOT / "assets" / "scenes" / "cornell_box.pbrt"),
+    "main": lambda: port_main.main(["--path", str(ROOT / "assets" / "scenes" / "cornell_box.pbrt")]),
     # a mesh of the card starts no process group without one
     "make_mesh": lambda: pm.make_mesh(),
     "make_host_mesh": lambda: pd.make_host_mesh(),
