@@ -127,8 +127,8 @@ Run from the root of a checkout.  Phases, one line each (or more):
    rtol = atol = 2e-3, the crop's pixels outside its window black.
 12. The slice at full width through render's defaults: the 5,242,880-
    triangle statue (statue_scene(subdivisions=9)) and its BVH, their host
-   seconds; a warm render of 1 spp, then one timed render of 1024x1024, 64
-   spp, depth 5 with regeneration (bench.py:252-277).  The counters are
+   seconds; a warm render of 1 spp, then one timed render of 1024x1024, 32
+   spp (FULL_SPP; bench.py:252-277 renders 64), depth 5 with regeneration.  The counters are
    zeroed just before that render and read just after: K1 2 a batch, B1
    and B2 once each a regeneration iteration; no stack overflow.  Its
    batches, lane width, iterations, paths/s and peak device memory; the
@@ -407,7 +407,26 @@ Run from the root of a checkout.  Phases, one line each (or more):
    interior plus the mean boundary of TRANS_SEEDS seeds, with the sign of
    the central difference and within rtol 0.5 of it.  A render
    checkpointed after half its batches and resumed, bit-equal to the
-   uninterrupted render over the same batches.
+   uninterrupted render over the same batches.  Then grad_loss_wrt_camera
+   of the five scene kinds whose backward passes came with A17c part 1,
+   each at A17C_RES, A17C_SPP spp: the Cornell box through the realistic
+   camera (depth 2; L1 traces in camera space, the pose applied in
+   PyTorch), a quad moving 0.3 in x (depth 1; V1 on detached rays, G1 in
+   the mesh's object space), a quad image-mapped by a seeded A17C_IMAGE
+   image (depth 1; T1 forward, T3 (csrc/texture_grad.cu) backward in uv,
+   p and the footprint), the hair patch through the curve sweep C3 and
+   through its curve tree C1 (depth 1; C5, csrc/curve_grad.cu, the
+   backward of both) and phase 18's smoke (sss_scenes.smoke_dragonette:
+   the milk sphere on its floor, the camera in its SMOKE_GRID_RES^3 grid)
+   with volpath (depth 1; M1's select, M2 forward and M3,
+   csrc/medium_grad.cu, backward; the subsurface exit's Fresnel on the
+   camera rays that reach the sphere).  Each render's counters are zeroed just
+   before it and read just after, and its kernels must have launched; each
+   gradient is finite and within rtol = atol = 2e-3 x max|g| of the same
+   gradient with every wrapper swapped for its plain version, C1's within
+   that of C3's; every T3, C5 and M3 launch is held to its twin (each
+   entry within 1e-3 of it + 1e-5 of the largest) and timed queued and by
+   events beside its bound and the twin's time.
 
 30. Sharding (parallel/mesh.py, parallel/distributed.py).  A world of one
    over NCCL in this process (make_mesh() starts it): the flagship of phase
@@ -769,6 +788,31 @@ G1_LANE_BYTES = 12 + 12 + 4 + 12 + 24  # o, d, tri, the 3 upstream gradients in;
 # with a nonzero weight: the factors' product and 3 products and sums
 R2_TAP_OPS = 7
 R2_LANE_BYTES = 8 + 12 + 12  # p_film and L in, g_L out
+# phase 29.7: the camera gradients through textures, the lens, moving
+# meshes, curves and a grid medium, each scene at 128x128, 4 spp (65,536
+# paths); the image-mapped quad's seeded image; the hair patch's curve tree
+# built above this many segments (its 48 are walked).  The smoke is phase
+# 18's scene, its grid SMOKE_GRID_RES^3
+A17C_RES, A17C_SPP, A17C_IMAGE, A17C_TREE_ABOVE = (128, 128), 4, (256, 256), 16
+# T3's arithmetic: T1's (texture_work) twice, its lookup again and the
+# reverse sweep; its bytes those of T1's lanes, points and texels with the
+# coordinates' gradients (uv 8, p 12 a point, the width 4 a lane) out
+T3_OUT_POINT_BYTES, T3_OUT_WIDTH_BYTES = 8 + 12, 4
+# C5's arithmetic a hit lane (csrc/curve_grad.cu): the leaf test's forward
+# terms (~250, curve.cuh's count less the rejects) and the reverse sweep
+# (~300: the outputs 25, the Bernstein point 40, the ribbon width 30, the
+# chord 20, the control points in the frame 96, the frame's cross products
+# and normalizations 70, d's 20)
+C5_OPS = 550
+C5_HIT_LANE_BYTES = 12 + 12 + 4 + 16 + 24  # o, d, seg, 4 upstream gradients in; g_o, g_d out
+C5_MISS_LANE_BYTES = 4 + 24  # seg in; g_o, g_d (zeros) out
+C5_ROW_BYTES = 26 * 4
+# M3's arithmetic: M2's steps and lookups (M_FLOP) in the forward, then a
+# live step's 8 taps again and its reverse (the taps' weight differences
+# 24, the point's gradient through w2m 30, the product's 3, o and d 6)
+M3_REVERSE_OPS = M_FLOP["ratio_lookup"] + 63
+M3_EXTRA_RAY_BYTES = 4 + 24 - 4  # g_tr in and g_o, g_d out instead of tr out
+M3_IDLE_LANE_BYTES = 1 + 4 + 24  # in_med, g_tr in; g_o, g_d (zeros) out
 # phase 30: sharding.  The world of two renders the flagship at 16 spp; the
 # world of one's BDPT, SPPM and MLT checks run on a 64x64 Cornell box
 SHARD_SPP, SHARD_WORLD, SHARD_DEADLINE = 16, 2, 300
@@ -928,7 +972,7 @@ def _owner(name: str):
     take_loop, walk_closest, walk_any, sweep_closest, sweep_any, deposit,
     delta_track, ratio_track, fourier_eval, fourier_sample, texture_eval, halton_dims, splat,
     lens_rays, instance_intersect, anim_hits, kd_intersect, mis_weight, hit_vjp,
-    texture_grad, splat_grad)."""
+    texture_grad, splat_grad, texture_coord_grad, curve_vjp, ratio_track_vjp)."""
     sk, pk, ik, bvh, gp, ck, sd, mk, fk, tk, hk, rk, lk, ink, mok, kdk, wk, hg = _kernel_modules()
     return dict(sobol_dims=sk, bounce=pk, closest_sweep=ik, any_sweep=ik, full_sweep=ik,
                 bvh12_intersect_tris=bvh, take_rows=gp, take_loop=gp, walk_closest=ck,
@@ -936,7 +980,7 @@ def _owner(name: str):
                 ratio_track=mk, fourier_eval=fk, fourier_sample=fk, texture_eval=tk,
                 halton_dims=hk, splat=rk, lens_rays=lk, instance_intersect=ink,
                 anim_hits=mok, kd_intersect=kdk, mis_weight=wk, hit_vjp=hg, texture_grad=tk,
-                splat_grad=rk)[name]
+                splat_grad=rk, texture_coord_grad=tk, curve_vjp=ck, ratio_track_vjp=mk)[name]
 
 
 def wrapper(name: str):
@@ -1963,8 +2007,8 @@ def phase_spatial_crop(card):
 
 
 def phase_full_statue(card):
-    """Phase 12: the 5.24M-triangle statue at 1024x1024, 64 spp, through
-    render's defaults (regeneration)."""
+    """Phase 12: the 5.24M-triangle statue at 1024x1024, FULL_SPP spp,
+    through render's defaults (regeneration)."""
     import torch
 
     from rs_pbrt_tpu_torch.models import samplers as smpl
@@ -4827,21 +4871,29 @@ def t2_bound_ms(tb, ids, uv, p, width, g_out) -> tuple:
 
 
 def check_t2(what: str, got, want, args=None, worst: dict = None) -> tuple:
-    """Fails unless each entry of a T2 launch's tex_params and tex_atlas
-    gradients lies within 1e-3 of the plain version's plus 1e-5 of the
-    table's largest |entry| (the sums hold up to a launch's lanes' terms an
-    entry at the pyramid's top levels, added by atomics in no fixed order).
-    worst["t2_rel"] keeps the largest share of that limit.  (max_abs_err,
-    exact)."""
+    """Fails unless each entry of a backward launch's outputs is finite and
+    lies within 1e-3 of the plain version's plus 1e-5 of the output's
+    largest |entry|: T2's tex_params and tex_atlas gradients (sums of up to
+    a launch's lanes' terms an entry at the pyramid's top levels, added by
+    atomics in no fixed order), and T3's, C5's and M3's per-lane gradients
+    (their twins compute the kernels' sweeps term by term; a term that
+    cancels ~100x its sum carries the last bits of a sin, cos, log2 or
+    division that torch and the kernel round apart).  A None output (T3's
+    width gradient without a width) is skipped.  worst["t2_rel"] keeps the
+    largest share of that limit.  (max_abs_err, exact)."""
     import torch
 
     err, exact = 0.0, True
     for g, w in zip(got, want):
+        if g is None and w is None:
+            continue
+        if not bool(torch.isfinite(g).all()):
+            fail(f"{what}: a gradient is not finite")
         diff = (g - w).abs()
-        lim = 1e-3 * w.abs() + 1e-5 * float(w.abs().max())
-        err = max(err, float(diff.max()))
+        lim = 1e-3 * w.abs() + 1e-5 * (float(w.abs().max()) if w.numel() else 0.0)
+        err = max(err, float(diff.max()) if diff.numel() else 0.0)
         exact = exact and torch.equal(g, w)
-        if worst is not None:
+        if worst is not None and diff.numel():
             worst["t2_rel"] = max(worst.get("t2_rel", 0.0),
                                   float((diff / lim.clamp(min=1e-30)).max()))
         if not bool((diff <= lim).all()):
@@ -5253,6 +5305,196 @@ def phase_gradients(card):
           + ")", flush=True)
     return dict(out, g1=g1, g1_verts=g1_verts, t2=t2, r2=r2, seconds=seconds,
                 held=dict(k5=held["full_sweep"]["max_abs_err"]))
+
+
+def t3_bound_ms(tb, ids, uv, p, width, g_out) -> tuple:
+    """Least time of one T3 launch, as (bytes_ms, operations_ms): T1's
+    bound on the same lanes (texture_bound_ms: an upstream gradient in for
+    the rgb out, the points, texels and tables read) with each point's uv
+    and p gradients and each lane's width gradient written once; twice
+    T1's operations, the lookup again and its reverse sweep."""
+    work = texture_work(tb, ids if ids.dim() == 2 else ids[None], uv, width)
+    b, o = texture_bound_ms(tb, work)
+    out = (work["points"] * T3_OUT_POINT_BYTES
+           + (work["live"] * T3_OUT_WIDTH_BYTES if width is not None else 0))
+    return b + 1e3 * out / HBM_BYTES_PER_S, 2.0 * o
+
+
+def c5_bound_ms(o, d, seg, rows, *g) -> tuple:
+    """Least time of one C5 launch, as (bytes_ms, operations_ms): a hit
+    lane's ray, segment id and upstream gradients in and g_o, g_d out
+    (C5_HIT_LANE_BYTES), a missing lane's segment id in and its zeros out
+    (C5_MISS_LANE_BYTES), each distinct hit segment's row read once;
+    C5_OPS a hit lane."""
+    hit = (seg >= 0) & (seg < rows.shape[0])
+    n_hit = int(hit.sum())
+    rows_read = int(seg[hit].unique().numel())
+    nbytes = (n_hit * C5_HIT_LANE_BYTES + (o.shape[0] - n_hit) * C5_MISS_LANE_BYTES
+              + rows_read * C5_ROW_BYTES)
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * n_hit * C5_OPS / FP32_FLOP_PER_S
+
+
+def m3_bound_ms(*a) -> tuple:
+    """Least time of one M3 launch, as (bytes_ms, operations_ms).  The
+    live lanes (in the medium, g_tr not 0): M2's bound on those rays alone
+    (medium_bound_ms, from the plain version's work on them) with g_tr in
+    and g_o, g_d out for tr out, and each lookup's reverse (M3_REVERSE_OPS)
+    on top of M2's operations.  Every other lane reads in_med and g_tr and
+    writes zeros (M3_IDLE_LANE_BYTES)."""
+    from rs_pbrt_tpu_torch.ops import medium_kernel as mk
+
+    live = a[6].bool() & (a[-1] != 0)
+    sub = tuple(x[live] if 5 <= k <= 10 else x for k, x in enumerate(a[:-1]))
+    work = {}
+    mk.ratio_track_plain(*sub, work=work)
+    b, o, _ = medium_bound_ms("ratio_track", sub, work)
+    n_live = int(live.sum())
+    idle = a[7].shape[0] - n_live
+    return (b + 1e3 * (n_live * M3_EXTRA_RAY_BYTES + idle * M3_IDLE_LANE_BYTES) / HBM_BYTES_PER_S,
+            o + 1e3 * work.get("lookups", 0) * M3_REVERSE_OPS / FP32_FLOP_PER_S)
+
+
+def phase_camera_grads(card) -> dict:
+    """Phase 29.7: grad_loss_wrt_camera of the realistic Cornell box, a
+    moving quad, an image-mapped quad, the hair patch (C3 and C1) and the
+    smoke (see the module's docstring, phase 29)."""
+    import torch
+
+    from rs_pbrt_tpu_torch.diff import grad as dg
+    from rs_pbrt_tpu_torch.models import cameras as cam
+    from rs_pbrt_tpu_torch.models import samplers as smpl
+    from rs_pbrt_tpu_torch.models.integrators import render as rdr
+    from rs_pbrt_tpu_torch.ops import curve_kernel as ck
+    from rs_pbrt_tpu_torch.ops import curves as cv
+    from rs_pbrt_tpu_torch.ops import hit_grad_kernel as hg
+    from rs_pbrt_tpu_torch.ops import intersect_kernel as ik
+    from rs_pbrt_tpu_torch.ops import lens_kernel as lk
+    from rs_pbrt_tpu_torch.ops import medium_kernel as mk
+    from rs_pbrt_tpu_torch.ops import motion_kernel as mok
+    from rs_pbrt_tpu_torch.ops import scene_intersect as si
+    from rs_pbrt_tpu_torch.ops import texture as tx
+    from rs_pbrt_tpu_torch.ops import texture_kernel as tk
+    from rs_pbrt_tpu_torch.scene import presets
+    from rs_pbrt_tpu_torch.scene.builder import SceneBuilder
+    from rs_pbrt_tpu_torch.tools import hair_scenes, sss_scenes
+    from rs_pbrt_tpu_torch.tools import texture_scenes as ts
+    from rs_pbrt_tpu_torch.utils import transform as tr
+
+    t_phase = time.perf_counter()
+    mean = lambda img: img.mean()
+    w, h = A17C_RES
+    lanes = w * h * A17C_SPP
+    scfg = smpl.make_sampler(smpl.SOBOL, A17C_SPP, A17C_RES)
+    cfg = lambda depth, integrator="path": rdr.RenderCfg(integrator, A17C_SPP, depth, 1.0)
+    plains = dict(plain_fns(), closest_sweep=ik.closest_sweep_plain, hit_vjp=hg.hit_vjp_plain,
+                  texture_grad=tk.texture_grad_plain,
+                  texture_coord_grad=tk.texture_coord_grad_plain,
+                  sweep_closest=cv.intersect_curves_plain,
+                  sweep_any=lambda *a: cv.intersect_curves_plain(*a, any_hit=True),
+                  walk_closest=cv.bvh_intersect_curves_plain,
+                  walk_any=lambda *a: cv.bvh_intersect_curves_plain(*a, any_hit=True),
+                  curve_vjp=ck.curve_vjp_plain, ratio_track_vjp=mk.ratio_track_vjp_plain,
+                  lens_rays=lk.lens_rays_plain, anim_hits=mok.anim_hits_plain)
+
+    # the five scenes: (tag, scene, camera, cfg, accel, the kernels that must launch)
+    scene, _ = presets.cornell_box(A17C_RES, device=DEVICE)
+    real = cam.make_realistic(tr.look_at(*CORNELL_VIEW), A17C_RES, SINGLET, aperture_diameter=8.0,
+                              focus_distance=1078.0, film_diag_mm=35.0, device=DEVICE)
+    cases = [("realistic", scene, real, cfg(2), None, ("lens",))]
+    b = SceneBuilder()
+    m = b.add_matte(kd=(0.8,) * 3)
+    quad = [[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]]
+    b.add_animated_triangle_mesh([[0, 1, 2], [0, 2, 3]], quad, tr.translate((0, 0, 0)),
+                                 tr.translate((0.3, 0, 0)), material=m)
+    b.add_point_light(p=(0.5, 0.5, 2.0), I=(5.0,) * 3)
+    look = cam.make_perspective(tr.look_at([0, 0, 4], [0, 0, 0], [0, 1, 0]), A17C_RES, fov=45.0,
+                                device=DEVICE)
+    cases.append(("moving", b.finalize(DEVICE), look, cfg(1), None,
+                  ("motion_closest", "hit_grad")))
+    b = SceneBuilder()
+    tid = b.add_texture(tx.TEX_IMAGEMAP, {tx.TP_GAMMA_SCALE: 1.0},
+                        image=ts.seeded_image(A17C_IMAGE, 297))
+    m = b.add_matte()
+    b.set_material_texture(m, 0, tid)
+    b.add_triangle_mesh([[0, 1, 2], [0, 2, 3]], quad, uvs=[[0, 0], [1, 0], [1, 1], [0, 1]],
+                        material=m)
+    b.add_point_light(p=(0.5, 0.5, 2.0), I=(5.0,) * 3)
+    near = cam.make_perspective(tr.look_at([0.2, 0.1, 4], [0, 0, 0], [0, 1, 0]), A17C_RES,
+                                fov=20.0, device=DEVICE)
+    cases.append(("quad", b.finalize(DEVICE), near, cfg(1), None,
+                  ("texture_eval", "texture_coord_grad")))
+    hair, hcam = hair_scenes.hair_patch(A17C_RES, device=DEVICE)
+    cases.append(("hair C3", hair, hcam, cfg(1), None, ("curve_sweep_closest", "curve_grad")))
+    with mock.patch.object(si, "BRUTE_FORCE_MAX_CURVES", A17C_TREE_ABOVE):
+        tree = si.build_accel(hair, device=DEVICE)
+    cases.append(("hair C1", hair, hcam, cfg(1), tree, ("curve_walk_closest", "curve_grad")))
+    # phase 18's smoke: the milk sphere on its floor, the camera in the grid
+    smoke, smoke_cam = sss_scenes.smoke_dragonette(SMOKE_GRID_RES, resolution=A17C_RES,
+                                                   device=DEVICE)
+    cases.append(("smoke", smoke, smoke_cam, cfg(1, "volpath"), None,
+                  ("delta_track", "ratio_track", "ratio_track_grad")))
+
+    timers = {k: LaunchTimer(wrapper(k), keep=True)
+              for k in ("texture_coord_grad", "curve_vjp", "ratio_track_vjp")}
+    out, grads = {}, {}
+    for tag, sc, camera, c, accel, must in cases:
+        limit = A17C_TREE_ABOVE if accel is not None else si.BRUTE_FORCE_MAX_CURVES
+        with mock.patch.object(si, "BRUTE_FORCE_MAX_CURVES", limit):
+            go = lambda: dg.grad_loss_wrt_camera(sc, camera, c, scfg, mean, accel=accel)
+            go()  # warm
+            with ExitStack() as es:
+                patched(es, **timers)
+                torch.cuda.synchronize()
+                zero_counts()
+                loss, g = go()
+                torch.cuda.synchronize()
+                counts = read_counts()
+            with ExitStack() as es:
+                patched(es, **plains)
+                _, gp = go()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            go()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if any(counts[k] < 1 for k in must):
+            fail(f"29 {tag} camera gradient: launches {counts}, but not every one of {must}")
+        err = 0.0
+        for name, a, b_ in zip(g._fields, g, gp):
+            tol = TOL * float(b_.abs().max())
+            err = max(err, float((a - b_).abs().max()))
+            if not bool(torch.isfinite(a).all()) or not torch.allclose(a, b_, rtol=TOL, atol=tol):
+                fail(f"29 {tag}: d loss / d {name} differs from the plain gradient by up to "
+                     f"{float((a - b_).abs().max())} (tolerance {TOL} x {float(b_.abs().max())})")
+        if float(g.cam_to_world.abs().max()) == 0.0:
+            fail(f"29 {tag}: the camera gradient is 0")
+        grads[tag] = g
+        shown = {k: v for k, v in counts.items() if v}
+        print(f"[29 {tag}] grad_loss_wrt_camera {w}x{h}, {A17C_SPP} spp, {c.integrator} depth "
+              f"{c.max_depth}: loss {float(loss):.6f}; launches {shown}; the gradient finite and "
+              f"within {TOL} x max|g| of the plain gradient (max abs err {err:.3g}); d loss / d "
+              f"translation {[round(float(x), 8) for x in g.cam_to_world[:3, 3]]}; "
+              f"{lanes / wall:.6g} paths/s forward and backward ({card})", flush=True)
+        out[tag] = dict(counts=counts, paths_per_s=lanes / wall)
+    c1, c3 = grads["hair C1"].cam_to_world, grads["hair C3"].cam_to_world
+    if not torch.allclose(c1, c3, rtol=TOL, atol=TOL * float(c3.abs().max())):
+        fail(f"29 hair: C1's camera gradient differs from C3's by {float((c1 - c3).abs().max())}")
+    with torch.no_grad():
+        parts = dict(
+            t3=kernel_part(timers["texture_coord_grad"], "29 quad", "T3",
+                           tk.texture_coord_grad_plain, tk.texture_coord_grad, t3_bound_ms,
+                           check_t2, lambda tb, ids, *a: ids.numel()),
+            c5=kernel_part(timers["curve_vjp"], "29 hair", "C5", ck.curve_vjp_plain, ck.curve_vjp,
+                           c5_bound_ms, check_t2, lambda *a: a[0].shape[0]),
+            m3=kernel_part(timers["ratio_track_vjp"], "29 smoke", "M3", mk.ratio_track_vjp_plain,
+                           mk.ratio_track_vjp, m3_bound_ms, check_t2,
+                           lambda *a: a[7].shape[0]))
+    for kid, key in (("T3", "t3"), ("C5", "c5"), ("M3", "m3")):
+        print_part(kid, "29 camera gradients", parts[key], card, tol="1e-3 + 1e-5 x max")
+    seconds = time.perf_counter() - t_phase
+    print(f"[29 camera gradients] C1's gradient within {TOL} of C3's; {seconds:.1f} s ({card})",
+          flush=True)
+    return dict(out, **parts, seconds=seconds)
 
 
 def _counted(go, **recorders):
@@ -5784,6 +6026,8 @@ def main():
     lap("28")
     grads = phase_gradients(card)
     later += [grads[k] for k in ("grad", "camera", "quad", "mitchell", "translation")]
+    a17c = phase_camera_grads(card)
+    later += [a17c[k] for k in ("realistic", "moving", "quad", "hair C3", "hair C1", "smoke")]
     lap("29")
     sharding = phase_sharding(card, flag.pop("img"), flag["paths_per_s"],
                               grads["grad"].pop("ref"))
@@ -5957,6 +6201,22 @@ def main():
         "splat_vjp", csrc + "splat_grad.cu", "rs_pbrt_tpu/ops/film.py:117 (jax.vjp of "
         "add_samples)", more("splat_grad"), [r2], r2["max_abs_err"]),
         bit_equal=r2["exact"], held=len(r2["ms"])))
+    # T3, C5 and M3 replace the JAX package's reverse-mode AD through its
+    # XLA texture lookup, curve leaf test and ratio tracking, in the
+    # lookup's coordinates and the rays; no one PyTorch call computes them
+    for name, key, source, replaces, count in (
+            ("texture_coord_vjp", "t3", "texture_grad.cu", "rs_pbrt_tpu/ops/texture.py:286 "
+             "(jax.vjp of eval_texture in uv, p, width)", "texture_coord_grad"),
+            ("curve_vjp", "c5", "curve_grad.cu", "rs_pbrt_tpu/ops/curves.py:240 (jax.vjp of "
+             "curve_seg_test in o, d)", "curve_grad"),
+            ("ratio_track_vjp", "m3", "medium_grad.cu", "rs_pbrt_tpu/models/integrators/"
+             "volpath.py:86 (jax.vjp of _ratio_track_tr in o, d)", "ratio_track_grad")):
+        part = a17c[key]
+        kernels.append(dict(kernel_entry(name, csrc + source, replaces, more(count), [part],
+                                         part["max_abs_err"]),
+                            bit_equal=part["exact"], held=len(part["ms"]),
+                            tolerance="each entry within 1e-3 of the twin's + 1e-5 of the "
+                                      "largest"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

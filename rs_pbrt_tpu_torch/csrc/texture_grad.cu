@@ -1,28 +1,42 @@
-// T2: the texture evaluation's vector-Jacobian product in the texture
-// parameters and the image atlas, one thread a lane.
+// T2 and T3: the texture evaluation's vector-Jacobian products, one thread
+// a lane.
 //
-// The backward of T1 (texture.cu) with respect to the scene's tex_params
-// (X, 16) and tex_atlas (AH, AW, 3).  JAX differentiates its XLA texture
-// evaluation (rs_pbrt_tpu/ops/texture.py:286 eval_texture) by reverse-mode
-// AD; here a lane runs its own texture's forward (texture.cuh) and then
-// its reverse sweep by hand, and adds each term into the two tables with
-// atomics: the constant's value; the noise families' value, omega, and a
-// marble's variation and noise scale (through the Perlin noise's gradient
-// in its point); an image map's scale, its bilinear or trilinear texels
-// and the uv mapping's scales and offsets (through the taps' weights and
-// the MIP level); the uv texture's mapping; a mix's amount; and, one level
-// down, each combinator's children (scale, mix, checker, dots).  The uv,
-// the point and the footprint width carry no gradient here.  The sums land
-// in no fixed order, so the tables are not bit-equal to the twin's
-// (ops/texture_kernel.texture_grad_plain).
+// T2 is the backward of T1 (texture.cu) with respect to the scene's
+// tex_params (X, 16) and tex_atlas (AH, AW, 3).  JAX differentiates its XLA
+// texture evaluation (rs_pbrt_tpu/ops/texture.py:286 eval_texture) by
+// reverse-mode AD; here a lane runs its own texture's forward (texture.cuh)
+// and then its reverse sweep by hand, and adds each term into the two
+// tables with atomics: the constant's value; the noise families' value,
+// omega, and a marble's variation and noise scale (through the Perlin
+// noise's gradient in its point); an image map's scale, its bilinear or
+// trilinear texels and the uv mapping's scales and offsets (through the
+// taps' weights and the MIP level); the uv texture's mapping; a mix's
+// amount; and, one level down, each combinator's children (scale, mix,
+// checker, dots).  The sums land in no fixed order, so the tables are not
+// bit-equal to the twin's (ops/texture_kernel.texture_grad_plain).
 //
-// What bounds it on the card: the atomics and, for noise lanes, the
+// T3 is the same reverse sweep in the lane's coordinates: the uv, the
+// shading point p and the footprint width (a camera or geometry gradient
+// on a textured surface).  The image map's bilinear weights give d/du and
+// d/dv (scaled by the mapping's su, sv), its trilinear level d/d width
+// through log2 where the level is not clipped; the noise families' Perlin
+// gradient goes back through the world-to-texture transform to p (a
+// marble's through its sine and noise scale, windy's through both of its
+// fbm's); the uv texture passes its gradient to uv; a combinator passes
+// its children's.  Terms behind floor and the discrete selects (checker's
+// parity, a dot's inside test, the wrap modes) give zero, as in JAX.  One
+// thread takes a lane through every row of ids, so a point shared by the
+// rows sums its rows' terms without atomics.  Its twin
+// (ops/texture_kernel.texture_coord_grad_plain) computes the same sweep
+// term by term in plain PyTorch.
+//
+// What bounds them on the card: the atomics and, for noise lanes, the
 // arithmetic: a noise's gradient re-reads its 8 lattice corners (three
 // chained permutation reads each) and takes ~120 more operations; an image
-// lane adds 12 atomics a tap into the atlas, where neighbouring lanes hit
-// the same texels.  What the design does about it: nothing yet; this is
-// the first, simple form.  The permutation table sits in shared memory as
-// in T1.
+// lane adds 12 atomics a tap into the atlas (T2), where neighbouring lanes
+// hit the same texels.  What the design does about it: nothing yet; this
+// is the first, simple form.  The permutation table sits in shared memory
+// as in T1.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,12 +53,33 @@ __constant__ float c_marble[27] = {0.58f, 0.58f, 0.6f,  0.58f, 0.58f, 0.6f,  0.5
                                    0.58f, 0.58f, 0.6f,  0.2f,  0.2f,  0.33f, 0.58f, 0.58f, 0.6f};
 
 struct Grads {
-  float* params;  // (X, 16)
-  float* atlas;  // (AH, AW, 3)
+  float* params;  // (X, 16), null: not wanted (T3)
+  float* atlas;  // (AH, AW, 3), null: not wanted (T3)
+};
+
+// a lane's gradients in its coordinates (T3): uv, p and the width
+struct Coord {
+  float u, v, p[3], width;
 };
 
 __device__ void add_param(const Grads& G, int id, int col, float g) {
-  if (g != 0.0f) atomicAdd(G.params + tex::kParams * id + col, g);
+  if (G.params != nullptr && g != 0.0f) atomicAdd(G.params + tex::kParams * id + col, g);
+}
+
+// g_pt, the gradient at xform_point(m, p), carried back to p: the rows of
+// m over the homogeneous w, less the divide's term
+__device__ void xform_point_vjp(const float* m, const float p[3], const float g_pt[3],
+                                float gp[3]) {
+  float r[4];
+  for (int i = 0; i < 4; ++i) r[i] = m[4 * i] * p[0] + m[4 * i + 1] * p[1] + m[4 * i + 2] * p[2];
+  const float w = r[3] + m[15];
+  float g_w = 0.0f;
+  for (int i = 0; i < 3; ++i) {
+    const float out = (r[i] + m[4 * i + 3]) / w;
+    g_w = g_w - g_pt[i] * out / w;
+  }
+  for (int k = 0; k < 3; ++k)
+    gp[k] += (g_pt[0] * m[k] + g_pt[1] * m[4 + k] + g_pt[2] * m[8 + k]) / w + g_w * m[12 + k];
 }
 
 // d noise_weight / dt: 30 t^4 - 60 t^3 + 30 t^2
@@ -174,9 +209,11 @@ __device__ void atlas_vjp(const tex::Tables& T, const Grads& G, int y0, int hi, 
 }
 
 // the leaf texture id's VJP at the lane: g (3) into its parameters and
-// the atlas
+// the atlas (those of G that are not null), and with c into the lane's
+// coordinates
 __device__ void leaf_vjp(const tex::Tables& T, const Grads& G, int id, float uv0, float uv1,
-                         const float p[3], bool with_width, float width, const float g[3]) {
+                         const float p[3], bool with_width, float width, const float g[3],
+                         Coord* c) {
   const float* tp = T.params + tex::kParams * id;
   const int type = T.type[id];
   const tex::Mapped m = tex::mapped_uv(tp, uv0, uv1);
@@ -200,11 +237,11 @@ __device__ void leaf_vjp(const tex::Tables& T, const Grads& G, int id, float uv0
       const float a = 1.0f - ft;
       const float ds[4] = {-3.0f * a * a, 3.0f * a * a - 6.0f * ft * a, 6.0f * ft * a - 3.0f * ft * ft,
                            3.0f * ft * ft};
-      const float* c = T.marble + 3 * i;
+      const float* cm = T.marble + 3 * i;
       float g_ft = 0.0f;
       for (int k = 0; k < 3; ++k)
-        g_ft = g_ft + 1.5f * g[k] * (ds[0] * c[k] + ds[1] * c[3 + k] + ds[2] * c[6 + k] +
-                                     ds[3] * c[9 + k]);
+        g_ft = g_ft + 1.5f * g[k] * (ds[0] * cm[k] + ds[1] * cm[3 + k] + ds[2] * cm[6 + k] +
+                                     ds[3] * cm[9 + k]);
       const bool inside = t > 0.0f && t < 0.999899983406066895f;
       const float g_arg = inside ? g_ft * 6.0f * 0.5f * cosf(arg) : 0.0f;
       add_param(G, id, tex::kVariation, g_arg * f);
@@ -214,23 +251,41 @@ __device__ void leaf_vjp(const tex::Tables& T, const Grads& G, int id, float uv0
       if (tp[tex::kOmega] != 0.0f) add_param(G, id, tex::kOmega, g_arg * variation * d_omega);
       if (tp[tex::kScaleN] != 0.0f)
         add_param(G, id, tex::kScaleN, g_first[0] * pt[0] + g_first[1] * pt[1] + g_first[2] * pt[2]);
+      if (c != nullptr) {
+        const float g_pt[3] = {g_first[0] * scale_n, g_first[1] * scale_n, g_first[2] * scale_n};
+        xform_point_vjp(T.w2t + 16 * id, p, g_pt, c->p);
+      }
       return;
     }
     float f;
+    const float g_f = g[0] * tp[tex::kValue] + g[1] * tp[tex::kValue + 1] +
+                      g[2] * tp[tex::kValue + 2];
+    float g_pt[3] = {0.0f, 0.0f, 0.0f};
     if (type == tex::kWindy) {
       const float pw[3] = {0.100000001490116119f * pt[0], 0.100000001490116119f * pt[1],
                            0.100000001490116119f * pt[2]};
-      f = fabsf(tex::fbm(T, pw, 0.5f, 3, false)) * tex::fbm(T, pt, 0.5f, 6, false);
+      const float a = tex::fbm(T, pw, 0.5f, 3, false);
+      const float b = tex::fbm(T, pt, 0.5f, 6, false);
+      f = fabsf(a) * b;
+      if (c != nullptr) {
+        // |a| b: a's sign (0 at 0, as torch.abs) times b, and |a|
+        const float sgn = a > 0.0f ? 1.0f : (a < 0.0f ? -1.0f : 0.0f);
+        float g_pw[3] = {0.0f, 0.0f, 0.0f};
+        fbm_vjp(T, pw, 0.5f, 3, false, g_f * b * sgn, nullptr, g_pw);
+        fbm_vjp(T, pt, 0.5f, 6, false, g_f * fabsf(a), nullptr, g_pt);
+        for (int k = 0; k < 3; ++k) g_pt[k] += 0.100000001490116119f * g_pw[k];
+      }
     } else {
       float d_omega = 0.0f;
-      f = fbm_vjp(T, pt, omega, octs, type == tex::kWrinkled, 0.0f, &d_omega, nullptr);
-      const float g_f = g[0] * tp[tex::kValue] + g[1] * tp[tex::kValue + 1] +
-                        g[2] * tp[tex::kValue + 2];
+      f = fbm_vjp(T, pt, omega, octs, type == tex::kWrinkled, c != nullptr ? g_f : 0.0f,
+                  &d_omega, c != nullptr ? g_pt : nullptr);
       if (tp[tex::kOmega] != 0.0f) add_param(G, id, tex::kOmega, g_f * d_omega);
     }
     for (int k = 0; k < 3; ++k) add_param(G, id, tex::kValue + k, f * g[k]);
+    if (c != nullptr) xform_point_vjp(T.w2t + 16 * id, p, g_pt, c->p);
     return;
   }
+  float g_width = 0.0f;
   if (type == tex::kUv && tex::has(T, tex::kUv)) {
     g_u = g[0];
     g_v = g[1];
@@ -271,7 +326,9 @@ __device__ void leaf_vjp(const tex::Tables& T, const Grads& G, int id, float uv0
       if (raw > 0.0f && raw < top && weff > 1e-8f) {
         // the max's gradient goes to the larger scale, half to each at a
         // tie (as torch.maximum and jnp.maximum split it)
-        const float g_smax = g_f / (weff * kLn2) * width;
+        const float g_weff = g_f / (weff * kLn2);
+        const float g_smax = g_weff * width;
+        g_width = g_weff * smax;
         const float g_a = a > b ? g_smax : (a == b ? 0.5f * g_smax : 0.0f);
         const float g_b = b > a ? g_smax : (a == b ? 0.5f * g_smax : 0.0f);
         g_su = m.su < 0.0f ? -g_a : g_a;
@@ -292,16 +349,23 @@ __device__ void leaf_vjp(const tex::Tables& T, const Grads& G, int id, float uv0
   add_param(G, id, tex::kDv, g_v);
   if (tp[tex::kSu] != 0.0f) add_param(G, id, tex::kSu, g_u * uv0 + g_su);
   if (tp[tex::kSv] != 0.0f) add_param(G, id, tex::kSv, g_v * uv1 + g_sv);
+  if (c != nullptr) {
+    c->u += g_u * m.su;
+    c->v += g_v * m.sv;
+    c->width += g_width;
+  }
 }
 
-// eval_texture's VJP at the lane
+// eval_texture's VJP at the lane (c: null, or the lane's coordinates'
+// gradients, added into)
 __device__ void texture_vjp(const tex::Tables& T, const Grads& G, int id, float uv0, float uv1,
-                            const float p[3], bool with_width, float width, const float g[3]) {
+                            const float p[3], bool with_width, float width, const float g[3],
+                            Coord* c) {
   if (id < 0) return;
   const int tid = id > T.n_tex - 1 ? T.n_tex - 1 : id;
   const int type = T.type[tid];
   if (type != tex::kScale && type != tex::kMix && type != tex::kChecker && type != tex::kDots) {
-    leaf_vjp(T, G, tid, uv0, uv1, p, with_width, width, g);
+    leaf_vjp(T, G, tid, uv0, uv1, p, with_width, width, g, c);
     return;
   }
   const int c1 = tex::clampi(T.child[2 * tid], 0, T.n_tex - 1);
@@ -347,8 +411,8 @@ __device__ void texture_vjp(const tex::Tables& T, const Grads& G, int id, float 
       g2[k] = first ? 0.0f : g[k];
     }
   }
-  leaf_vjp(T, G, c1, uv0, uv1, p, with_width, width, g1);
-  leaf_vjp(T, G, c2, uv0, uv1, p, with_width, width, g2);
+  leaf_vjp(T, G, c1, uv0, uv1, p, with_width, width, g1, c);
+  leaf_vjp(T, G, c2, uv0, uv1, p, with_width, width, g2, c);
 }
 
 struct Args {
@@ -378,7 +442,64 @@ __global__ void texture_grad_kernel(Args a) {
   if (g[0] == 0.0f && g[1] == 0.0f && g[2] == 0.0f) return;
   const float p[3] = {__ldg(a.p + 3 * q), __ldg(a.p + 3 * q + 1), __ldg(a.p + 3 * q + 2)};
   texture_vjp(T, a.g, __ldg(a.ids + i), __ldg(a.uv + 2 * q), __ldg(a.uv + 2 * q + 1), p,
-              a.width != nullptr, a.width ? __ldg(a.width + j) : 0.0f, g);
+              a.width != nullptr, a.width ? __ldg(a.width + j) : 0.0f, g, nullptr);
+}
+
+struct CoordArgs {
+  tex::Tables t;
+  const int* ids;
+  const float* uv;
+  const float* p;
+  const float* width;  // null: level 0
+  const float* g_out;  // (rows, n, 3)
+  int n, rows, per_row;
+  float* g_uv;  // (rows, n, 2) where per_row, else (n, 2)
+  float* g_p;  // likewise (.., 3)
+  float* g_width;  // (n,), null without a width
+};
+
+// T3: one thread a lane j, through every row of ids; each output entry
+// written once
+__global__ void texture_coord_grad_kernel(CoordArgs a) {
+  __shared__ int perm[kPerm];
+  for (int k = threadIdx.x; k < kPerm; k += blockDim.x) perm[k] = __ldg(a.t.perm + k);
+  __syncthreads();
+  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= a.n) return;
+  tex::Tables T = a.t;
+  T.perm = perm;
+  T.marble = c_marble;
+  const Grads none{nullptr, nullptr};
+  const bool with_width = a.width != nullptr;
+  const float width = with_width ? __ldg(a.width + j) : 0.0f;
+  Coord acc{0.0f, 0.0f, {0.0f, 0.0f, 0.0f}, 0.0f};
+  for (int s = 0; s < a.rows; ++s) {
+    const long long i = static_cast<long long>(s) * a.n + j;
+    const long long q = a.per_row ? i : j;
+    Coord c{0.0f, 0.0f, {0.0f, 0.0f, 0.0f}, 0.0f};
+    const float g[3] = {a.g_out[3 * i], a.g_out[3 * i + 1], a.g_out[3 * i + 2]};
+    if (g[0] != 0.0f || g[1] != 0.0f || g[2] != 0.0f) {
+      const float p[3] = {__ldg(a.p + 3 * q), __ldg(a.p + 3 * q + 1), __ldg(a.p + 3 * q + 2)};
+      texture_vjp(T, none, __ldg(a.ids + i), __ldg(a.uv + 2 * q), __ldg(a.uv + 2 * q + 1), p,
+                  with_width, width, g, &c);
+    }
+    if (a.per_row) {
+      a.g_uv[2 * q] = c.u;
+      a.g_uv[2 * q + 1] = c.v;
+      for (int k = 0; k < 3; ++k) a.g_p[3 * q + k] = c.p[k];
+    } else {
+      acc.u += c.u;
+      acc.v += c.v;
+      for (int k = 0; k < 3; ++k) acc.p[k] += c.p[k];
+    }
+    acc.width += c.width;
+  }
+  if (!a.per_row) {
+    a.g_uv[2 * j] = acc.u;
+    a.g_uv[2 * j + 1] = acc.v;
+    for (int k = 0; k < 3; ++k) a.g_p[3 * j + k] = acc.p[k];
+  }
+  if (a.g_width != nullptr) a.g_width[j] = acc.width;
 }
 
 }  // namespace
@@ -412,5 +533,39 @@ extern "C" int rs_texture_grad(const void* type, const void* params, const void*
   const long long blocks = (total + kThreads - 1) / kThreads;
   texture_grad_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// T3: T1's tables and lanes, g_out (rows, n, 3) the upstream gradient; out
+// g_uv and g_p (uv's and p's shapes) and g_width (n,) (null without a
+// width), each entry written.
+extern "C" int rs_texture_coord_grad(const void* type, const void* params, const void* child,
+                                     const void* w2t, const void* atlas, const void* rect,
+                                     const void* mip, const void* nlv, const void* perm,
+                                     int n_tex, int ah, int aw, int kind_mask, const void* ids,
+                                     const void* uv, const void* p, const void* width, int n,
+                                     int rows, int per_row, const void* g_out, void* g_uv,
+                                     void* g_p, void* g_width, void* stream) {
+  if (n == 0 || rows == 0) return 0;
+  CoordArgs a;
+  a.t = tex::Tables{static_cast<const int*>(type), static_cast<const float*>(params),
+                    static_cast<const int*>(child), static_cast<const float*>(w2t),
+                    static_cast<const float*>(atlas), static_cast<const int*>(rect),
+                    static_cast<const int*>(mip), static_cast<const int*>(nlv),
+                    static_cast<const int*>(perm), nullptr, n_tex, ah, aw, kind_mask};
+  a.ids = static_cast<const int*>(ids);
+  a.uv = static_cast<const float*>(uv);
+  a.p = static_cast<const float*>(p);
+  a.width = static_cast<const float*>(width);
+  a.g_out = static_cast<const float*>(g_out);
+  a.n = n;
+  a.rows = rows;
+  a.per_row = per_row;
+  a.g_uv = static_cast<float*>(g_uv);
+  a.g_p = static_cast<float*>(g_p);
+  a.g_width = static_cast<float*>(g_width);
+  const long long blocks = (static_cast<long long>(n) + kThreads - 1) / kThreads;
+  texture_coord_grad_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,8 +9,11 @@ estimator is an a.e.-differentiable function of the leaves, and its
 reverse-mode gradient equals a central finite difference on the same
 seeds.  The render takes the fixed-depth loop (``regen=False``), never the
 bounce kernel K2 (``path_kernel.mega_cfg`` refuses tracked tables), and
-its kernels take their backward passes: the closest triangle hit G1, the
-texture lookup T2 and the filter splat R2.  A kernel without a backward
+its kernels take their backward passes: the closest triangle hit G1
+(moving meshes' too), the texture lookup T2 (tables) and T3 (uv, p,
+width), the filter splat R2, the curve hit C5 and ratio tracking M3;
+delta tracking's backward is a select, and the realistic camera applies
+its pose after a camera-space lens trace.  A kernel without a backward
 raises where a gradient would reach it (``ops/autodiff.py``, ROADMAP
 A17c).  Geometry gradients are ``diff/geometry.py``'s.
 """

@@ -24,6 +24,7 @@ import torch
 
 from ..device import resolve
 from ..ops import lens_kernel
+from ..ops.autodiff import tracks
 from ..ops.sampling import concentric_sample_disk
 from ..utils import animated as anim
 from ..utils import transform as tr
@@ -237,8 +238,17 @@ def generate_rays(cam: Camera, p_film, u_lens, u_time) -> CameraRays:
     n = p_film.shape[0]
     time = (1.0 - u_time) * cam.shutter_open + u_time * cam.shutter_close
     if cam.cam_type == REALISTIC:
-        o, d, w = lens_kernel.lens_rays(cam, p_film.contiguous(), u_lens.contiguous())
-        return CameraRays(o, d, time, w)
+        if not tracks(cam.cam_to_world, cam.shutter_open, cam.shutter_close):
+            o, d, w = lens_kernel.lens_rays(cam, p_film.contiguous(), u_lens.contiguous())
+            return CameraRays(o, d, time, w)
+        # a camera gradient: L1 traces in camera space, and the pose and the
+        # shutter factor, which alone carry the gradient, apply here
+        o_c, d_c, w = lens_kernel.lens_rays(cam, p_film.contiguous(), u_lens.contiguous(),
+                                            camera_space=True)
+        if not cam.simple_weighting:
+            w = w * (cam.shutter_close - cam.shutter_open)
+        return CameraRays(tr.xform_point(cam.cam_to_world, o_c),
+                          normalize(tr.xform_vector(cam.cam_to_world, d_c)), time, w)
     ones = torch.ones_like(u_time)
     if cam.cam_type == ENVIRONMENT:
         sx, sy = cam.resolution

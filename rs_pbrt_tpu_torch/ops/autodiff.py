@@ -3,9 +3,11 @@
 A kernel wrapper launches a CUDA kernel (or runs its plain version on the
 CPU) on raw tensors: no gradient reaches its inputs through its outputs.
 Each wrapper whose float output a differentiable leaf may reach either
-takes its backward (K3/B1/D1 through G1, T1 through T2, R1 through R2:
-``hit_grad_kernel``, ``texture_kernel``, ``splat_kernel``), or calls
-``refuse_grad`` where its route is chosen, so that a gradient never
+takes its backward (K3/B1/D1 and V1 through G1, T1 through T2 and T3, R1
+through R2, C1/C3 through C5, M2 through M3, M1 through a select:
+``hit_grad_kernel``, ``texture_kernel``, ``splat_kernel``,
+``curve_kernel``, ``medium_kernel``; L1 leaves its pose to PyTorch), or
+calls ``refuse_grad`` where its route is chosen, so that a gradient never
 vanishes without a word.  A wrapper whose only output is discrete (a hit
 mask, a triangle id, a sampler's dims) takes its inputs detached.
 """

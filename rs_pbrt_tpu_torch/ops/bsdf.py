@@ -155,15 +155,26 @@ def oren_nayar_f(r, sigma_deg, wo, wi):
     return r * (INV_PI * (a + b * max_cos * sin_a * tan_b))[..., None]
 
 
+def _div0(a, b):
+    """a / b, its gradient 0 where b is 0 (the quotient inf or NaN there,
+    as a / b gives it)."""
+    zero = b == 0.0
+    return torch.where(zero, (a / b).detach(), a / torch.where(zero, 1.0, b))
+
+
 def fr_dielectric(cos_i, eta_i, eta_t):
-    """Fresnel reflectance of a dielectric (reflection.rs fr_dielectric)."""
+    """Fresnel reflectance of a dielectric (reflection.rs fr_dielectric).
+    Its square roots and the ratio of the indices pass no gradient where
+    they are not differentiable (total internal reflection, normal
+    incidence, an index of 0 on a lane of another lobe), so that lanes a
+    select drops give 0, not NaN; the values are the plain ops'."""
     cos_i = torch.clamp(cos_i, -1.0, 1.0)
     entering = cos_i > 0.0
     ei = torch.where(entering, eta_i, eta_t)
     et = torch.where(entering, eta_t, eta_i)
     ci = cos_i.abs()
-    sin_t = ei / et * torch.sqrt(torch.clamp(1.0 - ci * ci, min=0.0))
-    ct = torch.sqrt(torch.clamp(1.0 - sin_t * sin_t, min=0.0))
+    sin_t = _div0(ei, et) * vm.sqrt0(1.0 - ci * ci)
+    ct = vm.sqrt0(1.0 - sin_t * sin_t)
     r_parl = (et * ci - ei * ct) / torch.clamp(et * ci + ei * ct, min=1e-20)
     r_perp = (ei * ci - et * ct) / torch.clamp(ei * ci + et * ct, min=1e-20)
     return torch.where(sin_t >= 1.0, 1.0, 0.5 * (r_parl * r_parl + r_perp * r_perp))
@@ -397,7 +408,7 @@ SQRT_PI_OVER_8 = 0.626657069
 
 
 def _safe_sqrt(x):
-    return torch.sqrt(torch.clamp(x, min=0.0))
+    return vm.sqrt0(x)
 
 
 def _hair_i0(x):
@@ -418,23 +429,39 @@ def _hair_i0(x):
 def _hair_log_i0(x):
     xm = torch.clamp(x, min=1e-12)
     big = x + 0.5 * (-math.log(2.0 * PI) + torch.log(1.0 / xm) + 1.0 / (8.0 * xm))
-    return torch.where(x > 12.0, big, torch.log(torch.clamp(_hair_i0(x), min=1e-37)))
+    # the series where it is taken, else at 0: it overflows at a large x, and
+    # the select's zero gradient times its infinite one would be NaN
+    use_big = x > 12.0
+    return torch.where(use_big, big,
+                       torch.log(torch.clamp(_hair_i0(torch.where(use_big, 0.0, x)), min=1e-37)))
 
 
 def _hair_v_terms(v):
     """The parts of Mp that depend on the variance v alone: (v, 1 / v,
-    log(1 / (2 v)), sinh(1 / v) 2 v)."""
+    log(1 / (2 v)), sinh(1 / v) 2 v).  The last is the large-variance
+    form's and is taken at v = 1 where the small form is (v <= 0.1): it
+    overflows at a small v, and the select's zero gradient times its
+    infinite one would be NaN."""
     inv = 1.0 / v
-    return v, inv, torch.log(1.0 / (2.0 * v)), torch.sinh(inv) * 2.0 * v
+    vl = _hair_large_v(v)
+    return v, inv, torch.log(1.0 / (2.0 * v)), torch.sinh(1.0 / vl) * 2.0 * vl
+
+
+def _hair_large_v(v):
+    """v where Mp's large-variance form is taken, else 1."""
+    return torch.where(v <= 0.1, 1.0, v)
 
 
 def _hair_mp(cos_ti, cos_to, sin_ti, sin_to, vt):
-    """Longitudinal scattering Mp (hair.rs:660); vt = _hair_v_terms(v)."""
-    v, inv, log_c, sinh_c = vt
+    """Longitudinal scattering Mp (hair.rs:660); vt = _hair_v_terms(v).
+    The large-variance form runs at _hair_large_v(v): its exp(-b) overflows
+    at a small v too."""
+    v, inv, log_c, sinh_l = vt
     a = cos_ti * cos_to / v
     b = sin_ti * sin_to / v
     small = torch.exp(_hair_log_i0(a) - b - inv + 0.6931 + log_c)
-    large = torch.exp(-b) * _hair_i0(a) / sinh_c
+    vl = _hair_large_v(v)
+    large = torch.exp(-(sin_ti * sin_to / vl)) * _hair_i0(cos_ti * cos_to / vl) / sinh_l
     return torch.where(v <= 0.1, small, large)
 
 
@@ -546,8 +573,25 @@ def hair_wo_terms(b: Bsdf, wo):
                 ap=_hair_ap(cos_to, b.eta, b.h, t))
 
 
+def _hair_lanes(b: Bsdf) -> Bsdf:
+    """b with the hair lobe's parameters (beta_m, beta_n, alpha, eta, h,
+    sigma_a) set to a plain fibre's on the lanes without a hair lobe: the
+    lobe is evaluated on every lane and selected, and another lobe's
+    parameters there (an eta of 0, say) overflow in its terms, whose
+    infinite gradient times the select's zero would be NaN.  The hair lanes
+    keep their values, so the lobe's value on them is as it was."""
+    on = None
+    for kind in (b.kind0, b.kind1, b.kind2, b.kind3, b.kind4, b.kind5):
+        if kind is not None:
+            on = (kind == LOBE_HAIR) if on is None else on | (kind == LOBE_HAIR)
+    keep = lambda x, v: torch.where(on if x.dim() == 1 else on[:, None], x, v)
+    return b._replace(ax=keep(b.ax, 0.3), ay=keep(b.ay, 0.3), sigma=keep(b.sigma, 2.0),
+                      eta=keep(b.eta, 1.55), h=keep(b.h, 0.5), r0=keep(b.r0, 0.25))
+
+
 def hair_f(b: Bsdf, wo, wi):
     """HairBSDF::f (hair.rs:325-417)."""
+    b = _hair_lanes(b)
     w = hair_wo_terms(b, wo)
     sin_ti = wi[:, 0]
     cos_ti = _safe_sqrt(1.0 - sin_ti * sin_ti)
@@ -578,6 +622,7 @@ def _hair_pdf_lobes(ap_pdf, cos_ti, sin_ti, dphi, tilts, v, s, gamma_o, gamma_t,
 
 def hair_pdf(b: Bsdf, wo, wi):
     """HairBSDF::pdf (hair.rs:553-622)."""
+    b = _hair_lanes(b)
     v, s, sin2k, cos2k = _hair_derived(b.ax, b.ay, b.sigma)
     sin_to, cos_to, phi_o, gamma_o, gamma_t, t = _hair_common(b, wo)
     sin_ti = wi[:, 0]
@@ -612,6 +657,7 @@ def _demux_float(f):
 
 def hair_sample(b: Bsdf, wo, u2):
     """HairBSDF::sample_f (hair.rs:418-552): (wi, pdf)."""
+    b = _hair_lanes(b)
     v, s, sin2k, cos2k = _hair_derived(b.ax, b.ay, b.sigma)
     sin_to, cos_to, phi_o, gamma_o, gamma_t, t = _hair_common(b, wo)
     u0x, u0y = _demux_float(u2[:, 0])

@@ -92,9 +92,12 @@ def duv_width_at_hit(scene: sa.Scene, it, diffs: RayDiffs):
     nd = vm.dot(n, p)
 
     def plane_hit(ro, rd):
+        # a lane whose offset ray misses the plane divides by 1: its width
+        # is dropped below, and a finite t keeps its gradient 0, not NaN
         denom = vm.dot(n, rd)
-        t = (nd - vm.dot(n, ro)) / torch.where(denom == 0.0, 1.0, denom)
-        return ro + t[:, None] * rd - p, denom.abs() > 1e-12
+        ok = denom.abs() > 1e-12
+        t = (nd - vm.dot(n, ro)) / torch.where(ok, denom, 1.0)
+        return ro + t[:, None] * rd - p, ok
 
     dpdx, okx = plane_hit(diffs.rx_o, diffs.rx_d)
     dpdy, oky = plane_hit(diffs.ry_o, diffs.ry_d)

@@ -19,6 +19,11 @@ Returns (grad_o (N, 3), grad_d (N, 3), grad_verts (T, 9) or None); a lane
 whose tri is -1 gives zeros.  The plain version computes each lane's
 terms in the kernel's order, so the per-lane outputs agree bit for bit;
 the kernel adds grad_verts with atomics, in no fixed order.
+
+``diff_anim_hit`` serves moving meshes the same way: V1 finds each lane's
+triangle on detached rays, and G1 is the backward in the mesh's object
+space, where the ray is carried by the inverse of the mesh's transform
+interpolated at the ray's time.
 """
 
 from __future__ import annotations
@@ -187,3 +192,28 @@ def diff_tri_hit(o, d, t_max, tris, closest) -> TriHit:
     t, b0, b1, tri = TriHitFn.apply(o, d, tris,
                                     lambda oo, dd: closest(oo, dd, t_max.detach()))
     return TriHit(tri >= 0, t, tri, b0, b1)
+
+
+def diff_anim_hit(o, d, t_max, time, anim_xf, anim_attr, closest) -> dict:
+    """The closest moving-mesh hit of rays o, d within t_max at times time
+    (None: 0) through closest(o, d, t_max, time) -> the dict of
+    motion_kernel.anim_hits (V1 on detached rays), with t, b0 and b1
+    differentiable in o, d and time: each hit lane's ray is carried into
+    its mesh's object space by the inverse of the mesh's transform
+    interpolated at the ray's time (the tables anim_xf detached; object t
+    is world t), and G1 is the backward there, at the lane's triangle of
+    anim_attr (the JAX _anim_hits differentiates the same object-space
+    watertight test)."""
+    from ..utils import animated as an
+    from ..utils import transform as tr
+
+    det = lambda x: None if x is None else x.detach()
+    ah = closest(o.detach(), d.detach(), t_max.detach(), det(time))
+    t_lane = torch.zeros_like(t_max) if time is None else time
+    m = an.interpolate(t_lane, *an.xf_parts(anim_xf.detach()[ah["grp"].long()]))
+    w2o = an.inverse_affine(m)
+    o_obj, d_obj = tr.xform_point(w2o, o), tr.xform_vector(w2o, d)
+    tri = torch.where(ah["valid"], ah["tri"], -1).to(torch.int32)
+    found = TriHit(ah["valid"], ah["t"], tri, ah["b0"], ah["b1"])
+    t, b0, b1, _ = TriHitFn.apply(o_obj, d_obj, anim_attr.detach(), lambda oo, dd: found)
+    return dict(ah, t=t, b0=b0, b1=b1)

@@ -17,6 +17,14 @@ double, each product and quotient of them in double, rounded to f32 where
 it meets a lane's f32 value (``element_consts``, ``lane_consts``).  A
 realistic camera holds them as its ``lens_consts``, built once when the
 camera is made (``lens_consts``).
+
+Where a camera gradient is taken, ``lens_rays(..., camera_space=True)``
+returns the rays in camera space and the weight without the shutter
+factor (the same launch with an identity matrix and a factor of 1,
+``camera_space_consts``), and ``models/cameras.generate_rays`` applies
+cam_to_world and the shutter factor in PyTorch, where autograd records
+them: the trace's own inputs (the film point, the lens sample and the
+lens tables) are no leaves, so it needs no backward.
 """
 
 from __future__ import annotations
@@ -29,7 +37,6 @@ import numpy as np
 import torch
 
 from . import _build
-from .autodiff import refuse_grad
 from ..utils import transform as tr
 from ..utils.vecmath import true_div
 
@@ -107,6 +114,14 @@ def lens_consts(camera) -> LensConsts:
                       pupil, host(camera.cam_to_world))
 
 
+def camera_space_consts(k: LensConsts) -> LensConsts:
+    """k for rays left in camera space: cam_to_world the identity and the
+    non-simple weight's shutter factor 1."""
+    lane = k.lane.copy()
+    lane[9] = 1.0
+    return k._replace(lane=lane, m=np.eye(4, dtype=np.float32))
+
+
 def _norm(x, y, z):
     return torch.sqrt(x * x + y * y + z * z)
 
@@ -118,12 +133,13 @@ def _normalize(v: torch.Tensor) -> torch.Tensor:
     return v / ln[:, None]
 
 
-def lens_rays_plain(camera, p_film: torch.Tensor, u_lens: torch.Tensor, work: dict = None):
-    """The JAX realistic branch in plain PyTorch: (o, d, weight).  work,
-    when given, gains "stop" and "sphere": the (lane, element) pairs the
-    trace reaches before the lane's first failed test (what the kernel
-    computes)."""
-    k = camera.lens_consts
+def lens_rays_plain(camera, p_film: torch.Tensor, u_lens: torch.Tensor, work: dict = None,
+                    camera_space: bool = False):
+    """The JAX realistic branch in plain PyTorch: (o, d, weight); with
+    camera_space, through camera_space_consts.  work, when given, gains
+    "stop" and "sphere": the (lane, element) pairs the trace reaches before
+    the lane's first failed test (what the kernel computes)."""
+    k = camera_space_consts(camera.lens_consts) if camera_space else camera.lens_consts
     res_x, res_y, x_ext, nhx, y_ext, nhy, half_diag, rear_z, area0, wscale, rz2, simple = (
         float(v) for v in k.lane)
     s = p_film / p_film.new_tensor([res_x, res_y])
@@ -192,8 +208,9 @@ def lens_rays_plain(camera, p_film: torch.Tensor, u_lens: torch.Tensor, work: di
                           for wi, n, v in ((wix, nx, dx), (wiy, ny, dy), (wiz, nz, dz)))
     o_out = torch.stack([ox, oy, oz * -1.0], -1)
     d_out = torch.stack([dx, dy, dz * -1.0], -1)
-    o = tr.xform_point(camera.cam_to_world, o_out)
-    d = _normalize(tr.xform_vector(camera.cam_to_world, d_out))
+    m = torch.as_tensor(k.m, device=p_film.device) if camera_space else camera.cam_to_world
+    o = tr.xform_point(m, o_out)
+    d = _normalize(tr.xform_vector(m, d_out))
     cos_theta = dfz / torch.clamp(torch.sqrt(torch.clamp(dfx * dfx + dfy * dfy + dfz * dfz,
                                                          min=1e-30)), min=1e-20)
     c2 = cos_theta * cos_theta
@@ -223,14 +240,13 @@ def _check_args(camera, p_film: torch.Tensor, u_lens: torch.Tensor):
         raise ValueError("lens_rays: at most 2^31 - 1 lanes per launch")
 
 
-def lens_rays(camera, p_film: torch.Tensor, u_lens: torch.Tensor):
+def lens_rays(camera, p_film: torch.Tensor, u_lens: torch.Tensor, camera_space: bool = False):
     """(o, d, weight) of a realistic camera's lanes: the kernel for CUDA
-    tensors, the plain version for CPU ones."""
-    refuse_grad("lens_rays (L1)", camera.cam_to_world, camera.raster_to_camera, p_film, u_lens,
-                *(v for v in (camera.lens_radius, camera.focal_distance) if torch.is_tensor(v)))
+    tensors, the plain version for CPU ones; with camera_space, the rays in
+    camera space and the weight without the shutter factor."""
     _check_args(camera, p_film, u_lens)
     if p_film.device.type == "cpu":
-        return lens_rays_plain(camera, p_film, u_lens)
+        return lens_rays_plain(camera, p_film, u_lens, camera_space=camera_space)
     global launches
     if p_film.device.type != "cuda":
         raise ValueError(f"lens_rays: the lanes lie on {p_film.device}")
@@ -238,7 +254,7 @@ def lens_rays(camera, p_film: torch.Tensor, u_lens: torch.Tensor):
     o = torch.empty((n, 3), dtype=torch.float32, device=p_film.device)
     d = torch.empty((n, 3), dtype=torch.float32, device=p_film.device)
     w = torch.empty(n, dtype=torch.float32, device=p_film.device)
-    k = camera.lens_consts
+    k = camera_space_consts(camera.lens_consts) if camera_space else camera.lens_consts
     with torch.cuda.device(p_film.device):
         err = _kernel()(p_film.data_ptr(), u_lens.data_ptr(), o.data_ptr(), d.data_ptr(),
                         w.data_ptr(), n, k.lane.ctypes.data, k.m.ctypes.data, k.pupil.ctypes.data,

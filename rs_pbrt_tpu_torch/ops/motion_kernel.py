@@ -136,7 +136,8 @@ def anim_hits(o, d, t_max, time, scene: sa.Scene, any_hit: bool = False):
     """V1 for CUDA tensors (closest hit -> dict as anim_hits_plain's, or
     any_hit -> (N,) bool); anim_hits_plain for CPU ones."""
     if not any_hit:
-        refuse_grad("anim_hits (V1)", o, d, t_max, time, scene.anim_attr, scene.anim_xf)
+        refuse_grad("anim_hits (V1; the differentiable hit is scene_intersect.anim_hits)", o, d,
+                    t_max, time, scene.anim_attr, scene.anim_xf)
     if o.device.type == "cpu":
         return anim_hits_plain(o, d, t_max, time, scene, any_hit)
     n, g = o.shape[0], scene.anim_xf.shape[0]

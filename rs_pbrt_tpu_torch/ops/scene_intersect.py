@@ -36,8 +36,12 @@ or geometry gradient), the closest triangle hit is differentiable: the
 walk the scene uses (K3 for the dense table, B1, D1) runs on detached
 rays inside ``hit_grad_kernel.TriHitFn``, whose backward is G1, and the
 record is ``tri_record``'s, differentiable in the table, as the JAX
-package rebuilds its record from the hit (``_tri_interaction``).  Shadow
-rays' any hits are discrete, so their kernels take the rays detached.
+package rebuilds its record from the hit (``_tri_interaction``).  So is
+the closest curve hit (C1 or C3 on detached rays, C5 its backward,
+``curve_kernel.diff_curve_hit``) and the closest moving-mesh hit (V1 on
+detached rays, G1 in the mesh's object space at the ray's time,
+``hit_grad_kernel.diff_anim_hit``).  Shadow rays' any hits are discrete,
+so their kernels take the rays detached.
 """
 
 from __future__ import annotations
@@ -339,10 +343,15 @@ def sphere_interaction(scene: sa.Scene, sph_idx, p_obj, phi):
 
 def curve_hit(scene: sa.Scene, o, d, t_max, accel: Optional[Accel]) -> cv.CurveHit:
     """The closest curve segment within t_max: C1 through the curve tree,
-    else the sweep C3."""
+    else the sweep C3; differentiable in o and d through C5
+    (curve_kernel.diff_curve_hit) where autograd records through them."""
     if uses_curve_bvh(scene, accel):
-        return ck.walk_closest(o, d, t_max, accel.crv, scene.crv_attr)
-    return ck.sweep_closest(o, d, t_max, scene.crv_attr)
+        walk = lambda o_, d_, t_: ck.walk_closest(o_, d_, t_, accel.crv, scene.crv_attr)
+    else:
+        walk = lambda o_, d_, t_: ck.sweep_closest(o_, d_, t_, scene.crv_attr)
+    if tracks(o, d, t_max):
+        return ck.diff_curve_hit(o, d, t_max, scene.crv_attr, walk)
+    return walk(o, d, t_max)
 
 
 def _object_record(attr, tri, b0, b1, o2w, w2o, reverse: bool):
@@ -402,9 +411,15 @@ def instance_hit(scene: sa.Scene, o, d, t_cur, accel: Optional[Accel], any_hit: 
 
 
 def anim_hits(scene: sa.Scene, o, d, t_cur, time, any_hit: bool = False):
-    """V1 over the animated meshes at each ray's time (None: 0)."""
-    return mok.anim_hits(o.contiguous(), d.contiguous(), t_cur.contiguous(),
-                         None if time is None else time.contiguous(), scene, any_hit=any_hit)
+    """V1 over the animated meshes at each ray's time (None: 0); the
+    closest hit differentiable in o, d and time through G1
+    (hit_grad_kernel.diff_anim_hit) where autograd records through them."""
+    launch = lambda o_, d_, t_, time_: mok.anim_hits(
+        o_.contiguous(), d_.contiguous(), t_.contiguous(),
+        None if time_ is None else time_.contiguous(), scene, any_hit=any_hit)
+    if not any_hit and tracks(o, d, t_cur, time):
+        return hg.diff_anim_hit(o, d, t_cur, time, scene.anim_xf, scene.anim_attr, launch)
+    return launch(o, d, t_cur, time)
 
 
 def anim_interaction(scene: sa.Scene, ah: dict, time) -> dict:

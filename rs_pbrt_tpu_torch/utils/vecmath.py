@@ -51,13 +51,22 @@ def face_forward(n, v):
     return torch.where((dot(n, v) < 0.0)[..., None], -n, n)
 
 
+def sqrt0(x):
+    """sqrt(max(x, 0)) with the same values, its gradient 0 where x <= 0:
+    torch's is infinite at 0, and NaN where a lane's zero gradient (a lane
+    a select drops) meets it."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)),
+                       torch.sqrt(torch.clamp(x, min=0.0)).detach())
+
+
 def quadratic(a, b, c):
     """Stable quadratic solve -> (has_solution, t0, t1), t0 <= t1.  f32
     with the b/2 form, as the JAX package computes it (the reference's
     discriminant is f64, pbrt.rs:250)."""
     disc = b * b - 4.0 * a * c
     has = disc >= 0.0
-    root = torch.sqrt(torch.clamp(disc, min=0.0))
+    root = sqrt0(disc)
     q = torch.where(b < 0.0, -0.5 * (b - root), -0.5 * (b + root))
     t0 = q / torch.where(a == 0.0, 1.0, a)
     t1 = c / torch.where(q == 0.0, 1.0, q)
@@ -120,7 +129,13 @@ def spherical_direction(sin_theta, cos_theta, phi):
 
 
 def spherical_theta(v):
-    return torch.arccos(torch.clamp(v[..., 2], -1.0, 1.0))
+    """The polar angle of v about +z.  At the poles (|z| = 1) its
+    derivative is infinite: there the angle is taken detached, so that a
+    lane whose gradient is 0 (a dead lane's direction) gives 0, not NaN;
+    the value is arccos's everywhere."""
+    z = torch.clamp(v[..., 2], -1.0, 1.0)
+    inner = (z > -1.0) & (z < 1.0)
+    return torch.where(inner, torch.arccos(torch.where(inner, z, 0.0)), torch.arccos(z).detach())
 
 
 def spherical_phi(v):

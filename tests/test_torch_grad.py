@@ -14,8 +14,8 @@ JAX package's, the cases of tests/test_grad.py at a smaller size.
   against the JAX gradient, and the strongest texel and the constant's
   value against a finite difference.
 - K2 is never launched under a gradient; a gradient render through a
-  kernel without a backward (a curve scene's C3, the realistic camera's
-  L1) raises NotImplementedError naming ROADMAP A17c.
+  kernel without a backward (the Fourier BSDF's F1, BDPT's MIS weight W1)
+  raises NotImplementedError naming ROADMAP A17c.
 - grad_loss(mesh=) over a world of one equals grad_loss bit for bit.
 - The camera gradient of a 5,124-triangle statue through its BVH and
   through its kd-tree (the walks' plain versions forward, G1's twin
@@ -194,21 +194,19 @@ def test_texture_grads_match_jax_and_fd(kind, jax_side):
 
 def test_raising_wrappers_name_a17c():
     """A camera gradient through a kernel without a backward raises: the
-    curve sweep C3 of a hair scene, and the realistic camera's L1."""
-    from rs_pbrt_tpu_torch.tools import hair_scenes
+    Fourier BSDF's F1 of the material grid, and the MIS weight W1 of a
+    BDPT render (the hair and realistic scenes take their backward passes:
+    tests/test_torch_grad_a17c.py)."""
+    from rs_pbrt_tpu_torch.tools import material_scenes
 
-    scene, camera = hair_scenes.hair_patch((4, 4), device="cpu")
+    scene, camera = material_scenes.material_grid((4, 4), sky_hw=(16, 32), n_mu=16, device="cpu")
     cfg = rdr.RenderCfg("path", 1, 1, 1.0)
     scfg = smpl.make_sampler(smpl.SOBOL, 1, (4, 4))
     with pytest.raises(NotImplementedError, match="A17c"):
         dg.grad_loss_wrt_camera(scene, camera, cfg, scfg, MEAN)
-    scene, _ = presets.cornell_box((4, 4), device="cpu")
-    lens = (50.0, 5.0, 1.5, 20.0, -50.0, 45.0, 1.0, 20.0)
-    camera = cam.make_realistic(tr.look_at((278, 273, -800), (278, 273, 0), (0, 1, 0)), (4, 4),
-                                lens, aperture_diameter=8.0, focus_distance=1078.0,
-                                film_diag_mm=35.0, device="cpu")
+    scene, camera = presets.cornell_box((4, 4), device="cpu")
     with pytest.raises(NotImplementedError, match="A17c"):
-        dg.grad_loss_wrt_camera(scene, camera, cfg, scfg, MEAN)
+        dg.grad_loss_wrt_camera(scene, camera, rdr.RenderCfg("bdpt", 1, 2, 1.0), scfg, MEAN)
 
 
 def test_sharded_grad_names_a17b():

@@ -216,8 +216,11 @@ def test_texture_fn_matches_autograd_of_plain(tex_tables):
         outs.append(torch.autograd.grad((out * g).sum(), [params, atlas]))
     for a, b in zip(*outs):
         close(a.numpy(), b.numpy())
-    with pytest.raises(NotImplementedError, match="A17c"):
-        tk.texture_eval(tb, ids, uv.clone().requires_grad_(True), p)
+    # uv carrying a gradient takes T3's twin (tests/test_torch_grad_a17c.py)
+    uvs = [uv.clone().requires_grad_(True) for _ in range(2)]
+    g_uv = [torch.autograd.grad((fn(tb, ids, x, p) * g).sum(), [x])[0]
+            for fn, x in zip((tk.texture_eval, tk.plain), uvs)]
+    close(g_uv[0].numpy(), g_uv[1].numpy())
 
 
 FILTERS = {"box": (fm.FILTER_BOX, 1.5), "triangle": (fm.FILTER_TRIANGLE, None),

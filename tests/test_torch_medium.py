@@ -181,4 +181,4 @@ def test_wrappers_run_the_plain_versions_on_the_cpu(media):
         assert torch.equal(got, want)
     assert torch.equal(mk.ratio_track(*args, 0x5AD, 0x517),
                        mk.ratio_track_plain(*args, 0x5AD, 0x517))
-    assert mk.launches == before == {"delta_track": 0, "ratio_track": 0}
+    assert mk.launches == before == {"delta_track": 0, "ratio_track": 0, "ratio_track_grad": 0}
